@@ -1,0 +1,35 @@
+"""Device selection for the port.
+
+Every entry point takes ``device=`` (the CLI's ``--device``).  A request
+for CUDA on a host without a card raises: nothing falls back to the CPU
+on its own.  The CPU runs the plain PyTorch versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+class DeviceError(RuntimeError):
+    """The requested device is not available."""
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means :data:`DEFAULT_DEVICE`; ``"cuda"`` means the
+    current card.  Raises :class:`DeviceError` when CUDA is asked for
+    and ``torch.cuda.is_available()`` is false."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceError(
+                "device %r requested but torch.cuda.is_available() is "
+                "false; pass device='cpu' (CLI: --device cpu) to run the "
+                "plain PyTorch versions on the host" % str(dev))
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise DeviceError("unsupported device %r (use 'cuda' or 'cpu')"
+                          % str(dev))
+    return dev

@@ -1,0 +1,195 @@
+"""Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled with ``nvcc`` on first use into one shared
+library with a plain C interface, cached under ``build/tsta_tpu_torch/``
+beside the package (the repository root in a checkout, where ``build/``
+is git-ignored) and keyed by a hash of the sources and flags, then
+loaded with ``ctypes``.  Nothing
+is compiled or loaded at import, so the CPU tests import this module on
+a host without ``nvcc``.
+
+Each launcher checks device, dtype, shape and contiguity, launches on
+PyTorch's current stream, raises :class:`KernelError` when the C side
+reports a CUDA error, and adds one to its entry of :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_SOURCES = ("psa_dp.cu", "psa_walk.cu")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# K1 and K2 are the score-only and traced uses of the one DP kernel
+# source; K3 is the walk.
+KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk")
+launches = dict.fromkeys(KERNELS, 0)
+
+_LOCK = threading.Lock()
+_LIB = None
+build_info: dict = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_CSRC)), "build",
+                          "tsta_tpu_torch")
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on ``PATH``, else the CUDA toolkit's (``CUDA_HOME``, by
+    default ``/usr/local/cuda``)."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for c in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+        if c and os.path.exists(c):
+            return c
+    raise KernelError("nvcc not found on PATH or under CUDA_HOME")
+
+
+def build() -> str:
+    """Compile the kernels (if the cached library is missing) and return
+    the library's path.  Fills :data:`build_info` with the path, the
+    build seconds (0 when cached) and nvcc's resource report."""
+    nvcc = nvcc_path()
+    srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
+    h = hashlib.sha256(" ".join([nvcc] + NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    out = os.path.join(_BUILD_DIR, "libtsta_torch_%s.so" % h.hexdigest()[:16])
+    log = out + ".log"
+    secs = 0.0
+    if not os.path.exists(out):
+        tmp = "%s.%d.tmp" % (out, os.getpid())
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp] + srcs,
+                              capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise KernelError("nvcc failed (%d):\n%s" % (proc.returncode,
+                                                         proc.stderr))
+        with open(log, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    ptxas = ""
+    if os.path.exists(log):
+        with open(log) as f:
+            ptxas = f.read()
+    build_info.update(path=out, seconds=secs, nvcc=nvcc, ptxas=ptxas)
+    return out
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.tsta_psa_dp.restype = ci
+            lib.tsta_psa_dp.argtypes = [vp, vp, vp, ci, ci, ci,
+                                        ci, ci, ci, ci,
+                                        vp, vp, vp, vp, ci, vp]
+            lib.tsta_psa_dp_scratch_words.restype = ci
+            lib.tsta_psa_dp_scratch_words.argtypes = [ci]
+            lib.tsta_psa_walk.restype = ci
+            lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp]
+            _LIB = lib
+        return _LIB
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
+    if t.device != dev:
+        raise ValueError("%s on %s, expected %s" % (name, t.device, dev))
+    if t.dtype != dtype:
+        raise ValueError("%s is %s, expected %s" % (name, t.dtype, dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s has shape %s, expected %s"
+                         % (name, tuple(t.shape), tuple(shape)))
+    if not t.is_contiguous():
+        raise ValueError("%s must be contiguous" % name)
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise KernelError("%s launch failed: CUDA error %d (%s)"
+                          % (what, rc, torch.cuda.get_device_name()))
+
+
+def psa_dp(a, b, lens, params, score, corner, plane=None) -> None:
+    """Launch the DP kernel (one block per pair).  ``a``: (B, n_stride)
+    uint8, ``b``: (B, m_stride) uint8, ``lens``: (B, 2) int32 real
+    (n, m); ``score``/``corner``: (B,) int32 outputs.  With ``plane``
+    ((B, m_stride, n_stride) uint8) every padded cell is computed and
+    its code written (K2); without it each pair runs over its real
+    extent only (K1)."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("psa_dp kernel needs CUDA tensors, got %s" % dev)
+    B, n_stride = a.shape
+    m_stride = b.shape[1]
+    _check(a, "a", torch.uint8, (B, n_stride), dev)
+    _check(b, "b", torch.uint8, (B, m_stride), dev)
+    _check(lens, "lens", torch.int32, (B, 2), dev)
+    _check(score, "score", torch.int32, (B,), dev)
+    _check(corner, "corner", torch.int32, (B,), dev)
+    if plane is not None:
+        _check(plane, "plane", torch.uint8, (B, m_stride, n_stride), dev)
+        if n_stride % 4:
+            raise ValueError("traced DP needs n_stride % 4 == 0")
+    lib = _lib()
+    sw = lib.tsta_psa_dp_scratch_words(n_stride)
+    scratch = torch.empty((B, sw), dtype=torch.int32, device=dev)
+    m_, x_, e_, o_ = params
+    rc = lib.tsta_psa_dp(a.data_ptr(), b.data_ptr(), lens.data_ptr(), B,
+                         n_stride, m_stride, m_, x_, e_, o_,
+                         score.data_ptr(), corner.data_ptr(),
+                         None if plane is None else plane.data_ptr(),
+                         scratch.data_ptr(), sw, _stream(dev))
+    _raise_on(rc, "psa_dp")
+    launches["psa_dp_score" if plane is None else "psa_dp_traced"] += 1
+
+
+def psa_walk(plane, nm, words, counts) -> None:
+    """Launch the walk kernel (one thread per pair) over a (P, m_pad,
+    n_pad) uint8 code plane; ``nm``: (P, 2) int32 real (n, m);
+    ``words``: (P, n_words) int32 and ``counts``: (P,) int32 outputs."""
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError("psa_walk kernel needs CUDA tensors, got %s" % dev)
+    P, m_pad, n_pad = plane.shape
+    n_words = words.shape[1]
+    _check(plane, "plane", torch.uint8, (P, m_pad, n_pad), dev)
+    _check(nm, "nm", torch.int32, (P, 2), dev)
+    _check(words, "words", torch.int32, (P, n_words), dev)
+    _check(counts, "counts", torch.int32, (P,), dev)
+    if n_words < (m_pad + n_pad + 15) // 16 + 1:
+        raise ValueError("words too short for a (%d, %d) plane"
+                         % (m_pad, n_pad))
+    rc = _lib().tsta_psa_walk(plane.data_ptr(), nm.data_ptr(), P, m_pad,
+                              n_pad, words.data_ptr(), n_words,
+                              counts.data_ptr(), _stream(dev))
+    _raise_on(rc, "psa_walk")
+    launches["psa_walk"] += 1
