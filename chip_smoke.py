@@ -25,7 +25,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
 6. timings: kernel and plain version on the card at the main path's
    shapes (CUDA events), and every output of those runs (scores, corners,
    each plane byte, walk words and counts) exactly equal; the kernels
-   record's errors are these.
+   record's errors are these;
+7. POA kernels: the round DP and the walk against their plain versions
+   on the card on seeded grown graphs (multi-pred nodes), every real
+   word, score and aligned row equal;
+8. MSA main path: ``tsta-torch msa --engine native`` on the reference's
+   5 x 5,000 bp example (recovered from ``tests/golden/example_big``),
+   launch counters reset before and read after: one DP and one walk per
+   round, no plain round; round scores, graph and add lengths and the
+   output file's sha256 as the JAX native engine gives them;
+9. 3 x 50 kbp (``bench.stage_msa_50k``'s reads, seed 7) with the kernels
+   and with the plain versions on the card, equal in every output: walls,
+   cells/s, peak device memory and each round's split;
+10. the fleet: 6 problems of 5 x 5 kbp (seeds 100-105, as
+    ``bench.stage_msa_fleet``) through ``align_seqs_many``, equal to
+    per-problem runs: problems/s;
+11. POA timings: each POA kernel and its plain version at the 3 x 50 kbp
+    round-2 shape and the example's last round (CUDA events), every
+    output of the timed runs equal; the kernels record's errors are these.
 
 The last three lines are the kernels record, the ``nvidia-smi`` name and
 power limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -35,6 +52,7 @@ printing no result, without CUDA or outside a checkout of the repo.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -47,6 +65,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "example_big")
 SEED = 20261016
+# the JAX native engine on the example's reads (CPU run)
+EXAMPLE_MSA = {"rounds": [-5451, -3101, -1776, -870],
+               "graph_len": [6885, 8599, 10130, 11468],
+               "add_len": [1885, 1714, 1531, 1338]}
+PSA_KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk")
+EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
+                      "2ad36f0eab7b90b84292d06f98c7ca72")
 
 
 def emit(rec: dict) -> None:
@@ -72,20 +97,76 @@ def golden_example():
     return lines[1].replace(b"-", b""), lines[3].replace(b"-", b"")
 
 
+def example_msa_reads():
+    """The reference's MSA example reads: rows >1..>5 of the golden
+    compat alignment with the gaps removed."""
+    with open(os.path.join(GOLDEN, "msa_default.out"), "rb") as f:
+        lines = f.read().split(b"\n")
+    return [lines[lines.index(b">%d" % k) + 1].replace(b"-", b"")
+            for k in range(1, 6)]
+
+
+def reads_50k():
+    """3 x 50 kbp, as ``bench.stage_msa_50k`` makes them (seed 7)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(bases, 50000).tobytes()
+
+    def mut(s, rate):
+        s = np.frombuffer(s, np.uint8).copy()
+        m = rng.random(len(s)) < rate
+        s[m] = bases[rng.integers(0, 4, m.sum())]
+        return np.delete(s, rng.integers(0, len(s), len(s) // 50)).tobytes()
+
+    return [base, mut(base, 0.05), mut(base, 0.08)]
+
+
+def fleet_problem(seed):
+    """One 5 x 5 kbp problem of ``bench.stage_msa_fleet``."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    base = r.choice(bases, 5000).tobytes()
+    seqs = [base]
+    for _ in range(4):
+        s = np.frombuffer(base, np.uint8).copy()
+        m = r.random(len(s)) < 0.05
+        s[m] = bases[r.integers(0, 4, m.sum())]
+        seqs.append(np.delete(s, r.integers(0, len(s), len(s) // 50))
+                    .tobytes())
+    return seqs
+
+
+def msa_cells(seqs, out) -> int:
+    """DP cells of a progressive run: the graph entering each round times
+    that round's read length (as the bench counts them)."""
+    glen = [len(seqs[0])] + out.graph_len[:-1]
+    return sum(g * len(s) for g, s in zip(glen, seqs[1:]))
+
+
 def max_err(got, want) -> int:
+    """Largest absolute difference, in chunks so the int64 copies stay
+    small on a multi-GB plane."""
     import torch
     if got.shape != want.shape:
         raise AssertionError("shape %s != %s" % (tuple(got.shape),
                                                  tuple(want.shape)))
-    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    g, w = got.reshape(-1), want.reshape(-1)
+    err, step = 0, 1 << 25
+    for k in range(0, g.numel(), step):
+        d = g[k:k + step].to(torch.int64) - w[k:k + step].to(torch.int64)
+        err = max(err, int(d.abs().max()))
+    return err
 
 
-def cuda_ms(fn, reps: int):
-    """Median milliseconds of ``fn`` over ``reps`` runs after one warm-up,
-    timed with CUDA events on the current stream, and the last run's
-    result."""
+def cuda_ms(fn, reps: int, warm: bool = True):
+    """Median milliseconds of ``fn`` over ``reps`` runs (after one warm-up
+    when ``warm``), timed with CUDA events on the current stream, and the
+    last run's result."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -161,7 +242,7 @@ def main() -> int:
                     if "Used" in ln or "spill" in ln]})
 
     # 3. each kernel against its plain version, on the card
-    errs = {k: 0 for k in _kernels.KERNELS}
+    errs = {k: 0 for k in PSA_KERNELS}
     lens_mixed = [(int(rng.integers(100, 3001)), int(rng.integers(100, 3001)))
                   for _ in range(64)]
     batches = [random_pairs(rng, lens_mixed, lambda k: k % 2 == 0),
@@ -248,8 +329,8 @@ def main() -> int:
                                                               (rc1, rc2)))
     if not (traced_ok and x3_ok):
         raise AssertionError("output differs from the golden files")
-    if min(launches.values()) < 1 or min(x3["launches"]["psa_dp_traced"],
-                                         x3["launches"]["psa_walk"]) < 1:
+    if min(launches[k] for k in PSA_KERNELS) < 1 or min(
+            x3["launches"]["psa_dp_traced"], x3["launches"]["psa_walk"]) < 1:
         raise AssertionError("a kernel of the main path never launched: "
                              "%s %s" % (launches, x3["launches"]))
 
@@ -334,6 +415,10 @@ def main() -> int:
         raise AssertionError("kernel differs from its plain version at the "
                              "main path's shapes: %s" % bad)
 
+    msa_launches, poa_times = msa_phases(dev, smi_line)
+    launches.update(poa_dp=msa_launches["poa_dp"],
+                    poa_walk=msa_launches["poa_walk"])
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     src = "tsta_tpu_torch/csrc/%s"
@@ -344,6 +429,10 @@ def main() -> int:
          times["psa_dp_traced 32 x 10 kbp"]),
         ("psa_walk", src % "psa_walk.cu", "tsta_tpu/ops/traceback.py:614",
          times["psa_walk 32 x 10 kbp"]),
+        ("poa_dp", src % "poa_dp.cu", "tsta_tpu/ops/msa_pallas.py:58",
+         poa_times["poa_dp 50 kbp round 2"]),
+        ("poa_walk", src % "poa_walk.cu", "tsta_tpu/ops/msa_pallas.py:646",
+         poa_times["poa_walk 50 kbp round 2"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -354,6 +443,203 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def next_round(seqs, rounds, params, dev):
+    """The device inputs of round ``rounds + 1`` of ``seqs``, after
+    ``rounds`` rounds through the kernels."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    budget = msa_poa.device_budget(dev)
+    g = PoaGraph.from_sequence(seqs[0], len(seqs))
+    for sno in range(1, rounds + 1):
+        packed, order, _ = msa_poa.run_round(g, seqs[sno], params, dev,
+                                             "cuda", budget)
+        msa_native._finish_round(g, seqs[sno], sno, order,
+                                 packed.cpu().numpy(), [], [], [])
+    prep, n, n_real, a = msa_poa.prep_round(g, seqs[rounds + 1], params,
+                                            budget)
+    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return {"tables": [put(x) for x in (predsT, pmaskT, bases.reshape(N),
+                                        fills, a)],
+            "n_real": n_real, "n_nodes": len(order), "W": W,
+            "preds": put(preds), "mask": put(msa_poa.sink_mask(g, order, N)),
+            "shape": "%d nodes x %d columns (N %d, max_in %d, W %d)"
+                     % (len(order), n, N, max_in, W)}
+
+
+def poa_compare(r, params, reps: int, plain_warm: bool):
+    """Kernel and plain version of the POA DP and walk on one round's
+    inputs: times and the largest difference of every output."""
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
+    ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(*args), reps)
+    pms, (pw, ps) = cuda_ms(lambda: msa_native.round_dp_plain(*args), 1,
+                            plain_warm)
+    nn = r["n_nodes"]
+    dp_err = max(max_err(kw[:nn], pw[:nn]), max_err(ks, ps))
+    best = msa_poa.best_sink(ps, r["mask"])
+    wms, kal = cuda_ms(lambda: msa_poa.poa_walk(kw, r["preds"], best,
+                                                r["n_real"]), reps)
+    wpms, pal = cuda_ms(lambda: msa_poa.walk_plain(pw, r["preds"], best,
+                                                   r["n_real"]), 1,
+                        plain_warm)
+    return ({"shape": r["shape"], "ms": ms, "plain_ms": pms,
+             "max_abs_err": dp_err},
+            {"shape": r["shape"], "ms": wms, "plain_ms": wpms,
+             "max_abs_err": max_err(kal, pal)})
+
+
+def msa_phases(dev, smi_line):
+    """Phases 7-11 (the native MSA engine); returns the MSA main path's
+    launch counts and the POA kernels' timing records."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams, cli
+    from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
+    params = AlignParams()
+    ex = example_msa_reads()
+
+    # 7. each POA kernel against its plain version on grown graphs
+    errs = {"poa_dp": 0, "poa_walk": 0}
+    shapes = []
+    for seed in (1, 2):
+        rng = np.random.default_rng(SEED + seed)
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        base = rng.choice(acgt, 2000)
+        reads = [base.tobytes()]
+        for _ in range(4):
+            s = base.copy()
+            s[rng.integers(0, 2000, 240)] = rng.choice(acgt, 240)
+            reads.append(np.delete(s, rng.integers(0, 2000, 30)).tobytes())
+        for rounds in range(4):
+            r = next_round(reads, rounds, params, dev)
+            dp, walk = poa_compare(r, params, 1, False)
+            errs["poa_dp"] = max(errs["poa_dp"], dp["max_abs_err"])
+            errs["poa_walk"] = max(errs["poa_walk"], walk["max_abs_err"])
+            shapes.append(r["shape"])
+    emit({"phase": "poa_kernels", "max_abs_err": errs, "rounds": shapes})
+    if any(errs.values()):
+        raise AssertionError("POA kernel differs from its plain version: %s"
+                             % errs)
+
+    # 8. the MSA main path through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = os.path.join(tmp, "seq.fa")
+        with open(fa, "wb") as f:
+            f.write(b"".join(b">%d\n%s\n" % (k + 1, s)
+                             for k, s in enumerate(ex)))
+        out = os.path.join(tmp, "msa.out")
+        buf = io.StringIO()
+        _kernels.reset_launches()
+        p0 = msa_native.plain_rounds
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["msa", "-i", fa, "--engine", "native",
+                           "--device", "cuda", "-o", out, "--json"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        plain = msa_native.plain_rounds - p0
+        with open(out, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    got = {k: rec[k] for k in EXAMPLE_MSA}
+    # the same reads through the library, for each round's wall split
+    clock = msa_poa.RoundClock(dev)
+    again = msa_native.align_seqs(ex, params, device=dev, clock=clock)
+    emit({"phase": "msa_main_path", "rc": rc, "wall_s": wall,
+          "cli_wall_s": rec["wall_s"], "launches": launches,
+          "plain_rounds": plain, "sha256": sha, **got,
+          "rounds_split": clock.rounds})
+    n_rounds = len(EXAMPLE_MSA["rounds"])
+    if again.round_scores != EXAMPLE_MSA["rounds"]:
+        raise AssertionError("library run differs from the CLI run")
+    if rc != 0 or got != EXAMPLE_MSA or sha != EXAMPLE_MSA_SHA256:
+        raise AssertionError("MSA example differs from the JAX native "
+                             "engine's result")
+    if (launches["poa_dp"], launches["poa_walk"], plain) != (n_rounds,
+                                                              n_rounds, 0):
+        raise AssertionError("MSA main path did not run one DP and one walk "
+                             "per round: %s, plain rounds %d"
+                             % (launches, plain))
+
+    # 9. 3 x 50 kbp, kernels and plain versions on the card
+    seqs = reads_50k()
+    runs = {}
+    for kernel in ("cuda", "plain"):
+        clock = msa_poa.RoundClock(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_launches()
+        p0 = msa_native.plain_rounds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = msa_native.align_seqs(seqs, params, kernel=kernel, device=dev,
+                                    clock=clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[kernel] = {
+            "out": res, "wall_s": wall,
+            "cells_per_s": msa_cells(seqs, res) / wall,
+            "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "launches": {k: _kernels.launches[k]
+                         for k in ("poa_dp", "poa_walk")},
+            "plain_rounds": msa_native.plain_rounds - p0,
+            "rounds_split": clock.rounds}
+    same = runs["cuda"].pop("out") == runs["plain"].pop("out")
+    emit({"phase": "msa_50k", "equal": same, "rounds": res.round_scores,
+          "graph_len": res.graph_len, "cells": msa_cells(seqs, res),
+          "read_lengths": [len(x) for x in seqs], **runs, "smi": smi_line})
+    if not same or runs["cuda"]["launches"] != {"poa_dp": 2, "poa_walk": 2} \
+            or runs["plain"]["launches"] != {"poa_dp": 0, "poa_walk": 0} \
+            or runs["cuda"]["plain_rounds"] or runs["plain"]["plain_rounds"]:
+        raise AssertionError("3 x 50 kbp: kernel and plain routes differ")
+
+    # 10. the fleet
+    problems = [fleet_problem(100 + i) for i in range(6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles = [msa_native.align_seqs(pr, params, device=dev)
+               for pr in problems]
+    t_seq = time.perf_counter() - t0
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = msa_native.align_seqs_many(problems, params, device=dev)
+    torch.cuda.synchronize()
+    t_fleet = time.perf_counter() - t0
+    cells = sum(msa_cells(pr, o) for pr, o in zip(problems, outs))
+    emit({"phase": "msa_fleet", "problems": len(problems),
+          "equal_to_single_runs": outs == singles, "wall_s": t_fleet,
+          "problems_per_s": len(problems) / t_fleet,
+          "cells_per_s": cells / t_fleet, "sequential_wall_s": t_seq,
+          "launches": {k: _kernels.launches[k]
+                       for k in ("poa_dp", "poa_walk")}})
+    if outs != singles or _kernels.launches["poa_dp"] != 24:
+        raise AssertionError("fleet differs from per-problem runs")
+
+    # 11. POA kernels and plain versions at the main path's shapes
+    times = {}
+    for label, rseqs, rounds, warm in (("50 kbp round 2", seqs, 1, False),
+                                       ("example round 4", ex, 3, True)):
+        dp, walk = poa_compare(next_round(rseqs, rounds, params, dev),
+                               params, 3, warm)
+        times["poa_dp " + label] = dp
+        times["poa_walk " + label] = walk
+    emit({"phase": "poa_timings", "times": times, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
+    if bad:
+        raise AssertionError("POA kernel differs from its plain version at "
+                             "the main path's shapes: %s" % bad)
+    return launches, times
 
 
 if __name__ == "__main__":

@@ -72,7 +72,7 @@ def test_psa_notrace_json_matches_jax_cli(kernel, capsys):
     assert (got["score"], got["corner"]) == (want["score"], want["corner"])
     assert got["output"] is None and got["device"] == "cpu"
     assert set(got["launches"]) == {"psa_dp_score", "psa_dp_traced",
-                                    "psa_walk"}
+                                    "psa_walk", "poa_dp", "poa_walk"}
 
 
 def test_psa_errors_exit_1(capsys, tmp_path):
@@ -135,6 +135,8 @@ def test_batch_resume_and_traced_outputs(tmp_path, capsys):
 
 _FORBIDDEN = ("jax", "jaxlib", "tsta_tpu.ops", "tsta_tpu.models",
               "tsta_tpu.parallel")
+# the jax-free host modules of tsta_tpu.models the port may import
+_ALLOWED = ("tsta_tpu.models.poa_graph", "tsta_tpu.models.msa")
 
 
 def _imported_names(path):
@@ -161,6 +163,9 @@ def test_port_sources_never_import_jax():
     assert len(files) >= 12
     for path in files:
         for name in _imported_names(path):
+            if any(name == ok or name.startswith(ok + ".")
+                   for ok in _ALLOWED):
+                continue
             for bad in _FORBIDDEN:
                 assert not (name == bad or name.startswith(bad + ".")), \
                     "%s imports %s" % (os.path.relpath(path, ROOT), name)
@@ -179,9 +184,13 @@ import tsta_tpu_torch
 for m in pkgutil.walk_packages(tsta_tpu_torch.__path__, 'tsta_tpu_torch.'):
     if m.name != 'tsta_tpu_torch.__main__':
         importlib.import_module(m.name)
-from tsta_tpu_torch.models import psa
+from tsta_tpu_torch.models import msa, psa
 out = psa.align_pair(b'ACGTACGTTA', b'ACGTCGTTA', traced=True, device='cpu')
 print(out.score, out.a_row.decode(), out.b_row.decode())
+m = msa.align_seqs([b'ACGTACGTTA', b'ACGTCGTTA', b'ACGGACGTTA'],
+                   engine='native', device='cpu')
+print(m.round_scores, m.consensus.decode())
+assert 'jax' not in sys.modules
 """
 
 
@@ -189,7 +198,8 @@ def test_port_runs_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["12", "ACGTACGTTA", "ACGT-CGTTA"]
+    assert proc.stdout.split()[:3] == ["12", "ACGTACGTTA", "ACGT-CGTTA"]
+    assert proc.stdout.splitlines()[1].endswith("ACGTACGTTA")
 
 
 def test_batch_library_matches_jax(monkeypatch):

@@ -1,5 +1,6 @@
-"""The CUDA kernels of tsta_tpu_torch against their plain PyTorch
-versions on the card, with exact integer equality.
+"""The CUDA kernels of tsta_tpu_torch (PSA DP and walk, POA round DP and
+walk) against their plain PyTorch versions on the card, with exact
+integer equality, and the MSA engine's kernel route against the CPU.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (this file imports no jax, so it also runs on a host without it):
@@ -99,3 +100,137 @@ def test_wrappers_refuse_bad_tensors(cuda):
     plane = torch.zeros((1, 256, 128), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         tb.walk_packed(plane[:, :, :64], lens.to(cuda))
+
+
+def _reads(seed, n_reads, length, div=0.12):
+    """A seeded base read and ``n_reads - 1`` copies with ~``div``
+    substitutions and ~``div``/8 deletions."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(np.frombuffer(b"ACGT", np.uint8), length)
+    reads = [base.tobytes()]
+    for _ in range(n_reads - 1):
+        s = base.copy()
+        hit = rng.integers(0, length, int(length * div))
+        s[hit] = rng.choice(np.frombuffer(b"ACGT", np.uint8), hit.size)
+        reads.append(np.delete(s, rng.integers(0, length,
+                                               int(length * div / 8)))
+                     .tobytes())
+    return reads
+
+
+def _round_inputs(g, seq, params, dev):
+    from tsta_tpu_torch.ops import msa_poa
+    prep, n, n_real, a = msa_poa.prep_round(g, seq, params, 1 << 34)
+    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in (predsT, pmaskT, bases.reshape(N), fills, a)]
+    return t, n_real, len(order), W, order, preds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,length", [(0, 300), (1, 1500)])
+def test_poa_dp_and_walk_kernels_match_plain(cuda, seed, length):
+    from tsta_tpu.config import AlignParams
+    from tsta_tpu.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    AP = AlignParams()
+    reads = _reads(seed, 5, length)
+    g = PoaGraph.from_sequence(reads[0], len(reads))
+    multi = 0
+    for sno in range(1, len(reads)):
+        (tk, n_real, n_nodes, W, order, preds) = _round_inputs(
+            g, reads[sno], AP, cuda)
+        tc = [x.cpu() for x in tk]
+        multi += int((tc[1].sum(0) > 1).sum())
+        n0 = dict(_kernels.launches)
+        kw, ks = msa_poa.poa_dp(*tk, n_real, n_nodes, AP, W)
+        pw, ps = msa_poa.poa_dp(*tc, n_real, n_nodes, AP, W)
+        torch.cuda.synchronize()
+        assert _kernels.launches["poa_dp"] == n0["poa_dp"] + 1
+        assert torch.equal(kw.cpu()[:n_nodes], pw[:n_nodes])
+        assert torch.equal(ks.cpu(), ps)
+        N = tc[0].shape[1]
+        mask = torch.from_numpy(msa_poa.sink_mask(g, order, N))
+        best = msa_poa.best_sink(ps, mask)
+        pd = torch.from_numpy(preds)
+        kal = msa_poa.poa_walk(kw, pd.to(cuda), best.to(cuda), n_real)
+        torch.cuda.synchronize()
+        assert _kernels.launches["poa_walk"] == n0["poa_walk"] + 1
+        pal = msa_poa.walk_plain(pw, pd, best, n_real)
+        assert torch.equal(kal.cpu(), pal)
+        host = msa_poa.pack_round(ps, pal, best).numpy()
+        msa_native._finish_round(g, reads[sno], sno, order, host, [], [],
+                                 [])
+    assert multi > 0
+
+
+@pytest.mark.cuda
+def test_msa_kernel_route_matches_cpu(cuda):
+    from tsta_tpu.config import AlignParams
+    from tsta_tpu_torch.ops import msa_native
+    sets = [_reads(10 + k, 4, 400 + 150 * k) for k in range(3)]
+    want = [msa_native.align_seqs(s, AlignParams(), device="cpu")
+            for s in sets]
+    p0 = msa_native.plain_rounds
+    n0 = _kernels.launches["poa_dp"]
+    got = [msa_native.align_seqs(s, AlignParams(), kernel="cuda",
+                                 device=cuda) for s in sets]
+    assert _kernels.launches["poa_dp"] == n0 + 9
+    fleet = msa_native.align_seqs_many(sets, AlignParams(), device=cuda)
+    plain = msa_native.align_seqs(sets[0], AlignParams(), kernel="plain",
+                                  device=cuda)
+    assert msa_native.plain_rounds == p0
+    for w, g, f in zip(want, got, fleet):
+        assert g == w and f == w
+    assert plain == want[0]
+
+
+@pytest.mark.cuda
+def test_wide_round_goes_plain_and_cuda_refuses_it(cuda, monkeypatch):
+    from tsta_tpu.config import AlignParams
+    from tsta_tpu.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native
+    orig = PoaGraph.from_sequence
+
+    def hacked(seq, n_seq):
+        g = orig(seq, n_seq)
+        tail = len(g) - 1
+        for _ in range(65):
+            g.add_edge(g.add_node(ord("A"), 0), tail)
+        g.toposort()
+        return g
+
+    monkeypatch.setattr(PoaGraph, "from_sequence", staticmethod(hacked))
+    reads = _reads(3, 3, 120)
+    want = msa_native.align_seqs(reads, AlignParams(), device="cpu")
+    p0 = msa_native.plain_rounds
+    got = msa_native.align_seqs(reads, AlignParams(), device=cuda)
+    assert got == want and msa_native.plain_rounds == p0 + 2
+    with pytest.raises(ValueError, match="in-degree"):
+        msa_native.align_seqs(reads, AlignParams(), kernel="cuda",
+                              device=cuda)
+
+
+@pytest.mark.cuda
+def test_poa_wrappers_refuse_bad_tensors(cuda):
+    i32 = torch.int32
+    predsT = torch.zeros((2, 128), dtype=i32, device=cuda)
+    bases = torch.zeros((128,), dtype=i32, device=cuda)
+    fills = torch.zeros((4, 128), dtype=i32, device=cuda)
+    a = torch.zeros((128,), dtype=torch.uint8, device=cuda)
+    words = torch.zeros((128, 128), dtype=torch.int16, device=cuda)
+    scores = torch.zeros((128,), dtype=i32, device=cuda)
+    with pytest.raises(ValueError):
+        _kernels.poa_dp(predsT, predsT, bases, fills, a.cpu(), 5, 10,
+                        P0, 2, words, scores)
+    with pytest.raises(ValueError):
+        _kernels.poa_dp(predsT, predsT, bases, fills, a, 5, 10, P0, 2,
+                        words.to(i32), scores)
+    with pytest.raises(ValueError):
+        _kernels.poa_dp(torch.zeros((128, 128), dtype=i32, device=cuda),
+                        torch.zeros((128, 128), dtype=i32, device=cuda),
+                        bases, fills, a, 5, 10, P0, 2, words, scores)
+    with pytest.raises(ValueError):
+        _kernels.poa_walk(words, predsT.T.contiguous(),
+                          torch.zeros((1,), dtype=torch.int64, device=cuda),
+                          5, torch.full((128,), -1, dtype=i32, device=cuda))

@@ -1,12 +1,15 @@
 """Command-line interface of the port (``tsta-torch``).
 
     tsta-torch psa  -1 a.fa -2 b.fa [-o out.txt] [--notrace] [flags]
+    tsta-torch msa  -i reads.fa [-o out.txt] [--engine native] [flags]
+    tsta-torch msa-batch --inputs fastas.txt --out-dir msas/ [flags]
     tsta-torch batch --pairs manifest.tsv [flags]
 
-Same flags and stdout as ``tsta psa`` / ``tsta batch`` of the JAX
-package, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
-plain PyTorch versions).  ``--kernel`` takes auto|plain|cuda.  The
-``msa`` subcommands and ``--profile`` belong to later slices.
+Same flags, stdout and output files as ``tsta psa`` / ``msa`` /
+``msa-batch`` / ``batch`` of the JAX package, plus ``--device`` (default
+``cuda``; ``cpu`` runs the kernels' plain PyTorch versions).  ``--kernel``
+takes auto|plain|cuda.  ``--mesh`` (multi-GPU) and ``--profile`` belong
+to later slices.
 """
 
 from __future__ import annotations
@@ -36,9 +39,8 @@ def _add_scoring_flags(p: argparse.ArgumentParser) -> None:
                    help="emit a JSON result line instead of reference stdout")
     p.add_argument("--kernel", default="auto",
                    choices=["auto", "plain", "cuda"],
-                   help="auto: CUDA kernels for supported parameters; "
-                        "plain: the PyTorch row-scan oracle; cuda: kernels "
-                        "only")
+                   help="auto: the CUDA kernels where they apply; plain: "
+                        "their plain PyTorch versions; cuda: kernels only")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device [%s]; 'cpu' runs the plain "
                         "versions" % DEFAULT_DEVICE)
@@ -74,11 +76,93 @@ def cmd_psa(args) -> int:
     return 0
 
 
+def _refuse_mesh(mesh) -> None:
+    if mesh and mesh.lower() != "1x1":
+        raise NotImplementedError("--mesh %s: multi-GPU is a later slice "
+                                  "of the port" % mesh)
+
+
+def cmd_msa(args) -> int:
+    from tsta_tpu_torch.models import msa
+    from tsta_tpu_torch.ops import msa_native
+    _refuse_mesh(args.mesh)
+    t0 = time.time()
+    # -W maps to the compat engine's stripe multiplier; 0 means 10
+    width = args.W if args.W > 0 else 10
+    progress = None
+    if args.engine == "native" and sys.stderr.isatty():
+        # the reference's round progress bar (msa/msa.c:134-138)
+        def progress(done, total):
+            sys.stderr.write("\r[%d/%d]" % (done, total))
+            sys.stderr.flush()
+            if done == total:
+                sys.stderr.write("\n")
+    plain0 = msa_native.plain_rounds
+    result = msa.align_file(args.input, _params(args), engine=args.engine,
+                            width=width, threads=args.T, progress=progress,
+                            kernel=args.kernel, device=args.device)
+    wall = time.time() - t0
+    msa.write_result(result, args.output)
+    if args.json:
+        emit_json({"rounds": result.round_scores,
+                   "graph_len": result.graph_len,
+                   "add_len": result.add_len,
+                   "consensus_len": len(result.consensus),
+                   "wall_s": round(wall, 4), "output": args.output,
+                   "engine": args.engine, "device": args.device,
+                   "launches": _launches(),
+                   "plain_rounds": msa_native.plain_rounds - plain0})
+    return 0
+
+
+def cmd_msa_batch(args) -> int:
+    """Many independent MSAs through ``msa_native.align_seqs_many`` (one
+    CUDA stream per problem, host merges overlapping device rounds)."""
+    import os
+
+    from tsta_tpu.io import read_records
+    from tsta_tpu_torch.models import msa
+    from tsta_tpu_torch.ops import msa_native
+    from tsta_tpu_torch.parallel.batch import stride_for_process
+
+    with open(args.inputs) as f:
+        stripped = (ln.strip() for ln in f)
+        paths = [s for s in stripped if s and not s.startswith("#")]
+    if not paths:
+        raise ValueError("empty input list")
+    # multi-process: each process takes a strided slice of the list
+    n_proc = int(os.environ.get("TSTA_NUM_PROCESSES", "1"))
+    gidx = stride_for_process(list(range(len(paths))))
+    paths = stride_for_process(paths)
+    if not paths:
+        return 0
+    seq_sets = [[r.sequence for r in read_records(p)] for p in paths]
+    t0 = time.time()
+    outs = msa_native.align_seqs_many(seq_sets, _params(args),
+                                      kernel=args.kernel, device=args.device)
+    wall = time.time() - t0
+    os.makedirs(args.out_dir, exist_ok=True)
+    used = set()
+    for idx, (p, out) in zip(gidx, zip(paths, outs)):
+        # names key off the global input index, so sibling processes
+        # writing one out-dir cannot collide
+        name = os.path.splitext(os.path.basename(p))[0]
+        cand, k = name if n_proc == 1 else "%s.%d" % (name, idx), idx
+        while cand in used:
+            cand = "%s.%d" % (name, k)
+            k += n_proc
+        used.add(cand)
+        msa.write_result(out, os.path.join(args.out_dir, cand + ".txt"))
+    if args.json:
+        emit_json({"problems": len(outs), "wall_s": round(wall, 4),
+                   "out_dir": args.out_dir, "device": args.device,
+                   "launches": _launches()})
+    return 0
+
+
 def cmd_batch(args) -> int:
     from tsta_tpu_torch.parallel import batch as pbatch
-    if args.mesh and args.mesh.lower() != "1x1":
-        raise NotImplementedError("--mesh %s: multi-GPU is a later slice "
-                                  "of the port" % args.mesh)
+    _refuse_mesh(args.mesh)
     t0 = time.time()
     results = pbatch.align_manifest(args.pairs, _params(args),
                                     traced=args.traced,
@@ -99,7 +183,7 @@ def cmd_batch(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="tsta-torch",
-        description="TSTA pairwise alignment on PyTorch + CUDA")
+        description="TSTA sequence alignment on PyTorch + CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("psa", help="pairwise global alignment")
@@ -111,6 +195,29 @@ def main(argv=None) -> int:
     p.add_argument("--notrace", action="store_true",
                    help="score only (TSTA_psa_notrace equivalent)")
     p.set_defaults(fn=cmd_psa)
+
+    p = sub.add_parser("msa", help="partial-order multiple sequence alignment")
+    _add_scoring_flags(p)
+    p.add_argument("-i", dest="input", required=True, help="input FASTA")
+    p.add_argument("-o", dest="output", default="output.txt",
+                   help="MSA output file [output.txt]")
+    p.add_argument("--engine", default="compat",
+                   choices=["compat", "native"],
+                   help="compat = bit-exact vs reference (C, host); native "
+                        "= exact int32 DP on the device")
+    p.add_argument("--mesh", default=None, metavar="DATAxSEQ",
+                   help="device mesh; only 1x1 (one card) in this slice")
+    p.set_defaults(fn=cmd_msa)
+
+    p = sub.add_parser("msa-batch",
+                       help="many independent MSAs, fusion/DP pipelined "
+                            "(native engine)")
+    _add_scoring_flags(p)
+    p.add_argument("--inputs", required=True,
+                   help="text file listing one reads-FASTA per line")
+    p.add_argument("--out-dir", required=True,
+                   help="directory for per-problem MSA outputs")
+    p.set_defaults(fn=cmd_msa_batch)
 
     p = sub.add_parser("batch", help="batched PSA over many pairs")
     _add_scoring_flags(p)

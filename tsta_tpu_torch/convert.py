@@ -1,16 +1,23 @@
 """State carried across from the JAX package.
 
 The system has no weights; what crosses between the packages is the
-scoring-parameter tuple and the traceback code plane.
+scoring-parameter tuple, the PSA traceback code plane and the POA round's
+traceback word plane.
 
-* JAX plane: ``(m_pad // 4, P * Rp, 128)`` int32 words; byte k of
+* JAX PSA plane: ``(m_pad // 4, P * Rp, 128)`` int32 words; byte k of
   ``plane[w, p*Rp + j // 128, j % 128]`` is the code of pair p's cell
   (4w + k, j) (``tsta_tpu/ops/psa_diff.py`` ``_psa_diff_traced_call``).
-* Port plane: ``(P, m_pad, n_pad)`` uint8, one code per cell, row-major
-  per pair (``csrc/psa_dp.cu``).
+* Port PSA plane: ``(P, m_pad, n_pad)`` uint8, one code per cell,
+  row-major per pair (``csrc/psa_dp.cu``).
+* JAX POA words: ``(N // 2, Rp, 128)`` int32, two nodes per word, the
+  even node in the low half (``tsta_tpu/ops/msa_pallas.py``
+  ``_poa_chunk_call``); word ``words[v // 2, j // 128, j % 128]`` holds
+  node v's cell at column j.
+* Port POA words: ``(N, n)`` int16, one 16-bit word per cell, row-major
+  (``csrc/poa_dp.cu``).
 
-Both carry the same ``back*9 + f*3 + e`` codes, so either package's walk
-can run on either package's plane.  Arrays cross as numpy (call
+Each pair of planes carries the same codes, so either package's walk can
+run on either package's plane.  Arrays cross as numpy (call
 ``np.asarray`` on a JAX array first); nothing here imports jax.
 """
 
@@ -63,3 +70,35 @@ def plane_to_jax(plane) -> np.ndarray:
     by = c.reshape(P, m_pad // 4, 4, Rp, LANES).transpose(1, 0, 3, 4, 2)
     by = np.ascontiguousarray(by).reshape(m_pad // 4, P * Rp, LANES * 4)
     return by.view("<i4").astype(np.int32)
+
+
+def poa_words_from_jax(words) -> torch.Tensor:
+    """JAX ``(N // 2, Rp, 128)`` int32 pair-packed POA words -> the port's
+    ``(N, n)`` int16 plane (a CPU tensor), n = Rp * 128."""
+    w = np.ascontiguousarray(np.asarray(words), dtype=np.int32)
+    if w.ndim != 3 or w.shape[2] != LANES:
+        raise ValueError("expected (N//2, Rp, %d) int32 words, got %s"
+                         % (LANES, w.shape))
+    m_w, Rp, _ = w.shape
+    # little-endian halves: [..., 0] is the even node, [..., 1] the odd
+    halves = w.astype("<i4").view("<i2").reshape(m_w, Rp, LANES, 2)
+    out = halves.transpose(0, 3, 1, 2).reshape(2 * m_w, Rp * LANES)
+    return torch.from_numpy(np.ascontiguousarray(out).astype(np.int16))
+
+
+def poa_words_to_jax(words) -> np.ndarray:
+    """The port's ``(N, n)`` int16 POA plane (numpy or tensor) -> the JAX
+    ``(N // 2, Rp, 128)`` int32 pair-packed words (numpy; pass it to
+    ``jnp.asarray``).  Needs N even and n % 128 == 0."""
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().numpy()
+    c = np.asarray(words)
+    if c.dtype != np.int16 or c.ndim != 2 or c.shape[0] % 2 \
+            or c.shape[1] % LANES:
+        raise ValueError("expected (N, n) int16 with N even and n %% %d "
+                         "== 0, got %s %s" % (LANES, c.dtype, c.shape))
+    N, n = c.shape
+    pairs = c.astype("<i2").reshape(N // 2, 2, n // LANES, LANES)
+    pairs = np.ascontiguousarray(pairs.transpose(0, 2, 3, 1))
+    return pairs.view("<i4").reshape(N // 2, n // LANES, LANES).astype(
+        np.int32)

@@ -18,8 +18,8 @@
 // at t*W (W a multiple of 4).  Per row:
 //   pass 1  each thread scans its strip for max(C(k) - k*e);
 //   scan    block-wide exclusive prefix max of those strip maxima, seeded
-//           with H(i,-1) + e (warp shuffles, then one warp over the warp
-//           totals in shared memory);
+//           with H(i,-1) + e (dp_common.cuh: warp shuffles, then one
+//           warp over the warp totals in shared memory);
 //   pass 2  each thread walks its strip again, carrying the running max,
 //           and writes H, E (and in traced mode the cell codes).
 // The H/E frontier lives in global scratch in an interleaved layout
@@ -46,12 +46,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dp_common.cuh"
+
 namespace {
+
+using tsta::kFull;
+using tsta::kNeg;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kNeg = -(1 << 28);
-constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int strip_width(int n) {
   int w = (n + kThreads - 1) / kThreads;
@@ -61,33 +64,6 @@ __host__ __device__ inline int strip_width(int n) {
 struct Params {
   int m, x, e, o;
 };
-
-// max(seed, v of every thread with a lower index); s_warp holds 2*kWarps.
-__device__ __forceinline__ int block_excl_max(int v, int seed, int* s_warp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    int u = __shfl_up_sync(kFull, inc, d);
-    if (lane >= d) inc = max(inc, u);
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? s_warp[lane] : kNeg;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      int u = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w = max(w, u);
-    }
-    if (lane < kWarps) s_warp[kWarps + lane] = w;
-  }
-  __syncthreads();
-  int excl = __shfl_up_sync(kFull, inc, 1);
-  if (lane == 0) excl = kNeg;
-  const int before = warp > 0 ? s_warp[kWarps + warp - 1] : kNeg;
-  return max(seed, max(excl, before));
-}
 
 template <bool kTraced>
 __global__ void __launch_bounds__(kThreads)
@@ -144,7 +120,7 @@ psa_dp_kernel(const uint8_t* __restrict__ a_all,
       agg = max(agg, max(diag, ev) - j * p.e);
       hd = hp;
     }
-    int run = block_excl_max(agg, bound_cur + p.e, s_warp);
+    int run = tsta::block_excl_max<kThreads>(agg, bound_cur + p.e, s_warp);
 
     // pass 2: F, H, codes
     hd = hd0;

@@ -1,12 +1,12 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` on first use into one shared
-library with a plain C interface, cached under ``build/tsta_tpu_torch/``
-beside the package (the repository root in a checkout, where ``build/``
-is git-ignored) and keyed by a hash of the sources and flags, then
-loaded with ``ctypes``.  Nothing
-is compiled or loaded at import, so the CPU tests import this module on
-a host without ``nvcc``.
+The sources are compiled with ``nvcc`` on first use, one process per
+source started together, and linked into one shared library with a plain
+C interface, cached under ``build/tsta_tpu_torch/`` beside the package
+(the repository root in a checkout, where ``build/`` is git-ignored) and
+keyed by a hash of the sources, headers and flags, then loaded with
+``ctypes``.  Nothing is compiled or loaded at import, so the CPU tests
+import this module on a host without ``nvcc``.
 
 Each launcher checks device, dtype, shape and contiguity, launches on
 PyTorch's current stream, raises :class:`KernelError` when the C side
@@ -16,6 +16,7 @@ reports a CUDA error, and adds one to its entry of :data:`launches`.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -27,13 +28,17 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("psa_dp.cu", "psa_walk.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_SOURCES = ("psa_dp.cu", "psa_walk.cu", "poa_dp.cu", "poa_walk.cu")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 
-# K1 and K2 are the score-only and traced uses of the one DP kernel
-# source; K3 is the walk.
-KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk")
+# K1 and K2 are the score-only and traced uses of the one PSA DP kernel
+# source; K3 is the PSA walk; poa_dp and poa_walk are the MSA round DP and
+# its walk.
+KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk", "poa_dp",
+           "poa_walk")
+POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 launches = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
@@ -71,24 +76,40 @@ def build() -> str:
     nvcc = nvcc_path()
     srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
     h = hashlib.sha256(" ".join([nvcc] + NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(s, "rb") as f:
-            h.update(f.read())
+            h.update(os.path.basename(s).encode() + f.read())
     os.makedirs(_BUILD_DIR, exist_ok=True)
     out = os.path.join(_BUILD_DIR, "libtsta_torch_%s.so" % h.hexdigest()[:16])
     log = out + ".log"
     secs = 0.0
     if not os.path.exists(out):
         tmp = "%s.%d.tmp" % (out, os.getpid())
+        objs = ["%s.%s.o" % (tmp, os.path.splitext(os.path.basename(s))[0])
+                for s in srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp] + srcs,
-                              capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", s, "-o", o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        report = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, r) for s, p, r in zip(srcs, procs, report)
+                  if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc] + ARCH_FLAGS + ["-shared", "-o", tmp]
+                                  + objs, capture_output=True, text=True)
+            if link.returncode != 0:
+                failed = [("link", link.returncode,
+                           link.stdout + link.stderr)]
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
         secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise KernelError("nvcc failed (%d):\n%s" % (proc.returncode,
-                                                         proc.stderr))
+        if failed:
+            raise KernelError("nvcc failed:\n" + "\n".join(
+                "%s (%d):\n%s" % f for f in failed))
         with open(log, "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(report))
         os.replace(tmp, out)   # atomic: a concurrent loader never sees half
     ptxas = ""
     if os.path.exists(log):
@@ -112,6 +133,12 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_scratch_words.argtypes = [ci]
             lib.tsta_psa_walk.restype = ci
             lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp]
+            lib.tsta_poa_dp_ring_words.restype = ci
+            lib.tsta_poa_dp_ring_words.argtypes = [ci, ci]
+            lib.tsta_poa_dp.restype = ci
+            lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 10 + [vp] * 4
+            lib.tsta_poa_walk.restype = ci
+            lib.tsta_poa_walk.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp]
             _LIB = lib
         return _LIB
 
@@ -193,3 +220,65 @@ def psa_walk(plane, nm, words, counts) -> None:
                               counts.data_ptr(), _stream(dev))
     _raise_on(rc, "psa_walk")
     launches["psa_walk"] += 1
+
+
+def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
+           words, scores) -> None:
+    """Launch the POA round DP (one block, the whole round).  ``predsT``,
+    ``pmaskT``: (max_in, N) int32 pred table (buffer row ids, 0 = the
+    virtual row) and validity; ``bases``: (N,) int32; ``fills``: (4, N)
+    int32 left-boundary seeds; ``a``: (n,) uint8 read; ``W``: ring slots.
+    Writes rows < ``n_nodes`` of ``words`` ((N, n) int16) and ``scores``
+    ((N,) int32)."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("poa_dp kernel needs CUDA tensors, got %s" % dev)
+    max_in, N = predsT.shape
+    n = a.shape[0]
+    _check(predsT, "predsT", torch.int32, (max_in, N), dev)
+    _check(pmaskT, "pmaskT", torch.int32, (max_in, N), dev)
+    _check(bases, "bases", torch.int32, (N,), dev)
+    _check(fills, "fills", torch.int32, (4, N), dev)
+    _check(a, "a", torch.uint8, (n,), dev)
+    _check(words, "words", torch.int16, (N, n), dev)
+    _check(scores, "scores", torch.int32, (N,), dev)
+    if max_in > POA_MAX_IN:
+        raise ValueError("poa_dp packs pred indices into 6 bits: max_in %d "
+                         "> %d" % (max_in, POA_MAX_IN))
+    if n % 4 or not 1 <= n_real <= n or not 0 <= n_nodes <= N or W < 1:
+        raise ValueError("poa_dp: bad sizes n=%d n_real=%d n_nodes=%d N=%d "
+                         "W=%d" % (n, n_real, n_nodes, N, W))
+    lib = _lib()
+    ring = torch.empty((lib.tsta_poa_dp_ring_words(n, W),),
+                       dtype=torch.int32, device=dev)
+    m_, x_, e_, o_ = params
+    rc = lib.tsta_poa_dp(predsT.data_ptr(), pmaskT.data_ptr(),
+                         bases.data_ptr(), fills.data_ptr(), a.data_ptr(),
+                         N, n_nodes, n, n_real, W, max_in, m_, x_, e_, o_,
+                         words.data_ptr(), scores.data_ptr(), ring.data_ptr(),
+                         _stream(dev))
+    _raise_on(rc, "poa_dp")
+    launches["poa_dp"] += 1
+
+
+def poa_walk(words, preds, best, n_real, align) -> None:
+    """Launch the POA walk (one thread) over an (N, n) int16 word plane;
+    ``preds``: (N, max_in) int32; ``best``: (1,) int32 start row;
+    ``align``: (n,) int32 output, pre-filled with -1 by the caller."""
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError("poa_walk kernel needs CUDA tensors, got %s" % dev)
+    N, n = words.shape
+    max_in = preds.shape[1]
+    _check(words, "words", torch.int16, (N, n), dev)
+    _check(preds, "preds", torch.int32, (N, max_in), dev)
+    _check(best, "best", torch.int32, (1,), dev)
+    _check(align, "align", torch.int32, (n,), dev)
+    if max_in > POA_MAX_IN or not 1 <= n_real <= n:
+        raise ValueError("poa_walk: max_in %d, n_real %d, n %d"
+                         % (max_in, n_real, n))
+    rc = _lib().tsta_poa_walk(words.data_ptr(), preds.data_ptr(),
+                              best.data_ptr(), n, n_real, max_in,
+                              align.data_ptr(), _stream(dev))
+    _raise_on(rc, "poa_walk")
+    launches["poa_walk"] += 1

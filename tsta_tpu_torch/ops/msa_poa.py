@@ -1,0 +1,386 @@
+"""One POA round on the device: host tables, the memory plan, the DP and
+walk kernels' wrappers, the best sink and the packed per-round result.
+
+Counterpart of ``tsta_tpu/ops/msa_pallas.py`` on its single-call path
+(``_prepare``, ``_round_plan``, ``_prep_round``, ``round_dp_fused``,
+``pack_round``).  A round runs as one chain on the current stream:
+
+1. host tables in topo order (:func:`prepare`): the pred table in the
+   order of ``g.csr()`` (the tie rules depend on it), bases, the
+   left-boundary fills and the ring size ``W``;
+2. the DP (:func:`poa_dp`, ``csrc/poa_dp.cu``): a (N, n) 16-bit word
+   plane and the per-node sink scores;
+3. the best sink, a first-max argmax over the sink rows;
+4. the walk (:func:`poa_walk`, ``csrc/poa_walk.cu``) from the best sink
+   to the per-column aligned rows;
+5. ``[best, score, align...]`` packed into one int32 tensor, so the host
+   pays one device-to-host transfer per round.
+
+Each wrapper takes its plain PyTorch version for CPU tensors
+(:func:`tsta_tpu_torch.ops.msa_native.round_dp_plain`,
+:func:`walk_plain`) and launches its kernel, or raises, for CUDA tensors.
+The TPU path's chunked rounds (``_round_chunked``) are not ported: a round
+whose words plane exceeds the memory plan raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import time
+
+import numpy as np
+import torch
+
+from tsta_tpu_torch.ops import _kernels
+from tsta_tpu_torch.ops._host import load_poa
+from tsta_tpu_torch.ops.psa_scan import NEG, as_params, bucket
+
+LANES = 128
+MAX_IN = _kernels.POA_MAX_IN   # the 16-bit words' 6-bit pred fields
+WIDE_MAX_IN = 1 << 13          # the plain version's int32 words: 13 bits
+DEVICE_SHARE = 0.85            # of the card's memory, as the TPU plan
+CPU_BUDGET = 12 * 2 ** 30      # the TPU plan's budget without device stats
+
+
+def _next_pow2(v):
+    w = 1
+    while w < v:
+        w *= 2
+    return w
+
+
+def _node_block(N):
+    """Node-count quantum of the TPU kernel's SMEM blocks; kept so the
+    tables (and N) equal the JAX package's."""
+    return min(512, N)
+
+
+def _hm1(N_real, max_in, preds, lens, e_, o_, hm1) -> None:
+    """The H(v,-1) recurrence over topo rows, in C (poa_fast.c
+    ``tsta_poa_hm1``): hm1[i+1] = max over preds of hm1 + e, or o + e for
+    a source."""
+    lib = load_poa()
+    lens64 = np.ascontiguousarray(lens, np.int64)
+    preds32 = np.ascontiguousarray(preds, np.int32)
+    lib.tsta_poa_hm1(
+        N_real, max_in,
+        preds32.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+        lens64.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+        int(e_), int(o_),
+        hm1.ctypes.data_as(ctypes.POINTER(ctypes.c_long)))
+
+
+def prepare(g, params, cap: bool = True):
+    """Dense per-round tables of graph ``g`` in topo order, as
+    ``msa_pallas._prepare``: ``(predsT, pmaskT, bases, fills, N, max_in,
+    W, order, preds)`` with predsT/pmaskT (max_in, N) int32 (buffer row
+    ids, 0 = the virtual row), bases (1, N), fills (4, N) int32, preds
+    (N, max_in).  ``max_in`` is the in-degree rounded up to a power of
+    two; with ``cap`` an in-degree above 64 raises ``ValueError``."""
+    order = g.topo
+    N_real = len(order)
+    max_in = max(1, g.max_in_degree())
+    if cap and max_in > MAX_IN:
+        raise ValueError(
+            "POA kernel traceback packs predecessor indices into 6 bits "
+            "(in-degree %d > %d; the reference caps at 42)" % (max_in, MAX_IN))
+    max_in = _next_pow2(max_in)
+    N = bucket(N_real)
+    nb = _node_block(N)
+    N = -(-N // nb) * nb
+    e_, o_ = params.gap_extend, params.gap_open
+
+    order_arr = np.asarray(order, np.int64)
+    pos = np.empty(len(g), np.int64)
+    pos[order_arr] = np.arange(N_real)
+    nd_all, ptr_all, flat_all = g.csr()[:3]
+    lens = nd_all[order_arr]
+    n_edges = int(lens.sum())
+    rowi = np.repeat(np.arange(N_real), lens)
+    coli = np.arange(n_edges) - np.repeat(np.cumsum(lens) - lens, lens)
+    flat = flat_all[np.repeat(ptr_all[order_arr], lens) + coli]
+    preds = np.zeros((N, max_in), np.int32)
+    pmask = np.zeros((N, max_in), np.int32)
+    preds[rowi, coli] = pos[flat] + 1
+    pmask[rowi, coli] = 1
+    pmask[np.where(lens == 0)[0], 0] = 1   # sources read the virtual row 0
+    bases = np.zeros((N, 1), np.int32)
+    bases[:N_real, 0] = g._bases[order_arr].astype(np.int32)
+    maxdist = int(max(1, (rowi - pos[flat]).max())) if n_edges else 1
+    hm1 = np.full((N + 1,), NEG, np.int64)
+    _hm1(N_real, max_in, preds, lens, e_, o_, hm1)
+    hm1 = hm1.astype(np.int32)
+    # [0] max over valid preds of H(p,-1), [1] its first-max index, [2]
+    # the F seed H(v,-1) + e, [3] the f_ext fill F(v,-1) (none: NEG)
+    hm1p = np.where(pmask.T != 0, hm1[preds.T], np.int32(NEG))
+    fills = np.stack([
+        hm1p.max(axis=0),
+        np.argmax(hm1p, axis=0).astype(np.int32),
+        (hm1[1:N + 1] + np.int32(e_)).astype(np.int32),
+        np.full((N,), NEG, np.int32),
+    ]).astype(np.int32)
+    # ring slots: W > maxdist, so a pred's rows outlive its successors
+    W = 2
+    while W < maxdist + 1:
+        W *= 2
+    W = min(W, _next_pow2(N + 1))
+    return (preds.T.copy(), pmask.T.copy(), bases.reshape(1, N), fills, N,
+            max_in, W, order, preds)
+
+
+def device_budget(device) -> int:
+    """Bytes a round may plan for: 0.85 of the card's memory
+    (``torch.cuda.mem_get_info``), or the TPU plan's 12 GiB default on
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[1] * DEVICE_SHARE)
+    return CPU_BUDGET
+
+
+def round_plan(N: int, n: int, W: int, budget: int):
+    """``msa_pallas._round_plan`` with the budget passed in: ``None`` when
+    the (N, n) words plane fits one call, else the node-chunk size ``NC``
+    of a chunked round; raises ``ValueError`` when not even that fits."""
+    if 2 * N * n <= int(0.5 * budget):
+        return None
+    nb = _node_block(N)
+    NC = nb
+    while 2 * (NC * 2) * n <= budget // 4 and NC * 2 < _next_pow2(N):
+        NC *= 2
+    nchunks = -(-N // NC)
+    if nchunks <= 1:
+        if 2 * N * n + 8 * W * n <= int(0.8 * budget):
+            return None
+        raise ValueError(
+            "native MSA round cannot fit the chip (%d nodes x %d cols, "
+            "ring W=%d, ~%.2f MB plane vs %.2f MB budget); use "
+            "engine='compat' (host-RAM planes) for reads this long"
+            % (N, n, W, 2 * N * n / 2 ** 20, budget / 2 ** 20))
+    need = (4 * NC * n + (nchunks + 1) * 8 * W * n
+            + _ckpt_windows(n) * LANES * 4 * nchunks * NC)
+    if need > int(0.8 * budget):
+        raise ValueError(
+            "native MSA round cannot fit the chip even chunked "
+            "(%d nodes x %d cols, ring W=%d, ~%.1f GB working set); "
+            "use engine='compat' (host-RAM planes) for reads this long"
+            % (N, n, W, need / 2 ** 30))
+    return NC
+
+
+def _ckpt_windows(n):
+    """Column windows of a chunked round's checkpoints (0 = none), as
+    ``msa_pallas._ckpt_windows``; part of the plan's memory count."""
+    if n % 1024:
+        return 0
+    k = n // 1024
+    for d in (8, 7, 6, 5, 4, 3, 2):
+        if k % d == 0:
+            return d
+    return 0
+
+
+def round_columns(n_real: int) -> int:
+    """Padded column count of a round: ``bucket``, then 8,192-rounded
+    above 16,384 (the TPU path's compile buckets; kept for equal
+    planes)."""
+    n = bucket(n_real)
+    if n > 16384:
+        n = -(-n // 8192) * 8192
+    return n
+
+
+def prep_round(g, seq: bytes, params, budget: int, cap: bool = True):
+    """Tables, padded read and plan of one round: ``(prep, n, n_real,
+    a)`` with ``a`` the (n,) uint8 read, zero-padded.  A round the plan
+    would chunk raises ``NotImplementedError``."""
+    if len(seq) == 0:
+        raise ValueError("cannot align an empty read")
+    prep = prepare(g, params, cap=cap)
+    N, W = prep[4], prep[6]
+    n_real = len(seq)
+    n = round_columns(n_real)
+    if round_plan(N, n, W, budget) is not None:
+        raise NotImplementedError(
+            "round words plane of %d nodes x %d columns exceeds the memory "
+            "plan (%d bytes): chunked rounds (ROADMAP Queue 1 step 4) are "
+            "not ported yet" % (N, n, budget))
+    a = np.zeros((n,), np.uint8)
+    a[:n_real] = np.frombuffer(bytes(seq), np.uint8)
+    return prep, n, n_real, a
+
+
+def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W):
+    """The round DP over rows < ``n_nodes``: returns ``(words, scores)``,
+    words (N, n) int16 (rows >= n_nodes zero) and scores (N,) int32
+    (NEG past n_nodes).  CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/poa_dp.cu`` or raise."""
+    if a.device.type == "cpu":
+        from tsta_tpu_torch.ops.msa_native import round_dp_plain
+        return round_dp_plain(predsT, pmaskT, bases, fills, a, n_real,
+                              n_nodes, params, W)
+    N = predsT.shape[1]
+    words = torch.empty((N, a.shape[0]), dtype=torch.int16, device=a.device)
+    scores = torch.full((N,), NEG, dtype=torch.int32, device=a.device)
+    _kernels.poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes,
+                    as_params(params), W, words, scores)
+    words[n_nodes:].zero_()
+    return words, scores
+
+
+def walk_plain(words, preds, best, n_real: int) -> torch.Tensor:
+    """The POA traceback walk in Python: the plain version of
+    ``csrc/poa_walk.cu`` and the counterpart of ``msa_pallas._walk``.
+
+    ``words``: (N, n) plane, int16 (6-bit pred fields) or int32 (13-bit,
+    the plain round's format past 64 preds); ``preds``: (N, max_in)
+    int32; ``best``: start row (int or one-element tensor).  Returns the
+    (n,) int32 aligned rows (-1 for gaps) on ``words``' device."""
+    bits = 6 if words.dtype == torch.int16 else 13
+    fmask = (1 << bits) - 1
+    pr = preds.cpu().numpy()
+    plane = words.numpy() if words.device.type == "cpu" else None
+    align = np.full((words.shape[1],), -1, np.int32)
+    row = int(best.reshape(-1)[0]) if torch.is_tensor(best) else int(best)
+    j, state = n_real - 1, 0
+    while j >= 0 and row >= 0:
+        w = int(plane[row, j] if plane is not None else words[row, j])
+        w &= 0xFFFF if bits == 6 else 0xFFFFFFFF
+        if state == 0:
+            h_type = (w >> 2) & 3
+            if h_type == 0:
+                align[j] = row
+                row = int(pr[row, (w >> 4) & fmask]) - 1
+                j -= 1
+            else:
+                state = h_type
+        elif state == 1:
+            row = int(pr[row, (w >> (4 + bits)) & fmask]) - 1
+            state = (w >> 1) & 1
+        else:
+            align[j] = -1
+            j -= 1
+            state = 2 if w & 1 else 0
+    return torch.from_numpy(align).to(words.device)
+
+
+def poa_walk(words, preds, best, n_real: int) -> torch.Tensor:
+    """Walk a round's word plane from row ``best`` ((1,) int32); returns
+    the (n,) int32 aligned rows.  CPU tensors take :func:`walk_plain`;
+    CUDA tensors launch ``csrc/poa_walk.cu`` or raise."""
+    if words.device.type == "cpu":
+        return walk_plain(words, preds, best, n_real)
+    align = torch.full((words.shape[1],), -1, dtype=torch.int32,
+                       device=words.device)
+    _kernels.poa_walk(words, preds, best, n_real, align)
+    return align
+
+
+def sink_mask(g, order, N: int) -> np.ndarray:
+    """(N,) bool: topo rows that are sinks of ``g``."""
+    mask = np.zeros((N,), bool)
+    mask[:len(order)] = np.isin(np.asarray(order, np.int64),
+                                np.fromiter(g.sinks(), np.int64))
+    return mask
+
+
+def best_sink(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """First-max argmax of the sink rows' scores, as a (1,) int32 tensor
+    on the scores' device (no host sync)."""
+    masked = torch.where(mask, scores, NEG)
+    return torch.argmax(masked).to(torch.int32).reshape(1)
+
+
+def pack_round(scores, align, best) -> torch.Tensor:
+    """``[best, scores[best], align...]`` as one int32 tensor: the round's
+    single device-to-host transfer."""
+    return torch.cat([best, scores.index_select(0, best.long()), align])
+
+
+class RoundClock:
+    """Wall split of each round: host seconds for the tables (``prep_s``),
+    the wait for the round's result (``wait_transfer_s``: the device work
+    not yet done when the host asks, and the transfer) and the merge and
+    toposort (``merge_s``); device milliseconds of the DP (``dp_ms``) and
+    of the best sink, walk and packing (``walk_ms``), from CUDA events on
+    the card or the host clock on the CPU.  ``rounds`` holds one dict per
+    round."""
+
+    _DEVICE_MARKS = ("dp0", "dp1", "walk1")
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.rounds: list = []
+        self._host: dict = {}
+        self._events: dict = {}
+
+    def mark(self, name: str) -> None:
+        self._host[name] = time.perf_counter()
+        if self.cuda and name in self._DEVICE_MARKS:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._events[name] = ev
+
+    def close(self) -> None:
+        """After the round's merge: record its split and reset."""
+        h, ev = self._host, self._events
+        if self.cuda:
+            dp = ev["dp0"].elapsed_time(ev["dp1"])
+            walk = ev["dp1"].elapsed_time(ev["walk1"])
+        else:
+            dp = (h["dp1"] - h["dp0"]) * 1e3
+            walk = (h["walk1"] - h["dp1"]) * 1e3
+        self.rounds.append({
+            "prep_s": h["dp0"] - h["start"], "dp_ms": dp, "walk_ms": walk,
+            "wait_transfer_s": h["got"] - h["walk1"],
+            "merge_s": h["end"] - h["got"]})
+        self._host, self._events = {}, {}
+
+
+def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
+              budget: int, clock: RoundClock | None = None):
+    """Dispatch one round of ``seq`` against ``g`` on the current stream.
+
+    ``kernel``: "auto" runs the kernels on a CUDA device, "plain" the
+    plain versions, "cuda" the kernels only.  A graph whose in-degree
+    exceeds 64 takes the plain versions with wide words (the TPU path
+    sends it to its scan engine); "cuda" refuses it.  Returns ``(packed,
+    order, wide)``: the (2 + n,) int32 ``[best, score, align...]`` on the
+    device, the topo order, and whether the round took the wide route."""
+    from tsta_tpu_torch.ops.msa_native import round_dp_plain
+    wide = g.max_in_degree() > MAX_IN
+    if wide and kernel == "cuda":
+        raise ValueError(
+            "kernel='cuda': the round's in-degree %d exceeds the POA "
+            "kernels' %d (use kernel='auto', which runs such rounds "
+            "through the plain versions)" % (g.max_in_degree(), MAX_IN))
+    use_kernel = dev.type == "cuda" and kernel != "plain" and not wide
+    if clock:
+        clock.mark("start")
+    prep, n, n_real, a = prep_round(g, seq, params, budget, cap=not wide)
+    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+    if max_in > WIDE_MAX_IN:
+        raise ValueError("in-degree %d exceeds the plain round's %d"
+                         % (max_in, WIDE_MAX_IN))
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            dev, non_blocking=True)
+
+    tables = (put(predsT), put(pmaskT), put(bases.reshape(N)), put(fills),
+              put(a))
+    preds_d = put(preds)
+    mask = put(sink_mask(g, order, N))
+    if clock:
+        clock.mark("dp0")
+    dp = poa_dp if use_kernel else round_dp_plain
+    words, scores = dp(*tables, n_real, len(order), params, W)
+    if clock:
+        clock.mark("dp1")
+    best = best_sink(scores, mask)
+    walk = poa_walk if use_kernel else walk_plain
+    align = walk(words, preds_d, best, n_real)
+    packed = pack_round(scores, align, best)
+    if clock:
+        clock.mark("walk1")
+    return packed, order, wide
