@@ -33,7 +33,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    5 x 5,000 bp example (recovered from ``tests/golden/example_big``),
    launch counters reset before and read after: one DP and one walk per
    round, no plain round; round scores, graph and add lengths and the
-   output file's sha256 as the JAX native engine gives them;
+   output file's sha256 as the JAX native engine gives them; then
+   ``tsta-torch msa`` with the compat engine, byte-identical to the
+   reference's ``msa_default.out``;
 9. 3 x 50 kbp (``bench.stage_msa_50k``'s reads, seed 7) with the kernels
    and with the plain versions on the card, equal in every output: walls,
    cells/s, peak device memory and each round's split;
@@ -42,11 +44,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
     per-problem runs: problems/s;
 11. POA timings: each POA kernel and its plain version at the 3 x 50 kbp
     round-2 shape and the example's last round (CUDA events), every
-    output of the timed runs equal; the kernels record's errors are these.
+    output of the timed runs equal; the kernels record's errors are these;
+12. chunked kernels against their plain versions: a forward chunk of the
+    3 x 50 kbp round 2 cut into 8,192-row chunks (scores, ring out,
+    checkpoints), and, after phase 14, the first cell the last 200 kbp
+    round walks, rematerialised (words, ring out) and walked (exit state,
+    align entries), with times (CUDA events);
+13. 3 x 50 kbp with a budget that cuts every round into >= 4 chunks,
+    equal to phase 9's unchunked run, through the chunk, window and
+    bounded-walk kernels and no plain round;
+14. the slice at full width: 3 x 200 kbp (``bench.stage_msa_200k``'s
+    reads, seed 13) through ``msa_native.align_seqs`` at the card's own
+    budget, every round chunked: wall, cells/s, each round's forward and
+    backward split, remats, cells walked and plan, peak device memory,
+    launches and round scores; every MSA row without its gaps equal to
+    its read.
 
-The last three lines are the kernels record, the ``nvidia-smi`` name and
-power limit, and ``{"ok": true, "device": {...}}``.  Exits non-zero,
-printing no result, without CUDA or outside a checkout of the repo.
+The last three lines are the kernels record (each kernel's launches on
+its main path, error against its plain version, ms, plain ms, bound and
+what bounds it), the ``nvidia-smi`` name and power limit, and ``{"ok":
+true, "device": {...}}``.  Exits non-zero, printing no result, without
+CUDA or outside a checkout of the repo.
 """
 
 from __future__ import annotations
@@ -70,6 +88,21 @@ EXAMPLE_MSA = {"rounds": [-5451, -3101, -1776, -870],
                "graph_len": [6885, 8599, 10130, 11468],
                "add_len": [1885, 1714, 1531, 1338]}
 PSA_KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk")
+CHUNK_KERNELS = ("poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
+BUDGET_50K = 4 * 2 ** 30   # cuts the 3 x 50 kbp rounds into 8,192-row chunks
+# the least time the card could take for a kernel's work: its bytes (each
+# input read once, each output written once) over the H100 SXM's HBM3
+# rate, or its integer operations over the int32 rate of its CUDA cores
+# (132 SMs x 64 INT32 lanes x 1.98 GHz boost), whichever is larger
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations per cell, counted from the kernels' sources: the PSA
+# DP's E, F, H and running max (K1), plus the cell code (K2); a walk
+# step; the POA DP per valid pred (E candidate, H and E first-max
+# updates) and per cell (diagonal, C, F, H, running max, strip max),
+# plus the word and its flags
+OPS_PSA_CELL, OPS_PSA_CODE, OPS_WALK_STEP = 12, 6, 8
+OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
 EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
                       "2ad36f0eab7b90b84292d06f98c7ca72")
 
@@ -106,12 +139,13 @@ def example_msa_reads():
             for k in range(1, 6)]
 
 
-def reads_50k():
-    """3 x 50 kbp, as ``bench.stage_msa_50k`` makes them (seed 7)."""
+def long_reads(seed=7, length=50000):
+    """3 x 50 kbp, as ``bench.stage_msa_50k`` makes them (seed 7); with
+    seed 13 and 200,000 bp, ``bench.stage_msa_200k``'s 3 x 200 kbp."""
     import numpy as np
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
-    base = rng.choice(bases, 50000).tobytes()
+    base = rng.choice(bases, length).tobytes()
 
     def mut(s, rate):
         s = np.frombuffer(s, np.uint8).copy()
@@ -158,6 +192,20 @@ def max_err(got, want) -> int:
         d = g[k:k + step].to(torch.int64) - w[k:k + step].to(torch.int64)
         err = max(err, int(d.abs().max()))
     return err
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The kernels record's bound fields for work of ``nbytes`` bytes
+    and ``ops`` integer operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, reps: int, warm: bool = True):
@@ -385,7 +433,8 @@ def main() -> int:
         "shape": "128 x 10240 score-only", "ms": ms, "plain_ms": pms,
         "gcups": cells_score / ms / 1e6, "plain_gcups": cells_score / pms / 1e6,
         "max_abs_err": max(score_err, *(max_err(g, w)
-                                        for g, w in zip(got, want[:2])))}
+                                        for g, w in zip(got, want[:2]))),
+        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells_score)}
     del a, b, lens, got, want
     for label, group in (("32 x 10 kbp", tpairs), ("1 x 10 kbp", [ex])):
         a, b, nm = psa_diff.pack_pairs(group, dev, traced=True)
@@ -403,10 +452,14 @@ def main() -> int:
         times["psa_dp_traced " + label] = {
             "shape": label + " traced", "ms": ms, "plain_ms": pms,
             "gcups": cells / ms / 1e6, "plain_gcups": cells / pms / 1e6,
-            "max_abs_err": dp_err}
+            "max_abs_err": dp_err,
+            **bound(nbytes(a, b, nm, ks, kc, plane),
+                    (OPS_PSA_CELL + OPS_PSA_CODE) * plane.numel())}
+        steps = int(kcnt.sum())   # one plane byte read per move
         times["psa_walk " + label] = {
             "shape": label, "ms": wms, "plain_ms": wpms,
-            "max_abs_err": max(max_err(kw, pw), max_err(kcnt, pcnt))}
+            "max_abs_err": max(max_err(kw, pw), max_err(kcnt, pcnt)),
+            **bound(steps + nbytes(nm, kw, kcnt), OPS_WALK_STEP * steps)}
         del a, b, nm, plane, ks, kc, ps, pc, kw, kcnt, pw, pcnt
     emit({"phase": "timings", "times": times, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
@@ -415,9 +468,11 @@ def main() -> int:
         raise AssertionError("kernel differs from its plain version at the "
                              "main path's shapes: %s" % bad)
 
-    msa_launches, poa_times = msa_phases(dev, smi_line)
+    msa_launches, poa_times, res_50k = msa_phases(dev, smi_line)
     launches.update(poa_dp=msa_launches["poa_dp"],
                     poa_walk=msa_launches["poa_walk"])
+    chunk_launches, chunk_times = chunked_phases(dev, smi_line, res_50k)
+    launches.update(chunk_launches)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -433,11 +488,19 @@ def main() -> int:
          poa_times["poa_dp 50 kbp round 2"]),
         ("poa_walk", src % "poa_walk.cu", "tsta_tpu/ops/msa_pallas.py:646",
          poa_times["poa_walk 50 kbp round 2"]),
+        ("poa_dp_chunk", src % "poa_dp.cu", "tsta_tpu/ops/msa_pallas.py:58",
+         chunk_times["poa_dp_chunk"]),
+        ("poa_dp_window", src % "poa_dp.cu", "tsta_tpu/ops/msa_pallas.py:58",
+         chunk_times["poa_dp_window"]),
+        ("poa_walk_bounded", src % "poa_walk_bounded.cu",
+         "tsta_tpu/ops/msa_pallas.py:775", chunk_times["poa_walk_bounded"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                       "plain_ms": t["plain_ms"], "shape": t["shape"]}
+                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                       "bound_by": t["bound_by"], "library_ms": None,
+                       "shape": t["shape"]}
                       for n, s, r, t in entries]})
     print(smi_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -445,23 +508,25 @@ def main() -> int:
     return 0
 
 
-def next_round(seqs, rounds, params, dev):
+def next_round(seqs, rounds, params, dev, budget=None):
     """The device inputs of round ``rounds + 1`` of ``seqs``, after
-    ``rounds`` rounds through the kernels."""
+    ``rounds`` rounds through the kernels, planned for ``budget`` bytes
+    (default: the card's)."""
     import numpy as np
     import torch
 
-    from tsta_tpu.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_native, msa_poa
-    budget = msa_poa.device_budget(dev)
+    if budget is None:
+        budget = msa_poa.device_budget(dev)
     g = PoaGraph.from_sequence(seqs[0], len(seqs))
     for sno in range(1, rounds + 1):
         packed, order, _ = msa_poa.run_round(g, seqs[sno], params, dev,
                                              "cuda", budget)
         msa_native._finish_round(g, seqs[sno], sno, order,
                                  packed.cpu().numpy(), [], [], [])
-    prep, n, n_real, a = msa_poa.prep_round(g, seqs[rounds + 1], params,
-                                            budget)
+    prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(
+        g, seqs[rounds + 1], params, budget)
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
 
     def put(x):
@@ -469,8 +534,9 @@ def next_round(seqs, rounds, params, dev):
 
     return {"tables": [put(x) for x in (predsT, pmaskT, bases.reshape(N),
                                         fills, a)],
-            "n_real": n_real, "n_nodes": len(order), "W": W,
-            "preds": put(preds), "mask": put(msa_poa.sink_mask(g, order, N)),
+            "n_real": n_real, "n_nodes": len(order), "W": W, "NC": NC,
+            "NWIN": NWIN, "preds": put(preds),
+            "mask": put(msa_poa.sink_mask(g, order, N)),
             "shape": "%d nodes x %d columns (N %d, max_in %d, W %d)"
                      % (len(order), n, N, max_in, W)}
 
@@ -491,10 +557,19 @@ def poa_compare(r, params, reps: int, plain_warm: bool):
     wpms, pal = cuda_ms(lambda: msa_poa.walk_plain(pw, r["preds"], best,
                                                    r["n_real"]), 1,
                         plain_warm)
+    tables = r["tables"]
+    n, n_real = tables[4].shape[0], r["n_real"]
+    preds_in = int(tables[1][:, :nn].sum())
+    dp_ops = n * (OPS_POA_PRED * preds_in
+                  + (OPS_POA_CELL + OPS_POA_WORD) * nn)
+    # the walk consumes n_real columns at least: a word and a pred each
+    walk_bytes = n_real * 6 + nbytes(kal, best)
     return ({"shape": r["shape"], "ms": ms, "plain_ms": pms,
-             "max_abs_err": dp_err},
+             "max_abs_err": dp_err,
+             **bound(nbytes(*tables, kw, ks), dp_ops)},
             {"shape": r["shape"], "ms": wms, "plain_ms": wpms,
-             "max_abs_err": max_err(kal, pal)})
+             "max_abs_err": max_err(kal, pal),
+             **bound(walk_bytes, OPS_WALK_STEP * n_real)})
 
 
 def msa_phases(dev, smi_line):
@@ -504,6 +579,7 @@ def msa_phases(dev, smi_line):
     import torch
 
     from tsta_tpu_torch import AlignParams, cli
+    from tsta_tpu_torch.native import build
     from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
     params = AlignParams()
     ex = example_msa_reads()
@@ -551,6 +627,16 @@ def msa_phases(dev, smi_line):
         plain = msa_native.plain_rounds - p0
         with open(out, "rb") as f:
             sha = hashlib.sha256(f.read()).hexdigest()
+        # the compat engine (the port's own build of compat_msa.c, with
+        # OpenMP only where gcc has it) gives the reference's output
+        out_c = os.path.join(tmp, "compat.out")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_c = cli.main(["msa", "-i", fa, "-o", out_c])
+        compat_wall = time.perf_counter() - t0
+        with open(out_c, "rb") as f, \
+                open(os.path.join(GOLDEN, "msa_default.out"), "rb") as g:
+            compat_ok = rc_c == 0 and f.read() == g.read()
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
     got = {k: rec[k] for k in EXAMPLE_MSA}
     # the same reads through the library, for each round's wall split
@@ -559,7 +645,12 @@ def msa_phases(dev, smi_line):
     emit({"phase": "msa_main_path", "rc": rc, "wall_s": wall,
           "cli_wall_s": rec["wall_s"], "launches": launches,
           "plain_rounds": plain, "sha256": sha, **got,
-          "rounds_split": clock.rounds})
+          "rounds_split": clock.rounds,
+          "compat_golden_identical": compat_ok,
+          "compat_wall_s": compat_wall,
+          "compat_openmp": build.has_openmp(build.compiler())})
+    if not compat_ok:
+        raise AssertionError("compat engine differs from msa_default.out")
     n_rounds = len(EXAMPLE_MSA["rounds"])
     if again.round_scores != EXAMPLE_MSA["rounds"]:
         raise AssertionError("library run differs from the CLI run")
@@ -573,7 +664,7 @@ def msa_phases(dev, smi_line):
                              % (launches, plain))
 
     # 9. 3 x 50 kbp, kernels and plain versions on the card
-    seqs = reads_50k()
+    seqs = long_reads()
     runs = {}
     for kernel in ("cuda", "plain"):
         clock = msa_poa.RoundClock(dev)
@@ -594,7 +685,8 @@ def msa_phases(dev, smi_line):
                          for k in ("poa_dp", "poa_walk")},
             "plain_rounds": msa_native.plain_rounds - p0,
             "rounds_split": clock.rounds}
-    same = runs["cuda"].pop("out") == runs["plain"].pop("out")
+    res_50k = runs["cuda"].pop("out")
+    same = res_50k == runs["plain"].pop("out")
     emit({"phase": "msa_50k", "equal": same, "rounds": res.round_scores,
           "graph_len": res.graph_len, "cells": msa_cells(seqs, res),
           "read_lengths": [len(x) for x in seqs], **runs, "smi": smi_line})
@@ -639,7 +731,207 @@ def msa_phases(dev, smi_line):
     if bad:
         raise AssertionError("POA kernel differs from its plain version at "
                              "the main path's shapes: %s" % bad)
-    return launches, times
+    return launches, times, res_50k
+
+
+def degapped_ok(seqs, out) -> bool:
+    """Each MSA row without its gaps is its read, and the consensus is
+    not empty."""
+    return (len(out.rows) == len(seqs) and len(out.consensus) > 0
+            and all(r.replace(b"-", b"") == bytes(s)
+                    for r, s in zip(out.rows, seqs)))
+
+
+def chunk_ops(tables, n_nodes, n, words):
+    """Integer operations of one POA DP launch over ``n`` columns."""
+    preds_in = int(tables[1][:, :n_nodes].sum())
+    return n * (OPS_POA_PRED * preds_in + (OPS_POA_CELL + OPS_POA_WORD * words)
+                * n_nodes)
+
+
+def chunked_phases(dev, smi_line, res_50k):
+    """Phases 12-14 (chunked rounds); returns the slice's launch counts
+    from the 200 kbp run and the chunked kernels' timing records."""
+    import torch
+
+    from tsta_tpu_torch import AlignParams
+    from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
+    params = AlignParams()
+    seqs = long_reads()
+    times = {}
+    budget_50k = BUDGET_50K
+
+    # 12. a forward chunk of the 50 kbp round 2, kernel against plain
+    r = next_round(seqs, 1, params, dev, budget_50k)
+    NC, NWIN, W = r["NC"], r["NWIN"], r["W"]
+    predsT, pmaskT, bases, fills, a = r["tables"]
+    n = a.shape[0]
+
+    def chunk(c):
+        sl = slice(c * NC, (c + 1) * NC)
+        return [predsT[:, sl].contiguous(), pmaskT[:, sl].contiguous(),
+                bases[sl], fills[:, sl].contiguous(), a]
+
+    ring0 = msa_poa.new_ring(W, n, dev)
+    ck0 = torch.zeros((NC, NWIN, 3), dtype=torch.int32, device=dev)
+    msa_poa.poa_dp(*chunk(0), r["n_real"], NC, params, W, ring=ring0,
+                   ckpt=ck0, with_words=False)
+    outs = {}
+
+    def forward(fn, key):
+        ring = ring0.clone()
+        ck = torch.zeros((NC, NWIN, 3), dtype=torch.int32, device=dev)
+        _, sc = fn(*chunk(1), r["n_real"], NC, params, W, ring=ring,
+                   chunk_base=NC, ckpt=ck, with_words=False)
+        outs[key] = (sc, ring, ck)
+
+    ms, _ = cuda_ms(lambda: forward(msa_poa.poa_dp, "kernel"), 3)
+    pms, _ = cuda_ms(lambda: forward(msa_native.round_dp_plain, "plain"), 1,
+                     False)
+    err = max(max_err(k, p) for k, p in zip(outs["kernel"], outs["plain"]))
+    tabs = chunk(1)
+    times["poa_dp_chunk"] = {
+        "shape": "50 kbp round 2, chunk 1: %d rows x %d columns, NWIN %d, "
+                 "W %d" % (NC, n, NWIN, W),
+        "ms": ms, "plain_ms": pms, "max_abs_err": err,
+        **bound(nbytes(*tabs, *outs["kernel"]) + nbytes(ring0),
+                chunk_ops(tabs, NC, n, False))}
+    emit({"phase": "chunk_kernels_50k", **times["poa_dp_chunk"],
+          "plan": {"NC": NC, "NWIN": NWIN, "n": n}})
+    if err or not NWIN:
+        raise AssertionError("forward chunk differs from its plain version")
+    del outs, ring0, ck0, r
+
+    # 13. 3 x 50 kbp cut into >= 4 chunks, against phase 9's unchunked run
+    clock = msa_poa.RoundClock(dev)
+    _kernels.reset_launches()
+    p0 = msa_native.plain_rounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = msa_native.align_seqs(seqs, params, device=dev, clock=clock,
+                                budget=budget_50k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: _kernels.launches[k] for k in ("poa_dp", *CHUNK_KERNELS)}
+    plain = msa_native.plain_rounds - p0
+    same = out == res_50k
+    emit({"phase": "msa_50k_chunked", "equal_to_unchunked": same,
+          "wall_s": wall, "cells_per_s": msa_cells(seqs, out) / wall,
+          "rounds": out.round_scores, "launches": launches,
+          "plain_rounds": plain, "rounds_split": clock.rounds})
+    if not same or plain or launches["poa_dp"] \
+            or min(launches[k] for k in CHUNK_KERNELS) < 1 \
+            or min(rd.get("chunks", 0) for rd in clock.rounds) < 4:
+        raise AssertionError("3 x 50 kbp chunked differs from unchunked")
+
+    # 14. the slice at full width: 3 x 200 kbp at the card's budget; the
+    # first cell each round walks is kept for phase 12's comparison
+    seqs = long_reads(13, 200000)
+    cell = {}
+    real_dp, real_walk = msa_poa.poa_dp, msa_poa.poa_walk_bounded
+
+    def keep(x):
+        return x.clone() if torch.is_tensor(x) else x
+
+    def spy_dp(*args, **kw):
+        if not kw.get("with_words", True) and kw.get("chunk_base") == 0:
+            cell.clear()   # a new round's forward
+        elif kw.get("with_words", True) and kw.get("ring") is not None \
+                and "dp" not in cell:
+            cell["dp"] = ([keep(x) for x in args],
+                          {k: keep(v) for k, v in kw.items()})
+        return real_dp(*args, **kw)
+
+    def spy_walk(*args):
+        if "walk" not in cell:   # its words are rematerialised below
+            cell["walk"] = [None] + [keep(x) for x in args[1:]]
+        return real_walk(*args)
+
+    clock = msa_poa.RoundClock(dev)
+    msa_poa.poa_dp, msa_poa.poa_walk_bounded = spy_dp, spy_walk
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_launches()
+        p0 = msa_native.plain_rounds
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = msa_native.align_seqs(seqs, params, device=dev, clock=clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        plain = msa_native.plain_rounds - p0
+    finally:
+        msa_poa.poa_dp, msa_poa.poa_walk_bounded = real_dp, real_walk
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    cells = msa_cells(seqs, out)
+    ok = degapped_ok(seqs, out)
+    emit({"phase": "msa_200k", "wall_s": wall, "cells": cells,
+          "cells_per_s": cells / wall, "peak_device_gb": peak,
+          "rounds": out.round_scores, "graph_len": out.graph_len,
+          "add_len": out.add_len, "read_lengths": [len(x) for x in seqs],
+          "launches": {k: launches[k] for k in ("poa_dp", "poa_walk",
+                                                 *CHUNK_KERNELS)},
+          "plain_rounds": plain, "rows_degapped_equal_reads": ok,
+          "rounds_split": clock.rounds, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    if not ok or plain or launches["poa_dp"] or launches["poa_walk"] \
+            or min(launches[k] for k in CHUNK_KERNELS) < 1 \
+            or not all("NC" in rd for rd in clock.rounds):
+        raise AssertionError("3 x 200 kbp did not run every round chunked "
+                             "through the kernels")
+
+    # 12, continued: the last round's first walked cell, kernel against
+    # plain, from the inputs the 200 kbp run gave it
+    args, kw = cell["dp"]
+    ring_in = kw.pop("ring")
+    wargs = cell["walk"]
+    res = {}
+
+    def remat(fn, key):
+        ring = ring_in.clone()
+        words, _ = fn(*args, ring=ring, **kw)
+        res[key] = (words, ring)
+
+    ms, _ = cuda_ms(lambda: remat(msa_poa.poa_dp, "kernel"), 3)
+    pms, _ = cuda_ms(lambda: remat(msa_native.round_dp_plain, "plain"), 1,
+                     False)
+    words = res["kernel"][0]
+    nc, cw = words.shape
+    err = max(max_err(k, p) for k, p in zip(res["kernel"], res["plain"]))
+    times["poa_dp_window"] = {
+        "shape": "200 kbp round %d, cell (%d, %d): %d rows x %d columns"
+                 % (len(out.round_scores), kw["chunk_base"] // nc,
+                    kw["col0"] // cw, nc, cw),
+        "ms": ms, "plain_ms": pms, "max_abs_err": err,
+        **bound(nbytes(*[x for x in args if torch.is_tensor(x)],
+                       ring_in, *res["kernel"]),
+                chunk_ops(args[:2], args[6], cw, True))}
+    preds, row, j, state, base, col0, align_in = wargs[1:]
+    walks = {}
+
+    def walk(fn, key):
+        align = align_in.clone()
+        walks[key] = (fn(words, preds, row, j, state, base, col0, align),
+                      align)
+
+    wms, _ = cuda_ms(lambda: walk(msa_poa.poa_walk_bounded, "kernel"), 3)
+    wpms, _ = cuda_ms(lambda: walk(msa_poa.walk_bounded_plain, "plain"), 1,
+                      False)
+    consumed = j - int(walks["kernel"][0][1])
+    werr = max(max_err(k, p) for k, p in zip(walks["kernel"], walks["plain"]))
+    times["poa_walk_bounded"] = {
+        "shape": times["poa_dp_window"]["shape"] + ", %d columns walked"
+                 % consumed,
+        "ms": wms, "plain_ms": wpms, "max_abs_err": werr,
+        # per consumed column a word and a pred read and an align write
+        **bound(consumed * 10 + 12, OPS_WALK_STEP * consumed)}
+    emit({"phase": "chunk_kernels_200k", "times": {
+        k: times[k] for k in ("poa_dp_window", "poa_walk_bounded")},
+        "exit_state": walks["kernel"][0].tolist(), "smi": smi_line})
+    if err or werr or consumed < 1:
+        raise AssertionError("200 kbp cell: kernel differs from its plain "
+                             "version")
+    return {k: launches[k] for k in CHUNK_KERNELS}, times
 
 
 if __name__ == "__main__":

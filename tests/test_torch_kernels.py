@@ -1,6 +1,8 @@
-"""The CUDA kernels of tsta_tpu_torch (PSA DP and walk, POA round DP and
-walk) against their plain PyTorch versions on the card, with exact
-integer equality, and the MSA engine's kernel route against the CPU.
+"""The CUDA kernels of tsta_tpu_torch (PSA DP and walk, POA round DP in
+its single-call, forward-chunk and window-remat uses, POA walk and
+bounded walk) against their plain PyTorch versions on the card, with
+exact integer equality, and the MSA engine's kernel route, chunked
+rounds included, against the CPU.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (this file imports no jax, so it also runs on a host without it):
@@ -120,7 +122,7 @@ def _reads(seed, n_reads, length, div=0.12):
 
 def _round_inputs(g, seq, params, dev):
     from tsta_tpu_torch.ops import msa_poa
-    prep, n, n_real, a = msa_poa.prep_round(g, seq, params, 1 << 34)
+    prep, n, n_real, a, _, _ = msa_poa.prep_round(g, seq, params, 1 << 34)
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
          for x in (predsT, pmaskT, bases.reshape(N), fills, a)]
@@ -130,8 +132,8 @@ def _round_inputs(g, seq, params, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,length", [(0, 300), (1, 1500)])
 def test_poa_dp_and_walk_kernels_match_plain(cuda, seed, length):
-    from tsta_tpu.config import AlignParams
-    from tsta_tpu.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_native, msa_poa
     AP = AlignParams()
     reads = _reads(seed, 5, length)
@@ -166,7 +168,7 @@ def test_poa_dp_and_walk_kernels_match_plain(cuda, seed, length):
 
 @pytest.mark.cuda
 def test_msa_kernel_route_matches_cpu(cuda):
-    from tsta_tpu.config import AlignParams
+    from tsta_tpu_torch.config import AlignParams
     from tsta_tpu_torch.ops import msa_native
     sets = [_reads(10 + k, 4, 400 + 150 * k) for k in range(3)]
     want = [msa_native.align_seqs(s, AlignParams(), device="cpu")
@@ -187,8 +189,8 @@ def test_msa_kernel_route_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_wide_round_goes_plain_and_cuda_refuses_it(cuda, monkeypatch):
-    from tsta_tpu.config import AlignParams
-    from tsta_tpu.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_native
     orig = PoaGraph.from_sequence
 
@@ -234,3 +236,153 @@ def test_poa_wrappers_refuse_bad_tensors(cuda):
         _kernels.poa_walk(words, predsT.T.contiguous(),
                           torch.zeros((1,), dtype=torch.int64, device=cuda),
                           5, torch.full((128,), -1, dtype=i32, device=cuda))
+
+
+@pytest.mark.cuda
+def test_poa_chunk_window_and_bounded_walk_kernels_match_plain(cuda):
+    """A 2,048-column round cut into 4 chunks of 512 rows with 2 column
+    windows: each forward chunk (scores, ring out, checkpoints), then the
+    window remat of every cell on the round's path (words, ring out) and
+    the bounded walk through it (align entries, exit state) on the card
+    equal their plain versions on the CPU."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_chunked, msa_poa
+    AP = AlignParams()
+    reads = _reads(41, 2, 2000, 0.08)
+    g = PoaGraph.from_sequence(reads[0], 2)
+    prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(g, reads[1], AP,
+                                                      2 ** 30 // 100)
+    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+    assert (NC, NWIN, N % NC) == (512, 2, 0)
+    CW = n // NWIN
+    devs = {"cpu": torch.device("cpu"), "cuda": cuda}
+    tabs = {d: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dv)
+                for k, v in (("predsT", predsT), ("pmaskT", pmaskT),
+                             ("bases", bases.reshape(N)), ("fills", fills),
+                             ("preds", preds), ("a", a))}
+            for d, dv in devs.items()}
+    rings = {d: msa_poa.new_ring(W, n, dv) for d, dv in devs.items()}
+    cks = {d: torch.zeros((N, NWIN, 3), dtype=torch.int32, device=dv)
+           for d, dv in devs.items()}
+    n0 = dict(_kernels.launches)
+
+    def rows(c):
+        return min(max(len(order) - c * NC, 0), NC)
+
+    def chunk(t, c):
+        return [t["predsT"][:, c * NC:(c + 1) * NC].contiguous(),
+                t["pmaskT"][:, c * NC:(c + 1) * NC].contiguous(),
+                t["bases"][c * NC:(c + 1) * NC]]
+
+    snaps, scores = [], []
+    for c in range(N // NC):
+        snaps.append({d: r.clone() for d, r in rings.items()})
+        sc = {}
+        for d, t in tabs.items():
+            _, sc[d] = msa_poa.poa_dp(
+                *chunk(t, c), t["fills"][:, c * NC:(c + 1) * NC].contiguous(),
+                t["a"], n_real, rows(c), AP, W, ring=rings[d],
+                chunk_base=c * NC, ckpt=cks[d][c * NC:(c + 1) * NC],
+                with_words=False)
+        torch.cuda.synchronize()
+        assert torch.equal(sc["cuda"].cpu(), sc["cpu"])
+        assert torch.equal(rings["cuda"].cpu(), rings["cpu"])
+        scores.append(sc["cpu"])
+    assert torch.equal(cks["cuda"].cpu(), cks["cpu"])
+    assert _kernels.launches["poa_dp_chunk"] == n0["poa_dp_chunk"] + N // NC
+
+    mask = torch.from_numpy(msa_poa.sink_mask(g, order, N))
+    row = int(msa_poa.best_sink(torch.cat(scores), mask))
+    j, state = n_real - 1, 0
+    aligns = {d: torch.full((n,), -1, dtype=torch.int32, device=dv)
+              for d, dv in devs.items()}
+    hb = {d: ck[:, :, 0].contiguous() for d, ck in cks.items()}
+    cells = 0
+    while row >= 0 and j >= 0:
+        c, w = row // NC, min(j // CW, NWIN - 1)
+        col0, sl = w * CW, slice(c * NC, (c + 1) * NC)
+        out, words = {}, {}
+        for d, t in tabs.items():
+            pt, pm, bs = chunk(t, c)
+            fl = (msa_chunked.win_fills(cks[d][sl], hb[d], pt, pm, w - 1,
+                                        col0, AP.gap_extend, AP.gap_open)
+                  if w else t["fills"][:, sl].contiguous())
+            ring = msa_chunked.ring_window(snaps[c][d], n, col0, CW)
+            words[d], _ = msa_poa.poa_dp(pt, pm, bs, fl,
+                                         t["a"][col0:col0 + CW], n_real,
+                                         rows(c), AP, W, ring=ring,
+                                         chunk_base=c * NC, col0=col0)
+            out[d] = msa_poa.poa_walk_bounded(words[d], t["preds"][sl], row,
+                                              j, state, c * NC, col0,
+                                              aligns[d])
+        torch.cuda.synchronize()
+        assert torch.equal(words["cuda"].cpu(), words["cpu"])
+        assert out["cuda"].tolist() == out["cpu"].tolist()
+        assert torch.equal(aligns["cuda"].cpu(), aligns["cpu"])
+        row, j, state = out["cpu"].tolist()
+        cells += 1
+    assert cells >= 4 and (aligns["cpu"] >= 0).sum() > 1900
+    assert _kernels.launches["poa_dp_window"] == n0["poa_dp_window"] + cells
+    assert (_kernels.launches["poa_walk_bounded"]
+            == n0["poa_walk_bounded"] + cells)
+
+
+@pytest.mark.cuda
+def test_chunked_kernel_route_matches_cpu(cuda):
+    """Progressive runs whose rounds the plan chunks (a small explicit
+    budget), NWIN = 0 and NWIN = 2, on the card through the kernels equal
+    the CPU's plain runs; the fleet too."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_native
+    AP = AlignParams()
+    cases = [(_reads(29, 3, 1400, 0.15), 6_000_000),
+             (_reads(41, 3, 2000, 0.08), 2 ** 30 // 100)]
+    p0 = msa_native.plain_rounds
+    for reads, budget in cases:
+        want = msa_native.align_seqs(reads, AP, device="cpu", budget=budget)
+        n0 = dict(_kernels.launches)
+        got = msa_native.align_seqs(reads, AP, kernel="cuda", device=cuda,
+                                    budget=budget)
+        assert got == want
+        for k in ("poa_dp_chunk", "poa_dp_window", "poa_walk_bounded"):
+            assert _kernels.launches[k] > n0[k], k
+        fleet = msa_native.align_seqs_many([reads, reads[:2]], AP,
+                                           device=cuda, budget=budget)
+        assert fleet[0] == want
+    assert msa_native.plain_rounds == p0
+
+
+@pytest.mark.cuda
+def test_chunk_wrappers_refuse_bad_tensors(cuda):
+    i32 = torch.int32
+    predsT = torch.zeros((2, 128), dtype=i32, device=cuda)
+    bases = torch.zeros((128,), dtype=i32, device=cuda)
+    fills = torch.zeros((4, 128), dtype=i32, device=cuda)
+    a = torch.zeros((2048,), dtype=torch.uint8, device=cuda)
+    words = torch.zeros((128, 2048), dtype=torch.int16, device=cuda)
+    scores = torch.zeros((128,), dtype=i32, device=cuda)
+    ring = torch.zeros((2, 2, _kernels.poa_ring_width(2048)), dtype=i32,
+                       device=cuda)
+    ckpt = torch.zeros((128, 2, 3), dtype=i32, device=cuda)
+    with pytest.raises(ValueError):   # ring laid out for another width
+        _kernels.poa_dp(predsT, predsT, bases, fills,
+                        torch.zeros((8192,), dtype=torch.uint8, device=cuda),
+                        5, 10, P0, 2,
+                        torch.zeros((128, 8192), dtype=torch.int16,
+                                    device=cuda), scores, ring=ring)
+    with pytest.raises(ValueError):   # words and checkpoints together
+        _kernels.poa_dp(predsT, predsT, bases, fills, a, 5, 10, P0, 2,
+                        words, scores, ring=ring, ckpt=ckpt)
+    with pytest.raises(ValueError):   # a single call takes no checkpoints
+        _kernels.poa_dp(predsT, predsT, bases, fills, a, 5, 10, P0, 2,
+                        words, scores, ckpt=ckpt)
+    out = torch.zeros((3,), dtype=i32, device=cuda)
+    align = torch.full((1024,), -1, dtype=i32, device=cuda)
+    with pytest.raises(ValueError):   # the cell reaches past the round
+        _kernels.poa_walk_bounded(words, predsT.T.contiguous(), 5, 5, 0, 0,
+                                  0, align, out)
+    with pytest.raises(ValueError):
+        _kernels.poa_walk_bounded(words, predsT.T.contiguous(), 5, 5, 3, 0,
+                                  0, torch.full((2048,), -1, dtype=i32,
+                                                device=cuda), out)

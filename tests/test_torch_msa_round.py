@@ -9,6 +9,7 @@ rounds, so they hold multi-pred nodes; every comparison covers the real
 rows, and the padded columns of each real row."""
 
 import copy
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -59,8 +60,9 @@ def _grown(seed, length, params, rounds=3):
 
 
 def _port_round(g, seq, params):
-    prep, n, n_real, a = msa_poa.prep_round(g, seq, params,
-                                            msa_poa.CPU_BUDGET)
+    prep, n, n_real, a, NC, _ = msa_poa.prep_round(g, seq, params,
+                                                   msa_poa.CPU_BUDGET)
+    assert NC is None
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
     t = [torch.from_numpy(np.ascontiguousarray(x))
          for x in (predsT, pmaskT, bases.reshape(N), fills, a)]
@@ -112,11 +114,24 @@ def test_round_plan_matches_jax(N, n, W, budget, monkeypatch):
 
 
 def test_prep_round_refuses_a_chunked_plan():
+    """A round the plan chunks is no longer refused: ``prep_round``
+    returns the plan's chunk size and column windows (none: n is not a
+    multiple of 1,024), the same tables, and the chunked round runs."""
     g, seq = _grown(0, 600, AlignParams(), rounds=1)
     N, W = msa_poa.prepare(g, AlignParams())[4:7:2]
-    assert msa_poa.round_plan(N, bucket(len(seq)), W, 2_000_000)
-    with pytest.raises(NotImplementedError, match="Queue 1 step 4"):
-        msa_poa.prep_round(g, seq, AlignParams(), 2_000_000)
+    NC = msa_poa.round_plan(N, bucket(len(seq)), W, 2_000_000)
+    assert NC
+    prep, n, n_real, a, nc, nwin = msa_poa.prep_round(g, seq, AlignParams(),
+                                                      2_000_000)
+    assert (nc, nwin, n % 1024 != 0) == (NC, 0, True)
+    assert msa_poa._ckpt_windows(2048) == 2
+    assert msa_poa._ckpt_windows(49152) == 8
+    assert msa_poa._ckpt_windows(196608) == 8
+    packed, _, _ = msa_poa.run_round(g, seq, AlignParams(), CPU, "auto",
+                                     2_000_000)
+    want, _, _ = msa_poa.run_round(g, seq, AlignParams(), CPU, "auto",
+                                   msa_poa.CPU_BUDGET)
+    assert torch.equal(packed, want)
     assert msa_poa.round_columns(16384) == 16384
     assert msa_poa.round_columns(16385) == 24576
 
@@ -268,23 +283,28 @@ def test_poa_words_round_trip(shape):
         convert.poa_words_from_jax(jw[..., :64])
 
 
-def test_host_library_without_openmp(monkeypatch):
-    """Where the JAX builder's ``-fopenmp`` build of poa_fast.c fails, the
-    port builds it without OpenMP and registers it, so the rounds and the
-    graph's own native helpers run on that build."""
-    import tsta_tpu.native.build as native_build
-    from tsta_tpu_torch.ops import _host
+def test_host_library_without_openmp(monkeypatch, tmp_path):
+    """Where the C compiler has no OpenMP runtime, the port's builder
+    compiles its native sources without ``-fopenmp``, into its own build
+    directory, and the rounds and the graph's native helpers run on that
+    build; the compat engine, the one source that calls OpenMP, gives the
+    same output on one thread."""
+    from tsta_tpu_torch.models import msa as tmsa
+    from tsta_tpu_torch.native import build as tbuild
 
-    def fail(src, stem):
-        raise RuntimeError("native build failed: no OpenMP runtime")
-
-    monkeypatch.setattr(native_build, "_POA_LIB", None)
-    monkeypatch.setattr(native_build, "_load_cached", fail)
-    lib = _host.load_poa()
-    assert native_build.load_poa() is lib
-    assert "build" in str(lib._name) and "libtsta_poa_host_" in lib._name
+    seqs = _reads(8, 3, 300)
+    want = tmsa.align_seqs(seqs, engine="compat")
+    monkeypatch.setattr(tbuild, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(tbuild, "_LIBS", {})
+    monkeypatch.setattr(tbuild, "_OPENMP", {tbuild.compiler(): False})
+    lib = tbuild.load_poa()
+    assert lib._name.startswith(str(tmp_path))
+    assert os.path.basename(lib._name).startswith("libpoa_fast_")
     g, seq = _grown(6, 150, AlignParams())
     monkeypatch.setenv("TSTA_NATIVE_TOPO", "force")
     native = list(g.toposort())
     monkeypatch.setenv("TSTA_NATIVE_TOPO", "0")
     assert list(g.toposort()) == native
+    got = tmsa.align_seqs(seqs, engine="compat")
+    assert tbuild.load()._name.startswith(str(tmp_path))
+    assert got == want

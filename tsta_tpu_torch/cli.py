@@ -18,9 +18,39 @@ import argparse
 import sys
 import time
 
-from tsta_tpu.cli import _merge_negative_values
-from tsta_tpu.utils.logging import emit_json, get_logger
 from tsta_tpu_torch.device import DEFAULT_DEVICE, DeviceError
+from tsta_tpu_torch.utils.logging import emit_json, get_logger
+
+_INT_FLAGS = {"-M", "-X", "-E", "-O", "-T", "-W"}
+
+
+def _merge_negative_values(argv):
+    """Rewrite ['-X', '-3'] to ['-X=-3'].
+
+    argparse disables negative-number value detection when the parser has
+    digit-named flags (the reference-compatible ``-1``/``-2``), so scoring
+    flags with negative values would otherwise be rejected.
+    """
+    out = []
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if (tok in _INT_FLAGS and i + 1 < len(argv)
+                and _is_int(argv[i + 1])):
+            out.append(tok + "=" + argv[i + 1])
+            i += 2
+        else:
+            out.append(tok)
+            i += 1
+    return out
+
+
+def _is_int(s: str) -> bool:
+    try:
+        int(s)
+        return True
+    except ValueError:
+        return False
 
 
 def _add_scoring_flags(p: argparse.ArgumentParser) -> None:
@@ -47,7 +77,7 @@ def _add_scoring_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _params(args):
-    from tsta_tpu.config import AlignParams
+    from tsta_tpu_torch.config import AlignParams
     return AlignParams(match=args.M, mismatch=args.X, gap_extend=args.E,
                        gap_open=args.O)
 
@@ -120,7 +150,7 @@ def cmd_msa_batch(args) -> int:
     CUDA stream per problem, host merges overlapping device rounds)."""
     import os
 
-    from tsta_tpu.io import read_records
+    from tsta_tpu_torch.io import read_records
     from tsta_tpu_torch.models import msa
     from tsta_tpu_torch.ops import msa_native
     from tsta_tpu_torch.parallel.batch import stride_for_process

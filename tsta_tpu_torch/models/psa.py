@@ -18,8 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from tsta_tpu.config import AlignParams
-from tsta_tpu.io import encode_dna, read_first_record
+from tsta_tpu_torch.config import AlignParams
+from tsta_tpu_torch.io import encode_dna, read_first_record
 from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.ops import psa_diff, psa_scan, traceback
 

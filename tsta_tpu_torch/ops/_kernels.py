@@ -28,17 +28,21 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("psa_dp.cu", "psa_walk.cu", "poa_dp.cu", "poa_walk.cu")
+_SOURCES = ("psa_dp.cu", "psa_walk.cu", "poa_dp.cu", "poa_walk.cu",
+            "poa_walk_bounded.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 # K1 and K2 are the score-only and traced uses of the one PSA DP kernel
 # source; K3 is the PSA walk; poa_dp and poa_walk are the MSA round DP and
-# its walk.
+# its walk on a single-call round; poa_dp_chunk and poa_dp_window are the
+# POA DP kernel's forward chunk and window remat in a chunked round, and
+# poa_walk_bounded its walk inside one (chunk, window) cell.
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk", "poa_dp",
-           "poa_walk")
+           "poa_walk", "poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
+POA_THREADS = 1024   # poa_dp.cu's block: one column strip per thread
 launches = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
@@ -133,12 +137,13 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_scratch_words.argtypes = [ci]
             lib.tsta_psa_walk.restype = ci
             lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp]
-            lib.tsta_poa_dp_ring_words.restype = ci
-            lib.tsta_poa_dp_ring_words.argtypes = [ci, ci]
             lib.tsta_poa_dp.restype = ci
-            lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 10 + [vp] * 4
+            lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 5
             lib.tsta_poa_walk.restype = ci
             lib.tsta_poa_walk.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp]
+            lib.tsta_poa_walk_bounded.restype = ci
+            lib.tsta_poa_walk_bounded.argtypes = [vp, vp] + [ci] * 8 + [
+                vp, vp, vp]
             _LIB = lib
         return _LIB
 
@@ -222,14 +227,31 @@ def psa_walk(plane, nm, words, counts) -> None:
     launches["psa_walk"] += 1
 
 
+def poa_ring_width(n: int) -> int:
+    """Ints per H or E row of ``poa_dp.cu``'s ring at ``n`` columns: the
+    strip width (ceil(n / 1024) rounded up to 4) times 1024."""
+    w = -(-n // POA_THREADS)
+    return ((w + 3) & ~3) * POA_THREADS
+
+
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
-           words, scores) -> None:
-    """Launch the POA round DP (one block, the whole round).  ``predsT``,
-    ``pmaskT``: (max_in, N) int32 pred table (buffer row ids, 0 = the
-    virtual row) and validity; ``bases``: (N,) int32; ``fills``: (4, N)
-    int32 left-boundary seeds; ``a``: (n,) uint8 read; ``W``: ring slots.
-    Writes rows < ``n_nodes`` of ``words`` ((N, n) int16) and ``scores``
-    ((N,) int32)."""
+           words, scores, *, ring=None, chunk_base=0, col0=0,
+           ckpt=None) -> None:
+    """Launch the POA round DP (one block).  ``predsT``, ``pmaskT``:
+    (max_in, N) int32 pred table (buffer row ids, 0 = the virtual row)
+    and validity; ``bases``: (N,) int32; ``fills``: (4, N) int32
+    left-boundary seeds; ``a``: (n,) uint8, the read's columns [col0,
+    col0 + n); ``W``: ring slots.  Writes rows < ``n_nodes`` of ``scores``
+    ((N,) int32) and of ``words`` ((N, n) int16, or None for none).
+
+    Three uses, each with its launch counter: ``ring`` None is the single
+    call (``poa_dp``, a private ring, words required); with ``ring``
+    ((W, 2, poa_ring_width(n)) int32, read and written in place) the rows
+    are those of global rows ``chunk_base + i`` of a chunked round,
+    either its forward chunk (``poa_dp_chunk``: no words, and ``ckpt``
+    ((N, nwin, 3) int32) gets the H, q and F checkpoints at the last
+    column of each of nwin windows of n / nwin columns) or a window
+    remat (``poa_dp_window``: words, no checkpoints)."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("poa_dp kernel needs CUDA tensors, got %s" % dev)
@@ -240,25 +262,45 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     _check(bases, "bases", torch.int32, (N,), dev)
     _check(fills, "fills", torch.int32, (4, N), dev)
     _check(a, "a", torch.uint8, (n,), dev)
-    _check(words, "words", torch.int16, (N, n), dev)
     _check(scores, "scores", torch.int32, (N,), dev)
+    if words is not None:
+        _check(words, "words", torch.int16, (N, n), dev)
     if max_in > POA_MAX_IN:
         raise ValueError("poa_dp packs pred indices into 6 bits: max_in %d "
                          "> %d" % (max_in, POA_MAX_IN))
-    if n % 4 or not 1 <= n_real <= n or not 0 <= n_nodes <= N or W < 1:
+    if n % 4 or not 1 <= n_real or not 0 <= n_nodes <= N or W < 1 \
+            or chunk_base < 0 or col0 < 0:
         raise ValueError("poa_dp: bad sizes n=%d n_real=%d n_nodes=%d N=%d "
-                         "W=%d" % (n, n_real, n_nodes, N, W))
-    lib = _lib()
-    ring = torch.empty((lib.tsta_poa_dp_ring_words(n, W),),
-                       dtype=torch.int32, device=dev)
+                         "W=%d chunk_base=%d col0=%d"
+                         % (n, n_real, n_nodes, N, W, chunk_base, col0))
+    nwin = cw = 0
+    if ring is None:
+        if words is None or ckpt is not None or chunk_base or col0:
+            raise ValueError("poa_dp: a single call takes words only")
+        kind = "poa_dp"
+        ring = torch.empty((W, 2, poa_ring_width(n)), dtype=torch.int32,
+                           device=dev)
+    else:
+        _check(ring, "ring", torch.int32, (W, 2, poa_ring_width(n)), dev)
+        if words is not None and ckpt is not None:
+            raise ValueError("poa_dp: words and ckpt are not both given")
+        kind = "poa_dp_window" if words is not None else "poa_dp_chunk"
+    if ckpt is not None:
+        nwin = ckpt.shape[1]
+        _check(ckpt, "ckpt", torch.int32, (N, nwin, 3), dev)
+        if nwin < 1 or n % nwin:
+            raise ValueError("poa_dp: %d columns in %d windows" % (n, nwin))
+        cw = n // nwin
     m_, x_, e_, o_ = params
-    rc = lib.tsta_poa_dp(predsT.data_ptr(), pmaskT.data_ptr(),
-                         bases.data_ptr(), fills.data_ptr(), a.data_ptr(),
-                         N, n_nodes, n, n_real, W, max_in, m_, x_, e_, o_,
-                         words.data_ptr(), scores.data_ptr(), ring.data_ptr(),
-                         _stream(dev))
-    _raise_on(rc, "poa_dp")
-    launches["poa_dp"] += 1
+    rc = _lib().tsta_poa_dp(
+        predsT.data_ptr(), pmaskT.data_ptr(), bases.data_ptr(),
+        fills.data_ptr(), a.data_ptr(), N, n_nodes, n, n_real, W, max_in,
+        m_, x_, e_, o_, chunk_base, col0, nwin, cw,
+        None if words is None else words.data_ptr(), scores.data_ptr(),
+        ring.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
+        _stream(dev))
+    _raise_on(rc, kind)
+    launches[kind] += 1
 
 
 def poa_walk(words, preds, best, n_real, align) -> None:
@@ -282,3 +324,34 @@ def poa_walk(words, preds, best, n_real, align) -> None:
                               align.data_ptr(), _stream(dev))
     _raise_on(rc, "poa_walk")
     launches["poa_walk"] += 1
+
+
+def poa_walk_bounded(words, preds, row, j, state, base, col0, align,
+                     out) -> None:
+    """Launch the POA walk (one thread) inside one cell of a chunked
+    round: ``words`` ((nc, cw) int16) holds rows [base, base + nc) and
+    columns [col0, col0 + cw) of the round's plane, ``preds`` ((nc,
+    max_in) int32) the cell's rows of the pred table.  Walks from (row,
+    j, state) until it leaves the cell, writing ``align`` ((n,) int32) at
+    the consumed columns, and ``out`` ((3,) int32) = (row, j, state)."""
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError("poa_walk_bounded kernel needs CUDA tensors, got "
+                         "%s" % dev)
+    nc, cw = words.shape
+    max_in = preds.shape[1]
+    n = align.shape[0]
+    _check(words, "words", torch.int16, (nc, cw), dev)
+    _check(preds, "preds", torch.int32, (nc, max_in), dev)
+    _check(align, "align", torch.int32, (n,), dev)
+    _check(out, "out", torch.int32, (3,), dev)
+    if max_in > POA_MAX_IN or not 0 <= col0 <= n - cw or base < 0 \
+            or state not in (0, 1, 2):
+        raise ValueError("poa_walk_bounded: max_in %d, cell (%d, %d) of "
+                         "(%d, %d), n %d, state %d"
+                         % (max_in, base, col0, nc, cw, n, state))
+    rc = _lib().tsta_poa_walk_bounded(
+        words.data_ptr(), preds.data_ptr(), nc, cw, max_in, row, j, state,
+        base, col0, align.data_ptr(), out.data_ptr(), _stream(dev))
+    _raise_on(rc, "poa_walk_bounded")
+    launches["poa_walk_bounded"] += 1

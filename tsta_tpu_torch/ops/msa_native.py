@@ -3,8 +3,9 @@ exact int32 DP per round.
 
 Counterpart of ``tsta_tpu/ops/msa_native.py``.  Each read after the first
 runs one round against the graph (``ops/msa_poa.py``: tables, the DP and
-walk kernels or their plain versions, one device-to-host transfer), then
-the host merges the read into the graph (:func:`_merge`, in C through
+walk kernels or their plain versions, one device-to-host transfer; a
+round over the memory plan in chunks, ``ops/msa_chunked.py``), then the
+host merges the read into the graph (:func:`_merge`, in C through
 ``poa_fast.c``) and re-sorts it.  The recurrence, per topo-ordered node v
 and read column j::
 
@@ -32,14 +33,14 @@ from typing import List
 import numpy as np
 import torch
 
-from tsta_tpu.config import AlignParams
-from tsta_tpu.models.msa import MsaOutput
-from tsta_tpu.models.poa_graph import PoaGraph, load_graph, save_graph
-from tsta_tpu.utils.checkpoint import seqs_digest
-from tsta_tpu.utils.logging import get_logger
+from tsta_tpu_torch.config import AlignParams
+from tsta_tpu_torch.models.msa import MsaOutput
+from tsta_tpu_torch.models.poa_graph import PoaGraph, load_graph, save_graph
+from tsta_tpu_torch.utils.checkpoint import seqs_digest
+from tsta_tpu_torch.utils.logging import get_logger
 from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.ops import msa_poa
-from tsta_tpu_torch.ops._host import load_poa
+from tsta_tpu_torch.native.build import load_poa
 from tsta_tpu_torch.ops.psa_scan import NEG, as_params
 
 KERNELS = ("auto", "plain", "cuda")
@@ -68,19 +69,28 @@ def _warn_ambiguity(seqs) -> None:
 
 @torch.no_grad()
 def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
-                   W):
+                   W, *, ring=None, chunk_base=0, col0=0, ckpt=None,
+                   with_words=True):
     """One round's DP in PyTorch, one topo row at a time: the plain
-    version of ``csrc/poa_dp.cu`` and the counterpart of the JAX
-    package's ``_round_dp``, with the kernel's inputs and outputs.
+    version of ``csrc/poa_dp.cu`` in all three of its uses, and the
+    counterpart of the JAX package's ``_round_dp``, with the kernel's
+    inputs and outputs.
 
     ``predsT``/``pmaskT``: (max_in, N) int32 (buffer row ids, 0 = the
     virtual row); ``bases``: (N,) int32; ``fills``: (4, N) int32
-    left-boundary seeds; ``a``: (n,) uint8.  Rows < ``n_nodes`` are
-    computed; pred rows live in a ring of ``W`` slots.  Returns ``(words,
-    scores)``: per cell ``(h_type*4 + e_ext*2 + f_ext) | h_pred << 4 |
-    e_pred << (4 + b)``, an (N, n) int16 plane with b = 6 when max_in <=
-    64, else int32 with b = 13; scores (N,) int32 H(v, n_real-1), NEG
-    past ``n_nodes``."""
+    left-boundary seeds; ``a``: (n,) uint8, the read's columns [col0,
+    col0 + n).  Rows < ``n_nodes`` are computed, local row i being the
+    round's topo row ``chunk_base + i``; pred rows live in a ring of
+    ``W`` slots indexed by global row: ``ring`` None is a private one,
+    else the kernel's (W, 2, ring width) int32 ring
+    (:func:`msa_poa.ring_positions`), read and written in place.
+    ``ckpt`` ((N, nwin, 3) int32 or None) gets H, the running max q and F
+    at the last column of each of nwin windows of n / nwin columns.
+    Returns ``(words, scores)``: per cell ``(h_type*4 + e_ext*2 + f_ext)
+    | h_pred << 4 | e_pred << (4 + b)``, an (N, n) int16 plane with b = 6
+    when max_in <= 64, else int32 with b = 13 (None without
+    ``with_words``); scores (N,) int32 H(v, n_real-1) where the launch
+    holds that column, NEG elsewhere."""
     m_, x_, e_, o_ = as_params(params)
     max_in, N = predsT.shape
     n = a.shape[0]
@@ -90,7 +100,7 @@ def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
     pt = predsT.cpu().numpy()
     pm = pmaskT.cpu().numpy()
     bs = bases.cpu().numpy()
-    j = torch.arange(n, dtype=i32, device=dev)
+    j = torch.arange(n, dtype=i32, device=dev) + col0
     col_e = j * e_
     o_col_e = o_ + col_e
     h_virt = o_ + (j + 1) * e_
@@ -98,11 +108,26 @@ def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
     zero = torch.zeros((n,), dtype=i32, device=dev)
     a32 = a.to(i32)
     subs = {}
-    ring_h = [None] * W
-    ring_e = [None] * W
-    words = torch.zeros((N, n), dtype=torch.int16 if bits == 6 else i32,
-                        device=dev)
+    if ring is None:
+        ring_h = [None] * W
+        ring_e = [None] * W
+    else:
+        pos = msa_poa.ring_positions(n, dev)
+        cols = ring[:, :, pos]
+        ring_h = list(cols[:, 0].unbind(0))
+        ring_e = list(cols[:, 1].unbind(0))
+    words = None
+    if with_words:
+        words = torch.zeros((N, n), dtype=torch.int16 if bits == 6 else i32,
+                            device=dev)
     scores = torch.full((N,), NEG, dtype=i32, device=dev)
+    sink = n_real - 1 - col0
+    if ckpt is not None:
+        nwin = ckpt.shape[1]
+        cw = n // nwin
+        ck_w = [w for w in range(nwin) if 0 <= (w + 1) * cw - 1 - col0 < n]
+        ck_j = torch.tensor([(w + 1) * cw - 1 - col0 for w in ck_w],
+                            dtype=torch.long, device=dev)
     for i in range(n_nodes):
         hb, ha, eb, ea, ex = neg, zero, neg, zero, zero
         for kk in range(max_in):
@@ -123,23 +148,32 @@ def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
         if base not in subs:
             subs[base] = torch.where(a32 == base, m_, x_).to(i32)
         diag = torch.cat([fills[0, i:i + 1], hb[:-1]]) + subs[base]
-        h_pred = torch.cat([fills[1, i:i + 1], ha[:-1]])
         c = torch.maximum(diag, eb)
-        p = torch.cummax(torch.cat([fills[2, i:i + 1], (c - col_e)[:-1]]),
-                         0).values
+        y = c - col_e
+        p = torch.cummax(torch.cat([fills[2, i:i + 1], y[:-1]]), 0).values
         f = o_col_e + p
         h = torch.maximum(c, f)
-        f_ext = (f == torch.cat([fills[3, i:i + 1], f[:-1]]) + e_).to(i32)
-        # precedence: diagonal > E > F
-        h_type = (h != diag).to(i32) * (1 + (h != eb).to(i32))
-        w = (h_type * 4 + ex * 2 + f_ext + (h_pred << 4)
-             + (ea << (4 + bits)))
-        if bits == 6:
-            w = torch.where(w >= 1 << 15, w - (1 << 16), w)
-        words[i] = w
-        ring_h[(i + 1) % W] = h
-        ring_e[(i + 1) % W] = eb
-        scores[i] = h[n_real - 1]
+        if with_words:
+            h_pred = torch.cat([fills[1, i:i + 1], ha[:-1]])
+            f_ext = (f == torch.cat([fills[3, i:i + 1], f[:-1]]) + e_).to(i32)
+            # precedence: diagonal > E > F
+            h_type = (h != diag).to(i32) * (1 + (h != eb).to(i32))
+            w = (h_type * 4 + ex * 2 + f_ext + (h_pred << 4)
+                 + (ea << (4 + bits)))
+            if bits == 6:
+                w = torch.where(w >= 1 << 15, w - (1 << 16), w)
+            words[i] = w
+        if ckpt is not None and ck_w:
+            q = torch.maximum(p, y)
+            ckpt[i, ck_w] = torch.stack([h[ck_j], q[ck_j], f[ck_j]], 1)
+        slot = (chunk_base + i + 1) % W
+        ring_h[slot] = h
+        ring_e[slot] = eb
+        if 0 <= sink < n:
+            scores[i] = h[sink]
+    if ring is not None:
+        ring[:, :, pos] = torch.stack([torch.stack(ring_h),
+                                       torch.stack(ring_e)], 1)
     return words, scores
 
 
@@ -319,11 +353,14 @@ def _check_args(kernel: str, device):
 def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
                checkpoint_path: str | None = None, progress=None,
                kernel: str = "auto", device=None,
-               clock: msa_poa.RoundClock | None = None) -> MsaOutput:
+               clock: msa_poa.RoundClock | None = None,
+               budget: int | None = None) -> MsaOutput:
     """Progressive POA MSA of ``seqs`` on ``device`` (default CUDA).
 
     ``kernel`` as in :func:`msa_poa.run_round`; a round plans for
-    :func:`msa_poa.device_budget` bytes of ``device``.  With
+    ``budget`` bytes (default :func:`msa_poa.device_budget` of
+    ``device``): a round whose words plane the plan will not hold runs
+    chunked (``ops/msa_chunked.py``).  With
     ``checkpoint_path`` the graph is saved after every round and a
     snapshot of the same reads and parameters resumes the run (the JAX
     package's format, so either package resumes the other's).
@@ -333,7 +370,8 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
     dev = _check_args(kernel, device)
     if not seqs:
         raise ValueError("no sequences")
-    budget = msa_poa.device_budget(dev)
+    if budget is None:
+        budget = msa_poa.device_budget(dev)
     _warn_ambiguity(seqs)
     n_seq = len(seqs)
     digest = seqs_digest(seqs)
@@ -383,7 +421,7 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
 
 def align_seqs_many(seq_sets: List[List[bytes]],
                     params: AlignParams = AlignParams(), kernel: str = "auto",
-                    device=None) -> List[MsaOutput]:
+                    device=None, budget: int | None = None) -> List[MsaOutput]:
     """Progressive MSA of many independent read sets, pipelined.
 
     Within one problem a round needs the graph of the round before; across
@@ -391,9 +429,13 @@ def align_seqs_many(seq_sets: List[List[bytes]],
     stream: each round is dispatched as one chain ending in a copy of its
     packed result to pinned host memory and an event, so while the host
     merges problem i's round, the rounds of the other problems run on
-    other SMs.  Returns one MsaOutput per read set, in input order."""
+    other SMs.  A chunked round (``budget`` as in :func:`align_seqs`)
+    reads 12 bytes back per cell it walks, so its host waits on its
+    problem's stream inside the round, while the other streams run on.
+    Returns one MsaOutput per read set, in input order."""
     dev = _check_args(kernel, device)
-    budget = msa_poa.device_budget(dev)
+    if budget is None:
+        budget = msa_poa.device_budget(dev)
     cuda = dev.type == "cuda"
     states = []
     for seqs in seq_sets:

@@ -1,9 +1,10 @@
 """One POA round on the device: host tables, the memory plan, the DP and
 walk kernels' wrappers, the best sink and the packed per-round result.
 
-Counterpart of ``tsta_tpu/ops/msa_pallas.py`` on its single-call path
-(``_prepare``, ``_round_plan``, ``_prep_round``, ``round_dp_fused``,
-``pack_round``).  A round runs as one chain on the current stream:
+Counterpart of ``tsta_tpu/ops/msa_pallas.py`` (``_prepare``,
+``_round_plan``, ``_prep_round``, ``round_dp_fused``, ``pack_round``).  A
+round whose words plane fits the memory plan runs as one chain on the
+current stream:
 
 1. host tables in topo order (:func:`prepare`): the pred table in the
    order of ``g.csr()`` (the tie rules depend on it), bases, the
@@ -16,11 +17,15 @@ Counterpart of ``tsta_tpu/ops/msa_pallas.py`` on its single-call path
 5. ``[best, score, align...]`` packed into one int32 tensor, so the host
    pays one device-to-host transfer per round.
 
+A round the plan chunks runs through ``ops/msa_chunked.py``: the forward
+DP in node chunks with checkpoints, then a backward that rematerialises
+one (chunk, column window) cell at a time and walks it
+(:func:`poa_walk_bounded`).
+
 Each wrapper takes its plain PyTorch version for CPU tensors
 (:func:`tsta_tpu_torch.ops.msa_native.round_dp_plain`,
-:func:`walk_plain`) and launches its kernel, or raises, for CUDA tensors.
-The TPU path's chunked rounds (``_round_chunked``) are not ported: a round
-whose words plane exceeds the memory plan raises ``NotImplementedError``.
+:func:`walk_plain`, :func:`walk_bounded_plain`) and launches its kernel,
+or raises, for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from tsta_tpu_torch.ops import _kernels
-from tsta_tpu_torch.ops._host import load_poa
+from tsta_tpu_torch.native.build import load_poa
 from tsta_tpu_torch.ops.psa_scan import NEG, as_params, bucket
 
 LANES = 128
@@ -191,40 +196,64 @@ def round_columns(n_real: int) -> int:
 
 
 def prep_round(g, seq: bytes, params, budget: int, cap: bool = True):
-    """Tables, padded read and plan of one round: ``(prep, n, n_real,
-    a)`` with ``a`` the (n,) uint8 read, zero-padded.  A round the plan
-    would chunk raises ``NotImplementedError``."""
+    """Tables, padded read and plan of one round: ``(prep, n, n_real, a,
+    NC, NWIN)`` with ``a`` the (n,) uint8 read, zero-padded, ``NC`` the
+    plan's node chunk (None: one call) and ``NWIN`` the chunked round's
+    column windows (0: none, the backward rematerialises whole chunks)."""
     if len(seq) == 0:
         raise ValueError("cannot align an empty read")
     prep = prepare(g, params, cap=cap)
     N, W = prep[4], prep[6]
     n_real = len(seq)
     n = round_columns(n_real)
-    if round_plan(N, n, W, budget) is not None:
-        raise NotImplementedError(
-            "round words plane of %d nodes x %d columns exceeds the memory "
-            "plan (%d bytes): chunked rounds (ROADMAP Queue 1 step 4) are "
-            "not ported yet" % (N, n, budget))
+    NC = round_plan(N, n, W, budget)
+    NWIN = _ckpt_windows(n) if NC is not None else 0
     a = np.zeros((n,), np.uint8)
     a[:n_real] = np.frombuffer(bytes(seq), np.uint8)
-    return prep, n, n_real, a
+    return prep, n, n_real, a, NC, NWIN
 
 
-def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W):
+def ring_positions(n: int, dev) -> torch.Tensor:
+    """(n,) int64: where ``poa_dp.cu``'s ring keeps column j of an
+    n-column launch in each H or E row (column t*S + k at k*1024 + t, S
+    the strip width)."""
+    S = _kernels.poa_ring_width(n) // _kernels.POA_THREADS
+    j = torch.arange(n, device=dev)
+    return (j % S) * _kernels.POA_THREADS + j // S
+
+
+def new_ring(W: int, n: int, dev) -> torch.Tensor:
+    """A zeroed (W, 2, ring width) int32 ring for an n-column launch."""
+    return torch.zeros((W, 2, _kernels.poa_ring_width(n)),
+                       dtype=torch.int32, device=dev)
+
+
+def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
+           ring=None, chunk_base=0, col0=0, ckpt=None, with_words=True):
     """The round DP over rows < ``n_nodes``: returns ``(words, scores)``,
-    words (N, n) int16 (rows >= n_nodes zero) and scores (N,) int32
-    (NEG past n_nodes).  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/poa_dp.cu`` or raise."""
+    words (N, n) int16 (rows >= n_nodes zero; None without
+    ``with_words``) and scores (N,) int32 (NEG past n_nodes).  The other
+    arguments are :func:`msa_native.round_dp_plain`'s: without ``ring``
+    the single call, with it a chunked round's forward chunk (no words,
+    ``ckpt``) or window remat (words).  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/poa_dp.cu`` or raise."""
     if a.device.type == "cpu":
         from tsta_tpu_torch.ops.msa_native import round_dp_plain
         return round_dp_plain(predsT, pmaskT, bases, fills, a, n_real,
-                              n_nodes, params, W)
+                              n_nodes, params, W, ring=ring,
+                              chunk_base=chunk_base, col0=col0, ckpt=ckpt,
+                              with_words=with_words)
     N = predsT.shape[1]
-    words = torch.empty((N, a.shape[0]), dtype=torch.int16, device=a.device)
+    words = None
+    if with_words:
+        words = torch.empty((N, a.shape[0]), dtype=torch.int16,
+                            device=a.device)
     scores = torch.full((N,), NEG, dtype=torch.int32, device=a.device)
     _kernels.poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes,
-                    as_params(params), W, words, scores)
-    words[n_nodes:].zero_()
+                    as_params(params), W, words, scores, ring=ring,
+                    chunk_base=chunk_base, col0=col0, ckpt=ckpt)
+    if words is not None:
+        words[n_nodes:].zero_()
     return words, scores
 
 
@@ -276,6 +305,67 @@ def poa_walk(words, preds, best, n_real: int) -> torch.Tensor:
     return align
 
 
+def walk_bounded_plain(words, preds, row: int, j: int, state: int,
+                       base: int, col0: int, align) -> torch.Tensor:
+    """The POA walk inside one cell of a chunked round, in Python: the
+    plain version of ``csrc/poa_walk_bounded.cu`` and the counterpart of
+    ``msa_pallas._walk_bounded_banded``.
+
+    ``words``: the cell's (nc, cw) plane of rows [base, base + nc) and
+    columns [col0, col0 + cw), int16 or int32 as :func:`walk_plain`;
+    ``preds``: its (nc, max_in) rows of the pred table.  Walks from
+    (row, j, state) until the walk leaves the cell, writes ``align``
+    ((n,) int32) at the consumed columns and returns (row, j, state) as a
+    (3,) int32 tensor on ``align``'s device."""
+    bits = 6 if words.dtype == torch.int16 else 13
+    fmask = (1 << bits) - 1
+    wmask = 0xFFFF if bits == 6 else 0xFFFFFFFF
+    plane = words.cpu().numpy()
+    pr = preds.cpu().numpy()
+    nc, cw = plane.shape
+    cols, rows = [], []
+    while base <= row < base + nc and col0 <= j < col0 + cw:
+        rl = row - base
+        w = int(plane[rl, j - col0]) & wmask
+        if state == 0:
+            h_type = (w >> 2) & 3
+            if h_type == 0:
+                cols.append(j)
+                rows.append(row)
+                row = int(pr[rl, (w >> 4) & fmask]) - 1
+                j -= 1
+            else:
+                state = h_type
+        elif state == 1:
+            row = int(pr[rl, (w >> (4 + bits)) & fmask]) - 1
+            state = (w >> 1) & 1
+        else:
+            cols.append(j)
+            rows.append(-1)
+            j -= 1
+            state = 2 if w & 1 else 0
+    if cols:
+        align[torch.tensor(cols, device=align.device)] = torch.tensor(
+            rows, dtype=torch.int32, device=align.device)
+    return torch.tensor([row, j, state], dtype=torch.int32,
+                        device=align.device)
+
+
+def poa_walk_bounded(words, preds, row: int, j: int, state: int, base: int,
+                     col0: int, align) -> torch.Tensor:
+    """:func:`walk_bounded_plain`'s function: CPU tensors take it; CUDA
+    tensors launch ``csrc/poa_walk_bounded.cu`` or raise.  Returns the
+    (3,) int32 (row, j, state) on the device, the host's one 12-byte read
+    per cell."""
+    if words.device.type == "cpu":
+        return walk_bounded_plain(words, preds, row, j, state, base, col0,
+                                  align)
+    out = torch.empty((3,), dtype=torch.int32, device=words.device)
+    _kernels.poa_walk_bounded(words, preds, row, j, state, base, col0,
+                              align, out)
+    return out
+
+
 def sink_mask(g, order, N: int) -> np.ndarray:
     """(N,) bool: topo rows that are sinks of ``g``."""
     mask = np.zeros((N,), bool)
@@ -303,8 +393,11 @@ class RoundClock:
     not yet done when the host asks, and the transfer) and the merge and
     toposort (``merge_s``); device milliseconds of the DP (``dp_ms``) and
     of the best sink, walk and packing (``walk_ms``), from CUDA events on
-    the card or the host clock on the CPU.  ``rounds`` holds one dict per
-    round."""
+    the card or the host clock on the CPU.  A chunked round adds its plan
+    (``NC``, ``chunks``, ``NWIN``, ``CW``), its counters (``remats``,
+    ``cells_walked``) and names its two parts ``forward_ms`` (the DP
+    chunks) and ``backward_ms`` (best sink, remats, walks and packing).
+    ``rounds`` holds one dict per round."""
 
     _DEVICE_MARKS = ("dp0", "dp1", "walk1")
 
@@ -313,6 +406,7 @@ class RoundClock:
         self.rounds: list = []
         self._host: dict = {}
         self._events: dict = {}
+        self.chunked: dict = {}
 
     def mark(self, name: str) -> None:
         self._host[name] = time.perf_counter()
@@ -330,11 +424,13 @@ class RoundClock:
         else:
             dp = (h["dp1"] - h["dp0"]) * 1e3
             walk = (h["walk1"] - h["dp1"]) * 1e3
-        self.rounds.append({
-            "prep_s": h["dp0"] - h["start"], "dp_ms": dp, "walk_ms": walk,
-            "wait_transfer_s": h["got"] - h["walk1"],
-            "merge_s": h["end"] - h["got"]})
-        self._host, self._events = {}, {}
+        rec = {"prep_s": h["dp0"] - h["start"], "dp_ms": dp,
+               "walk_ms": walk, "wait_transfer_s": h["got"] - h["walk1"],
+               "merge_s": h["end"] - h["got"]}
+        if self.chunked:
+            rec.update(self.chunked, forward_ms=dp, backward_ms=walk)
+        self.rounds.append(rec)
+        self._host, self._events, self.chunked = {}, {}, {}
 
 
 def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
@@ -344,9 +440,11 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
     ``kernel``: "auto" runs the kernels on a CUDA device, "plain" the
     plain versions, "cuda" the kernels only.  A graph whose in-degree
     exceeds 64 takes the plain versions with wide words (the TPU path
-    sends it to its scan engine); "cuda" refuses it.  Returns ``(packed,
-    order, wide)``: the (2 + n,) int32 ``[best, score, align...]`` on the
-    device, the topo order, and whether the round took the wide route."""
+    sends it to its scan engine); "cuda" refuses it.  A round the plan
+    chunks runs through :func:`msa_chunked.round_chunked`, which reads
+    12 bytes back per cell it walks.  Returns ``(packed, order, wide)``:
+    the (2 + n,) int32 ``[best, score, align...]`` on the device, the
+    topo order, and whether the round took the wide route."""
     from tsta_tpu_torch.ops.msa_native import round_dp_plain
     wide = g.max_in_degree() > MAX_IN
     if wide and kernel == "cuda":
@@ -357,11 +455,19 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
     use_kernel = dev.type == "cuda" and kernel != "plain" and not wide
     if clock:
         clock.mark("start")
-    prep, n, n_real, a = prep_round(g, seq, params, budget, cap=not wide)
+    prep, n, n_real, a, NC, NWIN = prep_round(g, seq, params, budget,
+                                              cap=not wide)
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
     if max_in > WIDE_MAX_IN:
         raise ValueError("in-degree %d exceeds the plain round's %d"
                          % (max_in, WIDE_MAX_IN))
+    if NC is not None:
+        from tsta_tpu_torch.ops import msa_chunked
+        packed = msa_chunked.round_chunked(g, prep, a, n_real, NC, NWIN,
+                                           params, dev, use_kernel, clock)
+        if clock:
+            clock.mark("walk1")
+        return packed, order, wide
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(

@@ -14,8 +14,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tsta_tpu.config import AlignParams
-from tsta_tpu.io import encode_dna, read_first_record
+from tsta_tpu_torch.config import AlignParams
+from tsta_tpu_torch.io import encode_dna, read_first_record
 from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.models.psa import KERNELS
 from tsta_tpu_torch.ops import psa_diff, psa_scan
@@ -138,7 +138,7 @@ def align_manifest(manifest_path: str, params: AlignParams = AlignParams(),
     _refuse_mesh(mesh)
     store = None
     if resume:
-        from tsta_tpu.utils.checkpoint import ShardedResults
+        from tsta_tpu_torch.utils.checkpoint import ShardedResults
         store = ShardedResults(resume)
 
     names, pairs, skipped = [], [], []
