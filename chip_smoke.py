@@ -45,11 +45,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
 11. POA timings: each POA kernel and its plain version at the 3 x 50 kbp
     round-2 shape and the example's last round (CUDA events), every
     output of the timed runs equal; the kernels record's errors are these;
-12. chunked kernels against their plain versions: a forward chunk of the
-    3 x 50 kbp round 2 cut into 8,192-row chunks (scores, ring out,
-    checkpoints), and, after phase 14, the first cell the last 200 kbp
-    round walks, rematerialised (words, ring out) and walked (exit state,
-    align entries), with times (CUDA events);
+12. chunked kernels against their plain versions, with times (CUDA
+    events): a forward chunk of the 3 x 50 kbp round 2 cut into 8,192-row
+    chunks (scores, ring out, checkpoints); after phase 14, round 1 of the
+    200 kbp reads forward again, its last chunk from its entry ring
+    (scores, ring out, checkpoints) and the first cell its walk
+    rematerialises (words, ring out) and walks (exit state, align
+    entries);
 13. 3 x 50 kbp with a budget that cuts every round into >= 4 chunks,
     equal to phase 9's unchunked run, through the chunk, window and
     bounded-walk kernels and no plain round;
@@ -58,7 +60,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
     budget, every round chunked: wall, cells/s, each round's forward and
     backward split, remats, cells walked and plan, peak device memory,
     launches and round scores; every MSA row without its gaps equal to
-    its read.
+    its read; after the timed run, round 1's score equal to the PSA DP's
+    score of reads 1 and 0 (a global pairwise alignment: the graph is
+    read 0's chain) and to the score of MSA rows 0 and 1, and round 2's
+    at least read 2's pairwise score with read 0 and with read 1.
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -751,17 +756,18 @@ def chunk_ops(tables, n_nodes, n, words):
 
 def chunked_phases(dev, smi_line, res_50k):
     """Phases 12-14 (chunked rounds); returns the slice's launch counts
-    from the 200 kbp run and the chunked kernels' timing records."""
+    from the 200 kbp run and the chunked kernels' timing records at its
+    shapes."""
     import torch
 
     from tsta_tpu_torch import AlignParams
     from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
     params = AlignParams()
     seqs = long_reads()
-    times = {}
     budget_50k = BUDGET_50K
 
-    # 12. a forward chunk of the 50 kbp round 2, kernel against plain
+    # 12. a forward chunk of the 50 kbp round 2 (phase 13's path), kernel
+    # against plain
     r = next_round(seqs, 1, params, dev, budget_50k)
     NC, NWIN, W = r["NC"], r["NWIN"], r["W"]
     predsT, pmaskT, bases, fills, a = r["tables"]
@@ -790,13 +796,12 @@ def chunked_phases(dev, smi_line, res_50k):
                      False)
     err = max(max_err(k, p) for k, p in zip(outs["kernel"], outs["plain"]))
     tabs = chunk(1)
-    times["poa_dp_chunk"] = {
-        "shape": "50 kbp round 2, chunk 1: %d rows x %d columns, NWIN %d, "
-                 "W %d" % (NC, n, NWIN, W),
-        "ms": ms, "plain_ms": pms, "max_abs_err": err,
-        **bound(nbytes(*tabs, *outs["kernel"]) + nbytes(ring0),
-                chunk_ops(tabs, NC, n, False))}
-    emit({"phase": "chunk_kernels_50k", **times["poa_dp_chunk"],
+    emit({"phase": "chunk_kernels_50k",
+          "shape": "50 kbp round 2, chunk 1: %d rows x %d columns, NWIN %d, "
+                   "W %d" % (NC, n, NWIN, W),
+          "ms": ms, "plain_ms": pms, "max_abs_err": err,
+          **bound(nbytes(*tabs, *outs["kernel"]) + nbytes(ring0),
+                  chunk_ops(tabs, NC, n, False)),
           "plan": {"NC": NC, "NWIN": NWIN, "n": n}})
     if err or not NWIN:
         raise AssertionError("forward chunk differs from its plain version")
@@ -824,44 +829,19 @@ def chunked_phases(dev, smi_line, res_50k):
             or min(rd.get("chunks", 0) for rd in clock.rounds) < 4:
         raise AssertionError("3 x 50 kbp chunked differs from unchunked")
 
-    # 14. the slice at full width: 3 x 200 kbp at the card's budget; the
-    # first cell each round walks is kept for phase 12's comparison
+    # 14. the slice at full width: 3 x 200 kbp at the card's budget
     seqs = long_reads(13, 200000)
-    cell = {}
-    real_dp, real_walk = msa_poa.poa_dp, msa_poa.poa_walk_bounded
-
-    def keep(x):
-        return x.clone() if torch.is_tensor(x) else x
-
-    def spy_dp(*args, **kw):
-        if not kw.get("with_words", True) and kw.get("chunk_base") == 0:
-            cell.clear()   # a new round's forward
-        elif kw.get("with_words", True) and kw.get("ring") is not None \
-                and "dp" not in cell:
-            cell["dp"] = ([keep(x) for x in args],
-                          {k: keep(v) for k, v in kw.items()})
-        return real_dp(*args, **kw)
-
-    def spy_walk(*args):
-        if "walk" not in cell:   # its words are rematerialised below
-            cell["walk"] = [None] + [keep(x) for x in args[1:]]
-        return real_walk(*args)
-
     clock = msa_poa.RoundClock(dev)
-    msa_poa.poa_dp, msa_poa.poa_walk_bounded = spy_dp, spy_walk
-    try:
-        torch.cuda.reset_peak_memory_stats(dev)
-        _kernels.reset_launches()
-        p0 = msa_native.plain_rounds
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = msa_native.align_seqs(seqs, params, device=dev, clock=clock)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_kernels.launches)
-        plain = msa_native.plain_rounds - p0
-    finally:
-        msa_poa.poa_dp, msa_poa.poa_walk_bounded = real_dp, real_walk
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    p0 = msa_native.plain_rounds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = msa_native.align_seqs(seqs, params, device=dev, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    plain = msa_native.plain_rounds - p0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     cells = msa_cells(seqs, out)
     ok = degapped_ok(seqs, out)
@@ -879,12 +859,80 @@ def chunked_phases(dev, smi_line, res_50k):
             or not all("NC" in rd for rd in clock.rounds):
         raise AssertionError("3 x 200 kbp did not run every round chunked "
                              "through the kernels")
+    times = check_200k(dev, smi_line, seqs, out)
+    return {k: launches[k] for k in CHUNK_KERNELS}, times
 
-    # 12, continued: the last round's first walked cell, kernel against
-    # plain, from the inputs the 200 kbp run gave it
-    args, kw = cell["dp"]
+
+def pair_rows(out, i: int, k: int):
+    """Rows ``i`` and ``k`` of an MSA without the columns where both are
+    gaps: the pairwise alignment the MSA gives the two reads."""
+    ri, rk = out.rows[i], out.rows[k]
+    keep = [c for c in range(len(ri)) if ri[c] != 45 or rk[c] != 45]
+    return bytes(ri[c] for c in keep), bytes(rk[c] for c in keep)
+
+
+def check_200k(dev, smi_line, seqs, out):
+    """Phase 12 at 200 kbp and the checks of phase 14's result, after its
+    timed run.  Round 1 of ``seqs`` runs forward again through the
+    kernel; its last chunk, from the ring that entered it, and the first
+    cell its walk rematerialises and walks are each held against their
+    plain versions.  Round 1 aligns read 1 to read 0's chain, a global
+    pairwise alignment, so its score must equal the PSA DP's corner and
+    the score of MSA rows 0 and 1; round 2's graph holds the paths of
+    reads 0 and 1, so its score is at least either pairwise score of
+    read 2.  Returns the timing records of the three chunked kernels."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_chunked, msa_native, msa_poa, psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+    params = AlignParams()
+    times = {}
+    g = PoaGraph.from_sequence(seqs[0], len(seqs))
+    prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(
+        g, seqs[1], params, msa_poa.device_budget(dev))
+    r = msa_chunked.ChunkedRound(g, prep, a, n_real, NC, NWIN, params, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps, scores, ckpt = r.forward(msa_poa.poa_dp)
+    best = int(msa_poa.best_sink(scores, r.mask))
+    forward_s = time.perf_counter() - t0
+    forward_score = int(scores[best])
+
+    # the last forward chunk from the ring that entered it
+    c = r.nchunks - 1
+    sl = slice(c * NC, (c + 1) * NC)
+    outs = {}
+
+    def forward(fn, key):
+        ring = snaps[c].clone()
+        ck = torch.zeros((NC, NWIN, 3), dtype=torch.int32, device=dev)
+        args, kw = r.forward_call(c, ring, ck)
+        outs[key] = (fn(*args, **kw)[1], ring, ck)
+
+    ms, _ = cuda_ms(lambda: forward(msa_poa.poa_dp, "kernel"), 3)
+    pms, _ = cuda_ms(lambda: forward(msa_native.round_dp_plain, "plain"), 1,
+                     False)
+    ksc, _, kck = outs["kernel"]
+    err = max(*(max_err(k, p) for k, p in zip(outs["kernel"], outs["plain"])),
+              max_err(ksc, scores[sl]), max_err(kck, ckpt[sl]))
+    args, _ = r.forward_call(c, None, None)
+    times["poa_dp_chunk"] = {
+        "shape": "200 kbp round 1, chunk %d: %d of %d rows x %d columns, "
+                 "NWIN %d, W %d" % (c, r.rows(c), NC, n, NWIN, r.W),
+        "ms": ms, "plain_ms": pms, "max_abs_err": err,
+        **bound(nbytes(*args[:5], snaps[c], *outs["kernel"]),
+                chunk_ops(args[:2], r.rows(c), n, False))}
+    del outs
+
+    # the first cell the walk rematerialises, and its walk
+    hb = ckpt[:, :, 0].contiguous()
+    row, j = best, n_real - 1
+    c, w = r.cell(row, j)
+    args, kw = r.remat_call(c, w, snaps[c], ckpt, hb)
     ring_in = kw.pop("ring")
-    wargs = cell["walk"]
     res = {}
 
     def remat(fn, key):
@@ -896,22 +944,20 @@ def chunked_phases(dev, smi_line, res_50k):
     pms, _ = cuda_ms(lambda: remat(msa_native.round_dp_plain, "plain"), 1,
                      False)
     words = res["kernel"][0]
-    nc, cw = words.shape
     err = max(max_err(k, p) for k, p in zip(res["kernel"], res["plain"]))
     times["poa_dp_window"] = {
-        "shape": "200 kbp round %d, cell (%d, %d): %d rows x %d columns"
-                 % (len(out.round_scores), kw["chunk_base"] // nc,
-                    kw["col0"] // cw, nc, cw),
+        "shape": "200 kbp round 1, cell (%d, %d): %d of %d rows x %d columns"
+                 % (c, w, r.rows(c), NC, r.CW),
         "ms": ms, "plain_ms": pms, "max_abs_err": err,
-        **bound(nbytes(*[x for x in args if torch.is_tensor(x)],
-                       ring_in, *res["kernel"]),
-                chunk_ops(args[:2], args[6], cw, True))}
-    preds, row, j, state, base, col0, align_in = wargs[1:]
+        **bound(nbytes(*[x for x in args if torch.is_tensor(x)], ring_in,
+                       *res["kernel"]),
+                chunk_ops(args[:2], r.rows(c), r.CW, True))}
+    preds = r.chunk_preds(c)
     walks = {}
 
     def walk(fn, key):
-        align = align_in.clone()
-        walks[key] = (fn(words, preds, row, j, state, base, col0, align),
+        align = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        walks[key] = (fn(words, preds, row, j, 0, c * NC, w * r.CW, align),
                       align)
 
     wms, _ = cuda_ms(lambda: walk(msa_poa.poa_walk_bounded, "kernel"), 3)
@@ -925,13 +971,34 @@ def chunked_phases(dev, smi_line, res_50k):
         "ms": wms, "plain_ms": wpms, "max_abs_err": werr,
         # per consumed column a word and a pred read and an align write
         **bound(consumed * 10 + 12, OPS_WALK_STEP * consumed)}
-    emit({"phase": "chunk_kernels_200k", "times": {
-        k: times[k] for k in ("poa_dp_window", "poa_walk_bounded")},
-        "exit_state": walks["kernel"][0].tolist(), "smi": smi_line})
-    if err or werr or consumed < 1:
-        raise AssertionError("200 kbp cell: kernel differs from its plain "
-                             "version")
-    return {k: launches[k] for k in CHUNK_KERNELS}, times
+    exit_state = walks["kernel"][0].tolist()
+    del res, walks, words, snaps, ckpt, hb, r
+
+    # the round scores against the pairwise DP
+    reads = [np.frombuffer(bytes(s), np.uint8) for s in seqs]
+    pa, pb, lens = psa_diff.pack_pairs([(reads[1], reads[0]),
+                                        (reads[2], reads[0]),
+                                        (reads[2], reads[1])], dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corners = psa_diff.dp_packed(pa, pb, lens, params)[1].tolist()
+    pairwise_s = time.perf_counter() - t0
+    rescored = tb.score_alignment(*pair_rows(out, 0, 1), params)
+    scores_ok = (out.round_scores[0] == forward_score == corners[0]
+                 == rescored and out.round_scores[1] >= max(corners[1:]))
+    emit({"phase": "check_200k", "rounds": out.round_scores,
+          "round1_forward_s": forward_s, "round1_forward_score": forward_score,
+          "pairwise_corners": corners, "pairwise_s": pairwise_s,
+          "rows01_rescored": rescored, "scores_ok": scores_ok,
+          "times": times, "exit_state": exit_state, "smi": smi_line})
+    bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
+    if bad or consumed < 1:
+        raise AssertionError("200 kbp: kernel differs from its plain "
+                             "version: %s" % bad)
+    if not scores_ok:
+        raise AssertionError("3 x 200 kbp round scores disagree with the "
+                             "pairwise DP")
+    return times
 
 
 if __name__ == "__main__":

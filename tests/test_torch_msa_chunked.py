@@ -29,6 +29,8 @@ from tsta_tpu_torch import convert
 from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.models.poa_graph import PoaGraph
 from tsta_tpu_torch.ops import _kernels, msa_chunked, msa_native, msa_poa
+from tsta_tpu_torch.ops import psa_diff
+from tsta_tpu_torch.ops import traceback as tb
 
 CPU = torch.device("cpu")
 LANES = 128
@@ -160,6 +162,33 @@ def test_align_seqs_many_chunked_equals_single():
         assert any("NC" in r for r in clock.rounds)
         assert out == msa_native.align_seqs(seqs, AlignParams(),
                                             device="cpu")
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_chunked_round_scores_match_pairwise_dp(seed):
+    """What ``chip_smoke.py`` holds its 3 x 200 kbp run to: round 1
+    aligns read 1 to read 0's chain, so its score is the pairwise global
+    DP's corner and the score of MSA rows 0 and 1 without their common
+    gaps; round 2's graph holds the paths of reads 0 and 1, so its score
+    is at least either pairwise score of read 2."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(ACGT, 2000).tobytes()
+    seqs = [base] + [_mutate(rng, base, 0.1) for _ in range(2)]
+    clock = msa_poa.RoundClock(CPU)
+    out = msa_native.align_seqs(seqs, AlignParams(), device="cpu",
+                                budget=2 ** 30 // 100, clock=clock)
+    assert [r["NWIN"] for r in clock.rounds] == [2, 2]
+    reads = [np.frombuffer(s, np.uint8) for s in seqs]
+    a, b, lens = psa_diff.pack_pairs([(reads[1], reads[0]),
+                                      (reads[2], reads[0]),
+                                      (reads[2], reads[1])], CPU)
+    _, corner = psa_diff.dp_packed(a, b, lens, AlignParams())
+    r0, r1 = out.rows[0], out.rows[1]
+    keep = [k for k in range(len(r0)) if r0[k] != 45 or r1[k] != 45]
+    rescored = tb.score_alignment(bytes(r0[k] for k in keep),
+                                  bytes(r1[k] for k in keep), AlignParams())
+    assert out.round_scores[0] == int(corner[0]) == rescored
+    assert out.round_scores[1] >= max(int(corner[1]), int(corner[2]))
 
 
 # ---------------------------------------------------------------------

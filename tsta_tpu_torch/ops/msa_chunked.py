@@ -84,6 +84,99 @@ def _chunk(t, c: int, NC: int) -> torch.Tensor:
     return t[:, c * NC:(c + 1) * NC].contiguous()
 
 
+class ChunkedRound:
+    """A chunked round's tables on ``dev``, padded to whole chunks (the
+    padded rows have no preds and are never computed), and the arguments
+    of its DP launches: ``forward_call`` for a forward chunk,
+    ``remat_call`` for a window remat.  Each returns ``(args, kwargs)``
+    for :func:`msa_poa.poa_dp` or :func:`msa_native.round_dp_plain`."""
+
+    def __init__(self, g, prep, a, n_real: int, NC: int, NWIN: int, params,
+                 dev):
+        predsT, pmaskT, bases, fills, N, _, W, order, preds = prep
+        self.n, self.n_real, self.NC, self.NWIN, self.W = (
+            a.shape[0], n_real, NC, NWIN, W)
+        self.CW = self.n // NWIN if NWIN else self.n
+        self.params, self.dev = params, dev
+        self.nchunks = -(-N // NC)
+        self.n_nodes = len(order)
+        pad = self.nchunks * NC - N
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(
+                dev, non_blocking=True)
+
+        self.predsT = put(np.pad(predsT, ((0, 0), (0, pad))))
+        self.pmaskT = put(np.pad(pmaskT, ((0, 0), (0, pad))))
+        self.bases = put(np.pad(bases.reshape(N), (0, pad)))
+        self.fills = put(np.pad(fills, ((0, 0), (0, pad)),
+                                constant_values=NEG))
+        self.preds = put(np.pad(preds, ((0, pad), (0, 0))))
+        self.mask = put(msa_poa.sink_mask(g, order, N + pad))
+        self.a = put(a)
+
+    def rows(self, c: int) -> int:
+        """Real rows of chunk ``c``."""
+        return min(max(self.n_nodes - c * self.NC, 0), self.NC)
+
+    def chunk_preds(self, c: int) -> torch.Tensor:
+        """Chunk ``c``'s (NC, max_in) pred rows, for the bounded walk."""
+        return self.preds[c * self.NC:(c + 1) * self.NC]
+
+    def forward_call(self, c: int, ring, ckpt):
+        """Chunk ``c``'s forward: ``ring`` carries in and out, ``ckpt``
+        (its (NC, NWIN, 3) slice, or None) takes the checkpoints."""
+        NC = self.NC
+        args = (_chunk(self.predsT, c, NC), _chunk(self.pmaskT, c, NC),
+                self.bases[c * NC:(c + 1) * NC], _chunk(self.fills, c, NC),
+                self.a, self.n_real, self.rows(c), self.params, self.W)
+        return args, {"ring": ring, "chunk_base": c * NC, "ckpt": ckpt,
+                      "with_words": False}
+
+    def forward(self, dp):
+        """The forward pass through ``dp``: the ring snapshot at each
+        chunk's entry, the (Np,) sink scores and the (Np, NWIN, 3)
+        checkpoints (None without windows)."""
+        NC = self.NC
+        ring = msa_poa.new_ring(self.W, self.n, self.dev)
+        ckpt = (torch.zeros((self.nchunks * NC, self.NWIN, 3),
+                            dtype=torch.int32, device=self.dev)
+                if self.NWIN else None)
+        snaps, scores = [], []
+        for c in range(self.nchunks):
+            snaps.append(ring.clone())
+            args, kw = self.forward_call(
+                c, ring, None if ckpt is None else ckpt[c * NC:(c + 1) * NC])
+            scores.append(dp(*args, **kw)[1])
+        return snaps, torch.cat(scores), ckpt
+
+    def cell(self, row: int, j: int):
+        """The (chunk, window) cell that holds the walk at (row, j)."""
+        return (row // self.NC,
+                min(j // self.CW, self.NWIN - 1) if self.NWIN else 0)
+
+    def remat_call(self, c: int, w: int, snap, ckpt, hb):
+        """Cell (c, w)'s window remat from ``snap``, chunk ``c``'s entry
+        ring: a new ring of the window, and the window's left boundary
+        from the checkpoints (``hb`` their H plane) or, in the first
+        window, the round's own fills."""
+        NC, CW = self.NC, self.CW
+        col0 = w * CW
+        pt, pm = _chunk(self.predsT, c, NC), _chunk(self.pmaskT, c, NC)
+        if w > 0:
+            _, _, e_, o_ = as_params(self.params)
+            fills = win_fills(ckpt[c * NC:(c + 1) * NC], hb, pt, pm, w - 1,
+                              col0, e_, o_)
+        else:
+            fills = _chunk(self.fills, c, NC)
+        ring = (ring_window(snap, self.n, col0, CW) if self.NWIN
+                else snap.clone())
+        args = (pt, pm, self.bases[c * NC:(c + 1) * NC], fills,
+                self.a[col0:col0 + CW], self.n_real, self.rows(c),
+                self.params, self.W)
+        return args, {"ring": ring, "chunk_base": c * NC, "col0": col0}
+
+
 @torch.no_grad()
 def round_chunked(g, prep, a, n_real: int, NC: int, NWIN: int, params, dev,
                   use_kernel: bool, clock=None) -> torch.Tensor:
@@ -94,81 +187,32 @@ def round_chunked(g, prep, a, n_real: int, NC: int, NWIN: int, params, dev,
     plain versions.  Returns the (2 + n,) int32 ``[best, score,
     align...]`` on ``dev``, as a single-call round does."""
     from tsta_tpu_torch.ops.msa_native import round_dp_plain
-    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
-    n = a.shape[0]
-    nchunks = -(-N // NC)
-    Np = nchunks * NC
-    pad = Np - N   # padded rows: no preds, never computed
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(
-            dev, non_blocking=True)
-
-    predsT_d = put(np.pad(predsT, ((0, 0), (0, pad))))
-    pmaskT_d = put(np.pad(pmaskT, ((0, 0), (0, pad))))
-    bases_d = put(np.pad(bases.reshape(N), (0, pad)))
-    fills_d = put(np.pad(fills, ((0, 0), (0, pad)), constant_values=NEG))
-    preds_d = put(np.pad(preds, ((0, pad), (0, 0))))
-    mask = put(msa_poa.sink_mask(g, order, Np))
-    a_d = put(a)
+    r = ChunkedRound(g, prep, a, n_real, NC, NWIN, params, dev)
     dp = msa_poa.poa_dp if use_kernel else round_dp_plain
     walk = (msa_poa.poa_walk_bounded if use_kernel
             else msa_poa.walk_bounded_plain)
-    n_nodes = len(order)
-
-    def rows(c):
-        return min(max(n_nodes - c * NC, 0), NC)
-
     if clock:
         clock.mark("dp0")
-    ring = msa_poa.new_ring(W, n, dev)
-    ckpt = (torch.zeros((Np, NWIN, 3), dtype=torch.int32, device=dev)
-            if NWIN else None)
-    snaps, scores = [], []
-    for c in range(nchunks):
-        snaps.append(ring.clone())
-        _, sc = dp(_chunk(predsT_d, c, NC), _chunk(pmaskT_d, c, NC),
-                   bases_d[c * NC:(c + 1) * NC], _chunk(fills_d, c, NC),
-                   a_d, n_real, rows(c), params, W, ring=ring,
-                   chunk_base=c * NC,
-                   ckpt=None if ckpt is None else ckpt[c * NC:(c + 1) * NC],
-                   with_words=False)
-        scores.append(sc)
-    del ring
+    snaps, scores, ckpt = r.forward(dp)
     if clock:
         clock.mark("dp1")
 
-    scores = torch.cat(scores)
-    best = msa_poa.best_sink(scores, mask)
-    CW = n // NWIN if NWIN else n
+    best = msa_poa.best_sink(scores, r.mask)
     hb = ckpt[:, :, 0].contiguous() if NWIN else None
-    _, _, e_, o_ = as_params(params)
-    align = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    align = torch.full((r.n,), -1, dtype=torch.int32, device=dev)
     row, j, state = int(best), n_real - 1, 0
-    remats = cells = 0
+    cells = 0
     while row >= 0 and j >= 0:
-        c = row // NC
-        w = min(j // CW, NWIN - 1) if NWIN else 0
-        col0 = w * CW
-        predsT_c = _chunk(predsT_d, c, NC)
-        pmaskT_c = _chunk(pmaskT_d, c, NC)
-        if w > 0:
-            fills_c = win_fills(ckpt[c * NC:(c + 1) * NC], hb, predsT_c,
-                                pmaskT_c, w - 1, col0, e_, o_)
-        else:
-            fills_c = _chunk(fills_d, c, NC)
-        ring_c = (ring_window(snaps[c], n, col0, CW) if NWIN
-                  else snaps[c].clone())
-        words, _ = dp(predsT_c, pmaskT_c, bases_d[c * NC:(c + 1) * NC],
-                      fills_c, a_d[col0:col0 + CW], n_real, rows(c), params,
-                      W, ring=ring_c, chunk_base=c * NC, col0=col0)
-        remats += 1
-        st = walk(words, preds_d[c * NC:(c + 1) * NC], row, j, state,
-                  c * NC, col0, align)
+        c, w = r.cell(row, j)
+        args, kw = r.remat_call(c, w, snaps[c], ckpt, hb)
+        words, _ = dp(*args, **kw)
+        st = walk(words, r.chunk_preds(c), row, j, state, c * NC, w * r.CW,
+                  align)
         cells += 1
         row, j, state = st.tolist()
         del words
     if clock:
-        clock.chunked = {"NC": NC, "chunks": nchunks, "NWIN": NWIN,
-                         "CW": CW, "remats": remats, "cells_walked": cells}
+        # one remat per walked cell
+        clock.chunked = {"NC": NC, "chunks": r.nchunks, "NWIN": NWIN,
+                         "CW": r.CW, "remats": cells, "cells_walked": cells}
     return msa_poa.pack_round(scores, align, best)
