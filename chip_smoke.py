@@ -63,7 +63,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
     its read; after the timed run, round 1's score equal to the PSA DP's
     score of reads 1 and 0 (a global pairwise alignment: the graph is
     read 0's chain) and to the score of MSA rows 0 and 1, and round 2's
-    at least read 2's pairwise score with read 0 and with read 1.
+    at least read 2's pairwise score with read 0 and with read 1;
+15. the chunked traced PSA: (a) the 10 kbp example through 20 chunks of 512
+    rows, byte-identical to the golden and equal to the unchunked path;
+    (b) a 200,000-column pair (read 0 of the 200 kbp set against a ~2 kbp
+    mutated stretch of it) at 512 rows per chunk, each chunk's DP from its
+    snapshot (codes, frontier out, best, corner) and each chunk's walk
+    (moves, exit state) held to the plain versions, and the alignment
+    re-scoring to K1's corner; (c) ``tsta-torch psa`` on reads 0 and 1 at
+    the card's own budget (3 chunks of 65,536 rows), the launch counters
+    reset before and read after: only the chunk DP and bounded walk,
+    ``maxsorce`` and the corner equal to K1's (phase 14) and to round 1's
+    score, the rows re-scoring to it and equal to the reads without their
+    gaps: wall, GCUPS, forward and backward split, remats, each launch's
+    ms and peak device memory; (d) after it, (c)'s chunk 0 at (c)'s shape
+    (65,536 rows x the full width), its DP from the entry frontier and
+    its walk from the state (c)'s walk entered it with, held to the plain
+    versions in every output, which give the kernels record's plain ms.
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -476,8 +492,10 @@ def main() -> int:
     msa_launches, poa_times, res_50k = msa_phases(dev, smi_line)
     launches.update(poa_dp=msa_launches["poa_dp"],
                     poa_walk=msa_launches["poa_walk"])
-    chunk_launches, chunk_times = chunked_phases(dev, smi_line, res_50k)
+    chunk_launches, chunk_times, k1 = chunked_phases(dev, smi_line, res_50k)
     launches.update(chunk_launches)
+    psa_launches, psa_times = psa_chunked_phases(dev, smi_line, k1)
+    launches.update(psa_launches)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -499,6 +517,10 @@ def main() -> int:
          chunk_times["poa_dp_window"]),
         ("poa_walk_bounded", src % "poa_walk_bounded.cu",
          "tsta_tpu/ops/msa_pallas.py:775", chunk_times["poa_walk_bounded"]),
+        ("psa_dp_chunk", src % "psa_dp.cu", "tsta_tpu/ops/psa_pallas.py:585",
+         psa_times["psa_dp_chunk"]),
+        ("psa_walk_bounded", src % "psa_walk_bounded.cu",
+         "tsta_tpu/ops/traceback.py:823", psa_times["psa_walk_bounded"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -520,10 +542,11 @@ def next_round(seqs, rounds, params, dev, budget=None):
     import numpy as np
     import torch
 
+    from tsta_tpu_torch.device import device_budget
     from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_native, msa_poa
     if budget is None:
-        budget = msa_poa.device_budget(dev)
+        budget = device_budget(dev)
     g = PoaGraph.from_sequence(seqs[0], len(seqs))
     for sno in range(1, rounds + 1):
         packed, order, _ = msa_poa.run_round(g, seqs[sno], params, dev,
@@ -756,8 +779,9 @@ def chunk_ops(tables, n_nodes, n, words):
 
 def chunked_phases(dev, smi_line, res_50k):
     """Phases 12-14 (chunked rounds); returns the slice's launch counts
-    from the 200 kbp run and the chunked kernels' timing records at its
-    shapes."""
+    from the 200 kbp run, the chunked kernels' timing records at its
+    shapes and K1's score and corner of reads 0 and 1 with round 1's
+    score."""
     import torch
 
     from tsta_tpu_torch import AlignParams
@@ -859,8 +883,8 @@ def chunked_phases(dev, smi_line, res_50k):
             or not all("NC" in rd for rd in clock.rounds):
         raise AssertionError("3 x 200 kbp did not run every round chunked "
                              "through the kernels")
-    times = check_200k(dev, smi_line, seqs, out)
-    return {k: launches[k] for k in CHUNK_KERNELS}, times
+    times, k1 = check_200k(dev, smi_line, seqs, out)
+    return {k: launches[k] for k in CHUNK_KERNELS}, times, k1
 
 
 def pair_rows(out, i: int, k: int):
@@ -885,6 +909,7 @@ def check_200k(dev, smi_line, seqs, out):
     import torch
 
     from tsta_tpu_torch import AlignParams
+    from tsta_tpu_torch.device import device_budget
     from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_chunked, msa_native, msa_poa, psa_diff
     from tsta_tpu_torch.ops import traceback as tb
@@ -892,7 +917,7 @@ def check_200k(dev, smi_line, seqs, out):
     times = {}
     g = PoaGraph.from_sequence(seqs[0], len(seqs))
     prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(
-        g, seqs[1], params, msa_poa.device_budget(dev))
+        g, seqs[1], params, device_budget(dev))
     r = msa_chunked.ChunkedRound(g, prep, a, n_real, NC, NWIN, params, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -981,14 +1006,16 @@ def check_200k(dev, smi_line, seqs, out):
                                         (reads[2], reads[1])], dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    corners = psa_diff.dp_packed(pa, pb, lens, params)[1].tolist()
+    k1_scores, corners = (x.tolist()
+                          for x in psa_diff.dp_packed(pa, pb, lens, params))
     pairwise_s = time.perf_counter() - t0
     rescored = tb.score_alignment(*pair_rows(out, 0, 1), params)
     scores_ok = (out.round_scores[0] == forward_score == corners[0]
                  == rescored and out.round_scores[1] >= max(corners[1:]))
     emit({"phase": "check_200k", "rounds": out.round_scores,
           "round1_forward_s": forward_s, "round1_forward_score": forward_score,
-          "pairwise_corners": corners, "pairwise_s": pairwise_s,
+          "pairwise_scores": k1_scores, "pairwise_corners": corners,
+          "pairwise_s": pairwise_s,
           "rows01_rescored": rescored, "scores_ok": scores_ok,
           "times": times, "exit_state": exit_state, "smi": smi_line})
     bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
@@ -998,7 +1025,236 @@ def check_200k(dev, smi_line, seqs, out):
     if not scores_ok:
         raise AssertionError("3 x 200 kbp round scores disagree with the "
                              "pairwise DP")
-    return times
+    # K1 of reads 1 and 0 (the DP is symmetric under swapping the two
+    # sequences, so phase 15's pair, read 0 against read 1, has the same
+    # score and corner)
+    return times, {"score": k1_scores[0], "corner": corners[0],
+                   "round1": out.round_scores[0]}
+
+
+def mutated_stretch(read: bytes, start: int, length: int, seed: int):
+    """``length`` bases of ``read`` from ``start``, ~5% substituted and
+    ~2% deleted (as ``long_reads`` mutates)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    s = np.frombuffer(read[start:start + length], np.uint8).copy()
+    hit = rng.random(len(s)) < 0.05
+    s[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, hit.sum())]
+    return np.delete(s, rng.integers(0, len(s), len(s) // 50))
+
+
+def psa_chunked_phases(dev, smi_line, k1):
+    """Phase 15, the chunked traced PSA: (a) the 10 kbp example through 20
+    chunks, against the golden and the unchunked path; (b) every chunk of
+    a 200,000-column pair at mc = 512, kernel against plain (DP from each
+    chunk's snapshot, the walk of each chunk from its entry); (c) reads 0
+    and 1 of the 3 x 200 kbp set through ``tsta-torch psa`` at the card's
+    budget, the launch counters reset before and read after; (d) (c)'s
+    chunk 0 again, kernel against plain at (c)'s shape.  ``k1``:
+    K1's score and corner of those reads and MSA round 1's score.  Returns
+    (c)'s launches and the timing records of the two kernels."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams, cli
+    from tsta_tpu_torch.io import encode_dna
+    from tsta_tpu_torch.ops import _kernels, psa_chunked, psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+    params = AlignParams()
+    p = (params.match, params.mismatch, params.gap_extend, params.gap_open)
+
+    # (a) the example pair through 20 chunks of 512 rows
+    s1, s2 = golden_example()
+    with open(os.path.join(GOLDEN, "psa_default.out"), "rb") as f:
+        gold = f.read()
+    ea, eb = encode_dna(s1), encode_dna(s2)
+    t0 = time.perf_counter()
+    got = psa_chunked.psa_align_traced_chunked(ea, eb, p, mc=512, device=dev)
+    wall_a = time.perf_counter() - t0
+    clock_a = psa_chunked.last_clock
+    unchunked = psa_diff.psa_align_traced_device(ea, eb, p, device=dev)
+    example_ok = (b">1\n" + got[2].a_row + b"\n>2\n" + got[2].b_row == gold
+                  and got == unchunked and got[0] == -5)
+    emit({"phase": "psa_chunked_example", "chunks": clock_a.chunks,
+          "remats": clock_a.remats, "walks": clock_a.walks,
+          "golden_identical_and_equal_unchunked": example_ok,
+          "score": got[0], "corner": got[1], "wall_s": wall_a})
+    if not example_ok or clock_a.chunks != 20:
+        raise AssertionError("10 kbp example through 20 chunks differs")
+
+    # (b) 200,000 columns against a ~2 kbp stretch, every chunk and walk
+    reads = long_reads(13, 200000)
+    a = np.frombuffer(reads[0], np.uint8)
+    b = mutated_stretch(reads[0], 100000, 2000, SEED)
+    mc_b = 512
+    pair = psa_chunked.ChunkedPair(a, b, p, mc_b, dev)
+    snaps, last_rows, _, _, last_plane = pair.forward(psa_chunked.chunk_dp)
+    del last_plane
+    errs = {"psa_dp_chunk": 0, "psa_walk_bounded": 0}
+    planes = []
+    for c in range(pair.nchunks):
+        args = pair.chunk_call(c, *snaps[c])
+        kern = psa_chunked.chunk_dp(*args)
+        plain = psa_chunked.chunk_dp_plain(*args)
+        nxt = snaps[c + 1] if c + 1 < pair.nchunks else kern[3:]
+        errs["psa_dp_chunk"] = max(
+            errs["psa_dp_chunk"],
+            *(max_err(k, w) for k, w in zip(kern, plain)),
+            *(max_err(k, w) for k, w in zip(kern[3:], nxt)))
+        planes.append(kern[2])
+        del plain
+    L = pair.m_pad + pair.n_pad
+    moves_k = torch.zeros(L, dtype=torch.int8, device=dev)
+    moves_p = torch.zeros(L, dtype=torch.int8)
+    state = (pair.m_real - 1, pair.n_real - 1, 0, 0)
+    walks = []
+    while True:
+        c = state[0] // pair.mc
+        wargs = pair.walk_call(c, planes[c], last_rows, *state, moves_k)
+        t0 = time.perf_counter()
+        kst = tb.walk_bounded(*wargs).tolist()
+        k_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pst = tb.walk_bounded_plain(*wargs[:-1], moves_p).tolist()
+        p_s = time.perf_counter() - t0
+        seg = slice(state[2], kst[2])
+        err = max(max_err(torch.tensor(kst), torch.tensor(pst)),
+                  max_err(moves_k[seg].cpu(), moves_p[seg]))
+        errs["psa_walk_bounded"] = max(errs["psa_walk_bounded"], err)
+        walks.append({"chunk": c, "steps": kst[2] - state[2],
+                      "host_s": k_s, "plain_s": p_s})
+        state = tuple(kst)
+        if state[0] < 0:
+            break
+    aln = tb.emit_alignment(moves_k[:state[2]].cpu().numpy(), a, b,
+                            pair.n_real, pair.m_real)
+    rescored = tb.score_alignment(aln.a_row, aln.b_row, params)
+    corner_b = int(psa_diff.dp_packed(*psa_diff.pack_pairs([(a, b)], dev),
+                                      p)[1][0])
+    wargs = None
+    emit({"phase": "psa_chunked_full_width", "shape": [pair.m_pad, pair.n_pad],
+          "mc": pair.mc, "chunks": pair.nchunks, "max_abs_err": errs,
+          "walks": walks, "rescored": rescored, "k1_corner": corner_b})
+    if any(errs.values()) or rescored != corner_b or len(walks) < pair.nchunks:
+        raise AssertionError("chunked kernels differ from their plain "
+                             "versions at full width: %s" % errs)
+    del planes, snaps, moves_k, moves_p, pair
+
+    # (c) the slice at full width through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "r0.fa"), os.path.join(tmp, "r1.fa")
+        with open(fa, "wb") as f:
+            f.write(b">r0\n" + reads[0] + b"\n")
+        with open(fb, "wb") as f:
+            f.write(b">r1\n" + reads[1] + b"\n")
+        out = os.path.join(tmp, "out.txt")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["psa", "-1", fa, "-2", fb, "-o", out,
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        with open(out, "rb") as f:
+            lines = f.read().split(b"\n")
+    run = psa_chunked.last_clock.record()
+    a_row, b_row = lines[1], lines[3]
+    rescored = tb.score_alignment(a_row, b_row, params)
+    degapped = (a_row.replace(b"-", b"") == reads[0]
+                and b_row.replace(b"-", b"") == reads[1])
+    cells = len(reads[0]) * len(reads[1])
+    stdout = buf.getvalue().split()
+    emit({"phase": "psa_chunked_200k", "rc": rc, "stdout": stdout,
+          "wall_s": wall, "gcups": cells / wall / 1e9, "cells": cells,
+          "peak_device_gb": peak, "launches": {
+              k: launches[k] for k in ("psa_dp_chunk", "psa_walk_bounded",
+                                       "psa_dp_traced", "psa_walk")},
+          "k1": k1, "rescored": rescored,
+          "rows_degapped_equal_reads": degapped,
+          "lengths": [len(reads[0]), len(reads[1])], **run, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    if rc != 0 or stdout != ["maxsorce=%d" % k1["score"]]:
+        raise AssertionError("200 kbp pair: stdout %s, K1 score %d"
+                             % (stdout, k1["score"]))
+    if not (run["score"] == k1["score"] and run["corner"] == k1["corner"]
+            == k1["round1"] == rescored) or not degapped:
+        raise AssertionError("200 kbp pair: score/corner/rows disagree with "
+                             "K1 and MSA round 1")
+    if (launches["psa_dp_chunk"] < run["chunks"] + run["remats"]
+            or launches["psa_walk_bounded"] < run["walks"]
+            or run["walks"] < run["chunks"]
+            or launches["psa_dp_traced"] or launches["psa_walk"]):
+        raise AssertionError("200 kbp pair did not run on the chunked "
+                             "kernels alone: %s %s" % (launches, run))
+
+    # (d) (c)'s chunk 0 at (c)'s shape, after the timed run: its DP from
+    # the entry frontier, and its walk from the state (c)'s walk entered
+    # it with, each kernel against plain, every output exactly
+    n_pad, mc = run["n_pad"], run["mc"]
+    pair = psa_chunked.ChunkedPair(encode_dna(reads[0]), encode_dna(reads[1]),
+                                   p, mc, dev)
+    args = pair.chunk_call(0, *pair.entry())
+    outs = {}
+    dk_ms, _ = cuda_ms(lambda: outs.update(kernel=psa_chunked.chunk_dp(*args)),
+                       1, False)
+    dp_plain_ms, _ = cuda_ms(
+        lambda: outs.update(plain=psa_chunked.chunk_dp_plain(*args)), 1, False)
+    err_dp = max(max_err(k, w) for k, w in zip(outs["kernel"], outs["plain"]))
+    plane = outs["kernel"][2]
+    del outs
+    state = tuple(run["walk_from"][-1])
+    L = pair.m_pad + pair.n_pad
+    moves_k = torch.zeros(L, dtype=torch.int8, device=dev)
+    moves_p = torch.zeros(L, dtype=torch.int8)
+    wargs = pair.walk_call(0, plane, [], *state, moves_k)
+    wk_ms, kst = cuda_ms(lambda: tb.walk_bounded(*wargs).tolist(), 1, False)
+    t0 = time.perf_counter()
+    pst = tb.walk_bounded_plain(*wargs[:-1], moves_p).tolist()
+    walk_plain_ms = (time.perf_counter() - t0) * 1e3
+    seg = slice(state[2], kst[2])
+    err_walk = max(max_err(torch.tensor(kst), torch.tensor(pst)),
+                   max_err(moves_k[seg].cpu(), moves_p[seg]))
+    steps = kst[2] - state[2]
+    del wargs, plane, moves_k, moves_p, pair
+    emit({"phase": "psa_chunked_200k_chunk0", "shape": [mc, n_pad],
+          "max_abs_err": {"psa_dp_chunk": err_dp,
+                          "psa_walk_bounded": err_walk},
+          "chunk_dp_ms": dk_ms, "chunk_dp_plain_ms": dp_plain_ms,
+          "walk_from": state, "walk_exit": kst, "walk_steps": steps,
+          "walk_ms": wk_ms, "walk_plain_host_ms": walk_plain_ms})
+    if (err_dp or err_walk or state[0] != mc - 1 or kst[:2] != [-1, -1]
+            or steps != run["walk_steps"][-1]):
+        raise AssertionError("200 kbp chunk 0: kernel differs from its "
+                             "plain version: dp %d, walk %d, from %s to %s"
+                             % (err_dp, err_walk, state, kst))
+
+    times = {
+        "psa_dp_chunk": {
+            "shape": "ms: (c) median of %d launches, %d x %d rows x columns; "
+                     "plain_ms: (d) chunk 0 of (c), the same shape; "
+                     "max_abs_err: (d) and every chunk of (b), %d x %d"
+                     % (len(run["dp_ms"]), mc, n_pad, mc_b, n_pad),
+            "ms": statistics.median(run["dp_ms"]), "plain_ms": dp_plain_ms,
+            "max_abs_err": max(errs["psa_dp_chunk"], err_dp),
+            # a, the chunk's b, lens, h/e in and out, best, corner, plane
+            **bound(n_pad + mc + 8 + 16 * n_pad + 8 + mc * n_pad,
+                    (OPS_PSA_CELL + OPS_PSA_CODE) * mc * n_pad)},
+        "psa_walk_bounded": {
+            "shape": "ms: (c) its walk of chunk 0, %d steps in a %d x %d "
+                     "plane; plain_ms: (d) the same walk (host clock); "
+                     "max_abs_err: (d) and every walk of (b)"
+                     % (steps, mc, n_pad),
+            "ms": run["walk_ms"][-1], "plain_ms": walk_plain_ms,
+            "max_abs_err": max(errs["psa_walk_bounded"], err_walk),
+            # per step one plane byte read and one move byte written
+            **bound(2 * steps + 16, OPS_WALK_STEP * steps)}}
+    return {k: launches[k] for k in ("psa_dp_chunk", "psa_walk_bounded")}, \
+        times
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""The CUDA kernels of tsta_tpu_torch (PSA DP and walk, POA round DP in
-its single-call, forward-chunk and window-remat uses, POA walk and
-bounded walk) against their plain PyTorch versions on the card, with
-exact integer equality, and the MSA engine's kernel route, chunked
-rounds included, against the CPU.
+"""The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, PSA
+walk and bounded walk, POA round DP in its single-call, forward-chunk and
+window-remat uses, POA walk and bounded walk) against their plain PyTorch
+versions on the card, with exact integer equality, and the kernel routes
+of the MSA engine, chunked rounds included, and of the chunked traced
+PSA against the CPU.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (this file imports no jax, so it also runs on a host without it):
@@ -386,3 +387,158 @@ def test_chunk_wrappers_refuse_bad_tensors(cuda):
         _kernels.poa_walk_bounded(words, predsT.T.contiguous(), 5, 5, 3, 0,
                                   0, torch.full((2048,), -1, dtype=i32,
                                                 device=cuda), out)
+
+
+def _long_pair(seed, n, m):
+    """A seeded pair: b a mutated copy of a stretch of a (~8% substituted,
+    ~2% deleted, then cut or padded to m), so the walk has gap runs."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(65, 69, n).astype(np.uint8)
+    b = a[rng.integers(0, max(1, n - m)):].copy()
+    hit = rng.integers(0, len(b), len(b) // 12)
+    b[hit] = rng.integers(65, 69, hit.size)
+    b = np.delete(b, rng.integers(0, len(b), len(b) // 50))
+    b = np.concatenate([b, rng.integers(65, 69, m).astype(np.uint8)])[:m]
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(100, 700), (1500, 1300), (9000, 600)])
+def test_psa_chunk_dp_and_bounded_walk_kernels_match_plain(cuda, n, m):
+    """Every chunk of a pair cut into 256-row chunks, from the same entry
+    frontier: the chunk-mode DP on the card equals its plain version on
+    the CPU (best, corner, every code, frontier out); then every chunk's
+    bounded walk (moves, exit state) from the same entry."""
+    from tsta_tpu_torch.ops import psa_chunked
+    a, b = _long_pair(n + m, n, m)
+    pairs = {d: psa_chunked.ChunkedPair(a, b, P0, 256, torch.device(d))
+             for d in ("cpu", cuda)}
+    pc, pk = pairs["cpu"], pairs[cuda]
+    h, e = pc.entry()
+    n0 = dict(_kernels.launches)
+    last_rows, planes = [], []
+    for c in range(pc.nchunks):
+        want = psa_chunked.chunk_dp_plain(*pc.chunk_call(c, h, e))
+        got = psa_chunked.chunk_dp(*pk.chunk_call(c, h.to(cuda), e.to(cuda)))
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            assert torch.equal(g.cpu(), w)
+        _, _, codes, h, e = want
+        last_rows.append(codes[-1].clone())
+        planes.append(codes)
+    assert (_kernels.launches["psa_dp_chunk"]
+            == n0["psa_dp_chunk"] + pc.nchunks)
+    L = pc.m_pad + pc.n_pad
+    moves = {"cpu": torch.zeros(L, dtype=torch.int8),
+             "cuda": torch.zeros(L, dtype=torch.int8, device=cuda)}
+    state = (m - 1, n - 1, 0, 0)
+    walks = 0
+    while True:
+        c = state[0] // pc.mc
+        want = tb.walk_bounded(*pc.walk_call(c, planes[c], last_rows, *state,
+                                             moves["cpu"]))
+        got = tb.walk_bounded(*pk.walk_call(
+            c, planes[c].to(cuda), [r.to(cuda) for r in last_rows], *state,
+            moves["cuda"]))
+        torch.cuda.synchronize()
+        assert got.tolist() == want.tolist()
+        assert torch.equal(moves["cuda"].cpu(), moves["cpu"])
+        state = tuple(want.tolist())
+        walks += 1
+        if state[0] < 0:
+            break
+    assert state[:2] == (-1, -1) and walks >= pc.nchunks
+    assert (_kernels.launches["psa_walk_bounded"]
+            == n0["psa_walk_bounded"] + walks)
+
+
+@pytest.mark.cuda
+def test_chunked_traced_on_card_matches_cpu(cuda, monkeypatch):
+    """The whole chunked traced path on the card (kernels only) equals the
+    CPU's plain run and the unchunked traced path; a budget the pair
+    does not fit routes it there from the traced batch."""
+    from tsta_tpu_torch.ops import psa_chunked
+    a, b = _long_pair(7, 2100, 1900)
+    want = psa_diff.psa_align_traced_device(a, b, P0, device="cpu")
+    assert psa_chunked.psa_align_traced_chunked(a, b, P0, mc=512,
+                                                device="cpu") == want
+    n0 = dict(_kernels.launches)
+    got = psa_chunked.psa_align_traced_chunked(a, b, P0, mc=512, device=cuda)
+    assert got == want
+    clock = psa_chunked.last_clock
+    assert (_kernels.launches["psa_dp_chunk"] - n0["psa_dp_chunk"]
+            == clock.chunks + clock.remats)
+    assert (_kernels.launches["psa_walk_bounded"] - n0["psa_walk_bounded"]
+            == clock.walks >= clock.chunks)
+    assert _kernels.launches["psa_dp_traced"] == n0["psa_dp_traced"]
+    small = (a[:300], b[:280])
+    monkeypatch.setattr(psa_diff, "device_budget",
+                        lambda dev: 2 * 2048 * 2304 - 1)
+    res = psa_diff.psa_align_batch_traced_packed([(a, b), small], P0,
+                                                 device=cuda)
+    assert res[0] == want
+    assert res[1] == psa_diff.psa_align_traced_device(*small, P0,
+                                                      device="cpu")
+    assert _kernels.launches["psa_dp_traced"] == n0["psa_dp_traced"] + 1
+
+
+@pytest.mark.cuda
+def test_psa_chunk_wrappers_refuse_bad_tensors(cuda):
+    i32 = torch.int32
+    a = torch.zeros((256,), dtype=torch.uint8, device=cuda)
+    b = torch.zeros((64,), dtype=torch.uint8, device=cuda)
+    lens = torch.tensor([200, 60], dtype=i32, device=cuda)
+    h = torch.zeros((256,), dtype=i32, device=cuda)
+    one = torch.zeros((1,), dtype=i32, device=cuda)
+    plane = torch.zeros((64, 256), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):   # a frontier of another width
+        _kernels.psa_dp_chunk(a, b, lens, 0, P0, h[:128], h, h.clone(),
+                              h.clone(), one, one.clone(), plane)
+    with pytest.raises(ValueError):   # a plane of another row count
+        _kernels.psa_dp_chunk(a, b, lens, 0, P0, h, h, h.clone(), h.clone(),
+                              one, one.clone(), plane[:32])
+    moves = torch.zeros((400,), dtype=torch.int8, device=cuda)
+    out = torch.zeros((4,), dtype=i32, device=cuda)
+    with pytest.raises(ValueError):   # the entry row is not in the chunk
+        _kernels.psa_walk_bounded(plane, a, 64, 10, 10, 0, 0, moves, out)
+    with pytest.raises(ValueError):   # too few moves for the walk left
+        _kernels.psa_walk_bounded(plane, a, 0, 63, 255, 100, 0, moves, out)
+
+
+_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113psa_dp_kernelILi1024ELb1ELb1EEEvPKhS2_PKiiiiNS_6ParamsEPiS6_PhS6_iNS_8FrontierE' for 'sm_90a'
+ptxas info    : Used 57 registers, used 1 barriers, 8448 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113psa_dp_kernelILi256ELb0ELb0EEEvPKhS2_PKiiiiNS_6ParamsEPiS6_PhS6_iNS_8FrontierE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113psa_dp_kernelILi256ELb0ELb0EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 2112 bytes smem
+"""
+
+_SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_113psa_dp_kernelILb0EEEvPKhS2_PKiiiNS_6ParamsEPiS6_PhS6_i
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                               /* 0x000fe20000000800 */
+        /*0010*/              @!P0 IMAD R3, R2, c[0x0][0x21c], RZ ;  /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_113psa_dp_kernelILb1EEEvPKhS2_PKiiiNS_6ParamsEPiS6_PhS6_i
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_psa_dp_ab_finds_k1_in_ptxas_and_sass():
+    """The K1 A/B script picks K1's instantiation out of ptxas's report and
+    the SASS dump, before and after the chunk mode's template argument,
+    and masks the parameters' constant-bank offsets."""
+    from tsta_tpu_torch.tools import psa_dp_ab as ab
+    entries = ab.ptxas_entries(_PTXAS)
+    k1 = [n for n in entries if ab.is_k1(n)]
+    assert len(entries) == 2 and len(k1) == 1 and "Li256ELb0ELb0E" in k1[0]
+    assert entries[k1[0]][-1].endswith("Used 40 registers, used 1 barriers, "
+                                       "2112 bytes smem")
+    funs = ab.sass_functions(_SASS)
+    k1 = [n for n in funs if ab.is_k1(n)]
+    assert len(funs) == 2 and len(k1) == 1
+    assert funs[k1[0]] == ["LDC R1, c[0x0][.]",
+                           "@!P0 IMAD R3, R2, c[0x0][.], RZ"]

@@ -26,6 +26,7 @@ from tsta_tpu.models.poa_graph import PoaGraph as JGraph
 from tsta_tpu.ops import msa_native as jnative
 from tsta_tpu.ops import msa_pallas
 from tsta_tpu_torch import convert
+from tsta_tpu_torch.device import CPU_BUDGET
 from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.models.poa_graph import PoaGraph
 from tsta_tpu_torch.ops import _kernels, msa_chunked, msa_native, msa_poa
@@ -402,7 +403,7 @@ def test_prep_round_plans_and_cpu_wrappers_take_the_plain_versions():
     params = AlignParams()
     g = PoaGraph.from_sequence(seqs[0], 2)
     prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(g, seqs[1], params,
-                                                      msa_poa.CPU_BUDGET)
+                                                      CPU_BUDGET)
     assert (NC, NWIN) == (None, 0)
     prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(g, seqs[1], params,
                                                       2 ** 30 // 100)

@@ -22,6 +22,7 @@ from tsta_tpu.ops import msa_native as jnative
 from tsta_tpu.ops import msa_pallas
 from tsta_tpu.ops.psa_scan import bucket
 from tsta_tpu_torch import convert
+from tsta_tpu_torch.device import CPU_BUDGET
 from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
 
 CPU = torch.device("cpu")
@@ -52,7 +53,7 @@ def _grown(seed, length, params, rounds=3):
     g = PoaGraph.from_sequence(reads[0], len(reads))
     for sno in range(1, rounds + 1):
         packed, order, _ = msa_poa.run_round(g, reads[sno], params, CPU,
-                                             "auto", msa_poa.CPU_BUDGET)
+                                             "auto", CPU_BUDGET)
         msa_native._finish_round(g, reads[sno], sno, order, packed.numpy(),
                                  [], [], [])
     assert g.max_in_degree() >= 2
@@ -61,7 +62,7 @@ def _grown(seed, length, params, rounds=3):
 
 def _port_round(g, seq, params):
     prep, n, n_real, a, NC, _ = msa_poa.prep_round(g, seq, params,
-                                                   msa_poa.CPU_BUDGET)
+                                                   CPU_BUDGET)
     assert NC is None
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
     t = [torch.from_numpy(np.ascontiguousarray(x))
@@ -99,7 +100,7 @@ _PLANS = [(51200, 51200, 64, None), (100352, 102400, 64, None),
 def test_round_plan_matches_jax(N, n, W, budget, monkeypatch):
     if budget is None:
         monkeypatch.delenv("TSTA_HBM_BUDGET_GB", raising=False)
-        budget = msa_poa.CPU_BUDGET
+        budget = CPU_BUDGET
     else:
         monkeypatch.setenv("TSTA_HBM_BUDGET_GB", repr(budget / 2 ** 30))
     jbudget = msa_pallas._hbm_budget()
@@ -130,7 +131,7 @@ def test_prep_round_refuses_a_chunked_plan():
     packed, _, _ = msa_poa.run_round(g, seq, AlignParams(), CPU, "auto",
                                      2_000_000)
     want, _, _ = msa_poa.run_round(g, seq, AlignParams(), CPU, "auto",
-                                   msa_poa.CPU_BUDGET)
+                                   CPU_BUDGET)
     assert torch.equal(packed, want)
     assert msa_poa.round_columns(16384) == 16384
     assert msa_poa.round_columns(16385) == 24576
@@ -229,7 +230,7 @@ def _align_rows(kind, g, seq, params):
     rng = np.random.default_rng(len(seq))
     if kind == "walk":
         packed, order, _ = msa_poa.run_round(g, seq, params, CPU, "auto",
-                                             msa_poa.CPU_BUDGET)
+                                             CPU_BUDGET)
         return packed.numpy()[2:2 + n]
     if kind == "hot_column":   # one column hit 12 times: the Python path
         rows = np.full(n, -1, np.int64)

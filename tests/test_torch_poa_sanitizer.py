@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tsta_tpu_torch.config import AlignParams
+from tsta_tpu_torch.device import CPU_BUDGET
 from tsta_tpu_torch.models.poa_graph import PoaGraph
 from tsta_tpu_torch.native import build
 from tsta_tpu_torch.ops import msa_native, msa_poa
@@ -191,7 +192,7 @@ def test_poa_helpers_asan_clean(poa_asan_bin, tmp_path, monkeypatch, seed,
     g = PoaGraph.from_sequence(reads[0], len(reads))
     for sno in range(1, len(reads) - 1):
         packed, order, _ = msa_poa.run_round(g, reads[sno], params, cpu,
-                                             "auto", msa_poa.CPU_BUDGET)
+                                             "auto", CPU_BUDGET)
         msa_native._finish_round(g, reads[sno], sno, order, packed.numpy(),
                                  [], [], [])
     assert g.max_in_degree() >= 2
@@ -217,7 +218,7 @@ def test_poa_helpers_asan_clean(poa_asan_bin, tmp_path, monkeypatch, seed,
     monkeypatch.setattr(msa_native, "_merge_native", spy_merge)
     sno = len(reads) - 1
     packed, order, _ = msa_poa.run_round(g, reads[sno], params, cpu, "auto",
-                                         msa_poa.CPU_BUDGET)
+                                         CPU_BUDGET)
     msa_native._finish_round(g, reads[sno], sno, order, packed.numpy(), [],
                              [], [])
     monkeypatch.setenv("TSTA_NATIVE_TOPO", "force")

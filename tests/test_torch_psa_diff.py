@@ -11,7 +11,8 @@ import torch
 from tsta_tpu.ops import psa_diff as jdiff
 from tsta_tpu.ops import psa_pallas as jpallas
 from tsta_tpu.ops import psa_scan as jscan
-from tsta_tpu_torch import convert
+from tsta_tpu_torch import convert, device
+from tsta_tpu_torch.ops import psa_chunked
 from tsta_tpu_torch.ops import psa_diff as tdiff
 
 P0 = (2, -5, -2, -4)
@@ -185,25 +186,31 @@ def test_unported_options_raise():
 
 
 def test_traced_groups_follow_budget(monkeypatch):
-    """Groups share a padded width and stay inside the plane budget; a
-    single pair past the budget names the chunked slice."""
+    """Groups share a padded width and stay inside the budget (2 * P *
+    m_pad * n_pad bytes, the JAX rule); a pair past it alone goes to the
+    chunked path, and the batch gives JAX's results either way."""
     n = [500, 480, 130, 500, 1000]
     m = [500, 300, 90, 260, 900]
-    groups = tdiff._traced_groups(n, m, budget=4 * 512 * 512)
+    groups, chunked = tdiff._traced_groups(n, m, budget=8 * 512 * 512)
+    assert chunked == []
     assert sorted(i for g in groups for i in g) == list(range(5))
     for g in groups:
         assert len({tdiff._traced_n_pad(n[i]) for i in g}) == 1
         m_pad = -(-max(m[i] for i in g) // 256) * 256
-        assert len(g) * m_pad * tdiff._traced_n_pad(n[g[0]]) <= 4 * 512 ** 2
+        assert (2 * len(g) * m_pad * tdiff._traced_n_pad(n[g[0]])
+                <= 8 * 512 ** 2)
     assert [len(g) for g in groups] == [1, 3, 1]
+    groups, chunked = tdiff._traced_groups(n, m, budget=4 * 512 * 512)
+    assert chunked == [4] and [len(g) for g in groups] == [2, 1, 1]
     rng = np.random.default_rng(2)
     pairs = [(_rnd(rng, 600), _rnd(rng, 500)), (_rnd(rng, 300), _rnd(rng, 200))]
-    monkeypatch.setattr(tdiff, "CPU_PLANE_BUDGET", 640 * 512 - 1)
-    with pytest.raises(NotImplementedError, match="chunked traced"):
-        tdiff.psa_align_batch_traced_packed(pairs, P0, device="cpu")
-    monkeypatch.setattr(tdiff, "CPU_PLANE_BUDGET", 640 * 512)
-    got = tdiff.psa_align_batch_traced_packed(pairs, P0, device="cpu")
-    assert got == jdiff.psa_align_batch_traced_packed(pairs, P0)
+    want = jdiff.psa_align_batch_traced_packed(pairs, P0)
+    for budget, routed in ((2 * 640 * 512 - 1, True), (2 * 640 * 512, False)):
+        monkeypatch.setattr(device, "CPU_BUDGET", budget)
+        psa_chunked.last_clock = None
+        got = tdiff.psa_align_batch_traced_packed(pairs, P0, device="cpu")
+        assert got == want
+        assert (psa_chunked.last_clock is not None) == routed
 
 
 def test_cuda_request_without_card_raises():

@@ -8,8 +8,9 @@
 Same flags, stdout and output files as ``tsta psa`` / ``msa`` /
 ``msa-batch`` / ``batch`` of the JAX package, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions).  ``--kernel``
-takes auto|plain|cuda.  ``--mesh`` (multi-GPU) and ``--profile`` belong
-to later slices.
+takes auto|plain|cuda.  ``psa`` and ``batch --traced`` run a pair whose
+traceback plane exceeds the card's budget in row-chunks, with no option.
+``--mesh`` (multi-GPU) and ``--profile`` belong to later slices.
 """
 
 from __future__ import annotations

@@ -9,6 +9,11 @@ traceback word plane.
   (4w + k, j) (``tsta_tpu/ops/psa_diff.py`` ``_psa_diff_traced_call``).
 * Port PSA plane: ``(P, m_pad, n_pad)`` uint8, one code per cell,
   row-major per pair (``csrc/psa_dp.cu``).
+* JAX chunk plane of a long traced pair: ``(mc // 4, R, 128)`` int32,
+  byte k of ``plane[w, j // 128, j % 128]`` the code of the chunk's row
+  4w + k (``tsta_tpu/ops/psa_pallas.py`` ``_psa_chunk_call``); its H/E
+  frontier ``(R, 128)`` int32, column j at ``[j // 128, j % 128]``.
+* Port chunk plane: ``(mc, n_pad)`` uint8; frontier ``(n_pad,)`` int32.
 * JAX POA words: ``(N // 2, Rp, 128)`` int32, two nodes per word, the
   even node in the low half (``tsta_tpu/ops/msa_pallas.py``
   ``_poa_chunk_call``); word ``words[v // 2, j // 128, j % 128]`` holds
@@ -70,6 +75,34 @@ def plane_to_jax(plane) -> np.ndarray:
     by = c.reshape(P, m_pad // 4, 4, Rp, LANES).transpose(1, 0, 3, 4, 2)
     by = np.ascontiguousarray(by).reshape(m_pad // 4, P * Rp, LANES * 4)
     return by.view("<i4").astype(np.int32)
+
+
+def chunk_plane_from_jax(plane) -> torch.Tensor:
+    """JAX ``(mc // 4, R, 128)`` int32 chunk plane -> the port's ``(mc,
+    n_pad)`` uint8 chunk plane (a CPU tensor): the one-pair case of
+    :func:`plane_from_jax`."""
+    return plane_from_jax(plane, 1)[0]
+
+
+def frontier_from_jax(state) -> torch.Tensor:
+    """JAX ``(R, 128)`` int32 per-column state (H, E, best or last of
+    the chunked traced DP) -> the port's ``(n_pad,)`` int32 (CPU)."""
+    w = np.asarray(state)
+    if w.ndim != 2 or w.shape[1] != LANES:
+        raise ValueError("expected (R, %d) state, got %s" % (LANES, w.shape))
+    return torch.from_numpy(np.array(w, dtype=np.int32).reshape(-1))
+
+
+def frontier_to_jax(state) -> np.ndarray:
+    """The port's ``(n_pad,)`` int32 frontier -> the JAX ``(R, 128)``
+    int32 state (numpy; pass it to ``jnp.asarray``)."""
+    if isinstance(state, torch.Tensor):
+        state = state.cpu().numpy()
+    c = np.asarray(state, dtype=np.int32)
+    if c.ndim != 1 or c.shape[0] % LANES:
+        raise ValueError("expected (n_pad,) with n_pad %% %d == 0, got %s"
+                         % (LANES, c.shape))
+    return c.reshape(-1, LANES).copy()
 
 
 def poa_words_from_jax(words) -> torch.Tensor:

@@ -9,12 +9,9 @@
 // serves every shape.
 //
 // Per pair: start at (m-1, n-1) and step until i < 0 and j < 0.  Moves:
-// 1 diag, 0 left, 2 up.  In the core the move is the forced one if the
-// previous step forced it, else the cell's back code; a left move forces
-// the next move left when the cell's f code is 0 (extend) or the entered
-// cell's f code is 2 (tie), an up move likewise with e codes (the
-// reference's plane rewrite, traceback.py _decode_step).  Outside the
-// core: left while j >= 0, then up.  Moves are packed 16 per int32 word,
+// 1 diag, 0 left, 2 up.  In the core the step rules are
+// psa_walk_step.cuh's (traceback.py _decode_step); outside the core: left
+// while j >= 0, then up.  Moves are packed 16 per int32 word,
 // 2 bits each, LSB first; the tail word is written after the loop and the
 // remaining words are zeroed.
 //
@@ -25,6 +22,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "psa_walk_step.cuh"
 
 namespace {
 
@@ -45,15 +44,9 @@ __global__ void psa_walk_kernel(const uint8_t* __restrict__ plane_all,
     int move, next = 0;
     if (i >= 0 && j >= 0) {
       const uint8_t* cell = plane + (size_t)i * n_pad + j;
-      const int code = cell[0];
       const int left = j > 0 ? cell[-1] : 0;
       const int up = i > 0 ? cell[-n_pad] : 0;
-      move = forced > 0 ? forced - 1 : code / 9;
-      if (move == 0 && j > 0) {
-        if ((code / 3) % 3 == 0 || (left / 3) % 3 == 2) next = 1;
-      } else if (move == 2 && i > 0) {
-        if (code % 3 == 0 || up % 3 == 2) next = 3;
-      }
+      move = tsta::psa_walk_step(cell[0], left, up, i, j, forced, next);
     } else {
       move = j >= 0 ? 0 : 2;
     }

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 
 DEFAULT_DEVICE = "cuda"
+DEVICE_SHARE = 0.85            # of the card's memory, as the TPU plans
+CPU_BUDGET = 12 * 2 ** 30      # the TPU plans' budget without device stats
 
 
 class DeviceError(RuntimeError):
@@ -33,3 +35,15 @@ def resolve_device(device=None) -> torch.device:
         raise DeviceError("unsupported device %r (use 'cuda' or 'cpu')"
                           % str(dev))
     return dev
+
+
+def device_budget(device) -> int:
+    """Bytes the memory plans (a POA round's planes, a traced PSA group's
+    code planes) may take on ``device``: 0.85 of the card's total memory
+    (``torch.cuda.mem_get_info``), or the TPU plans' 12 GiB default on the
+    CPU.  Total, not free, memory: a route must not depend on what the
+    caching allocator happens to hold."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return int(torch.cuda.mem_get_info(dev)[1] * DEVICE_SHARE)
+    return CPU_BUDGET

@@ -8,7 +8,9 @@ run the DP, report the matrix-max score and, traced, the aligned pair.
 
 * ``auto``: the CUDA kernels (DP, then the device walk) for every
   supported parameter set, the ``psa_scan`` oracle for the rest; on a
-  CPU device the kernels' plain PyTorch versions run instead;
+  CPU device the kernels' plain PyTorch versions run instead.  A traced
+  pair whose code plane exceeds the device budget (a ~200 kbp pair on an
+  80 GB card) runs in row-chunks (``ops/psa_chunked.py``);
 * ``cuda``: the kernels only (a CUDA device and supported parameters);
 * ``plain``: the ``psa_scan`` oracle and the host walk.
 """

@@ -28,19 +28,22 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("psa_dp.cu", "psa_walk.cu", "poa_dp.cu", "poa_walk.cu",
-            "poa_walk_bounded.cu")
+_SOURCES = ("psa_dp.cu", "psa_walk.cu", "psa_walk_bounded.cu", "poa_dp.cu",
+            "poa_walk.cu", "poa_walk_bounded.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 # K1 and K2 are the score-only and traced uses of the one PSA DP kernel
-# source; K3 is the PSA walk; poa_dp and poa_walk are the MSA round DP and
-# its walk on a single-call round; poa_dp_chunk and poa_dp_window are the
-# POA DP kernel's forward chunk and window remat in a chunked round, and
-# poa_walk_bounded its walk inside one (chunk, window) cell.
-KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk", "poa_dp",
-           "poa_walk", "poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
+# source, psa_dp_chunk its row-chunk of a long traced pair; K3 is the PSA
+# walk and psa_walk_bounded its walk inside one such chunk; poa_dp and
+# poa_walk are the MSA round DP and its walk on a single-call round;
+# poa_dp_chunk and poa_dp_window are the POA DP kernel's forward chunk and
+# window remat in a chunked round, and poa_walk_bounded its walk inside one
+# (chunk, window) cell.
+KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_walk",
+           "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
+           "poa_dp_window", "poa_walk_bounded")
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 POA_THREADS = 1024   # poa_dp.cu's block: one column strip per thread
 launches = dict.fromkeys(KERNELS, 0)
@@ -135,6 +138,13 @@ def _lib() -> ctypes.CDLL:
                                         vp, vp, vp, vp, ci, vp]
             lib.tsta_psa_dp_scratch_words.restype = ci
             lib.tsta_psa_dp_scratch_words.argtypes = [ci]
+            lib.tsta_psa_dp_chunk.restype = ci
+            lib.tsta_psa_dp_chunk.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 9
+            lib.tsta_psa_dp_chunk_scratch_words.restype = ci
+            lib.tsta_psa_dp_chunk_scratch_words.argtypes = [ci]
+            lib.tsta_psa_walk_bounded.restype = ci
+            lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 6 + [
+                vp, vp, vp]
             lib.tsta_psa_walk.restype = ci
             lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp]
             lib.tsta_poa_dp.restype = ci
@@ -225,6 +235,77 @@ def psa_walk(plane, nm, words, counts) -> None:
                               counts.data_ptr(), _stream(dev))
     _raise_on(rc, "psa_walk")
     launches["psa_walk"] += 1
+
+
+def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,
+                 best, corner, plane) -> None:
+    """Launch the DP kernel's chunk mode (one block of 1,024 threads) over
+    the rows [row_base, row_base + rows) of one pair: ``a``: (n_pad,)
+    uint8, ``b``: (rows,) uint8 the chunk's rows, ``lens``: (2,) int32
+    real (n, m); ``h_in``/``e_in``: (n_pad,) int32 frontier of row
+    row_base - 1; outputs ``h_out``/``e_out`` (n_pad,) int32 (the chunk's
+    last row), ``best``/``corner`` (1,) int32 and ``plane`` (rows, n_pad)
+    uint8, every cell's code."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("psa_dp_chunk kernel needs CUDA tensors, got %s"
+                         % dev)
+    n_pad, rows = a.shape[0], b.shape[0]
+    _check(a, "a", torch.uint8, (n_pad,), dev)
+    _check(b, "b", torch.uint8, (rows,), dev)
+    _check(lens, "lens", torch.int32, (2,), dev)
+    for name, t in (("h_in", h_in), ("e_in", e_in), ("h_out", h_out),
+                    ("e_out", e_out)):
+        _check(t, name, torch.int32, (n_pad,), dev)
+    _check(best, "best", torch.int32, (1,), dev)
+    _check(corner, "corner", torch.int32, (1,), dev)
+    _check(plane, "plane", torch.uint8, (rows, n_pad), dev)
+    if n_pad % 4 or rows < 1 or row_base < 0:
+        raise ValueError("psa_dp_chunk: n_pad %d (a multiple of 4), rows "
+                         "%d, row_base %d" % (n_pad, rows, row_base))
+    lib = _lib()
+    scratch = torch.empty((lib.tsta_psa_dp_chunk_scratch_words(n_pad),),
+                          dtype=torch.int32, device=dev)
+    m_, x_, e_, o_ = params
+    rc = lib.tsta_psa_dp_chunk(
+        a.data_ptr(), b.data_ptr(), lens.data_ptr(), n_pad, rows, row_base,
+        m_, x_, e_, o_, h_in.data_ptr(), e_in.data_ptr(), h_out.data_ptr(),
+        e_out.data_ptr(), best.data_ptr(), corner.data_ptr(),
+        plane.data_ptr(), scratch.data_ptr(), _stream(dev))
+    _raise_on(rc, "psa_dp_chunk")
+    launches["psa_dp_chunk"] += 1
+
+
+def psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,
+                     out) -> None:
+    """Launch the PSA walk (one thread) inside one row-chunk: ``plane``
+    ((rows, n_pad) uint8) holds rows [base, base + rows) of the pair,
+    ``prev_row`` ((n_pad,) uint8) the codes of row base - 1.  Walks from
+    (i, j) with ``t`` moves made and ``forced`` carried until the walk
+    leaves the chunk (or ends, at base 0), writing ``moves`` ((L,) int8)
+    from index t on and ``out`` ((4,) int32) = (i, j, t, forced)."""
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError("psa_walk_bounded kernel needs CUDA tensors, got "
+                         "%s" % dev)
+    rows, n_pad = plane.shape
+    L = moves.shape[0]
+    _check(plane, "plane", torch.uint8, (rows, n_pad), dev)
+    _check(prev_row, "prev_row", torch.uint8, (n_pad,), dev)
+    _check(moves, "moves", torch.int8, (L,), dev)
+    _check(out, "out", torch.int32, (4,), dev)
+    inside = base <= i < base + rows or (base == 0 and i < 0)
+    if not (inside and -1 <= j < n_pad and forced in (0, 1, 3) and t >= 0
+            and t + max(i, -1) + j + 2 <= L):
+        raise ValueError("psa_walk_bounded: entry (%d, %d, t %d, forced %d) "
+                         "outside the chunk of rows [%d, %d) x %d columns, "
+                         "or %d moves too few"
+                         % (i, j, t, forced, base, base + rows, n_pad, L))
+    rc = _lib().tsta_psa_walk_bounded(
+        plane.data_ptr(), prev_row.data_ptr(), n_pad, base, i, j, t, forced,
+        moves.data_ptr(), out.data_ptr(), _stream(dev))
+    _raise_on(rc, "psa_walk_bounded")
+    launches["psa_walk_bounded"] += 1
 
 
 def poa_ring_width(n: int) -> int:

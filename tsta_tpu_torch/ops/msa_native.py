@@ -38,7 +38,7 @@ from tsta_tpu_torch.models.msa import MsaOutput
 from tsta_tpu_torch.models.poa_graph import PoaGraph, load_graph, save_graph
 from tsta_tpu_torch.utils.checkpoint import seqs_digest
 from tsta_tpu_torch.utils.logging import get_logger
-from tsta_tpu_torch.device import resolve_device
+from tsta_tpu_torch.device import device_budget, resolve_device
 from tsta_tpu_torch.ops import msa_poa
 from tsta_tpu_torch.native.build import load_poa
 from tsta_tpu_torch.ops.psa_scan import NEG, as_params
@@ -358,7 +358,7 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
     """Progressive POA MSA of ``seqs`` on ``device`` (default CUDA).
 
     ``kernel`` as in :func:`msa_poa.run_round`; a round plans for
-    ``budget`` bytes (default :func:`msa_poa.device_budget` of
+    ``budget`` bytes (default :func:`device.device_budget` of
     ``device``): a round whose words plane the plan will not hold runs
     chunked (``ops/msa_chunked.py``).  With
     ``checkpoint_path`` the graph is saved after every round and a
@@ -371,7 +371,7 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
     if not seqs:
         raise ValueError("no sequences")
     if budget is None:
-        budget = msa_poa.device_budget(dev)
+        budget = device_budget(dev)
     _warn_ambiguity(seqs)
     n_seq = len(seqs)
     digest = seqs_digest(seqs)
@@ -435,7 +435,7 @@ def align_seqs_many(seq_sets: List[List[bytes]],
     Returns one MsaOutput per read set, in input order."""
     dev = _check_args(kernel, device)
     if budget is None:
-        budget = msa_poa.device_budget(dev)
+        budget = device_budget(dev)
     cuda = dev.type == "cuda"
     states = []
     for seqs in seq_sets:

@@ -43,8 +43,6 @@ from tsta_tpu_torch.ops.psa_scan import NEG, as_params, bucket
 LANES = 128
 MAX_IN = _kernels.POA_MAX_IN   # the 16-bit words' 6-bit pred fields
 WIDE_MAX_IN = 1 << 13          # the plain version's int32 words: 13 bits
-DEVICE_SHARE = 0.85            # of the card's memory, as the TPU plan
-CPU_BUDGET = 12 * 2 ** 30      # the TPU plan's budget without device stats
 
 
 def _next_pow2(v):
@@ -131,16 +129,6 @@ def prepare(g, params, cap: bool = True):
     W = min(W, _next_pow2(N + 1))
     return (preds.T.copy(), pmask.T.copy(), bases.reshape(1, N), fills, N,
             max_in, W, order, preds)
-
-
-def device_budget(device) -> int:
-    """Bytes a round may plan for: 0.85 of the card's memory
-    (``torch.cuda.mem_get_info``), or the TPU plan's 12 GiB default on
-    the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return int(torch.cuda.mem_get_info(dev)[1] * DEVICE_SHARE)
-    return CPU_BUDGET
 
 
 def round_plan(N: int, n: int, W: int, budget: int):

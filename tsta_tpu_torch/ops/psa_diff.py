@@ -11,7 +11,9 @@ one thread block of ``csrc/psa_dp.cu``, so a batch is one launch over a
 * traced (:func:`psa_align_batch_traced_packed`): pairs grouped by padded
   width; each group's DP writes a (P, m_pad, n_pad) uint8 code plane on
   the device, the walk kernel turns it into packed moves, and only the
-  moves cross to the host.
+  moves cross to the host.  A pair whose plane the device budget will not
+  hold alone goes to ``ops/psa_chunked.py`` (row-chunks, rematerialised
+  one at a time for the walk).
 
 :func:`dp_packed` is the DP kernel's wrapper: a CPU tensor takes the
 plain version (``psa_scan.scan_rows``), a CUDA tensor launches the kernel
@@ -23,15 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tsta_tpu_torch.device import resolve_device
+from tsta_tpu_torch.device import device_budget, resolve_device
 from tsta_tpu_torch.ops import _kernels, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
 from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, as_params
 
 LANES = 128
 T_R = 256               # row padding quantum (the JAX kernel's rows/step)
-CPU_PLANE_BUDGET = 1 << 30   # bytes of traced planes per group on the CPU
-CUDA_PLANE_SHARE = 0.5       # share of free device memory for one group
 
 
 def supports_params(params) -> bool:
@@ -145,41 +145,31 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
     return scores.cpu().numpy(), corners.cpu().numpy()
 
 
-def plane_budget(device) -> int:
-    """Bytes one traced group's code plane may take: a share of the
-    card's free memory (``torch.cuda.mem_get_info``), or a fixed budget
-    on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(dev)
-        return int(free * CUDA_PLANE_SHARE)
-    return CPU_PLANE_BUDGET
-
-
 def _traced_groups(n_real, m_real, budget):
     """Group pair indices by padded width, longest rows first, as many
-    per group as the plane budget allows."""
+    per group as the budget allows: P pairs of an (m_pad, n_pad) group
+    fit when 2 * P * m_pad * n_pad <= ``budget`` bytes (the JAX rule,
+    ``tsta_tpu/ops/psa_diff.py:1090``: the plane and the walk's source).  Returns
+    ``(groups, chunked)``; ``chunked`` holds the pairs that do not fit
+    even alone."""
     order = sorted(range(len(n_real)),
                    key=lambda i: (-_traced_n_pad(n_real[i]), -m_real[i]))
-    groups = []
+    groups, chunked = [], []
     for i in order:
         n_pad = _traced_n_pad(n_real[i])
         m_pad = -(-m_real[i] // T_R) * T_R
-        if m_pad * n_pad > budget:
-            raise NotImplementedError(
-                "pair %d needs a %d x %d traceback plane (%d bytes) over "
-                "the device budget of %d bytes: long traced pairs need the "
-                "chunked traced slice, which is not ported yet"
-                % (i, m_pad, n_pad, m_pad * n_pad, budget))
+        if 2 * m_pad * n_pad > budget:
+            chunked.append(i)
+            continue
         g = groups[-1] if groups else None
         # the group's m_pad is its first (longest) member's
         if (g is not None and _traced_n_pad(n_real[g[0]]) == n_pad
-                and (len(g) + 1) * n_pad
+                and 2 * (len(g) + 1) * n_pad
                 * (-(-m_real[g[0]] // T_R) * T_R) <= budget):
             g.append(i)
         else:
             groups.append([i])
-    return groups
+    return groups, chunked
 
 
 def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
@@ -188,9 +178,11 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
 
     ``seq_pairs``: encoded uint8 (a, b) pairs, already swapped so the
     longer side is ``a``.  Returns [(score, corner, Alignment)] in input
-    order.  A pair whose plane exceeds the device budget raises
-    ``NotImplementedError`` (the chunked traced path is a later slice).
+    order.  Groups are cut to :func:`device.device_budget`; a pair whose
+    plane will not fit alone runs through
+    :func:`psa_chunked.psa_align_traced_chunked`.
     """
+    from tsta_tpu_torch.ops import psa_chunked
     _refuse_unported(mesh=mesh)
     p = as_params(params)
     if not supports_params(p):
@@ -199,7 +191,8 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
     dev = resolve_device(device)
     n_real, m_real = _lengths(seq_pairs)
     results = [None] * len(seq_pairs)
-    for g in _traced_groups(n_real, m_real, plane_budget(dev)):
+    groups, chunked = _traced_groups(n_real, m_real, device_budget(dev))
+    for g in groups:
         a, b, nm = pack_pairs([seq_pairs[i] for i in g], dev, traced=True)
         scores, corners, plane = dp_packed(a, b, nm, p, traced=True)
         words, counts = tb.walk_packed(plane, nm)
@@ -211,6 +204,9 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
             aln = tb.emit_alignment(moves, seq_pairs[i][0], seq_pairs[i][1],
                                     n_real[i], m_real[i])
             results[i] = (int(head[k, 0]), int(head[k, 1]), aln)
+    for i in chunked:
+        results[i] = psa_chunked.psa_align_traced_chunked(
+            seq_pairs[i][0], seq_pairs[i][1], p, device=dev)
     return results
 
 
@@ -230,9 +226,11 @@ def psa_align_batch(seq_pairs, params, device=None):
 def psa_align_traced_device(a: np.ndarray, b: np.ndarray, params,
                             device=None):
     """Traced alignment with the traceback walked on the device; only
-    the packed moves reach the host.  Parameters outside
-    :func:`supports_params` go to the ``psa_scan`` oracle on the same
-    device and the host walk.  Returns (score, corner, Alignment)."""
+    the packed moves reach the host, and a pair over the device budget
+    runs in row-chunks (:func:`psa_align_batch_traced_packed`).
+    Parameters outside :func:`supports_params` go to the ``psa_scan``
+    oracle on the same device and the host walk, which never chunks.
+    Returns (score, corner, Alignment)."""
     p = as_params(params)
     _check_sane_signs(p)
     a = np.asarray(a, dtype=np.uint8)

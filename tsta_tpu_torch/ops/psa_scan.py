@@ -78,6 +78,20 @@ def scan_rows(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     maxima over all n x m cells, (B,) int32 H(m_real-1, n_real-1), and,
     when ``traced``, the (B, m, n) uint8 cell codes (else None).
     """
+    return scan_from(a, b, n_real, m_real, params, traced)[:3]
+
+
+@torch.no_grad()
+def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
+              m_real: torch.Tensor, params, traced: bool = False,
+              row_base: int = 0, h: Optional[torch.Tensor] = None,
+              e: Optional[torch.Tensor] = None):
+    """:func:`scan_rows` over rows ``row_base .. row_base + m - 1`` of the
+    matrix (``b`` holds just those rows), started from the (B, n) int32
+    H/E frontier of row ``row_base - 1`` (default: the top boundary, row
+    -1).  ``corner`` is NEG for a pair whose row m_real-1 is not among
+    them.  Returns ``(best, corner, codes, h, e)``, the last two the
+    frontier of the last row."""
     m_, x_, e_, o_ = as_params(params)
     oe = o_ + e_
     B, n = a.shape
@@ -86,8 +100,10 @@ def scan_rows(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     i32 = torch.int32
     j_idx = torch.arange(n, dtype=i32, device=dev)
     j_e = j_idx * e_
-    h = (o_ + (j_idx + 1) * e_).expand(B, n).contiguous()
-    e_prev = torch.full((B, n), NEG, dtype=i32, device=dev)
+    if h is None:
+        h = (o_ + (j_idx + 1) * e_).expand(B, n).contiguous()
+        e = torch.full((B, n), NEG, dtype=i32, device=dev)
+    e_prev = e
     best = torch.full((B,), NEG, dtype=i32, device=dev)
     corner = torch.full((B,), NEG, dtype=i32, device=dev)
     ncol = (n_real.to(device=dev, dtype=torch.int64) - 1).view(B, 1)
@@ -97,10 +113,11 @@ def scan_rows(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
              if traced else None)
     a32 = a.to(i32)
     b32 = b.to(i32)
-    for i in range(m):
+    for r in range(m):
+        i = row_base + r
         bound_prev = 0 if i == 0 else o_ + i * e_     # H(i-1, -1)
         bound_cur = o_ + (i + 1) * e_                 # H(i, -1)
-        sub = torch.where(a32 == b32[:, i:i + 1], m_, x_).to(i32)
+        sub = torch.where(a32 == b32[:, r:r + 1], m_, x_).to(i32)
         diag = torch.cat([col.fill_(bound_prev), h[:, :-1]], dim=1) + sub
         e_row = torch.maximum(e_prev + e_, h + oe)
         c = torch.maximum(diag, e_row)
@@ -121,9 +138,9 @@ def scan_rows(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
             e_tie = e_row + e_ == h_row + oe
             ecode = torch.where(e_row == h + oe,
                                 torch.where(e_tie, 2, 1), 0)
-            codes[:, i] = back * 9 + fcode * 3 + ecode
+            codes[:, r] = back * 9 + fcode * 3 + ecode
         h, e_prev = h_row, e_row
-    return best, corner, codes
+    return best, corner, codes, h, e_prev
 
 
 def planes_from_codes(codes: torch.Tensor):

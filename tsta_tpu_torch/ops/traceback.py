@@ -22,6 +22,7 @@ banded walk.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -229,6 +230,80 @@ def walk_packed_plain(plane: torch.Tensor, nm: torch.Tensor):
         j = j - torch.where(move == 2, 0, 1) * step_on
         t = t + step_on
     return pack_moves_words(moves[:, :maxlen]), t.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_table():
+    """:func:`decode_step` at every input it tells apart, as two numpy
+    tables (move, forced_next) indexed [in_core, i > 0, j + 1 (j in -1,
+    0, >= 1), forced (0..3), code (0..26), fprev, eprev]: one vectorised
+    call, so a one-pair walk in Python keeps the rules in one place and
+    costs a lookup per step."""
+    axes = [torch.arange(k, dtype=torch.int64) for k in (2, 2, 3, 4, 27, 3,
+                                                          3)]
+    in_core, i, j, forced, code, fprev, eprev = (
+        g.reshape(-1) for g in torch.meshgrid(*axes, indexing="ij"))
+    move, nxt = decode_step(in_core.bool(), i, j - 1, forced, code, fprev,
+                            eprev)
+    shape = [len(x) for x in axes]
+    return move.reshape(shape).numpy(), nxt.reshape(shape).numpy()
+
+
+@torch.no_grad()
+def walk_bounded_plain(plane: torch.Tensor, prev_row: torch.Tensor,
+                       base: int, i: int, j: int, t: int, forced: int,
+                       moves: torch.Tensor) -> torch.Tensor:
+    """The walk inside one row-chunk of a pair's code plane, step by step
+    on :func:`decode_step`: the plain version of
+    ``csrc/psa_walk_bounded.cu`` and the counterpart of the JAX package's
+    ``_decode_moves_bounded``.
+
+    ``plane``: (rows, n_pad) uint8 codes of the pair's rows [base, base +
+    rows); ``prev_row``: (n_pad,) uint8 codes of row base - 1 (zeros at
+    base 0).  Walks from (i, j) with ``t`` moves made and ``forced``
+    carried until i < base, or, at base 0, until i < 0 and j < 0; writes
+    move t' to ``moves[t']`` ((L,) int8).  Returns (i, j, t, forced) as a
+    (4,) int32 tensor on ``moves``' device."""
+    codes = plane.cpu().numpy()
+    above = prev_row.cpu().numpy()
+    step_move, step_next = _step_table()
+    out = []
+    while (i >= 0 or j >= 0) and (i >= base or (base == 0 and j >= 0)):
+        in_core = i >= 0 and j >= 0
+        code = fprev = eprev = 0
+        if in_core:
+            row = codes[i - base]
+            code = int(row[j])
+            fprev = int(row[j - 1]) // 3 % 3 if j > 0 else 0
+            if i > 0:
+                eprev = int(codes[i - 1 - base, j] if i > base
+                            else above[j]) % 3
+        key = (int(in_core), int(i > 0), min(j, 1) + 1, forced, code, fprev,
+               eprev)
+        move, forced = int(step_move[key]), int(step_next[key])
+        out.append(move)
+        i -= move != 0
+        j -= move != 2
+    if out:
+        moves[t:t + len(out)] = torch.tensor(out, dtype=torch.int8)
+    return torch.tensor([i, j, t + len(out), forced], dtype=torch.int32,
+                        device=moves.device)
+
+
+def walk_bounded(plane: torch.Tensor, prev_row: torch.Tensor, base: int,
+                 i: int, j: int, t: int, forced: int,
+                 moves: torch.Tensor) -> torch.Tensor:
+    """:func:`walk_bounded_plain`'s function: a CPU plane takes it; a
+    CUDA plane launches ``csrc/psa_walk_bounded.cu`` (one thread) or
+    raises.  Returns the (4,) int32 exit state on the device, the host's
+    one 16-byte read per chunk."""
+    if plane.device.type == "cpu":
+        return walk_bounded_plain(plane, prev_row, base, i, j, t, forced,
+                                  moves)
+    out = torch.empty((4,), dtype=torch.int32, device=plane.device)
+    _kernels.psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,
+                              out)
+    return out
 
 
 def walk_packed(plane: torch.Tensor, nm: torch.Tensor):

@@ -3,8 +3,9 @@
 Counterpart of ``tsta_tpu/parallel/batch.py``.  Pairs are bucketed by
 padded shape; score-only buckets run through the DP kernel in one launch
 each, traced batches through the DP kernel with code planes and the
-device walk.  Multi-GPU meshes are a later slice: passing ``mesh``
-raises.
+device walk, and a traced pair over the device budget through the
+chunked path (``ops/psa_chunked.py``).  Multi-GPU meshes are a later
+slice: passing ``mesh`` raises.
 """
 
 from __future__ import annotations
@@ -114,7 +115,9 @@ def align_batch_traced_device(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
                               device=None):
     """Traced batch with the traceback walked on the device; returns
     (score, corner, Alignment) per pair in input order, with the
-    reference's longer-sequence-horizontal swap when ``swap``."""
+    reference's longer-sequence-horizontal swap when ``swap``.  A pair
+    over the device budget runs in row-chunks
+    (``psa_diff.psa_align_batch_traced_packed``)."""
     _refuse_mesh(mesh)
     p = psa_scan.as_params(params)
     dev = resolve_device(device)
