@@ -79,7 +79,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
     ms and peak device memory; (d) after it, (c)'s chunk 0 at (c)'s shape
     (65,536 rows x the full width), its DP from the entry frontier and
     its walk from the state (c)'s walk entered it with, held to the plain
-    versions in every output, which give the kernels record's plain ms.
+    versions in every output, which give the kernels record's plain ms;
+16. edit scoring (M = 0, X = -1, E = -1, O = 0) on the round-1 kernels,
+    the launch counters and the count of plain calls on the card reset
+    before each path and read after it: (a) ``tsta-torch psa`` on the 10
+    kbp example, traced and ``--notrace``, equal in bytes to ``--kernel
+    plain`` on the card, the rows re-scoring to the corner, through the
+    DP (Q2-13), the walk (Q2-16) and, ``--notrace``, K1, then the DP and
+    the walk against their plain versions at that shape (every plane
+    byte, the moves); (b)
+    ``psa_pallas.psa_align_batch`` on phase 5's 128 x 10,240 bp pairs
+    (Q2-14, K1) against the plain version; (c) 4,096 seeded pairs of
+    150-2,000 bp with ~10% edits through it (Q2-15, the short-pair kernel)
+    against the plain version, with K1's time on the same batch; (d)
+    ``tsta-torch psa`` on reads 0 and 1 of the 200 kbp set at the card's
+    budget, in 3 chunks, its maxsorce and corner equal to a K1 pass over
+    the pair and its rows re-scoring to the corner: wall, forward and
+    backward split, peak device memory.
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -109,6 +125,8 @@ EXAMPLE_MSA = {"rounds": [-5451, -3101, -1776, -870],
                "graph_len": [6885, 8599, 10130, 11468],
                "add_len": [1885, 1714, 1531, 1338]}
 PSA_KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_walk")
+EDIT = (0, -1, -1, 0)   # edit scoring: the corner is minus the edit distance
+EDIT_FLAGS = ["-M", "0", "-X", "-1", "-E", "-1", "-O", "0"]
 CHUNK_KERNELS = ("poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
 BUDGET_50K = 4 * 2 ** 30   # cuts the 3 x 50 kbp rounds into 8,192-row chunks
 # the least time the card could take for a kernel's work: its bytes (each
@@ -496,6 +514,8 @@ def main() -> int:
     launches.update(chunk_launches)
     psa_launches, psa_times = psa_chunked_phases(dev, smi_line, k1)
     launches.update(psa_launches)
+    edit_launches, edit_times = edit_phases(dev, smi_line, pairs)
+    launches.update(edit_launches)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -521,13 +541,22 @@ def main() -> int:
          psa_times["psa_dp_chunk"]),
         ("psa_walk_bounded", src % "psa_walk_bounded.cu",
          "tsta_tpu/ops/traceback.py:823", psa_times["psa_walk_bounded"]),
+        ("psa_r1_dp", src % "psa_dp.cu", "tsta_tpu/ops/psa_pallas.py:52",
+         edit_times["psa_r1_dp"]),
+        ("psa_r1_batch", src % "psa_dp.cu", "tsta_tpu/ops/psa_pallas.py:274",
+         edit_times["psa_r1_batch"]),
+        ("psa_dp_short", src % "psa_dp_short.cu",
+         "tsta_tpu/ops/psa_pallas.py:936", edit_times["psa_dp_short"]),
+        ("psa_r1_walk", src % "psa_walk.cu", "tsta_tpu/ops/traceback.py:381",
+         edit_times["psa_r1_walk"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                        "bound_by": t["bound_by"], "library_ms": None,
-                       "shape": t["shape"]}
+                       "shape": t["shape"],
+                       **({"k1_ms": t["k1_ms"]} if "k1_ms" in t else {})}
                       for n, s, r, t in entries]})
     print(smi_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -642,6 +671,9 @@ def msa_phases(dev, smi_line):
             f.write(b"".join(b">%d\n%s\n" % (k + 1, s)
                              for k, s in enumerate(ex)))
         out = os.path.join(tmp, "msa.out")
+        # the metric is a warm process's: gcc builds the native FASTA
+        # reader on its first use, which no earlier phase makes
+        build.load_seqio()
         buf = io.StringIO()
         _kernels.reset_launches()
         p0 = msa_native.plain_rounds
@@ -1058,7 +1090,7 @@ def psa_chunked_phases(dev, smi_line, k1):
 
     from tsta_tpu_torch import AlignParams, cli
     from tsta_tpu_torch.io import encode_dna
-    from tsta_tpu_torch.ops import _kernels, psa_chunked, psa_diff
+    from tsta_tpu_torch.ops import _kernels, psa_chunked, psa_diff, psa_pallas
     from tsta_tpu_torch.ops import traceback as tb
     params = AlignParams()
     p = (params.match, params.mismatch, params.gap_extend, params.gap_open)
@@ -1072,7 +1104,7 @@ def psa_chunked_phases(dev, smi_line, k1):
     got = psa_chunked.psa_align_traced_chunked(ea, eb, p, mc=512, device=dev)
     wall_a = time.perf_counter() - t0
     clock_a = psa_chunked.last_clock
-    unchunked = psa_diff.psa_align_traced_device(ea, eb, p, device=dev)
+    unchunked = psa_pallas.psa_align_traced_device(ea, eb, p, device=dev)
     example_ok = (b">1\n" + got[2].a_row + b"\n>2\n" + got[2].b_row == gold
                   and got == unchunked and got[0] == -5)
     emit({"phase": "psa_chunked_example", "chunks": clock_a.chunks,
@@ -1255,6 +1287,248 @@ def psa_chunked_phases(dev, smi_line, k1):
             **bound(2 * steps + 16, OPS_WALK_STEP * steps)}}
     return {k: launches[k] for k in ("psa_dp_chunk", "psa_walk_bounded")}, \
         times
+
+
+def short_pairs(rng, count):
+    """``count`` seeded pairs of 150-2,000 bp, b a copy of a with ~5%
+    substituted, ~2.5% deleted and ~2.5% inserted (~10% edits)."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(count):
+        n = int(rng.integers(150, 2001))
+        a = rng.integers(0, 4, n).astype(np.uint8)
+        b = a.copy()
+        b[rng.integers(0, n, n // 20)] = rng.integers(0, 4, n // 20)
+        b = np.delete(b, rng.integers(0, n, n // 40))
+        b = np.insert(b, rng.integers(0, len(b), n // 40),
+                      rng.integers(0, 4, n // 40).astype(np.uint8))
+        pairs.append((acgt[a], acgt[b]))
+    return pairs
+
+
+def edit_phases(dev, smi_line, batch_pairs):
+    """Phase 16, edit scoring on the round-1 kernels: (a) the 10 kbp
+    example through ``tsta-torch psa``, then its DP and walk against their
+    plain versions; (b) ``batch_pairs`` (phase 5's 128 x 10,240 bp)
+    through the score router to the batch kernel; (c) 4,096 short pairs
+    to the short-pair kernel; (d) the 200 kbp pair through ``tsta-torch
+    psa`` in chunks.  Each path runs with the launch counters and the
+    count of plain calls on the card reset before it and read after it.
+    Returns each path's launches under its kernels record's name and the
+    four records' timings."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams, cli
+    from tsta_tpu_torch.io import encode_dna
+    from tsta_tpu_torch.ops import _kernels, psa_chunked, psa_diff, psa_pallas
+    from tsta_tpu_torch.ops import psa_scan
+    from tsta_tpu_torch.ops import traceback as tb
+    params = AlignParams(*EDIT)
+    times, launches = {}, {}
+
+    def start():
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        return psa_scan.plain_calls, time.perf_counter()
+
+    def stop(p0):
+        torch.cuda.synchronize()
+        return dict(_kernels.launches), psa_scan.plain_calls - p0
+
+    # (a) the example pair through the CLI, warm process
+    s1, s2 = golden_example()
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "seqa1.fa"), os.path.join(tmp, "seqb1.fa")
+        with open(fa, "wb") as f:
+            f.write(b">seqa1\n" + s1 + b"\n")
+        with open(fb, "wb") as f:
+            f.write(b">seqb1\n" + s2 + b"\n")
+        out, out_plain = (os.path.join(tmp, x) for x in ("k.out", "p.out"))
+        argv = ["psa", "-1", fa, "-2", fb, "--device", "cuda"] + EDIT_FLAGS
+        buf = io.StringIO()
+        p0, t0 = start()
+        with contextlib.redirect_stdout(buf):
+            rc = [cli.main(argv + ["-o", out])]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rc.append(cli.main(argv + ["--notrace"]))
+        la, plain_a = stop(p0)
+        t2 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc.append(cli.main(argv + ["-o", out_plain, "--kernel", "plain"]))
+        t3 = time.perf_counter()
+        with open(out, "rb") as f, open(out_plain, "rb") as g:
+            text, text_plain = f.read(), g.read()
+    ea, eb = encode_dna(s1), encode_dna(s2)
+    if len(eb) > len(ea):
+        ea, eb = eb, ea
+    ref = psa_pallas.psa_align(ea, eb, EDIT, device=dev)   # Q2-13 score-only
+    lines = text.split(b"\n")
+    rescored = tb.score_alignment(lines[1], lines[3], params)
+    stdout = buf.getvalue().split()
+    ok_a = (rc == [0, 0, 0] and text == text_plain and rescored == ref.last
+            and stdout == ["maxsorce=%d" % max(ref.score, -100)] * 2)
+    emit({"phase": "edit_example", "rc": rc, "stdout": stdout,
+          "score": ref.score, "corner": ref.last, "rescored": rescored,
+          "equal_to_plain_on_card": text == text_plain,
+          "launches": la, "plain_calls": plain_a,
+          "traced_wall_s": t1 - t0, "notrace_wall_s": t2 - t1,
+          "plain_wall_s": t3 - t2, "example": [len(ea), len(eb)]})
+    if not ok_a or plain_a or la["psa_dp_chunk"] or min(
+            la["psa_dp_traced"], la["psa_walk"], la["psa_dp_score"]) < 1:
+        raise AssertionError("edit scoring, 10 kbp example: wrong result or "
+                             "route: %s %s" % (rc, la))
+    launches["psa_r1_dp"] = la["psa_dp_traced"]
+    launches["psa_r1_walk"] = la["psa_walk"]
+
+    # the example's DP and walk against their plain versions at its shape
+    a, b, nm = psa_diff.pack_pairs([(ea, eb)], dev)
+    ms, (ks, kc, plane) = cuda_ms(
+        lambda: psa_diff.run_dp(a, b, nm, EDIT, True), 2)
+    pms, (ps, pc, pplane) = cuda_ms(
+        lambda: psa_scan.scan_rows(a, b, nm[:, 0], nm[:, 1], EDIT, True), 1,
+        False)
+    dp_err = max(max_err(ks, ps), max_err(kc, pc), max_err(plane, pplane),
+                 abs(int(kc) - ref.last))
+    del pplane
+    wms, (kw, kcnt) = cuda_ms(lambda: tb.walk_packed(plane, nm), 2)
+    wpms, (pw, pcnt) = cuda_ms(lambda: tb.walk_packed_plain(plane, nm), 1,
+                               False)
+    steps = int(kcnt.sum())
+    shape = "%d x %d padded to %d x %d, edit scoring" % (
+        len(ea), len(eb), plane.shape[2], plane.shape[1])
+    times["psa_r1_dp"] = {
+        "shape": shape + ", traced (K2 at P = 1)", "ms": ms, "plain_ms": pms,
+        "max_abs_err": dp_err,
+        **bound(nbytes(a, b, nm, ks, kc, plane),
+                (OPS_PSA_CELL + OPS_PSA_CODE) * plane.numel())}
+    times["psa_r1_walk"] = {
+        "shape": shape + ", %d steps (K3 at P = 1)" % steps, "ms": wms,
+        "plain_ms": wpms,
+        "max_abs_err": max(max_err(kw, pw), max_err(kcnt, pcnt)),
+        **bound(steps + nbytes(nm, kw, kcnt), OPS_WALK_STEP * steps)}
+    del a, b, nm, plane, ks, kc, ps, pc, kw, kcnt, pw, pcnt
+
+    # (b) 128 x 10,240 bp through the score router: the batch kernel (K1)
+    route_b = psa_pallas.batch_route(batch_pairs, EDIT)
+    p0, t0 = start()
+    scores, corners = psa_pallas.psa_align_batch(batch_pairs, EDIT,
+                                                 device=dev)
+    lb, plain_b = stop(p0)
+    wall_b = time.perf_counter() - t0
+    a, b, lens = psa_diff.pack_pairs(batch_pairs, dev)
+    ms, got = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, EDIT), 3)
+    pms, want = cuda_ms(lambda: psa_scan.scan_rows(a, b, lens[:, 0],
+                                                   lens[:, 1], EDIT), 1, False)
+    routed = (torch.from_numpy(scores), torch.from_numpy(corners))
+    err_b = max(*(max_err(g, w) for g, w in zip(got, want[:2])),
+                *(max_err(r, w.cpu()) for r, w in zip(routed, want[:2])))
+    cells = sum(len(x) * len(y) for x, y in batch_pairs)
+    times["psa_r1_batch"] = {
+        "shape": "%d x %d bp score-only, edit scoring" % (
+            len(batch_pairs), len(batch_pairs[1][0])),
+        "ms": ms, "plain_ms": pms, "max_abs_err": err_b,
+        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells)}
+    emit({"phase": "edit_batch", "route": route_b, "launches": lb,
+          "plain_calls": plain_b, "e2e_s": wall_b,
+          "e2e_gcups": cells / wall_b / 1e9, "slot0": [int(scores[0]),
+                                                       int(corners[0])],
+          "times": times["psa_r1_batch"], "smi": smi_line})
+    if (route_b != "batch" or err_b or plain_b or lb["psa_dp_score"] != 1
+            or int(corners[0]) != ref.last):
+        raise AssertionError("edit scoring, 128 x 10,240 bp: wrong result or "
+                             "route: %s %s error %d" % (route_b, lb, err_b))
+    launches["psa_r1_batch"] = lb["psa_dp_score"]
+    del a, b, lens, got, want
+
+    # (c) 4,096 short pairs through the score router: the short-pair kernel
+    pairs = short_pairs(np.random.default_rng(SEED + 16), 4096)
+    route_c = psa_pallas.batch_route(pairs, EDIT)
+    p0, t0 = start()
+    scores, corners = psa_pallas.psa_align_batch(pairs, EDIT, device=dev)
+    lc, plain_c = stop(p0)
+    wall_c = time.perf_counter() - t0
+    a, b, lens = psa_diff.pack_pairs(pairs, dev)
+    ms, got = cuda_ms(lambda: psa_pallas.dp_short(a, b, lens, EDIT), 3)
+    k1_ms, k1 = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, EDIT), 3)
+    pms, want = cuda_ms(lambda: psa_scan.scan_rows(a, b, lens[:, 0],
+                                                   lens[:, 1], EDIT), 1, False)
+    routed = (torch.from_numpy(scores), torch.from_numpy(corners))
+    err_c = max(*(max_err(g, w) for g, w in zip(got, want[:2])),
+                *(max_err(r, w.cpu()) for r, w in zip(routed, want[:2])))
+    err_k1 = max(max_err(g, w) for g, w in zip(k1, want[:2]))
+    cells = sum(len(x) * len(y) for x, y in pairs)
+    times["psa_dp_short"] = {
+        "shape": "%d pairs of 150-2,000 bp (%d cells), score-only, edit "
+                 "scoring" % (len(pairs), cells),
+        "ms": ms, "plain_ms": pms, "k1_ms": k1_ms, "max_abs_err": err_c,
+        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells)}
+    emit({"phase": "edit_short", "route": route_c, "launches": lc,
+          "plain_calls": plain_c, "e2e_s": wall_c,
+          "e2e_gcups": cells / wall_c / 1e9, "k1_max_abs_err": err_k1,
+          "gcups": cells / ms / 1e6, "k1_gcups": cells / k1_ms / 1e6,
+          "times": times["psa_dp_short"], "smi": smi_line})
+    if (route_c != "short" or err_c or err_k1 or plain_c
+            or lc["psa_dp_short"] != 1 or lc["psa_dp_score"]):
+        raise AssertionError("edit scoring, short pairs: wrong result or "
+                             "route: %s %s errors %d %d"
+                             % (route_c, lc, err_c, err_k1))
+    launches["psa_dp_short"] = lc["psa_dp_short"]
+    del a, b, lens, got, k1, want
+
+    # (d) the 200 kbp pair through the CLI, in chunks at the card's budget
+    reads = long_reads(13, 200000)
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "r0.fa"), os.path.join(tmp, "r1.fa")
+        with open(fa, "wb") as f:
+            f.write(b">r0\n" + reads[0] + b"\n")
+        with open(fb, "wb") as f:
+            f.write(b">r1\n" + reads[1] + b"\n")
+        out = os.path.join(tmp, "out.txt")
+        buf = io.StringIO()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p0, t0 = start()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["psa", "-1", fa, "-2", fb, "-o", out, "--device",
+                           "cuda"] + EDIT_FLAGS)
+        ld, plain_d = stop(p0)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        with open(out, "rb") as f:
+            lines = f.read().split(b"\n")
+    run = psa_chunked.last_clock.record()
+    rescored = tb.score_alignment(lines[1], lines[3], params)
+    degapped = (lines[1].replace(b"-", b"") == reads[0]
+                and lines[3].replace(b"-", b"") == reads[1])
+    t0 = time.perf_counter()
+    k1_score, k1_corner = (int(x[0]) for x in psa_pallas.psa_align_batch(
+        [(encode_dna(reads[0]), encode_dna(reads[1]))], EDIT, device=dev))
+    k1_s = time.perf_counter() - t0
+    cells = len(reads[0]) * len(reads[1])
+    stdout = buf.getvalue().split()
+    emit({"phase": "edit_200k", "rc": rc, "stdout": stdout, "wall_s": wall,
+          "gcups": cells / wall / 1e9, "cells": cells, "peak_device_gb": peak,
+          "launches": {k: ld[k] for k in ("psa_dp_chunk", "psa_walk_bounded",
+                                           "psa_dp_traced", "psa_walk")},
+          "plain_calls": plain_d, "k1": [k1_score, k1_corner], "k1_s": k1_s,
+          "rescored": rescored, "rows_degapped_equal_reads": degapped,
+          "lengths": [len(reads[0]), len(reads[1])], **run, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    if rc != 0 or stdout != ["maxsorce=%d" % max(k1_score, -100)]:
+        raise AssertionError("edit scoring, 200 kbp pair: stdout %s, K1 %d"
+                             % (stdout, k1_score))
+    if not (run["score"] == k1_score and run["corner"] == k1_corner
+            == rescored) or not degapped or run["chunks"] != 3:
+        raise AssertionError("edit scoring, 200 kbp pair: score/corner/rows "
+                             "disagree with K1, or not 3 chunks")
+    if (plain_d or ld["psa_dp_chunk"] < run["chunks"] + run["remats"]
+            or ld["psa_walk_bounded"] < run["walks"]
+            or ld["psa_dp_traced"] or ld["psa_walk"]):
+        raise AssertionError("edit scoring, 200 kbp pair did not run on the "
+                             "chunked kernels alone: %s %s" % (ld, plain_d))
+    return launches, times
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
-"""The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, PSA
-walk and bounded walk, POA round DP in its single-call, forward-chunk and
-window-remat uses, POA walk and bounded walk) against their plain PyTorch
-versions on the card, with exact integer equality, and the kernel routes
-of the MSA engine, chunked rounds included, and of the chunked traced
-PSA against the CPU.
+"""The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, the
+short-pair DP, PSA walk and bounded walk, POA round DP in its single-call,
+forward-chunk and window-remat uses, POA walk and bounded walk) against
+their plain PyTorch versions on the card, with exact integer equality,
+and the kernel routes of the MSA engine, chunked rounds included, of the
+chunked traced PSA and of the round-1 PSA (M <= 0) against the CPU.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (this file imports no jax, so it also runs on a host without it):
@@ -457,9 +457,9 @@ def test_chunked_traced_on_card_matches_cpu(cuda, monkeypatch):
     """The whole chunked traced path on the card (kernels only) equals the
     CPU's plain run and the unchunked traced path; a budget the pair
     does not fit routes it there from the traced batch."""
-    from tsta_tpu_torch.ops import psa_chunked
+    from tsta_tpu_torch.ops import psa_chunked, psa_pallas
     a, b = _long_pair(7, 2100, 1900)
-    want = psa_diff.psa_align_traced_device(a, b, P0, device="cpu")
+    want = psa_pallas.psa_align_traced_device(a, b, P0, device="cpu")
     assert psa_chunked.psa_align_traced_chunked(a, b, P0, mc=512,
                                                 device="cpu") == want
     n0 = dict(_kernels.launches)
@@ -477,8 +477,8 @@ def test_chunked_traced_on_card_matches_cpu(cuda, monkeypatch):
     res = psa_diff.psa_align_batch_traced_packed([(a, b), small], P0,
                                                  device=cuda)
     assert res[0] == want
-    assert res[1] == psa_diff.psa_align_traced_device(*small, P0,
-                                                      device="cpu")
+    assert res[1] == psa_pallas.psa_align_traced_device(*small, P0,
+                                                        device="cpu")
     assert _kernels.launches["psa_dp_traced"] == n0["psa_dp_traced"] + 1
 
 
@@ -503,6 +503,124 @@ def test_psa_chunk_wrappers_refuse_bad_tensors(cuda):
         _kernels.psa_walk_bounded(plane, a, 64, 10, 10, 0, 0, moves, out)
     with pytest.raises(ValueError):   # too few moves for the walk left
         _kernels.psa_walk_bounded(plane, a, 0, 63, 255, 100, 0, moves, out)
+
+
+# the round-1 domain's parameter sets: edit scoring, M < X, and one with M > 0
+ROUND1 = [(0, -1, -1, 0), (0, -1, -1, -1), (-2, -1, -1, 0), P0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", ROUND1)
+def test_dp_short_kernel_matches_plain(cuda, params):
+    """The short-pair kernel (one warp per pair) against its plain version
+    on pairs of 1-2,048 columns, each over its real extent."""
+    from tsta_tpu_torch.ops import psa_pallas
+    rng = np.random.default_rng(5)
+    lengths = [(1, 1), (1, 9), (9, 1), (31, 33), (2048, 2000), (2048, 7)]
+    lengths += [(int(rng.integers(2, 2049)), int(rng.integers(2, 2100)))
+                for _ in range(13)]
+    a, b, lens = _batch(6, lengths, 256, 128, similar=True)
+    want = psa_pallas.dp_short(a, b, lens, params)
+    n0 = _kernels.launches["psa_dp_short"]
+    got = psa_pallas.dp_short(a.to(cuda), b.to(cuda), lens.to(cuda), params)
+    torch.cuda.synchronize()
+    assert _kernels.launches["psa_dp_short"] == n0 + 1
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", ROUND1[:3])
+def test_round1_dp_and_walk_kernels_match_plain(cuda, params):
+    """K1, K2 and K3 at M <= 0 against their plain versions: score-only
+    over the real extent, traced over every padded cell, and the walk."""
+    a, b, lens = _batch(7, [(1000, 950), (130, 60), (9, 8), (512, 700)],
+                        256, 128, similar=True)
+    for traced in (False, True):
+        want = psa_diff.run_dp(a, b, lens, params, traced)
+        got = psa_diff.run_dp(a.to(cuda), b.to(cuda), lens.to(cuda), params,
+                              traced)
+        torch.cuda.synchronize()
+        for w, g in zip(want, got):
+            assert torch.equal(g.cpu(), w)
+    gw, gcnt = tb.walk_packed(got[2], lens.to(cuda))
+    torch.cuda.synchronize()
+    pw, pcnt = tb.walk_packed_plain(want[2], lens)
+    assert torch.equal(gcnt.cpu(), pcnt) and torch.equal(gw.cpu(), pw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", ROUND1[:3])
+def test_round1_routes_on_card_match_cpu(cuda, params):
+    """Every round-1 route on the card (the traced chain, chunks, the
+    short-pair and the batch kernels) equals the CPU's plain run, and no
+    plain DP or walk runs on the card."""
+    from tsta_tpu_torch.ops import psa_chunked, psa_pallas
+    a, b = _long_pair(11, 1300, 1250)
+    short = [_long_pair(k, 300 + 50 * k, 280) for k in range(5)]
+    wide = [_long_pair(20, 2300, 400), _long_pair(21, 2200, 500)]
+    want = [psa_pallas.psa_align_traced_device(a, b, params, device="cpu"),
+            psa_chunked.psa_align_traced_chunked(a, b, params, mc=512,
+                                                 device="cpu"),
+            psa_pallas.psa_align_batch(short, params, device="cpu"),
+            psa_pallas.psa_align_batch(wide, params, device="cpu")]
+    n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+    got = [psa_pallas.psa_align_traced_device(a, b, params, device=cuda),
+           psa_chunked.psa_align_traced_chunked(a, b, params, mc=512,
+                                                device=cuda),
+           psa_pallas.psa_align_batch(short, params, device=cuda),
+           psa_pallas.psa_align_batch(wide, params, device=cuda)]
+    assert got[:2] == want[:2] and got[0] == got[1]
+    for (gs, gc), (ws, wc) in zip(got[2:], want[2:]):
+        assert np.array_equal(gs, ws) and np.array_equal(gc, wc)
+    assert psa_scan.plain_calls == p0
+    d = {k: _kernels.launches[k] - n0[k] for k in n0}
+    assert (d["psa_dp_traced"], d["psa_walk"], d["psa_dp_short"],
+            d["psa_dp_score"]) == (1, 1, 1, 1)
+    assert d["psa_dp_chunk"] >= 3 and d["psa_walk_bounded"] >= 3
+
+
+@pytest.mark.cuda
+def test_cli_edit_scoring_on_card(cuda, tmp_path, capsys):
+    """``tsta-torch psa`` and ``batch --traced`` with edit scoring give the
+    CPU's stdout and bytes on the card, through the round-1 DP and walk,
+    with no plain call on the card."""
+    import os
+
+    from tsta_tpu_torch import cli
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                     "psa_small3")
+    fa, fb = os.path.join(d, "a.fa"), os.path.join(d, "b.fa")
+    manifest = tmp_path / "pairs.tsv"
+    manifest.write_text("p0\t%s\t%s\n" % (fa, fb))
+    flags = ["-M", "0", "-X", "-1", "-E", "-1", "-O", "0"]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+        out = tmp_path / (dev + ".out")
+        assert cli.main(["psa", "--device", dev, "-1", fa, "-2", fb, "-o",
+                         str(out)] + flags) == 0
+        assert cli.main(["batch", "--device", dev, "--pairs", str(manifest),
+                         "--traced", "--out-dir", str(tmp_path / dev)]
+                        + flags) == 0
+        got[dev] = (capsys.readouterr().out.splitlines()[0], out.read_bytes(),
+                    (tmp_path / dev / "p0.txt").read_bytes())
+    assert got["cuda"] == got["cpu"] and got["cpu"][1] == got["cpu"][2]
+    assert psa_scan.plain_calls == p0
+    assert (_kernels.launches["psa_dp_traced"] - n0["psa_dp_traced"],
+            _kernels.launches["psa_walk"] - n0["psa_walk"]) == (2, 2)
+
+
+@pytest.mark.cuda
+def test_dp_short_wrapper_refuses_bad_tensors(cuda):
+    a, b, lens = _batch(8, [(100, 90), (50, 60)], 256, 128)
+    a, b, lens = a.to(cuda), b.to(cuda), lens.to(cuda)
+    one = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):   # a score of another batch size
+        _kernels.psa_dp_short(a, b, lens, P0, one[:1], one.clone())
+    wide = torch.zeros((2, 2176), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):   # wider than the kernel's limit
+        _kernels.psa_dp_short(wide, b, lens, P0, one, one.clone())
 
 
 _PTXAS = """\

@@ -15,7 +15,7 @@ import torch
 from tsta_tpu.ops import psa_pallas as jpallas
 from tsta_tpu.ops import traceback as jtb
 from tsta_tpu_torch import convert
-from tsta_tpu_torch.ops import psa_chunked, psa_diff
+from tsta_tpu_torch.ops import psa_chunked, psa_pallas
 from tsta_tpu_torch.ops import traceback as tb
 
 # tests/test_psa_pallas.py's parameter sets; its chunked cases draw
@@ -138,7 +138,7 @@ def test_chunked_pair_matches_jax_and_unchunked(case):
     want = jpallas.psa_align_traced_chunked(a, b, p, mc=jpallas.T_R)
     got = psa_chunked.psa_align_traced_chunked(a, b, p, mc=256, device="cpu")
     assert got == want
-    assert got == psa_diff.psa_align_traced_device(a, b, p, device="cpu")
+    assert got == psa_pallas.psa_align_traced_device(a, b, p, device="cpu")
     clock = psa_chunked.last_clock
     assert clock.remats == clock.walks - 1 >= clock.chunks - 1
     assert len(clock.launch_ms("dp")) == clock.chunks + clock.remats
@@ -157,7 +157,7 @@ def test_chunked_wide_pair_matches_jax(n):
     want = jpallas.psa_align_traced_chunked(a, b, p, mc=512)
     got = psa_chunked.psa_align_traced_chunked(a, b, p, mc=512, device="cpu")
     assert got == want
-    assert got == psa_diff.psa_align_traced_device(a, b, p, device="cpu")
+    assert got == psa_pallas.psa_align_traced_device(a, b, p, device="cpu")
 
 
 def test_chunk_rows_follow_the_jax_rule():
@@ -174,10 +174,15 @@ def test_chunk_rows_follow_the_jax_rule():
     with pytest.raises(ValueError):
         psa_chunked.ChunkedPair(np.ones(10, np.uint8), np.ones(10, np.uint8),
                                 PARAMS[0], 384, CPU)
+    # M <= 0 chunks too (the round-1 guard), as the JAX path does
+    edit = (np.frombuffer(b"ACGTTAGCAT", np.uint8),
+            np.frombuffer(b"ACTTAGGCAT", np.uint8), (0, -1, -1, -1))
+    assert (psa_chunked.psa_align_traced_chunked(*edit, device="cpu")
+            == jpallas.psa_align_traced_chunked(*edit))
     with pytest.raises(ValueError):
         psa_chunked.psa_align_traced_chunked(np.ones(10, np.uint8),
                                              np.ones(10, np.uint8),
-                                             (0, -1, -1, -1), device="cpu")
+                                             (0, 0, -1, -1), device="cpu")
 
 
 def test_frontier_conversion_round_trip():

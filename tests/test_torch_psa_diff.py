@@ -14,6 +14,7 @@ from tsta_tpu.ops import psa_scan as jscan
 from tsta_tpu_torch import convert, device
 from tsta_tpu_torch.ops import psa_chunked
 from tsta_tpu_torch.ops import psa_diff as tdiff
+from tsta_tpu_torch.ops import psa_pallas as tpallas
 
 P0 = (2, -5, -2, -4)
 
@@ -141,31 +142,33 @@ def test_gates_match_jax():
 
 
 def test_score_router_matches_jax():
+    """The score router (``ops/psa_pallas.py``, as in the JAX package)."""
     rng = np.random.default_rng(11)
     pairs = [(_rnd(rng, 300), _rnd(rng, 280)) for _ in range(3)]
     js, jc = jpallas.psa_align_batch(pairs, P0)
-    ts, tc = tdiff.psa_align_batch(pairs, P0, device="cpu")
+    ts, tc = tpallas.psa_align_batch(pairs, P0, device="cpu")
     assert np.array_equal(ts, np.asarray(js))
     assert np.array_equal(tc, np.asarray(jc))
-    # M <= 0: outside the packed gate, the oracle answers pair by pair
+    # M <= 0: outside the packed gate, the round-1 kernels' plain versions
     for params in [(0, -1, -1, -1), (-1, -2, -1, -2)]:
-        ts, tc = tdiff.psa_align_batch(pairs[:2], params, device="cpu")
+        ts, tc = tpallas.psa_align_batch(pairs[:2], params, device="cpu")
         for (a, b), s, c in zip(pairs, ts, tc):
             j = jscan.psa_align(a, b, params)
             assert (int(s), int(c)) == (int(j.score), int(j.last))
     with pytest.raises(ValueError):
-        tdiff.psa_align_batch(pairs, (2, 1, -1, -3), device="cpu")
+        tpallas.psa_align_batch(pairs, (2, 1, -1, -3), device="cpu")
 
 
 @pytest.mark.parametrize("params", [P0, (0, -1, -1, -1)])
 def test_traced_router_matches_jax(params):
+    """The traced router (``ops/psa_pallas.py``, as in the JAX package)."""
     rng = np.random.default_rng(41)
     a, b = _similar(rng, 260, 20, 10)
     want = jpallas.psa_align_traced_device(a, b, params)
-    got = tdiff.psa_align_traced_device(a, b, params, device="cpu")
+    got = tpallas.psa_align_traced_device(a, b, params, device="cpu")
     assert got == want
     with pytest.raises(ValueError):
-        tdiff.psa_align_traced_device(a, b, (2, 1, -1, -3), device="cpu")
+        tpallas.psa_align_traced_device(a, b, (2, 1, -1, -3), device="cpu")
 
 
 def test_unported_options_raise():

@@ -9,6 +9,10 @@ traceback word plane.
   (4w + k, j) (``tsta_tpu/ops/psa_diff.py`` ``_psa_diff_traced_call``).
 * Port PSA plane: ``(P, m_pad, n_pad)`` uint8, one code per cell,
   row-major per pair (``csrc/psa_dp.cu``).
+* JAX round-1 plane of one pair: ``(m_pad, R, 128)`` int8, the code of
+  cell (i, j) at ``plane[i, j // 128, j % 128]``
+  (``tsta_tpu/ops/psa_pallas.py`` ``_psa_pallas``); the port's is the
+  ``(m_pad, n_pad)`` uint8 plane of one pair.
 * JAX chunk plane of a long traced pair: ``(mc // 4, R, 128)`` int32,
   byte k of ``plane[w, j // 128, j % 128]`` the code of the chunk's row
   4w + k (``tsta_tpu/ops/psa_pallas.py`` ``_psa_chunk_call``); its H/E
@@ -75,6 +79,19 @@ def plane_to_jax(plane) -> np.ndarray:
     by = c.reshape(P, m_pad // 4, 4, Rp, LANES).transpose(1, 0, 3, 4, 2)
     by = np.ascontiguousarray(by).reshape(m_pad // 4, P * Rp, LANES * 4)
     return by.view("<i4").astype(np.int32)
+
+
+def r1_plane_from_jax(plane) -> torch.Tensor:
+    """JAX round-1 ``(m_pad, R, 128)`` int8 plane (one code per cell,
+    column j at ``[:, j // 128, j % 128]``; ``psa_pallas._psa_pallas``
+    traced) -> the port's ``(m_pad, n_pad)`` uint8 plane (a CPU tensor)."""
+    c = np.asarray(plane)
+    if c.ndim != 3 or c.shape[2] != LANES or c.dtype.itemsize != 1:
+        raise ValueError("expected (m_pad, R, %d) int8 codes, got %s %s"
+                         % (LANES, c.dtype, c.shape))
+    m_pad, R, _ = c.shape
+    return torch.from_numpy(np.ascontiguousarray(c).view(np.uint8)
+                            .reshape(m_pad, R * LANES).copy())
 
 
 def chunk_plane_from_jax(plane) -> torch.Tensor:

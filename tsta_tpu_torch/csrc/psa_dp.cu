@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernels tsta_tpu/ops/psa_diff.py:_abs_kernel in both of
 // its uses, score-only (K1, launched through _psa_diff_call) and
-// traced=True (K2, through _psa_diff_traced_call), and
+// traced=True (K2, through _psa_diff_traced_call), the round-1 kernels
+// tsta_tpu/ops/psa_pallas.py:_kernel (Q2-13: K1 score-only, K2 at P = 1
+// traced) and :_batch_kernel (Q2-14: K1), and
 // tsta_tpu/ops/psa_pallas.py:_kernel_chunk (Q2-7, through _psa_chunk_call),
 // one row-chunk of a single pair's traced DP whose whole code plane the
 // card cannot hold.  The TPU kernel packs P pairs along the sublanes of
@@ -34,11 +36,13 @@
 // row's final barrier, once the neighbour's H(i, t*W-1) is known.
 //
 // Score-only launches run each pair over its real extent; traced launches
-// run every padded cell of the group (A_PAD/B_PAD bytes, exact under
-// supports_params) so the code plane matches the JAX kernel's cell for
-// cell.  Cell code = back*9 + f*3 + e: back 1 diag > 0 left (F) > 2 up
-// (E); f/e 0 extend, 1 open, 2 open with an open/extend tie.  One byte per
-// cell, row-major per pair: plane[pair][i][j].
+// run every padded cell of the group (A_PAD/B_PAD bytes) so the code plane
+// matches the JAX kernel's cell for cell.  Padding is exact whenever every
+// move into it lowers the score, X < 0, E < 0 and O <= 0, whatever M: the
+// round-1 kernels' domain (psa_pallas.py) as well as the packed ones'.
+// Cell code = back*9 + f*3 + e: back 1 diag > 0 left (F) > 2 up (E); f/e
+// 0 extend, 1 open, 2 open with an open/extend tie.  One byte per cell,
+// row-major per pair: plane[pair][i][j].
 //
 // Chunk mode (kChunk, one pair, 1,024 threads): the block runs the rows
 // [row_base, row_base + rows) from the frontier of row row_base - 1, given

@@ -2,11 +2,14 @@
 //
 // Replaces the TPU kernel tsta_tpu/ops/traceback.py:_walk_kernel_packed_db
 // (and its single-buffer form _walk_kernel_packed), launched through
-// _decode_moves_banded_packed.  The TPU walk stages bands of the plane in
-// SMEM with double-buffered DMA because its scalar core cannot afford an
-// HBM gather per step; here each step reads the plane from global memory
-// through L1/L2, so there is no band, no alignment gate and one walk
-// serves every shape.
+// _decode_moves_banded_packed, and at P = 1 the round-1 single-pair walk
+// tsta_tpu/ops/traceback.py:_walk_kernel (Q2-16, through
+// _decode_moves_banded) with its XLA fall-back _decode_moves, which walk
+// the same codes from the same corner.  The TPU walks stage bands of the
+// plane in SMEM (with double-buffered DMA) because a scalar core cannot
+// afford an HBM gather per step; here each step reads the plane from
+// global memory through L1/L2, so there is no band, no alignment gate and
+// one walk serves every shape.
 //
 // Per pair: start at (m-1, n-1) and step until i < 0 and j < 0.  Moves:
 // 1 diag, 0 left, 2 up.  In the core the step rules are

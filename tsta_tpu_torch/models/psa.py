@@ -7,11 +7,14 @@ run the DP, report the matrix-max score and, traced, the aligned pair.
 ``kernel`` selects the route:
 
 * ``auto``: the CUDA kernels (DP, then the device walk) for every
-  supported parameter set, the ``psa_scan`` oracle for the rest; on a
-  CPU device the kernels' plain PyTorch versions run instead.  A traced
-  pair whose code plane exceeds the device budget (a ~200 kbp pair on an
-  80 GB card) runs in row-chunks (``ops/psa_chunked.py``);
-* ``cuda``: the kernels only (a CUDA device and supported parameters);
+  parameter set with X < 0, E < 0 and O <= 0 (the packed kernels of
+  ``ops/psa_diff.py`` for M > 0, the round-1 ones of
+  ``ops/psa_pallas.py`` for any M), the ``psa_scan`` oracle for X >= 0 or
+  E >= 0; on a CPU device the kernels' plain PyTorch versions run
+  instead.  A traced pair whose code plane exceeds the device budget (a
+  ~200 kbp pair on an 80 GB card) runs in row-chunks
+  (``ops/psa_chunked.py``);
+* ``cuda``: the kernels only (a CUDA device, X < 0, E < 0, O <= 0);
 * ``plain``: the ``psa_scan`` oracle and the host walk.
 """
 
@@ -23,7 +26,7 @@ from typing import Optional
 from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.io import encode_dna, read_first_record
 from tsta_tpu_torch.device import resolve_device
-from tsta_tpu_torch.ops import psa_diff, psa_scan, traceback
+from tsta_tpu_torch.ops import psa_pallas, psa_scan, traceback
 
 KERNELS = ("auto", "plain", "cuda")
 
@@ -57,8 +60,8 @@ def align_pair(seq1: bytes, seq2: bytes, params: AlignParams = AlignParams(),
         if dev.type != "cuda":
             raise ValueError("kernel='cuda' needs a CUDA device (got %s)"
                              % dev)
-        if not psa_diff.supports_params(params):
-            raise ValueError("kernel='cuda' requires M>0>X, E<0, O<=0; use "
+        if not psa_pallas.in_round1_domain(params):
+            raise ValueError("kernel='cuda' requires X<0, E<0, O<=0; use "
                              "kernel='auto' or 'plain'")
     swapped = False
     if swap and len(seq2) > len(seq1):
@@ -66,13 +69,14 @@ def align_pair(seq1: bytes, seq2: bytes, params: AlignParams = AlignParams(),
         swapped = True
     a = encode_dna(seq1)
     b = encode_dna(seq2)
-    if kernel != "plain" and traced:
-        score, corner, aln = psa_diff.psa_align_traced_device(a, b, params,
-                                                              device=dev)
+    kernels = kernel != "plain" and psa_pallas.in_round1_domain(params)
+    if kernels and traced:
+        score, corner, aln = psa_pallas.psa_align_traced_device(a, b, params,
+                                                                device=dev)
         return PsaOutput(score=score, corner=corner, swapped=swapped,
                          a_row=aln.a_row, b_row=aln.b_row)
-    if kernel != "plain":
-        sc, co = psa_diff.psa_align_batch([(a, b)], params, device=dev)
+    if kernels:
+        sc, co = psa_pallas.psa_align_batch([(a, b)], params, device=dev)
         return PsaOutput(score=int(sc[0]), corner=int(co[0]),
                          swapped=swapped)
     res = psa_scan.psa_align(a, b, params, traced=traced, device=dev)

@@ -42,9 +42,9 @@ import numpy as np
 import torch
 
 from tsta_tpu_torch.device import device_budget, resolve_device
-from tsta_tpu_torch.ops import _kernels, psa_scan
+from tsta_tpu_torch.ops import _kernels, psa_pallas, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
-from tsta_tpu_torch.ops.psa_diff import LANES, T_R, supports_params
+from tsta_tpu_torch.ops.psa_diff import LANES, T_R
 from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, NEG, as_params
 
 # The clock of the last chunked pair (:class:`ChunkClock`), for callers
@@ -233,14 +233,13 @@ def psa_align_traced_chunked(a, b, params, mc: int | None = None, device=None,
     swapped so the longer is ``a``.  ``mc``: rows per chunk (default from
     ``budget``, itself by default :func:`device.device_budget`); tests pin
     it small to cross many chunks.  CPU tensors run the plain versions,
-    CUDA tensors the kernels (or raise).  Returns (score, corner,
-    Alignment), the contract of ``psa_diff.psa_align_traced_device``; the
-    run's :class:`ChunkClock` is left in :data:`last_clock`."""
+    CUDA tensors the kernels (or raise).  Parameters are those of the
+    round-1 guard (``psa_pallas._traced_params``: X < 0, E < 0, O <= 0,
+    any M).  Returns (score, corner, Alignment), the contract of
+    ``psa_pallas.psa_align_traced_device``; the run's :class:`ChunkClock`
+    is left in :data:`last_clock`."""
     global last_clock
-    p = as_params(params)
-    if not supports_params(p):
-        raise ValueError("chunked traced kernels require M>0>X, E<0, O<=0 "
-                         "(got %s)" % (p,))
+    p = psa_pallas._traced_params(params)
     a = np.asarray(a, dtype=np.uint8)
     b = np.asarray(b, dtype=np.uint8)
     pair = ChunkedPair(a, b, p, mc, device, budget)

@@ -1,5 +1,5 @@
 """Packed-batch PSA: host grouping and padding around the DP and walk
-kernels, and the two routers of the JAX package's ``psa_pallas``.
+kernels, for the parameter sets of :func:`supports_params` (M > 0).
 
 Counterpart of ``tsta_tpu/ops/psa_diff.py`` (single device, int32).  The
 TPU packs P pairs along the sublanes of one tile; on the GPU each pair is
@@ -15,9 +15,11 @@ one thread block of ``csrc/psa_dp.cu``, so a batch is one launch over a
   hold alone goes to ``ops/psa_chunked.py`` (row-chunks, rematerialised
   one at a time for the walk).
 
-:func:`dp_packed` is the DP kernel's wrapper: a CPU tensor takes the
-plain version (``psa_scan.scan_rows``), a CUDA tensor launches the kernel
-or raises.
+:func:`run_dp` is the DP kernel's wrapper: a CPU tensor takes the plain
+version (``psa_scan.scan_rows``), a CUDA tensor launches the kernel or
+raises.  :func:`dp_packed` is it behind the packed routes' gate; the
+round-1 routes of ``ops/psa_pallas.py`` (any M), which also hold the
+routers, call it behind theirs.
 """
 
 from __future__ import annotations
@@ -39,14 +41,6 @@ def supports_params(params) -> bool:
     O <= 0 (bucketed padding and the closed-form F are then exact)."""
     p = as_params(params)
     return not (p[1] >= 0 or p[2] >= 0 or p[3] > 0 or p[0] <= 0)
-
-
-def _check_sane_signs(p) -> None:
-    """The JAX routers' guard (psa_pallas._traced_params and the round-1
-    batch kernels): parameters they refuse outright."""
-    if p[1] >= 0 or p[2] >= 0 or p[3] > 0:
-        raise ValueError("alignment kernels require mismatch < 0, "
-                         "gap_extend < 0 and gap_open <= 0 (got %s)" % (p,))
 
 
 def _refuse_unported(use_int16=None, mesh=None, layout=None) -> None:
@@ -81,19 +75,27 @@ def _lengths(seq_pairs):
 
 def dp_packed(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
               traced: bool = False):
+    """:func:`run_dp` for the packed routes: parameters outside
+    :func:`supports_params` raise."""
+    p = as_params(params)
+    if not supports_params(p):
+        raise ValueError("packed DP requires M>0>X, E<0, O<=0 (got %s)"
+                         % (p,))
+    return run_dp(a, b, lens, p, traced)
+
+
+def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
+           traced: bool = False):
     """Run the DP over B padded pairs.
 
     ``a``: (B, n_pad) uint8, ``b``: (B, m_pad) uint8, ``lens``: (B, 2)
     int32 real (n, m), all on one device.  Returns (scores, corners) as
     (B,) int32 and, when ``traced``, the (B, m_pad, n_pad) uint8 code
-    plane.  Scores agree with the JAX kernel's (which includes padded
-    cells) because padding is score-neutral under
-    :func:`supports_params`.
+    plane of every padded cell.  Scores agree with the JAX kernels'
+    (which include padded cells) whenever every move into padding lowers
+    the score: X < 0, E < 0 and O <= 0, which the callers' gates hold.
     """
     p = as_params(params)
-    if not supports_params(p):
-        raise ValueError("packed DP requires M>0>X, E<0, O<=0 (got %s)"
-                         % (p,))
     if a.device.type == "cpu":
         best, corner, codes = psa_scan.scan_rows(a, b, lens[:, 0],
                                                  lens[:, 1], p, traced)
@@ -208,36 +210,3 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
         results[i] = psa_chunked.psa_align_traced_chunked(
             seq_pairs[i][0], seq_pairs[i][1], p, device=dev)
     return results
-
-
-def psa_align_batch(seq_pairs, params, device=None):
-    """Score-only batch router: the DP kernel for supported parameters,
-    the ``psa_scan`` oracle pair by pair (on the same device) for the
-    rest.  Returns (scores, corners) int32 numpy arrays."""
-    p = as_params(params)
-    if supports_params(p):
-        return psa_align_batch_diff(seq_pairs, p, device=device)
-    _check_sane_signs(p)
-    res = [psa_scan.psa_align(a, b, p, device=device) for a, b in seq_pairs]
-    return (np.array([r.score for r in res], np.int32),
-            np.array([r.last for r in res], np.int32))
-
-
-def psa_align_traced_device(a: np.ndarray, b: np.ndarray, params,
-                            device=None):
-    """Traced alignment with the traceback walked on the device; only
-    the packed moves reach the host, and a pair over the device budget
-    runs in row-chunks (:func:`psa_align_batch_traced_packed`).
-    Parameters outside :func:`supports_params` go to the ``psa_scan``
-    oracle on the same device and the host walk, which never chunks.
-    Returns (score, corner, Alignment)."""
-    p = as_params(params)
-    _check_sane_signs(p)
-    a = np.asarray(a, dtype=np.uint8)
-    b = np.asarray(b, dtype=np.uint8)
-    if supports_params(p):
-        return psa_align_batch_traced_packed([(a, b)], p, device=device)[0]
-    res = psa_scan.psa_align(a, b, p, traced=True, device=device)
-    aln = tb.decode_pair(res.back.cpu().numpy(), res.fback.cpu().numpy(),
-                         res.eback.cpu().numpy(), a, b)
-    return res.score, res.last, aln

@@ -23,6 +23,10 @@ shape in lockstep and, when traced, emits each cell's code
 order; f/e: 0 extend, 1 open, 2 open-tie) -- the DP kernel's contract.
 :func:`psa_align` is the single-pair oracle API with the three int8
 traceback planes of the JAX oracle.
+
+:data:`plain_calls` counts the plain DP and walk calls made on CUDA
+tensors (this module's scans, ``traceback``'s plain walks): on a card the
+kernels' routes must leave it unchanged.
 """
 
 from __future__ import annotations
@@ -42,6 +46,8 @@ NEG = -(2 ** 28)
 # With M > 0 > X, E < 0 and O <= 0 every padded cell scores below the
 # real region, which keeps scores and traceback planes exact.
 A_PAD, B_PAD = 0, 1
+
+plain_calls = 0
 
 
 class PsaResult(NamedTuple):
@@ -92,6 +98,9 @@ def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     -1).  ``corner`` is NEG for a pair whose row m_real-1 is not among
     them.  Returns ``(best, corner, codes, h, e)``, the last two the
     frontier of the last row."""
+    global plain_calls
+    if a.device.type == "cuda":
+        plain_calls += 1
     m_, x_, e_, o_ = as_params(params)
     oe = o_ + e_
     B, n = a.shape

@@ -17,7 +17,10 @@ The device walk (:func:`walk_packed`) runs over the DP kernel's code
 plane, (P, m_pad, n_pad) uint8 with one ``back*9 + f*3 + e`` code per
 cell, and returns the moves packed 16 per int32 word (2 bits each,
 LSB first) plus a count per pair, the wire format of the JAX package's
-banded walk.
+banded walk.  At P = 1 it is also the walk of a single round-1 pair
+(``ops/psa_pallas.py``), the counterpart of ``_decode_moves_banded`` and
+of its XLA fall-back ``_decode_moves``: it reads the plane from global
+memory, so it has neither the band's gate nor a fall-back.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tsta_tpu_torch.ops import _kernels
+from tsta_tpu_torch.ops import _kernels, psa_scan
 
 
 class Alignment(NamedTuple):
@@ -200,6 +203,8 @@ def walk_packed_plain(plane: torch.Tensor, nm: torch.Tensor):
     """
     P, m_pad, n_pad = _check_walk_args(plane, nm)
     dev = plane.device
+    if dev.type == "cuda":
+        psa_scan.plain_calls += 1
     maxlen = m_pad + n_pad
     flat = plane.reshape(-1)
     base = torch.arange(P, device=dev, dtype=torch.int64) * (m_pad * n_pad)
@@ -264,6 +269,8 @@ def walk_bounded_plain(plane: torch.Tensor, prev_row: torch.Tensor,
     carried until i < base, or, at base 0, until i < 0 and j < 0; writes
     move t' to ``moves[t']`` ((L,) int8).  Returns (i, j, t, forced) as a
     (4,) int32 tensor on ``moves``' device."""
+    if plane.device.type == "cuda":
+        psa_scan.plain_calls += 1
     codes = plane.cpu().numpy()
     above = prev_row.cpu().numpy()
     step_move, step_next = _step_table()

@@ -3,9 +3,11 @@
 Counterpart of ``tsta_tpu/parallel/batch.py``.  Pairs are bucketed by
 padded shape; score-only buckets run through the DP kernel in one launch
 each, traced batches through the DP kernel with code planes and the
-device walk, and a traced pair over the device budget through the
-chunked path (``ops/psa_chunked.py``).  Multi-GPU meshes are a later
-slice: passing ``mesh`` raises.
+device walk (the round-1 chain of ``ops/psa_pallas.py`` pair by pair for
+M <= 0), and a traced pair over the device budget through the chunked
+path (``ops/psa_chunked.py``).  Score-only batches refuse M <= 0, as the
+JAX package's do.  Multi-GPU meshes are a later slice: passing ``mesh``
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.io import encode_dna, read_first_record
 from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.models.psa import KERNELS
-from tsta_tpu_torch.ops import psa_diff, psa_scan
+from tsta_tpu_torch.ops import psa_diff, psa_pallas, psa_scan
 from tsta_tpu_torch.ops.psa_scan import bucket
 
 
@@ -115,17 +117,19 @@ def align_batch_traced_device(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
                               device=None):
     """Traced batch with the traceback walked on the device; returns
     (score, corner, Alignment) per pair in input order, with the
-    reference's longer-sequence-horizontal swap when ``swap``.  A pair
-    over the device budget runs in row-chunks
-    (``psa_diff.psa_align_batch_traced_packed``)."""
+    reference's longer-sequence-horizontal swap when ``swap``.  Parameters
+    of ``psa_diff.supports_params`` take the packed traced kernels, the
+    rest of the round-1 domain (X < 0, E < 0, O <= 0, any M) the round-1
+    chain pair by pair (``psa_pallas.psa_align_traced_device``); a pair
+    over the device budget runs in row-chunks either way."""
     _refuse_mesh(mesh)
-    p = psa_scan.as_params(params)
+    p = psa_pallas._traced_params(params)
     dev = resolve_device(device)
     prepped = _prep(pairs, swap)
     if psa_diff.supports_params(p):
         return psa_diff.psa_align_batch_traced_packed(prepped, p,
                                                       device=dev)
-    return [psa_diff.psa_align_traced_device(a, b, p, device=dev)
+    return [psa_pallas.psa_align_traced_device(a, b, p, device=dev)
             for a, b in prepped]
 
 
