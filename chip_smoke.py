@@ -95,7 +95,23 @@ Phases (each prints one JSON line; any failure exits non-zero):
     ``tsta-torch psa`` on reads 0 and 1 of the 200 kbp set at the card's
     budget, in 3 chunks, its maxsorce and corner equal to a K1 pass over
     the pair and its rows re-scoring to the corner: wall, forward and
-    backward split, peak device memory.
+    backward split, peak device memory;
+17. the difference method (``psa_dp_diff.cu``, int16 offsets), the launch
+    counters and the count of plain calls on the card reset before each
+    path: (a) phase 3's mixed batch and 40 kbp pair through it, every
+    score and corner equal to the plain version's and K1's; (b) the gate's
+    edge, D = 57: 8 identical 10,240 bp pairs under (57, -1, -1, 0) and
+    phase 3's batch under (2, -57, -2, -4), the same, and the kernel's
+    strip and segment widths equal to the plain version's; (c)
+    ``bench.stage_int16_probe``'s shape, 32 x 10,240 bp with slot 0 the
+    example, through ``psa_align_batch_diff`` int32 and int16 in turns (5
+    calls each after a warm-up, medians): ``psa_batch_int32_gcups``,
+    ``psa_batch_int16_gcups``, ``int16_speedup``, ``psa_batch_int16_exact``;
+    then the kernel, K1 and the plain version at phase 5's 128 x 10,240 bp
+    (CUDA events), every output equal; (d) ``TSTA_DIFF_INT16=1 tsta-torch
+    psa --notrace`` on the example, ``--json`` in a subprocess and plain
+    in this process: ``maxsorce=-5`` through the int16 kernel, K1 not
+    launched.
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -141,6 +157,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # updates) and per cell (diagonal, C, F, H, running max, strip max),
 # plus the word and its flags
 OPS_PSA_CELL, OPS_PSA_CODE, OPS_WALK_STEP = 12, 6, 8
+# the difference method computes K1's function: OPS_PSA_CELL per cell, at
+# two cells per s16x2 instruction
+CELLS_PER_S16X2 = 2
+D57 = [(57, -1, -1, 0), (2, -57, -2, -4)]   # the int16 gate's edge sets
 OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
 EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
                       "2ad36f0eab7b90b84292d06f98c7ca72")
@@ -516,6 +536,8 @@ def main() -> int:
     launches.update(psa_launches)
     edit_launches, edit_times = edit_phases(dev, smi_line, pairs)
     launches.update(edit_launches)
+    int16_launches, int16_times = int16_phases(dev, smi_line, batches, pairs)
+    launches.update(int16_launches)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -549,6 +571,8 @@ def main() -> int:
          "tsta_tpu/ops/psa_pallas.py:936", edit_times["psa_dp_short"]),
         ("psa_r1_walk", src % "psa_walk.cu", "tsta_tpu/ops/traceback.py:381",
          edit_times["psa_r1_walk"]),
+        ("psa_dp_diff", src % "psa_dp_diff.cu",
+         "tsta_tpu/ops/psa_diff.py:104", int16_times["psa_dp_diff"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -1529,6 +1553,171 @@ def edit_phases(dev, smi_line, batch_pairs):
         raise AssertionError("edit scoring, 200 kbp pair did not run on the "
                              "chunked kernels alone: %s %s" % (ld, plain_d))
     return launches, times
+
+
+def int16_phases(dev, smi_line, batches, batch_pairs):
+    """Phase 17, the difference method: (a) ``batches`` (phase 3's mixed
+    batch and 40 kbp pair) through ``psa_dp_diff.cu`` against the plain
+    version and K1; (b) the D = 57 sets; (c) the int32/int16 probe on 32 x
+    10,240 bp and the kernel's times at ``batch_pairs`` (phase 5's 128 x
+    10,240 bp); (d) ``tsta-torch psa --notrace`` with ``TSTA_DIFF_INT16``.
+    Each path runs with the launch counters and the count of plain calls
+    on the card reset before it and read after it.  Returns the CLI path's
+    launches and the kernels record's timing."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import cli
+    from tsta_tpu_torch.ops import _kernels, psa_diff, psa_scan
+
+    def start():
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        return psa_scan.plain_calls
+
+    def stop(p0):
+        torch.cuda.synchronize()
+        return dict(_kernels.launches), psa_scan.plain_calls - p0
+
+    def check(label, pairs, params):
+        a, b, lens = psa_diff.pack_pairs(pairs, dev)
+        p0 = start()
+        got = psa_diff.run_dp_int16(a, b, lens, params)
+        ld, plain = stop(p0)
+        want = psa_diff.dp_int16_plain(a, b, lens, params)
+        k1 = psa_diff.run_dp(a, b, lens, params)
+        rec = {"case": label, "pairs": len(pairs), "params": list(params),
+               "n_max": int(lens[:, 0].max()), "plain_calls": plain,
+               "launches": ld["psa_dp_diff"],
+               "k1_launches": ld["psa_dp_score"],
+               "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
+               "k1_max_abs_err": max(max_err(g, k) for g, k in zip(got, k1)),
+               "slot0": [int(got[0][0]), int(got[1][0])]}
+        if (rec["max_abs_err"] or rec["k1_max_abs_err"] or plain
+                or rec["launches"] != 1 or rec["k1_launches"]):
+            raise AssertionError("int16 kernel, %s: %s" % (label, rec))
+        return rec
+
+    # (a) phase 3's pairs, (b) the gate's edge
+    rng = np.random.default_rng(SEED + 17)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    same = [acgt[rng.integers(0, 4, 10240)] for _ in range(8)]
+    p = (2, -5, -2, -4)
+    cases = [check("phase 3 mixed", batches[0], p),
+             check("40 kbp", batches[1], p),
+             check("8 identical x 10,240", [(x, x) for x in same], D57[0]),
+             check("phase 3 mixed", batches[0], D57[1])]
+    if cases[2]["slot0"] != [57 * 10240] * 2:
+        raise AssertionError("identical pairs under %s: %s"
+                             % (D57[0], cases[2]["slot0"]))
+    # the plain version's segment widths are the kernel's, read from the
+    # library, at every width up to 4,096 and beyond, at 200 kbp
+    ns = list(range(1, 4097)) + list(range(4097, 262145, 61)) + [200064]
+    drift = [n for n in ns
+             if _kernels.psa_dp_diff_layout(n) != psa_diff.diff_layout(n)]
+    emit({"phase": "int16_kernels", "cases": cases,
+          "layout_40kbp": psa_diff.diff_layout(40000),
+          "layouts_checked": len(ns), "layouts_differing": drift[:10]})
+    if drift:
+        raise AssertionError("diff_layout differs from psa_dp_diff.cu's "
+                             "layout() at n = %s" % drift[:10])
+
+    # (c) bench.stage_int16_probe's shape and keys: int32 and int16 in turns
+    s1, s2 = golden_example()
+    ex = (np.frombuffer(s1, np.uint8), np.frombuffer(s2, np.uint8))
+    brng = np.random.default_rng(0)
+    pairs32 = [ex] + [(brng.integers(65, 69, 10240).astype(np.uint8),
+                       brng.integers(65, 69, 10240).astype(np.uint8))
+                      for _ in range(31)]
+    cells32 = sum(len(x) * len(y) for x, y in pairs32)
+    walls = {"int32": [], "int16": []}
+    outs = {}
+    p0 = start()
+    for _ in range(6):   # the first of each is a warm-up
+        for label in ("int32", "int16"):
+            t0 = time.perf_counter()
+            outs[label] = psa_diff.psa_align_batch_diff(
+                pairs32, p, use_int16=label == "int16", device=dev)
+            walls[label].append(time.perf_counter() - t0)
+    lc, plain_c = stop(p0)
+    med = {k: statistics.median(v[1:]) for k, v in walls.items()}
+    probe = {"psa_batch_int32_gcups": cells32 / med["int32"] / 1e9,
+             "psa_batch_int16_gcups": cells32 / med["int16"] / 1e9,
+             "int16_speedup": med["int32"] / med["int16"],
+             "psa_batch_int16_exact": int(outs["int16"][0][0]) == -5,
+             "psa_batch_int32_exact": int(outs["int32"][0][0]) == -5,
+             "equal": all(np.array_equal(x, y) for x, y in
+                          zip(outs["int16"], outs["int32"])),
+             "walls_s": walls, "launches": lc, "plain_calls": plain_c}
+
+    a, b, lens = psa_diff.pack_pairs(batch_pairs, dev)
+    cells = sum(len(x) * len(y) for x, y in batch_pairs)
+    ms, got = cuda_ms(lambda: psa_diff.run_dp_int16(a, b, lens, p), 3)
+    k1_ms, k1 = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, p), 3)
+    pms, want = cuda_ms(lambda: psa_diff.dp_int16_plain(a, b, lens, p), 1,
+                        False)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    err_k1 = max(max_err(g, k) for g, k in zip(got, k1))
+    times = {"psa_dp_diff": {
+        "shape": "%d x %d bp score-only, int16 offsets" % (
+            len(batch_pairs), len(batch_pairs[1][0])),
+        "ms": ms, "plain_ms": pms, "k1_ms": k1_ms, "max_abs_err": err,
+        **bound(nbytes(a, b, lens, *got),
+                OPS_PSA_CELL * cells / CELLS_PER_S16X2)}}
+    emit({"phase": "int16_probe", **probe, "k1_max_abs_err": err_k1,
+          "gcups": cells / ms / 1e6, "k1_gcups": cells / k1_ms / 1e6,
+          "times": times["psa_dp_diff"], "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    if not (probe["psa_batch_int16_exact"] and probe["psa_batch_int32_exact"]
+            and probe["equal"]) or err or err_k1 or plain_c \
+            or lc["psa_dp_diff"] != 6 or lc["psa_dp_score"] != 6:
+        raise AssertionError("int16 probe: wrong result or route: %s, "
+                             "errors %d %d" % (probe, err, err_k1))
+    del a, b, lens, got, k1, want
+
+    # (d) the CLI: --json in a subprocess, maxsorce in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "seqa1.fa"), os.path.join(tmp, "seqb1.fa")
+        with open(fa, "wb") as f:
+            f.write(b">seqa1\n" + s1 + b"\n")
+        with open(fb, "wb") as f:
+            f.write(b">seqb1\n" + s2 + b"\n")
+        argv = ["psa", "--notrace", "-1", fa, "-2", fb, "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tsta_tpu_torch"] + argv + ["--json"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, TSTA_DIFF_INT16="1"))
+        t_sub = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError("TSTA_DIFF_INT16=1 tsta_tpu_torch psa "
+                               "--notrace failed:\n" + proc.stderr)
+        js = json.loads(proc.stdout.strip().splitlines()[-1])
+        buf = io.StringIO()
+        os.environ["TSTA_DIFF_INT16"] = "1"
+        try:
+            p0 = start()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            ld, plain_d = stop(p0)
+            wall = time.perf_counter() - t0
+        finally:
+            del os.environ["TSTA_DIFF_INT16"]
+    stdout = buf.getvalue().split()
+    emit({"phase": "int16_cli", "score": js["score"], "corner": js["corner"],
+          "json_launches": {k: js["launches"][k]
+                            for k in ("psa_dp_diff", "psa_dp_score")},
+          "json_wall_s": js["wall_s"], "subprocess_wall_s": t_sub, "rc": rc,
+          "stdout": stdout, "wall_s": wall, "launches": ld,
+          "plain_calls": plain_d})
+    if (js["score"] != -5 or js["launches"]["psa_dp_diff"] < 1
+            or js["launches"]["psa_dp_score"] or rc != 0
+            or stdout != ["maxsorce=-5"] or plain_d
+            or ld["psa_dp_diff"] != 1 or ld["psa_dp_score"]):
+        raise AssertionError("TSTA_DIFF_INT16 CLI: wrong result or route: "
+                             "%s %s %s" % (js, stdout, ld))
+    return {"psa_dp_diff": ld["psa_dp_diff"]}, times
 
 
 if __name__ == "__main__":

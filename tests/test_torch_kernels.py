@@ -1,5 +1,6 @@
 """The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, the
-short-pair DP, PSA walk and bounded walk, POA round DP in its single-call,
+short-pair DP, the difference-method (int16) DP, PSA walk and bounded walk,
+POA round DP in its single-call,
 forward-chunk and window-remat uses, POA walk and bounded walk) against
 their plain PyTorch versions on the card, with exact integer equality,
 and the kernel routes of the MSA engine, chunked rounds included, of the
@@ -660,3 +661,106 @@ def test_psa_dp_ab_finds_k1_in_ptxas_and_sass():
     assert len(funs) == 2 and len(k1) == 1
     assert funs[k1[0]] == ["LDC R1, c[0x0][.]",
                            "@!P0 IMAD R3, R2, c[0x0][.], RZ"]
+
+
+# the int16 gate's two edge sets (D = 57) and two sets inside it
+DIFF16 = [P0, (57, -1, -1, 0), (2, -57, -2, -4), (24, -24, -24, -24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", DIFF16)
+def test_dp_diff_kernel_matches_plain_and_k1(cuda, params):
+    """The difference-method kernel (int16 offsets, ``psa_dp_diff.cu``)
+    against its plain version on the CPU and K1 on the card, on mixed
+    pairs of 1-3,000 bp (segments of 4 and 12 columns), similar ones."""
+    lengths = [(1, 1), (3, 300), (300, 3), (1000, 950), (513, 700),
+               (2100, 1800), (3000, 2990), (129, 1)]
+    a, b, lens = _batch(9, lengths, 256, 128, similar=True)
+    want = psa_diff.run_dp_int16(a, b, lens, params)
+    n0 = dict(_kernels.launches)
+    ta, tb_, tl = a.to(cuda), b.to(cuda), lens.to(cuda)
+    got = psa_diff.run_dp_int16(ta, tb_, tl, params)
+    k1 = psa_diff.run_dp(ta, tb_, tl, params)
+    torch.cuda.synchronize()
+    assert _kernels.launches["psa_dp_diff"] == n0["psa_dp_diff"] + 1
+    for w, g, k in zip(want, got, k1):
+        assert torch.equal(g.cpu(), w) and torch.equal(k.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_dp_diff_kernel_40kbp_pair(cuda):
+    """A 40 kbp pair, where a strip spans 160 columns in two segments:
+    the int16 kernel equals its plain version (run on the card) and K1,
+    and K1 under a D = 57 set."""
+    assert psa_diff.diff_layout(40000) == (160, 80)
+    a, b = _long_pair(40, 40000, 39700)
+    ta, tb_, lens = psa_diff.pack_pairs([(a, b)], cuda)
+    p0 = psa_scan.plain_calls
+    want = psa_diff.dp_int16_plain(ta, tb_, lens, P0)
+    assert psa_scan.plain_calls == p0 + 1
+    for params in (P0, (57, -1, -1, 0)):
+        got = psa_diff.run_dp_int16(ta, tb_, lens, params)
+        k1 = psa_diff.run_dp(ta, tb_, lens, params)
+        torch.cuda.synchronize()
+        for g, k in zip(got, k1):
+            assert torch.equal(g, k)
+        if params == P0:
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_int16_switch_on_card(cuda, monkeypatch, capsys):
+    """``TSTA_DIFF_INT16`` sends the score router and ``tsta-torch psa
+    --notrace`` to the int16 kernel on the card, K1 not launched and no
+    plain call, with the CPU's numbers."""
+    import os
+
+    from tsta_tpu_torch import cli
+    from tsta_tpu_torch.ops import psa_pallas
+    rng = np.random.default_rng(12)
+    pairs = [(rng.integers(65, 69, n).astype(np.uint8),
+              rng.integers(65, 69, m).astype(np.uint8))
+             for n, m in [(900, 850), (300, 320), (1500, 20)]]
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                     "psa_small3")
+    argv = ["psa", "--notrace", "-1", os.path.join(d, "a.fa"), "-2",
+            os.path.join(d, "b.fa")]
+    want = psa_pallas.psa_align_batch(pairs, P0, device="cpu")
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    monkeypatch.setenv("TSTA_DIFF_INT16", "1")
+    n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+    got = psa_pallas.psa_align_batch(pairs, P0, device=cuda)
+    assert cli.main(argv + ["--device", "cuda"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == out[1] and out[0].startswith("maxsorce=")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert psa_scan.plain_calls == p0
+    assert (_kernels.launches["psa_dp_diff"] - n0["psa_dp_diff"],
+            _kernels.launches["psa_dp_score"] - n0["psa_dp_score"]) == (2, 0)
+
+
+@pytest.mark.cuda
+def test_dp_diff_layout_is_the_plain_versions(cuda):
+    """The kernel's strip and segment widths, read from the library, are
+    ``diff_layout``'s at every width up to 4,096 and beyond, at 200 kbp."""
+    ns = list(range(1, 4097)) + list(range(4097, 262145, 61)) + [200064]
+    assert [_kernels.psa_dp_diff_layout(n) for n in ns] == [
+        psa_diff.diff_layout(n) for n in ns]
+
+
+@pytest.mark.cuda
+def test_dp_diff_refuses_bad_tensors_and_params(cuda):
+    a, b, lens = _batch(10, [(100, 90), (50, 60)], 256, 128)
+    a, b, lens = a.to(cuda), b.to(cuda), lens.to(cuda)
+    one = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):   # a score of another batch size
+        _kernels.psa_dp_diff(a, b, lens, P0, one[:1], one.clone())
+    with pytest.raises(ValueError):   # a width that is not whole words
+        _kernels.psa_dp_diff(a[:, :126].contiguous(), b, lens, P0, one,
+                             one.clone())
+    with pytest.raises(ValueError):   # D = 58: outside the gate
+        psa_diff.run_dp_int16(a, b, lens, (2, -58, -2, -4))
+    with pytest.raises(_kernels.KernelError):   # the C side's own gate
+        _kernels.psa_dp_diff(a, b, lens, (2, -58, -2, -4), one, one.clone())

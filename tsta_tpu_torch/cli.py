@@ -10,6 +10,8 @@ Same flags, stdout and output files as ``tsta psa`` / ``msa`` /
 ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions).  ``--kernel``
 takes auto|plain|cuda.  ``psa`` and ``batch --traced`` run a pair whose
 traceback plane exceeds the card's budget in row-chunks, with no option.
+``TSTA_DIFF_INT16`` set to any non-empty value sends ``psa --notrace`` and
+``batch`` (M > 0) to the int16 difference method, as in the JAX package.
 ``--mesh`` (multi-GPU) and ``--profile`` belong to later slices.
 """
 

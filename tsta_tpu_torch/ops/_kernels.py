@@ -28,8 +28,8 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("psa_dp.cu", "psa_dp_short.cu", "psa_walk.cu",
-            "psa_walk_bounded.cu", "poa_dp.cu", "poa_walk.cu",
+_SOURCES = ("psa_dp.cu", "psa_dp_short.cu", "psa_dp_diff.cu",
+            "psa_walk.cu", "psa_walk_bounded.cu", "poa_dp.cu", "poa_walk.cu",
             "poa_walk_bounded.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -37,15 +37,16 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # K1 and K2 are the score-only and traced uses of the one PSA DP kernel
 # source, psa_dp_chunk its row-chunk of a long traced pair; psa_dp_short is
-# the score-only DP of short pairs, one warp each; K3 is the PSA walk and
-# psa_walk_bounded its walk inside one such chunk; poa_dp and
+# the score-only DP of short pairs, one warp each; psa_dp_diff is the
+# score-only DP by the difference method (int16 offsets, Q2-9); K3 is the
+# PSA walk and psa_walk_bounded its walk inside one such chunk; poa_dp and
 # poa_walk are the MSA round DP and its walk on a single-call round;
 # poa_dp_chunk and poa_dp_window are the POA DP kernel's forward chunk and
 # window remat in a chunked round, and poa_walk_bounded its walk inside one
 # (chunk, window) cell.
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
-           "psa_walk", "psa_walk_bounded", "poa_dp", "poa_walk",
-           "poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
+           "psa_dp_diff", "psa_walk", "psa_walk_bounded", "poa_dp",
+           "poa_walk", "poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 POA_THREADS = 1024   # poa_dp.cu's block: one column strip per thread
@@ -147,6 +148,14 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_chunk_scratch_words.argtypes = [ci]
             lib.tsta_psa_dp_short.restype = ci
             lib.tsta_psa_dp_short.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3
+            lib.tsta_psa_dp_diff.restype = ci
+            lib.tsta_psa_dp_diff.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3 + [
+                ci, vp]
+            lib.tsta_psa_dp_diff_scratch_words.restype = ci
+            lib.tsta_psa_dp_diff_scratch_words.argtypes = [ci]
+            lib.tsta_psa_dp_diff_layout.restype = None
+            lib.tsta_psa_dp_diff_layout.argtypes = [ci] + [
+                ctypes.POINTER(ci)] * 2
             lib.tsta_psa_walk_bounded.restype = ci
             lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 6 + [
                 vp, vp, vp]
@@ -245,6 +254,47 @@ def psa_dp_short(a, b, lens, params, score, corner) -> None:
                                   _stream(dev))
     _raise_on(rc, "psa_dp_short")
     launches["psa_dp_short"] += 1
+
+
+def psa_dp_diff(a, b, lens, params, score, corner) -> None:
+    """Launch the difference-method DP (one block per pair, H/E as int16
+    offsets from per-segment int32 anchors) over B pairs, each over its
+    real extent: ``a``: (B, n_stride) uint8, n_stride a multiple of 4,
+    ``b``: (B, m_stride) uint8, ``lens``: (B, 2) int32 real (n, m);
+    ``score``/``corner``: (B,) int32 outputs.  ``params`` must pass
+    ``psa_diff.supports_params_int16`` (D <= 57); the C side refuses the
+    rest without launching."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("psa_dp_diff kernel needs CUDA tensors, got %s" % dev)
+    B, n_stride = a.shape
+    m_stride = b.shape[1]
+    _check(a, "a", torch.uint8, (B, n_stride), dev)
+    _check(b, "b", torch.uint8, (B, m_stride), dev)
+    _check(lens, "lens", torch.int32, (B, 2), dev)
+    _check(score, "score", torch.int32, (B,), dev)
+    _check(corner, "corner", torch.int32, (B,), dev)
+    if n_stride % 4 or a.data_ptr() % 4:
+        raise ValueError("psa_dp_diff reads a in 4-byte words: n_stride %d"
+                         % n_stride)
+    lib = _lib()
+    sw = lib.tsta_psa_dp_diff_scratch_words(n_stride)
+    scratch = torch.empty((B, sw), dtype=torch.int32, device=dev)
+    m_, x_, e_, o_ = params
+    rc = lib.tsta_psa_dp_diff(a.data_ptr(), b.data_ptr(), lens.data_ptr(), B,
+                              n_stride, m_stride, m_, x_, e_, o_,
+                              score.data_ptr(), corner.data_ptr(),
+                              scratch.data_ptr(), sw, _stream(dev))
+    _raise_on(rc, "psa_dp_diff")
+    launches["psa_dp_diff"] += 1
+
+
+def psa_dp_diff_layout(n: int) -> tuple:
+    """(W, G): the strip and segment widths ``psa_dp_diff.cu`` takes for a
+    pair of ``n`` columns, read from the built library."""
+    w, g = ctypes.c_int(), ctypes.c_int()
+    _lib().tsta_psa_dp_diff_layout(n, ctypes.byref(w), ctypes.byref(g))
+    return w.value, g.value
 
 
 def psa_walk(plane, nm, words, counts) -> None:

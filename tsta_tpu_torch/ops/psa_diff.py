@@ -20,9 +20,20 @@ version (``psa_scan.scan_rows``), a CUDA tensor launches the kernel or
 raises.  :func:`dp_packed` is it behind the packed routes' gate; the
 round-1 routes of ``ops/psa_pallas.py`` (any M), which also hold the
 routers, call it behind theirs.
+
+``use_int16=True``, or ``TSTA_DIFF_INT16`` set to any non-empty value,
+sends a score-only batch to the difference method (JAX's ``_diff_kernel``):
+:func:`run_dp_int16`, whose kernel ``csrc/psa_dp_diff.cu`` holds the
+frontier as int16 offsets from per-segment int32 anchors, with the plain
+version :func:`scan_rows_int16`.  It is exact, and so gives the int32
+route's numbers, for the parameters of :func:`supports_params_int16`
+(D <= 57); the switch raises ValueError outside them, as JAX's does.
+The default stays int32, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -30,10 +41,13 @@ import torch
 from tsta_tpu_torch.device import device_budget, resolve_device
 from tsta_tpu_torch.ops import _kernels, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
-from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, as_params
+from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, NEG, as_params
 
 LANES = 128
 T_R = 256               # row padding quantum (the JAX kernel's rows/step)
+K_REANCHOR = 16         # rows between the int16 anchors' re-bases (JAX's)
+SEG_MAX = 128           # widest segment one int32 anchor carries
+DIFF_THREADS = 256      # csrc/psa_dp_diff.cu's block: one strip per thread
 
 
 def supports_params(params) -> bool:
@@ -43,10 +57,34 @@ def supports_params(params) -> bool:
     return not (p[1] >= 0 or p[2] >= 0 or p[3] > 0 or p[0] <= 0)
 
 
-def _refuse_unported(use_int16=None, mesh=None, layout=None) -> None:
-    if use_int16:
-        raise NotImplementedError("the int16 difference kernel is a later "
-                                  "slice of the port")
+def _delta_bound(p):
+    """D: bound on adjacent-column H differences for params p."""
+    m_, x_, e_, o_ = p
+    return max(m_, -x_, -(o_ + e_), -e_, 1)
+
+
+def supports_params_int16(params) -> bool:
+    """True when the int16 offsets are provably exact: :func:`supports_params`
+    and D <= 57.  The offsets alone would allow D <= 72; 57 is the JAX
+    package's gate (its arithmetic int16 max takes ``x - y``, up to 573*D),
+    kept so that both packages take the same parameter sets."""
+    p = as_params(params)
+    return supports_params(p) and _delta_bound(p) <= 57
+
+
+def diff_layout(n: int) -> tuple:
+    """(W, G): ``csrc/psa_dp_diff.cu``'s strip width per thread and segment
+    width for a pair of ``n`` real columns: W = ceil(n / 256) rounded up to
+    4 (K1's strip), then cut into W / G segments of G <= SEG_MAX columns,
+    G a multiple of 4, so the segments form one grid of width G."""
+    w = -(-n // DIFF_THREADS)
+    w = (w + 3) & ~3
+    nseg = -(-w // SEG_MAX)
+    g = (-(-w // nseg) + 3) & ~3
+    return nseg * g, g
+
+
+def _refuse_unported(mesh=None, layout=None) -> None:
     if mesh is not None:
         raise NotImplementedError("multi-GPU batches are a later slice of "
                                   "the port")
@@ -109,6 +147,130 @@ def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
     return (score, corner, plane) if traced else (score, corner)
 
 
+@torch.no_grad()
+def scan_rows_int16(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
+                    m_real: torch.Tensor, params, seg: int):
+    """The difference method's plain version: :func:`psa_scan.scan_rows`'s
+    score-only DP with the H/E frontier as int16 offsets, in the kernel's
+    design.
+
+    Columns fall into segments of ``seg`` columns from column 0 (the
+    kernel's segment width, :func:`diff_layout`), each with an int32
+    anchor, H(-1, start) at first; after every K_REANCHOR-th row each
+    anchor moves to its segment's first H of that row.  The cell
+    arithmetic runs on torch.int16 tensors, whose additions wrap, so an
+    offset that left int16 would show as a wrong score.  F's prefix max
+    runs in int16 inside a segment and crosses segments in int32, entering
+    each as ``clip(carry - beta, guard, 32767)``; the guard is -160 * D.
+    The best H is folded into int32 per segment and row, before an anchor
+    moves.  ``a``: (B, n) uint8, ``b``: (B, m) uint8, padded as for
+    scan_rows; ``n_real``/``m_real``: (B,) real lengths.  Returns (best,
+    corner) as (B,) int32, scan_rows' numbers for the parameters of
+    :func:`supports_params_int16`.
+    """
+    if a.device.type == "cuda":
+        psa_scan.plain_calls += 1
+    p = as_params(params)
+    m_, x_, e_, o_ = p
+    guard = -160 * _delta_bound(p)
+    dev = a.device
+    i16, i32 = torch.int16, torch.int32
+    B, n = a.shape
+    m = b.shape[1]
+    ns = -(-n // seg)
+    if ns * seg > n:   # whole segments: the extra columns are padding too
+        a = torch.cat([a, torch.full((B, ns * seg - n), A_PAD,
+                                     dtype=a.dtype, device=dev)], 1)
+    a3 = a.view(B, ns, seg).to(i32)
+    b32 = b.to(i32)
+    lane = torch.arange(seg, dtype=i32, device=dev)
+    le = (lane * e_).to(i16)                     # l*e
+    ole = (o_ + lane * e_).to(i16)               # o + l*e
+    start_e = torch.arange(ns, dtype=i32, device=dev) * seg * e_
+    alpha = (o_ + e_ + start_e).expand(B, ns).contiguous()
+    h = le.expand(B, ns, seg).contiguous()
+    ev = torch.full((B, ns, seg), guard, dtype=i16, device=dev)
+    neg = torch.full((B, ns, 1), guard, dtype=i16, device=dev)
+    best = torch.full((B,), NEG, dtype=i32, device=dev)
+    corner = torch.full((B,), NEG, dtype=i32, device=dev)
+    cn = n_real.to(device=dev, dtype=torch.int64) - 1
+    cseg = (cn // seg).view(B, 1)
+    mrow = m_real.to(device=dev, dtype=torch.int64) - 1
+    corner_rows = set(mrow.tolist())
+    col = torch.empty((B, 1), dtype=i32, device=dev)
+    beta = alpha - start_e
+    for i in range(m):
+        bound_prev = 0 if i == 0 else o_ + i * e_    # H(i-1, -1)
+        bound_cur = o_ + (i + 1) * e_                # H(i, -1)
+        sub = torch.where(a3 == b32[:, i, None, None], m_, x_).to(i16)
+        # H(i-1, start - 1) of each segment, in the segment's own frame
+        left = torch.cat([col.fill_(bound_prev),
+                          h[:, :-1, -1].to(i32) + alpha[:, :-1]], 1)
+        hd = torch.cat([(left - alpha).to(i16)[..., None], h[..., :-1]], 2)
+        diag = hd + sub
+        e_row = torch.maximum(ev + e_, h + (o_ + e_))
+        c = torch.maximum(diag, e_row)
+        y = c - le
+        pre = torch.cummax(torch.cat([neg, y[..., :-1]], 2), 2).values
+        top = torch.maximum(pre[..., -1], y[..., -1]).to(i32) + beta
+        carry = torch.cummax(torch.cat([col.fill_(bound_cur + e_),
+                                        top[:, :-1]], 1), 1).values
+        carry = torch.clamp(carry - beta, guard, 32767).to(i16)
+        hr = torch.maximum(c, ole + torch.maximum(pre, carry[..., None]))
+        best = torch.maximum(best, (hr.amax(2).to(i32) + alpha).amax(1))
+        if i in corner_rows:
+            here = hr.view(B, ns * seg).gather(1, cn.view(B, 1)).to(i32)
+            corner = torch.where(mrow == i,
+                                 (here + alpha.gather(1, cseg)).view(B),
+                                 corner)
+        if i % K_REANCHOR == K_REANCHOR - 1:
+            delta = hr[..., :1]
+            hr, e_row = hr - delta, e_row - delta
+            alpha = alpha + delta[..., 0].to(i32)
+            beta = alpha - start_e
+        h, ev = hr, e_row
+    return best, corner
+
+
+def dp_int16_plain(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
+                   params):
+    """:func:`scan_rows_int16` over B padded pairs (the inputs of
+    :func:`pack_pairs`), each pair at its own segment width in the kernel
+    (:func:`diff_layout` of its n), on the tensors' device: (scores,
+    corners) as (B,) int32."""
+    widths = [diff_layout(n)[1] for n in lens[:, 0].tolist()]
+    score = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
+    corner = torch.empty_like(score)
+    for g in sorted(set(widths)):
+        idx = torch.tensor([k for k, w in enumerate(widths) if w == g],
+                           device=a.device)
+        score[idx], corner[idx] = scan_rows_int16(
+            a[idx], b[idx], lens[idx, 0], lens[idx, 1], params, g)
+    return score, corner
+
+
+def run_dp_int16(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
+                 params):
+    """The difference-method DP over B padded pairs, score-only, each
+    over its real extent: the inputs of :func:`pack_pairs`; (scores,
+    corners) as (B,) int32.  A CPU tensor takes the plain version
+    (:func:`dp_int16_plain`); a CUDA tensor launches
+    ``csrc/psa_dp_diff.cu`` or raises.  Parameters outside
+    :func:`supports_params_int16` raise ValueError."""
+    p = as_params(params)
+    if not supports_params_int16(p):
+        raise ValueError("int16 difference kernel requires M>0>X, E<0, "
+                         "O<=0 and max(M,-X,-(O+E),-E) <= 57 (got %s)"
+                         % (p,))
+    if a.device.type == "cpu":
+        return dp_int16_plain(a, b, lens, p)
+    B = a.shape[0]
+    score = torch.empty((B,), dtype=torch.int32, device=a.device)
+    corner = torch.empty((B,), dtype=torch.int32, device=a.device)
+    _kernels.psa_dp_diff(a, b, lens, p, score, corner)
+    return score, corner
+
+
 def pack_pairs(seq_pairs, device, traced: bool = False):
     """Pad encoded (a, b) pairs into the DP kernel's inputs on ``device``:
     (a (B, n_pad) uint8, b (B, m_pad) uint8, lens (B, 2) int32 real
@@ -132,18 +294,30 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
     """Score-only batch through the DP kernel (any pair length).
 
     ``seq_pairs``: encoded uint8 (a, b) pairs.  Returns (scores,
-    corners) int32 numpy arrays in input order.  ``use_int16``, ``mesh``
-    and a non-packed ``layout`` belong to later slices and raise.
+    corners) int32 numpy arrays in input order.  ``use_int16`` (default:
+    whether ``TSTA_DIFF_INT16`` is set to a non-empty value, as in the
+    JAX package) selects the difference method, :func:`run_dp_int16`,
+    exact for D <= 57 and a ValueError beyond; else K1.  ``mesh`` and a
+    non-packed ``layout`` belong to later slices and raise (with
+    ``use_int16`` the layout is packed, as in the JAX package).
     """
-    _refuse_unported(use_int16, mesh, layout)
+    if use_int16 is None:
+        use_int16 = bool(os.environ.get("TSTA_DIFF_INT16"))
+    if use_int16:
+        layout = "packed"   # the difference method has the packed form only
+    _refuse_unported(mesh, layout)
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed kernel requires M>0>X, E<0, O<=0 "
                          "(got %s)" % (p,))
+    if use_int16 and not supports_params_int16(p):
+        raise ValueError("int16 difference kernel additionally requires "
+                         "max(M,-X,-(O+E),-E) <= 57 (got %s)" % (p,))
     if not seq_pairs:
         raise ValueError("empty pair batch")
     a, b, lens = pack_pairs(seq_pairs, resolve_device(device))
-    scores, corners = dp_packed(a, b, lens, p, traced=False)
+    scores, corners = (run_dp_int16(a, b, lens, p) if use_int16
+                       else dp_packed(a, b, lens, p, traced=False))
     return scores.cpu().numpy(), corners.cpu().numpy()
 
 
