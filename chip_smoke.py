@@ -111,7 +111,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
     (CUDA events), every output equal; (d) ``TSTA_DIFF_INT16=1 tsta-torch
     psa --notrace`` on the example, ``--json`` in a subprocess and plain
     in this process: ``maxsorce=-5`` through the int16 kernel, K1 not
-    launched.
+    launched;
+18. the striped layout (``psa_dp_striped.cu``) and the two-pair walk
+    (``psa_walk_pair2.cu``), the launch counters and the count of plain
+    calls on the card reset before each path: (a) phase 3's mixed batch
+    through ``psa_align_batch_diff(layout="striped")``, every score and
+    corner equal to K1's and the plain version's, and the 40 kbp pair, equal
+    to K1's; (b) the kernel, K1 and the plain version at phase 5's 128 x
+    10,240 bp (CUDA events), every output equal; (c) ``TSTA_PSA_LAYOUT=
+    striped tsta-torch batch --pairs ... --scores ...`` on those pairs in a
+    subprocess: the scores TSV equal to the default run's (in this
+    process, through K1), the striped kernel launched and K1 not; (d) phase
+    5's 32 x 10 kbp traced plane walked by K3 and the two-pair walk (CUDA
+    events), every word and count equal to phase 6's plain walk of that
+    plane, then its first 31 pairs, which take K3.
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -487,7 +500,7 @@ def main() -> int:
     times = {}
     ms, got = cuda_ms(lambda: psa_diff.dp_packed(a, b, lens, p), 3)
     pms, want = cuda_ms(lambda: psa_scan.scan_rows(a, b, lens[:, 0],
-                                                   lens[:, 1], p), 1)
+                                                   lens[:, 1], p), 1, False)
     times["psa_dp_score"] = {
         "shape": "128 x 10240 score-only", "ms": ms, "plain_ms": pms,
         "gcups": cells_score / ms / 1e6, "plain_gcups": cells_score / pms / 1e6,
@@ -501,13 +514,17 @@ def main() -> int:
         ms, (ks, kc, plane) = cuda_ms(
             lambda: psa_diff.dp_packed(a, b, nm, p, True), 2)
         pms, (ps, pc, pplane) = cuda_ms(
-            lambda: psa_scan.scan_rows(a, b, nm[:, 0], nm[:, 1], p, True), 1)
+            lambda: psa_scan.scan_rows(a, b, nm[:, 0], nm[:, 1], p, True), 1,
+            False)
         # per pair, so the int64 difference stays small
         dp_err = max(max_err(ks, ps), max_err(kc, pc),
                      *(max_err(g, w) for g, w in zip(plane, pplane)))
         del pplane
         wms, (kw, kcnt) = cuda_ms(lambda: tb.walk_packed(plane, nm), 2)
-        wpms, (pw, pcnt) = cuda_ms(lambda: tb.walk_packed_plain(plane, nm), 1)
+        wpms, (pw, pcnt) = cuda_ms(lambda: tb.walk_packed_plain(plane, nm), 1,
+                                   False)
+        if group is tpairs:   # phase 18 holds the two-pair walk to it
+            walk_plain = (pw, pcnt, wpms)
         times["psa_dp_traced " + label] = {
             "shape": label + " traced", "ms": ms, "plain_ms": pms,
             "gcups": cells / ms / 1e6, "plain_gcups": cells / pms / 1e6,
@@ -538,6 +555,9 @@ def main() -> int:
     launches.update(edit_launches)
     int16_launches, int16_times = int16_phases(dev, smi_line, batches, pairs)
     launches.update(int16_launches)
+    striped_launches, striped_times = striped_phases(
+        dev, smi_line, batches, pairs, tpairs, walk_plain)
+    launches.update(striped_launches)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -573,6 +593,10 @@ def main() -> int:
          edit_times["psa_r1_walk"]),
         ("psa_dp_diff", src % "psa_dp_diff.cu",
          "tsta_tpu/ops/psa_diff.py:104", int16_times["psa_dp_diff"]),
+        ("psa_dp_striped", src % "psa_dp_striped.cu",
+         "tsta_tpu/ops/psa_diff.py:543", striped_times["psa_dp_striped"]),
+        ("psa_walk_pair2", src % "psa_walk_pair2.cu",
+         "tsta_tpu/ops/traceback.py:723", striped_times["psa_walk_pair2"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -580,7 +604,7 @@ def main() -> int:
                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                        "bound_by": t["bound_by"], "library_ms": None,
                        "shape": t["shape"],
-                       **({"k1_ms": t["k1_ms"]} if "k1_ms" in t else {})}
+                       **{k: t[k] for k in ("k1_ms", "k3_ms") if k in t}}
                       for n, s, r, t in entries]})
     print(smi_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1555,6 +1579,27 @@ def edit_phases(dev, smi_line, batch_pairs):
     return launches, times
 
 
+def start():
+    """Reset the launch counters before a path; returns the count of plain
+    calls so far, for :func:`stop`."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, psa_scan
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    return psa_scan.plain_calls
+
+
+def stop(p0):
+    """The launch counters and the plain calls on the card since
+    :func:`start` returned ``p0``."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, psa_scan
+    torch.cuda.synchronize()
+    return dict(_kernels.launches), psa_scan.plain_calls - p0
+
+
 def int16_phases(dev, smi_line, batches, batch_pairs):
     """Phase 17, the difference method: (a) ``batches`` (phase 3's mixed
     batch and 40 kbp pair) through ``psa_dp_diff.cu`` against the plain
@@ -1565,19 +1610,9 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
     on the card reset before it and read after it.  Returns the CLI path's
     launches and the kernels record's timing."""
     import numpy as np
-    import torch
 
     from tsta_tpu_torch import cli
-    from tsta_tpu_torch.ops import _kernels, psa_diff, psa_scan
-
-    def start():
-        torch.cuda.synchronize()
-        _kernels.reset_launches()
-        return psa_scan.plain_calls
-
-    def stop(p0):
-        torch.cuda.synchronize()
-        return dict(_kernels.launches), psa_scan.plain_calls - p0
+    from tsta_tpu_torch.ops import _kernels, psa_diff
 
     def check(label, pairs, params):
         a, b, lens = psa_diff.pack_pairs(pairs, dev)
@@ -1718,6 +1753,174 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
         raise AssertionError("TSTA_DIFF_INT16 CLI: wrong result or route: "
                              "%s %s %s" % (js, stdout, ld))
     return {"psa_dp_diff": ld["psa_dp_diff"]}, times
+
+
+def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
+    """Phase 18, the striped layout and the two-pair walk: (a) ``batches``
+    (phase 3's mixed batch and 40 kbp pair) through
+    ``psa_align_batch_diff(layout="striped")`` against K1 and, on the mixed
+    batch, the plain version; (b) the kernel's, K1's and the plain
+    version's times at ``batch_pairs`` (phase 5's 128 x 10,240 bp); (c)
+    ``TSTA_PSA_LAYOUT=striped tsta-torch batch`` on those pairs; (d) the
+    walks of ``tpairs``' traced plane (phase 5's 32 x 10 kbp), held to
+    ``walk_plain``, phase 6's plain walk of that plane (words, counts,
+    ms).  Each path runs with the launch counters and the count of plain
+    calls on the card reset before it and read after it.  Returns the
+    launches of (c) and (d)'s two-pair walk and the kernels record's
+    timings."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import cli
+    from tsta_tpu_torch.ops import psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+
+    p = (2, -5, -2, -4)
+
+    def errs(got, want):
+        return max(max_err(torch.as_tensor(g).cpu(), torch.as_tensor(w).cpu())
+                   for g, w in zip(got, want))
+
+    # (a) phase 3's pairs through the layout's route, against K1 and the
+    # plain version (the 40 kbp pair's 39,700 rows: K1 only)
+    cases = []
+    for label, pairs in (("phase 3 mixed", batches[0]),
+                         ("40 kbp", batches[1])):
+        p0 = start()
+        got = psa_diff.psa_align_batch_diff(pairs, p, layout="striped",
+                                            device=dev)
+        ld, plain = stop(p0)
+        a, b, lens = psa_diff.pack_pairs(pairs, dev)
+        rec = {"case": label, "pairs": len(pairs), "plain_calls": plain,
+               "launches": ld["psa_dp_striped"],
+               "k1_launches": ld["psa_dp_score"],
+               "k1_max_abs_err": errs(got, psa_diff.run_dp(a, b, lens, p)),
+               "slot0": [int(got[0][0]), int(got[1][0])]}
+        if label != "40 kbp":
+            tile, tb_, tl = psa_diff.pack_pairs_striped(pairs, dev)
+            rec["sp"] = tile.shape[1]
+            rec["max_abs_err"] = errs(got, psa_diff.scan_rows_striped(
+                tile, tb_, tl, p))
+        cases.append(rec)
+        if (rec["k1_max_abs_err"] or rec.get("max_abs_err") or plain
+                or rec["launches"] != 1 or rec["k1_launches"]):
+            raise AssertionError("striped layout, %s: %s" % (label, rec))
+
+    # (b) the kernel, K1 and the plain version on the same pairs
+    tile, tb_, tl = psa_diff.pack_pairs_striped(batch_pairs, dev)
+    a, b, lens = psa_diff.pack_pairs(batch_pairs, dev)
+    cells = sum(len(x) * len(y) for x, y in batch_pairs)
+    ms, got = cuda_ms(lambda: psa_diff.run_dp_striped(tile, tb_, tl, p), 3)
+    k1_ms, k1 = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, p), 3)
+    pms, want = cuda_ms(lambda: psa_diff.scan_rows_striped(tile, tb_, tl, p),
+                        1, False)
+    times = {"psa_dp_striped": {
+        "shape": "%d x %d bp score-only, striped tiles of Sp %d" % (
+            len(batch_pairs), len(batch_pairs[1][0]), tile.shape[1]),
+        "ms": ms, "plain_ms": pms, "k1_ms": k1_ms,
+        "max_abs_err": errs(got, want), "k1_max_abs_err": errs(got, k1),
+        **bound(nbytes(tile, tb_, tl, *got), OPS_PSA_CELL * cells)}}
+    emit({"phase": "striped_kernels", "cases": cases,
+          "times": times["psa_dp_striped"], "gcups": cells / ms / 1e6,
+          "k1_gcups": cells / k1_ms / 1e6, "smi": smi_line})
+    if times["psa_dp_striped"]["max_abs_err"] or \
+            times["psa_dp_striped"]["k1_max_abs_err"]:
+        raise AssertionError("striped kernel differs at %s: %s"
+                             % (times["psa_dp_striped"]["shape"],
+                                times["psa_dp_striped"]))
+    del tile, tb_, tl, a, b, lens, got, k1, want
+
+    # (c) the batch CLI: the default run in this process (K1), the layout's
+    # in a subprocess, the same scores TSV
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = []
+        for k, (x, y) in enumerate(batch_pairs):
+            for side, seq in (("a", x), ("b", y)):
+                with open(os.path.join(tmp, "%d%s.fa" % (k, side)), "wb") as f:
+                    f.write(b">s%d%s\n" % (k, side.encode())
+                            + np.asarray(seq, np.uint8).tobytes() + b"\n")
+            rows.append("p%03d\t%s\t%s\n" % (
+                k, os.path.join(tmp, "%da.fa" % k),
+                os.path.join(tmp, "%db.fa" % k)))
+        manifest = os.path.join(tmp, "pairs.tsv")
+        with open(manifest, "w") as f:
+            f.writelines(rows)
+        argv = ["batch", "--pairs", manifest, "--device", "cuda", "--scores"]
+        buf = io.StringIO()
+        p0 = start()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + [os.path.join(tmp, "default.tsv")])
+        ld, plain_d = stop(p0)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tsta_tpu_torch"] + argv
+            + [os.path.join(tmp, "striped.tsv")], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, TSTA_PSA_LAYOUT="striped"))
+        t_sub = time.perf_counter() - t0
+        if proc.returncode != 0 or rc != 0:
+            raise RuntimeError("tsta_tpu_torch batch failed (rc %d):\n%s"
+                               % (rc, proc.stderr))
+        js = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(os.path.join(tmp, "default.tsv")) as f:
+            want_tsv = f.read()
+        with open(os.path.join(tmp, "striped.tsv")) as f:
+            got_tsv = f.read()
+    first = got_tsv.split("\n", 1)[0]
+    emit({"phase": "striped_cli", "pairs": js["pairs"], "rows_equal":
+          got_tsv == want_tsv, "first_row": first,
+          "launches": {k: js["launches"][k]
+                       for k in ("psa_dp_striped", "psa_dp_score")},
+          "default_launches": {k: ld[k]
+                               for k in ("psa_dp_striped", "psa_dp_score")},
+          "default_plain_calls": plain_d, "wall_s": js["wall_s"],
+          "gcups": js["gcups"], "subprocess_wall_s": t_sub})
+    if (got_tsv != want_tsv or first != "p000\t-5"
+            or js["launches"]["psa_dp_striped"] < 1
+            or js["launches"]["psa_dp_score"] or plain_d
+            or ld["psa_dp_score"] < 1 or ld["psa_dp_striped"]):
+        raise AssertionError("TSTA_PSA_LAYOUT=striped batch: wrong result "
+                             "or route: %s %s" % (js, ld))
+
+    # (d) the walks of phase 5's traced plane (K2's, which phase 6 held to
+    # the plain DP, on the same pairs): the two-pair walk's path, then both
+    # walks timed, each held to phase 6's plain walk; 31 pairs take K3
+    a, b, nm = psa_diff.pack_pairs(tpairs, dev, traced=True)
+    plane = psa_diff.dp_packed(a, b, nm, p, traced=True)[2]
+    del a, b
+    p0 = start()
+    w2, c2 = tb.walk_packed(plane, nm, pair2=True)
+    lw, plain_w = stop(p0)
+    ms, (w2t, c2t) = cuda_ms(lambda: tb.walk_packed(plane, nm, pair2=True), 3)
+    k3_ms, (kw, kc) = cuda_ms(lambda: tb.walk_packed(plane, nm), 3)
+    pw, pc, pms = walk_plain
+    p0 = start()
+    ow, oc = tb.walk_packed(plane[:31], nm[:31].contiguous(), pair2=True)
+    lo, plain_o = stop(p0)
+    steps = int(c2.sum())   # one plane byte read per move
+    times["psa_walk_pair2"] = {
+        "shape": "%d x 10 kbp traced plane, %d steps" % (len(tpairs), steps),
+        "ms": ms, "plain_ms": pms, "k3_ms": k3_ms,
+        "max_abs_err": max(errs((w2, c2), (pw, pc)),
+                           errs((w2t, c2t), (pw, pc))),
+        "k3_max_abs_err": max(errs((w2, c2), (kw, kc)),
+                              errs((kw, kc), (pw, pc))),
+        "odd_max_abs_err": errs((ow, oc), (kw[:31], kc[:31])),
+        **bound(steps + nbytes(nm, w2, c2), OPS_WALK_STEP * steps)}
+    emit({"phase": "pair2_walk", "times": times["psa_walk_pair2"],
+          "launches": {k: lw[k] for k in ("psa_walk_pair2", "psa_walk")},
+          "odd_launches": {k: lo[k] for k in ("psa_walk_pair2", "psa_walk")},
+          "plain_calls": plain_w + plain_o, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    t = times["psa_walk_pair2"]
+    if (t["max_abs_err"] or t["k3_max_abs_err"] or t["odd_max_abs_err"]
+            or plain_w or plain_o or lw["psa_walk_pair2"] != 1
+            or lw["psa_walk"] or lo["psa_walk"] != 1
+            or lo["psa_walk_pair2"]):
+        raise AssertionError("two-pair walk: wrong result or route: %s %s %s"
+                             % (t, lw, lo))
+    return {"psa_dp_striped": js["launches"]["psa_dp_striped"],
+            "psa_walk_pair2": lw["psa_walk_pair2"]}, times
 
 
 if __name__ == "__main__":

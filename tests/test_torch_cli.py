@@ -73,8 +73,8 @@ def test_psa_notrace_json_matches_jax_cli(kernel, capsys):
     assert got["output"] is None and got["device"] == "cpu"
     assert set(got["launches"]) == {
         "psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
-        "psa_dp_diff", "psa_walk", "psa_walk_bounded", "poa_dp", "poa_walk",
-        "poa_dp_chunk",
+        "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
+        "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
         "poa_dp_window", "poa_walk_bounded"}
 
 

@@ -1,6 +1,6 @@
 """The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, the
-short-pair DP, the difference-method (int16) DP, PSA walk and bounded walk,
-POA round DP in its single-call,
+short-pair DP, the difference-method (int16) DP, the striped-layout DP,
+PSA walk, two-pair walk and bounded walk, POA round DP in its single-call,
 forward-chunk and window-remat uses, POA walk and bounded walk) against
 their plain PyTorch versions on the card, with exact integer equality,
 and the kernel routes of the MSA engine, chunked rounds included, of the
@@ -764,3 +764,116 @@ def test_dp_diff_refuses_bad_tensors_and_params(cuda):
         psa_diff.run_dp_int16(a, b, lens, (2, -58, -2, -4))
     with pytest.raises(_kernels.KernelError):   # the C side's own gate
         _kernels.psa_dp_diff(a, b, lens, (2, -58, -2, -4), one, one.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [P0, (3, -2, -1, -6), (1, -1, -1, 0)])
+def test_dp_striped_kernel_matches_plain_and_k1(cuda, params):
+    """The striped-layout kernel (``psa_dp_striped.cu``) against its plain
+    version on the CPU and K1 on the card, on a mixed 100-3,000 bp batch
+    (stripes of 24 columns; the short pairs in the first lanes only) and
+    at a wider tile (Sp 40)."""
+    rng = np.random.default_rng(21)
+    pairs = [(rng.integers(65, 69, n).astype(np.uint8),
+              rng.integers(65, 69, m).astype(np.uint8))
+             for n, m in [(100, 120), (3000, 2900), (1500, 100), (129, 3000),
+                          (2048, 2047), (1, 1), (257, 700), (2999, 3000)]]
+    a, b, lens = psa_diff.pack_pairs(pairs, cuda)
+    k1 = psa_diff.run_dp(a, b, lens, params)
+    for n_pad in (None, 5120):
+        tile, tb_, tl = psa_diff.pack_pairs_striped(pairs, "cpu", n_pad=n_pad)
+        want = psa_diff.run_dp_striped(tile, tb_, tl, params)
+        n0, p0 = _kernels.launches["psa_dp_striped"], psa_scan.plain_calls
+        got = psa_diff.run_dp_striped(tile.to(cuda), tb_.to(cuda),
+                                      tl.to(cuda), params)
+        torch.cuda.synchronize()
+        assert _kernels.launches["psa_dp_striped"] == n0 + 1
+        assert psa_scan.plain_calls == p0
+        for w, g, k in zip(want, got, k1):
+            assert torch.equal(g.cpu(), w) and torch.equal(k.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_layout_variable_on_card(cuda, monkeypatch):
+    """``TSTA_PSA_LAYOUT=striped`` sends ``psa_align_batch_diff`` to the
+    striped kernel, K1 not launched and no plain call; ``packed2`` to K1;
+    both with the CPU's numbers."""
+    rng = np.random.default_rng(22)
+    pairs = [(rng.integers(65, 69, n).astype(np.uint8),
+              rng.integers(65, 69, m).astype(np.uint8))
+             for n, m in [(900, 850), (300, 320), (1500, 20)]]
+    want = psa_diff.psa_align_batch_diff(pairs, P0, device="cpu")
+    for value, kernel in (("striped", "psa_dp_striped"),
+                          ("packed2", "psa_dp_score")):
+        monkeypatch.setenv("TSTA_PSA_LAYOUT", value)
+        n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+        got = psa_diff.psa_align_batch_diff(pairs, P0, device=cuda)
+        assert psa_scan.plain_calls == p0
+        moved = {k for k in _kernels.KERNELS
+                 if _kernels.launches[k] != n0[k]}
+        assert moved == {kernel}
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+
+
+def _traced_plane(cuda, lengths, seed):
+    a, b, lens = _batch(seed, lengths, 256, 512, similar=True)
+    *_, plane = psa_diff.dp_packed(a.to(cuda), b.to(cuda), lens.to(cuda),
+                                   P0, traced=True)
+    return plane, lens.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [
+    [(512, 500), (400, 512), (130, 60), (9, 8)],
+    [(1000, 990), (600, 1024), (1024, 30), (7, 700), (800, 812), (1, 1)],
+])
+def test_walk_pair2_matches_plain_and_k3(cuda, lengths):
+    """The two-pair walk (``psa_walk_pair2.cu``) on traced planes of 4 and
+    6 uneven pairs (one pair drains while its partner walks on): every word
+    and count of the plain version and K3; then the first P - 1 pairs, an
+    odd count, take K3."""
+    plane, nm = _traced_plane(cuda, lengths, 23)
+    pw, pc = tb.walk_packed_plain(plane.cpu(), nm.cpu())
+    kw, kc = tb.walk_packed(plane, nm)
+    n0 = dict(_kernels.launches)
+    gw, gc = tb.walk_packed(plane, nm, pair2=True)
+    torch.cuda.synchronize()
+    assert _kernels.launches["psa_walk_pair2"] == n0["psa_walk_pair2"] + 1
+    assert _kernels.launches["psa_walk"] == n0["psa_walk"]
+    for g, k, w in ((gw, kw, pw), (gc, kc, pc)):
+        assert torch.equal(g.cpu(), w) and torch.equal(k.cpu(), w)
+    P = len(lengths)
+    n0 = dict(_kernels.launches)
+    ow, oc = tb.walk_packed(plane[:P - 1], nm[:P - 1].contiguous(),
+                            pair2=True)
+    torch.cuda.synchronize()
+    assert _kernels.launches["psa_walk"] == n0["psa_walk"] + 1
+    assert _kernels.launches["psa_walk_pair2"] == n0["psa_walk_pair2"]
+    assert torch.equal(ow.cpu(), pw[:P - 1]) and torch.equal(oc.cpu(),
+                                                             pc[:P - 1])
+
+
+@pytest.mark.cuda
+def test_striped_and_pair2_wrappers_refuse_bad_tensors(cuda):
+    tile, b, lens = psa_diff.pack_pairs_striped(
+        [(np.full(300, 65, np.uint8), np.full(200, 66, np.uint8))] * 2, cuda)
+    one = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):   # a flat (B, n_pad) row, not a tile
+        _kernels.psa_dp_striped(tile.view(2, -1), b, lens, P0, one,
+                                one.clone())
+    with pytest.raises(ValueError):   # lens on the host
+        _kernels.psa_dp_striped(tile, b, lens.cpu(), P0, one, one.clone())
+    with pytest.raises(ValueError):   # a score of another batch size
+        _kernels.psa_dp_striped(tile, b, lens, P0, one[:1], one.clone())
+    with pytest.raises(ValueError):   # outside the packed gate
+        psa_diff.run_dp_striped(tile, b, lens, (0, -1, -1, 0))
+    plane, nm = _traced_plane(cuda, [(300, 200), (100, 90), (50, 40)], 24)
+    words = torch.empty((3, tb.packed_words_len(256 + 512)),
+                        dtype=torch.int32, device=cuda)
+    counts = torch.empty((3,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):   # an odd number of pairs
+        _kernels.psa_walk_pair2(plane, nm, words, counts)
+    with pytest.raises(ValueError):   # words too short
+        _kernels.psa_walk_pair2(plane[:2], nm[:2], words[:2, :8].contiguous(),
+                                counts[:2])

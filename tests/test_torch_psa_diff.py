@@ -173,9 +173,8 @@ def test_traced_router_matches_jax(params):
 
 def test_unported_options_raise():
     a = np.frombuffer(b"ACGTAC", np.uint8)
-    for kw in ({"mesh": object()}, {"layout": "striped"}):
-        with pytest.raises(NotImplementedError):
-            tdiff.psa_align_batch_diff([(a, a)], P0, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tdiff.psa_align_batch_diff([(a, a)], P0, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         tdiff.psa_align_batch_traced_packed([(a, a)], P0, mesh=object(),
                                             device="cpu")

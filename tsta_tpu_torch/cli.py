@@ -11,7 +11,8 @@ Same flags, stdout and output files as ``tsta psa`` / ``msa`` /
 takes auto|plain|cuda.  ``psa`` and ``batch --traced`` run a pair whose
 traceback plane exceeds the card's budget in row-chunks, with no option.
 ``TSTA_DIFF_INT16`` set to any non-empty value sends ``psa --notrace`` and
-``batch`` (M > 0) to the int16 difference method, as in the JAX package.
+``batch`` (M > 0) to the int16 difference method, as in the JAX package;
+``TSTA_PSA_LAYOUT=striped`` sends them to the striped layout's DP.
 ``--mesh`` (multi-GPU) and ``--profile`` belong to later slices.
 """
 
@@ -205,7 +206,8 @@ def cmd_batch(args) -> int:
     wall = time.time() - t0
     cells = sum(r["cells"] for r in results)
     emit_json({"pairs": len(results), "wall_s": round(wall, 4),
-               "gcups": round(cells / wall / 1e9, 3)})
+               "gcups": round(cells / wall / 1e9, 3),
+               "launches": _launches()})
     if args.scores:
         with open(args.scores, "w") as f:
             for r in results:

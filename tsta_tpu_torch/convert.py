@@ -1,8 +1,8 @@
 """State carried across from the JAX package.
 
 The system has no weights; what crosses between the packages is the
-scoring-parameter tuple, the PSA traceback code plane and the POA round's
-traceback word plane.
+scoring-parameter tuple, the PSA traceback code plane, the POA round's
+traceback word plane and the striped DP's input tile.
 
 * JAX PSA plane: ``(m_pad // 4, P * Rp, 128)`` int32 words; byte k of
   ``plane[w, p*Rp + j // 128, j % 128]`` is the code of pair p's cell
@@ -18,6 +18,10 @@ traceback word plane.
   4w + k (``tsta_tpu/ops/psa_pallas.py`` ``_psa_chunk_call``); its H/E
   frontier ``(R, 128)`` int32, column j at ``[j // 128, j % 128]``.
 * Port chunk plane: ``(mc, n_pad)`` uint8; frontier ``(n_pad,)`` int32.
+* JAX striped a: ``(G*P*Sp, 128)`` int32, pair k's column j at
+  ``[k*Sp + j % Sp, j // Sp]`` (``psa_diff.psa_align_batch_diff``,
+  ``layout="striped"``); the port's: ``(B, Sp, 128)`` uint8, one tile per
+  pair (``ops/psa_diff.py`` ``pack_pairs_striped``).
 * JAX POA words: ``(N // 2, Rp, 128)`` int32, two nodes per word, the
   even node in the low half (``tsta_tpu/ops/msa_pallas.py``
   ``_poa_chunk_call``); word ``words[v // 2, j // 128, j % 128]`` holds
@@ -120,6 +124,21 @@ def frontier_to_jax(state) -> np.ndarray:
         raise ValueError("expected (n_pad,) with n_pad %% %d == 0, got %s"
                          % (LANES, c.shape))
     return c.reshape(-1, LANES).copy()
+
+
+def striped_tile_from_jax(a32, P: int, Sp: int) -> torch.Tensor:
+    """JAX's striped ``a32``, ``(G*P*Sp, 128)`` int32 with group g's pair
+    p at rows ``[(g*P + p)*Sp, (g*P + p + 1)*Sp)`` and column j of a pair
+    at ``[j % Sp, j // Sp]`` (``psa_align_batch_diff`` with
+    ``layout="striped"``) -> the port's ``(G*P, Sp, 128)`` uint8 tiles (a
+    CPU tensor), one per pair, JAX's padding pairs included."""
+    w = np.asarray(a32)
+    if w.ndim != 2 or w.shape[1] != LANES or w.shape[0] % (P * Sp):
+        raise ValueError("expected (G*%d*%d, %d) int32, got %s"
+                         % (P, Sp, LANES, w.shape))
+    if w.min(initial=0) < 0 or w.max(initial=0) > 255:
+        raise ValueError("a32 holds values outside a byte")
+    return torch.from_numpy(w.astype(np.uint8).reshape(-1, Sp, LANES))
 
 
 def poa_words_from_jax(words) -> torch.Tensor:

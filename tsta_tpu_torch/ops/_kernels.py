@@ -29,7 +29,8 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _SOURCES = ("psa_dp.cu", "psa_dp_short.cu", "psa_dp_diff.cu",
-            "psa_walk.cu", "psa_walk_bounded.cu", "poa_dp.cu", "poa_walk.cu",
+            "psa_dp_striped.cu", "psa_walk.cu", "psa_walk_pair2.cu",
+            "psa_walk_bounded.cu", "poa_dp.cu", "poa_walk.cu",
             "poa_walk_bounded.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -38,15 +39,18 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # K1 and K2 are the score-only and traced uses of the one PSA DP kernel
 # source, psa_dp_chunk its row-chunk of a long traced pair; psa_dp_short is
 # the score-only DP of short pairs, one warp each; psa_dp_diff is the
-# score-only DP by the difference method (int16 offsets, Q2-9); K3 is the
-# PSA walk and psa_walk_bounded its walk inside one such chunk; poa_dp and
+# score-only DP by the difference method (int16 offsets, Q2-9) and
+# psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
+# psa_walk_pair2 the walk of two pairs per thread (Q2-12) and
+# psa_walk_bounded the walk inside one such chunk; poa_dp and
 # poa_walk are the MSA round DP and its walk on a single-call round;
 # poa_dp_chunk and poa_dp_window are the POA DP kernel's forward chunk and
 # window remat in a chunked round, and poa_walk_bounded its walk inside one
 # (chunk, window) cell.
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
-           "psa_dp_diff", "psa_walk", "psa_walk_bounded", "poa_dp",
-           "poa_walk", "poa_dp_chunk", "poa_dp_window", "poa_walk_bounded")
+           "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
+           "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
+           "poa_dp_window", "poa_walk_bounded")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 POA_THREADS = 1024   # poa_dp.cu's block: one column strip per thread
@@ -156,11 +160,15 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_diff_layout.restype = None
             lib.tsta_psa_dp_diff_layout.argtypes = [ci] + [
                 ctypes.POINTER(ci)] * 2
+            lib.tsta_psa_dp_striped.restype = ci
+            lib.tsta_psa_dp_striped.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 4
             lib.tsta_psa_walk_bounded.restype = ci
             lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 6 + [
                 vp, vp, vp]
             lib.tsta_psa_walk.restype = ci
             lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp]
+            lib.tsta_psa_walk_pair2.restype = ci
+            lib.tsta_psa_walk_pair2.argtypes = lib.tsta_psa_walk.argtypes
             lib.tsta_poa_dp.restype = ci
             lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 5
             lib.tsta_poa_walk.restype = ci
@@ -297,13 +305,43 @@ def psa_dp_diff_layout(n: int) -> tuple:
     return w.value, g.value
 
 
-def psa_walk(plane, nm, words, counts) -> None:
-    """Launch the walk kernel (one thread per pair) over a (P, m_pad,
-    n_pad) uint8 code plane; ``nm``: (P, 2) int32 real (n, m);
-    ``words``: (P, n_words) int32 and ``counts``: (P,) int32 outputs."""
+def psa_dp_striped(a_tile, b, lens, params, score, corner) -> None:
+    """Launch the striped-layout DP (one block of 128 threads per pair,
+    thread l on the columns [l*Sp, (l+1)*Sp)) over B pairs, each over its
+    real extent: ``a_tile``: (B, Sp, 128) uint8, column j of a pair at
+    [j % Sp, j // Sp]; ``b``: (B, m_stride) uint8; ``lens``: (B, 2) int32
+    real (n, m); ``score``/``corner``: (B,) int32 outputs."""
+    dev = a_tile.device
+    if dev.type != "cuda":
+        raise ValueError("psa_dp_striped kernel needs CUDA tensors, got %s"
+                         % dev)
+    if a_tile.dim() != 3 or a_tile.shape[2] != 128 or a_tile.shape[1] < 1:
+        raise ValueError("a_tile must be (B, Sp, 128), got %s"
+                         % (tuple(a_tile.shape),))
+    B, sp = a_tile.shape[:2]
+    m_stride = b.shape[1]
+    _check(a_tile, "a_tile", torch.uint8, (B, sp, 128), dev)
+    _check(b, "b", torch.uint8, (B, m_stride), dev)
+    _check(lens, "lens", torch.int32, (B, 2), dev)
+    _check(score, "score", torch.int32, (B,), dev)
+    _check(corner, "corner", torch.int32, (B,), dev)
+    scratch = torch.empty((B, 2 * sp * 128), dtype=torch.int32, device=dev)
+    m_, x_, e_, o_ = params
+    rc = _lib().tsta_psa_dp_striped(
+        a_tile.data_ptr(), b.data_ptr(), lens.data_ptr(), B, sp, m_stride,
+        m_, x_, e_, o_, score.data_ptr(), corner.data_ptr(),
+        scratch.data_ptr(), _stream(dev))
+    _raise_on(rc, "psa_dp_striped")
+    launches["psa_dp_striped"] += 1
+
+
+def _check_walk(plane, nm, words, counts, what: str):
     dev = plane.device
     if dev.type != "cuda":
-        raise ValueError("psa_walk kernel needs CUDA tensors, got %s" % dev)
+        raise ValueError("%s kernel needs CUDA tensors, got %s" % (what, dev))
+    if plane.dim() != 3 or words.dim() != 2:
+        raise ValueError("%s: plane must be (P, m_pad, n_pad) and words "
+                         "(P, n_words)" % what)
     P, m_pad, n_pad = plane.shape
     n_words = words.shape[1]
     _check(plane, "plane", torch.uint8, (P, m_pad, n_pad), dev)
@@ -313,11 +351,29 @@ def psa_walk(plane, nm, words, counts) -> None:
     if n_words < (m_pad + n_pad + 15) // 16 + 1:
         raise ValueError("words too short for a (%d, %d) plane"
                          % (m_pad, n_pad))
-    rc = _lib().tsta_psa_walk(plane.data_ptr(), nm.data_ptr(), P, m_pad,
-                              n_pad, words.data_ptr(), n_words,
-                              counts.data_ptr(), _stream(dev))
-    _raise_on(rc, "psa_walk")
+    return (plane.data_ptr(), nm.data_ptr(), P, m_pad, n_pad,
+            words.data_ptr(), n_words, counts.data_ptr(), _stream(dev))
+
+
+def psa_walk(plane, nm, words, counts) -> None:
+    """Launch the walk kernel (one thread per pair) over a (P, m_pad,
+    n_pad) uint8 code plane; ``nm``: (P, 2) int32 real (n, m);
+    ``words``: (P, n_words) int32 and ``counts``: (P,) int32 outputs."""
+    args = _check_walk(plane, nm, words, counts, "psa_walk")
+    _raise_on(_lib().tsta_psa_walk(*args), "psa_walk")
     launches["psa_walk"] += 1
+
+
+def psa_walk_pair2(plane, nm, words, counts) -> None:
+    """Launch the two-pair walk (one thread walks pairs 2q and 2q + 1)
+    over a (P, m_pad, n_pad) uint8 code plane, P even; the arguments and
+    outputs of :func:`psa_walk`."""
+    args = _check_walk(plane, nm, words, counts, "psa_walk_pair2")
+    if plane.shape[0] < 2 or plane.shape[0] % 2:
+        raise ValueError("psa_walk_pair2 walks an even number of pairs, got "
+                         "%d" % plane.shape[0])
+    _raise_on(_lib().tsta_psa_walk_pair2(*args), "psa_walk_pair2")
+    launches["psa_walk_pair2"] += 1
 
 
 def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,

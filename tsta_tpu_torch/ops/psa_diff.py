@@ -29,6 +29,15 @@ version :func:`scan_rows_int16`.  It is exact, and so gives the int32
 route's numbers, for the parameters of :func:`supports_params_int16`
 (D <= 57); the switch raises ValueError outside them, as JAX's does.
 The default stays int32, as in the JAX package.
+
+``layout="striped"``, or ``TSTA_PSA_LAYOUT=striped``, sends a score-only
+batch to the striped layout (JAX's ``_striped_kernel``): each pair's
+columns as an (Sp, 128) tile, column j at ``[j % Sp, j // Sp]``
+(:func:`pack_pairs_striped`), run by :func:`run_dp_striped`, whose kernel
+``csrc/psa_dp_striped.cu`` gives lane l the stripe [l*Sp, (l+1)*Sp), with
+the plain version :func:`scan_rows_striped`.  Every other layout
+(``packed``, ``packed2``) is K1's function and takes K1, as JAX's
+``_psa_diff_call`` sends every non-striped layout to ``_abs_kernel``.
 """
 
 from __future__ import annotations
@@ -84,12 +93,10 @@ def diff_layout(n: int) -> tuple:
     return nseg * g, g
 
 
-def _refuse_unported(mesh=None, layout=None) -> None:
+def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("multi-GPU batches are a later slice of "
                                   "the port")
-    if layout not in (None, "packed"):
-        raise NotImplementedError("layout %r is not ported" % (layout,))
 
 
 def _traced_n_pad(n_max: int) -> int:
@@ -271,22 +278,146 @@ def run_dp_int16(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
     return score, corner
 
 
-def pack_pairs(seq_pairs, device, traced: bool = False):
-    """Pad encoded (a, b) pairs into the DP kernel's inputs on ``device``:
-    (a (B, n_pad) uint8, b (B, m_pad) uint8, lens (B, 2) int32 real
-    (n, m)).  m_pad rounds to T_R; n_pad to LANES, or by
-    :func:`_traced_n_pad` for a traced group."""
+def _pad_pairs(seq_pairs, traced: bool = False, n_pad=None):
+    """:func:`pack_pairs`' arrays in numpy; ``n_pad``, when given, replaces
+    the width it would pick."""
     n_real, m_real = _lengths(seq_pairs)
-    n_pad = (_traced_n_pad(max(n_real)) if traced
-             else (max(n_real) + LANES - 1) // LANES * LANES)
+    if n_pad is None:
+        n_pad = (_traced_n_pad(max(n_real)) if traced
+                 else (max(n_real) + LANES - 1) // LANES * LANES)
+    elif n_pad < max(n_real):
+        raise ValueError("n_pad %d is narrower than the widest pair, %d"
+                         % (n_pad, max(n_real)))
     m_pad = (max(m_real) + T_R - 1) // T_R * T_R
     a = np.full((len(seq_pairs), n_pad), A_PAD, np.uint8)
     b = np.full((len(seq_pairs), m_pad), B_PAD, np.uint8)
     for k, (x, y) in enumerate(seq_pairs):
         a[k, :len(x)] = x
         b[k, :len(y)] = y
-    lens = np.array([n_real, m_real], np.int32).T.copy()
-    return tuple(torch.from_numpy(t).to(device) for t in (a, b, lens))
+    return a, b, np.array([n_real, m_real], np.int32).T.copy()
+
+
+def pack_pairs(seq_pairs, device, traced: bool = False):
+    """Pad encoded (a, b) pairs into the DP kernel's inputs on ``device``:
+    (a (B, n_pad) uint8, b (B, m_pad) uint8, lens (B, 2) int32 real
+    (n, m)).  m_pad rounds to T_R; n_pad to LANES, or by
+    :func:`_traced_n_pad` for a traced group."""
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in _pad_pairs(seq_pairs, traced))
+
+
+def striped_columns(n_pad: int) -> np.ndarray:
+    """The striped layout's column order, JAX's ``col``
+    (``tsta_tpu/ops/psa_diff.py:1231``): entry u*128 + l is the logical
+    column l*Sp + u, Sp = n_pad / 128, so a pair's row of n_pad bytes
+    taken in this order is its (Sp, 128) tile, column j at [j % Sp,
+    j // Sp]."""
+    if n_pad < LANES or n_pad % LANES:
+        raise ValueError("n_pad must be a positive multiple of %d, got %d"
+                         % (LANES, n_pad))
+    return np.arange(n_pad, dtype=np.int32).reshape(LANES,
+                                                    n_pad // LANES).T.ravel()
+
+
+def pack_pairs_striped(seq_pairs, device, n_pad=None):
+    """Pad encoded (a, b) pairs into the striped DP's inputs on
+    ``device``: (a_tile (B, Sp, 128) uint8, one tile per pair with column
+    j at [j % Sp, j // Sp]; b (B, m_pad) uint8; lens (B, 2) int32 real
+    (n, m)), Sp = n_pad / 128.  ``n_pad`` defaults to the widest pair
+    rounded to 128; JAX widens it when a batch spans several packed
+    groups, which moves every column, so a caller that compares tiles
+    passes JAX's."""
+    a, b, lens = _pad_pairs(seq_pairs, n_pad=n_pad)
+    tile = np.ascontiguousarray(a[:, striped_columns(a.shape[1])])
+    tile = tile.reshape(len(a), -1, LANES)
+    return tuple(torch.from_numpy(t).to(device) for t in (tile, b, lens))
+
+
+def _stripe_shift1(x: torch.Tensor, fill: int, edge: torch.Tensor):
+    """Each column's left neighbour in the striped order: a roll along the
+    stripe, with the stripe's first row taken from the last row of lane
+    l - 1 and column 0 (lane 0, u = 0) given ``fill``."""
+    first = torch.cat([edge.fill_(fill), x[:, -1, :-1]], 1)
+    return torch.cat([first[:, None, :], x[:, :-1]], 1)
+
+
+@torch.no_grad()
+def scan_rows_striped(a_tile: torch.Tensor, b: torch.Tensor,
+                      lens: torch.Tensor, params):
+    """The striped DP's plain version, in the TPU kernel's design: the
+    H/E frontier as (B, Sp, 128) tiles, column j = l*Sp + u at [u, l].
+    Per row, the diagonal term is the frontier shifted one column
+    (:func:`_stripe_shift1`); F's closed form is the exclusive prefix max
+    of y = C - j*e down each stripe, then an exclusive prefix over the
+    (B, 128) stripe totals across the lanes, seeded with H(i, -1) + e,
+    and f = o + j*e + max(within-stripe prefix, carry).  ``a_tile``: (B,
+    Sp, 128) uint8 (:func:`pack_pairs_striped`), ``b``: (B, m_pad) uint8,
+    ``lens``: (B, 2) real (n, m).  Returns (best, corner) as (B,) int32:
+    the max over every cell of the tile and row, padding included, and
+    H(m-1, n-1) -- :func:`psa_scan.scan_rows`' numbers."""
+    if a_tile.device.type == "cuda":
+        psa_scan.plain_calls += 1
+    m_, x_, e_, o_ = as_params(params)
+    oe = o_ + e_
+    dev = a_tile.device
+    i32 = torch.int32
+    B, sp, _ = a_tile.shape
+    col = (torch.arange(LANES, dtype=i32, device=dev) * sp
+           + torch.arange(sp, dtype=i32, device=dev)[:, None])   # (Sp, 128)
+    col_e = col * e_
+    h = (o_ + (col + 1) * e_).expand(B, sp, LANES).contiguous()
+    ev = torch.full((B, sp, LANES), NEG, dtype=i32, device=dev)
+    neg = torch.full((B, 1, LANES), NEG, dtype=i32, device=dev)
+    edge = torch.empty((B, 1), dtype=i32, device=dev)
+    best = torch.full((B,), NEG, dtype=i32, device=dev)
+    corner = torch.full((B,), NEG, dtype=i32, device=dev)
+    cn = lens[:, 0].to(device=dev, dtype=torch.int64) - 1
+    cpos = ((cn % sp) * LANES + cn // sp).view(B, 1)   # (n-1)'s place
+    mrow = lens[:, 1].to(device=dev, dtype=torch.int64) - 1
+    corner_rows = set(mrow.tolist())
+    a32 = a_tile.to(i32)
+    b32 = b.to(i32)
+    for i in range(b.shape[1]):
+        bound_prev = 0 if i == 0 else o_ + i * e_    # H(i-1, -1)
+        bound_cur = o_ + (i + 1) * e_                # H(i, -1)
+        sub = torch.where(a32 == b32[:, i, None, None], m_, x_).to(i32)
+        diag = _stripe_shift1(h, bound_prev, edge) + sub
+        e_row = torch.maximum(ev + e_, h + oe)
+        c = torch.maximum(diag, e_row)
+        y = c - col_e
+        q = torch.cummax(torch.cat([neg, y[:, :-1]], 1), 1).values
+        top = torch.maximum(q[:, -1], y[:, -1])             # stripe totals
+        carry = torch.cummax(torch.cat([edge.fill_(bound_cur + e_),
+                                        top[:, :-1]], 1), 1).values
+        h_row = torch.maximum(c, o_ + col_e + torch.maximum(q, carry[:, None]))
+        best = torch.maximum(best, h_row.amax((1, 2)))
+        if i in corner_rows:
+            here = h_row.view(B, -1).gather(1, cpos).view(B)
+            corner = torch.where(mrow == i, here, corner)
+        h, ev = h_row, e_row
+    return best, corner
+
+
+def run_dp_striped(a_tile: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
+                   params):
+    """The striped DP over B pairs, score-only: the inputs of
+    :func:`pack_pairs_striped`; (scores, corners) as (B,) int32.  A CPU
+    tensor takes the plain version (:func:`scan_rows_striped`); a CUDA
+    tensor launches ``csrc/psa_dp_striped.cu`` (each pair over its real
+    extent) or raises.  Parameters outside :func:`supports_params` raise
+    ValueError: only there is padding score-neutral, so that both give
+    K1's numbers."""
+    p = as_params(params)
+    if not supports_params(p):
+        raise ValueError("striped DP requires M>0>X, E<0, O<=0 (got %s)"
+                         % (p,))
+    if a_tile.device.type == "cpu":
+        return scan_rows_striped(a_tile, b, lens, p)
+    B = a_tile.shape[0]
+    score = torch.empty((B,), dtype=torch.int32, device=a_tile.device)
+    corner = torch.empty((B,), dtype=torch.int32, device=a_tile.device)
+    _kernels.psa_dp_striped(a_tile, b, lens, p, score, corner)
+    return score, corner
 
 
 def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
@@ -297,15 +428,19 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
     corners) int32 numpy arrays in input order.  ``use_int16`` (default:
     whether ``TSTA_DIFF_INT16`` is set to a non-empty value, as in the
     JAX package) selects the difference method, :func:`run_dp_int16`,
-    exact for D <= 57 and a ValueError beyond; else K1.  ``mesh`` and a
-    non-packed ``layout`` belong to later slices and raise (with
-    ``use_int16`` the layout is packed, as in the JAX package).
+    exact for D <= 57 and a ValueError beyond.  Otherwise ``layout``
+    (default: ``TSTA_PSA_LAYOUT``, else ``packed``, as in the JAX
+    package) picks the striped DP, :func:`run_dp_striped`, for
+    ``striped`` and K1 for any other value.  ``mesh`` belongs to a later
+    slice and raises.
     """
     if use_int16 is None:
         use_int16 = bool(os.environ.get("TSTA_DIFF_INT16"))
+    if layout is None:
+        layout = os.environ.get("TSTA_PSA_LAYOUT", "packed")
     if use_int16:
         layout = "packed"   # the difference method has the packed form only
-    _refuse_unported(mesh, layout)
+    _refuse_mesh(mesh)
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed kernel requires M>0>X, E<0, O<=0 "
@@ -315,9 +450,14 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
                          "max(M,-X,-(O+E),-E) <= 57 (got %s)" % (p,))
     if not seq_pairs:
         raise ValueError("empty pair batch")
-    a, b, lens = pack_pairs(seq_pairs, resolve_device(device))
-    scores, corners = (run_dp_int16(a, b, lens, p) if use_int16
-                       else dp_packed(a, b, lens, p, traced=False))
+    dev = resolve_device(device)
+    if layout == "striped":
+        scores, corners = run_dp_striped(*pack_pairs_striped(seq_pairs, dev),
+                                         p)
+    else:
+        a, b, lens = pack_pairs(seq_pairs, dev)
+        scores, corners = (run_dp_int16(a, b, lens, p) if use_int16
+                           else dp_packed(a, b, lens, p, traced=False))
     return scores.cpu().numpy(), corners.cpu().numpy()
 
 
@@ -359,7 +499,7 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
     :func:`psa_chunked.psa_align_traced_chunked`.
     """
     from tsta_tpu_torch.ops import psa_chunked
-    _refuse_unported(mesh=mesh)
+    _refuse_mesh(mesh)
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed traced kernel requires M>0>X, E<0, O<=0"

@@ -20,7 +20,9 @@ LSB first) plus a count per pair, the wire format of the JAX package's
 banded walk.  At P = 1 it is also the walk of a single round-1 pair
 (``ops/psa_pallas.py``), the counterpart of ``_decode_moves_banded`` and
 of its XLA fall-back ``_decode_moves``: it reads the plane from global
-memory, so it has neither the band's gate nor a fall-back.
+memory, so it has neither the band's gate nor a fall-back.  With
+``pair2=True`` and an even P it walks two pairs per thread
+(``csrc/psa_walk_pair2.cu``), JAX's ``pair2`` walk: the same moves.
 """
 
 from __future__ import annotations
@@ -313,11 +315,21 @@ def walk_bounded(plane: torch.Tensor, prev_row: torch.Tensor, base: int,
     return out
 
 
-def walk_packed(plane: torch.Tensor, nm: torch.Tensor):
+def uses_pair2(P: int, pair2: bool) -> bool:
+    """Whether :func:`walk_packed` takes the two-pair walk: asked for, and
+    P even and >= 2 (the JAX package's gate, ``traceback.py:1073``)."""
+    return bool(pair2) and P >= 2 and P % 2 == 0
+
+
+def walk_packed(plane: torch.Tensor, nm: torch.Tensor, pair2: bool = False):
     """Walk every pair of a code plane; same contract as
     :func:`walk_packed_plain`.  A CPU plane takes the plain version; a
-    CUDA plane launches ``csrc/psa_walk.cu`` (one thread per pair) and
-    raises if the kernel cannot be built or launched."""
+    CUDA plane launches ``csrc/psa_walk.cu`` (one thread per pair), or
+    with ``pair2`` under :func:`uses_pair2`'s gate ``csrc/psa_walk_pair2.cu``
+    (one thread per two pairs; the counterpart of JAX's
+    ``_decode_moves_banded_packed(pair2=True)``), and raises if the kernel
+    cannot be built or launched.  Pairing is scheduling only: the plain
+    version already walks every pair in one lockstep loop."""
     P, m_pad, n_pad = _check_walk_args(plane, nm)
     if plane.device.type == "cpu":
         return walk_packed_plain(plane, nm)
@@ -326,5 +338,7 @@ def walk_packed(plane: torch.Tensor, nm: torch.Tensor):
     n_words = packed_words_len(m_pad + n_pad)
     words = torch.empty((P, n_words), dtype=torch.int32, device=plane.device)
     counts = torch.empty((P,), dtype=torch.int32, device=plane.device)
-    _kernels.psa_walk(plane, nm, words, counts)
+    launch = _kernels.psa_walk_pair2 if uses_pair2(P, pair2) else \
+        _kernels.psa_walk
+    launch(plane, nm, words, counts)
     return words, counts
