@@ -124,7 +124,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
     process, through K1), the striped kernel launched and K1 not; (d) phase
     5's 32 x 10 kbp traced plane walked by K3 and the two-pair walk (CUDA
     events), every word and count equal to phase 6's plain walk of that
-    plane, then its first 31 pairs, which take K3.
+    plane, then its first 31 pairs, which take K3;
+19. the ring wavefront (``psa_ring.cu``, one long pair's columns sharded
+    over co-resident blocks, one per ``seq`` shard of a virtual one-card
+    mesh): (a) the kernel against its plain version (best, corner, every
+    edge packet) on the 10 kbp example at D = 8, T = 256 and D = the SM
+    count, T = 32, and at (b)'s own D, T and C = 1,536 columns per shard:
+    the 200 kbp pair's ``a`` against its ``b`` cut to two row blocks (the
+    kernels record's times); (b) ``align_long_ring`` on phase
+    14's 200 kbp pair (K1's a and b) at D = the SM count, T = 256, the
+    launch counters and the plain calls on the card reset before and read
+    after, best and corner equal to phase 14's K1, then the median of 3
+    launches (CUDA events), GCUPS, bound, peak device memory; (c) the
+    same under edit scoring, equal to phase 16's K1 pass; (d) D = 16 and
+    66 at full width, equal to K1; (e) one shard past the card's resident
+    limit raises ``KernelError`` without launching.
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -558,6 +572,9 @@ def main() -> int:
     striped_launches, striped_times = striped_phases(
         dev, smi_line, batches, pairs, tpairs, walk_plain)
     launches.update(striped_launches)
+    ring_launches, ring_times = ring_phases(dev, smi_line, k1,
+                                            edit_times["k1_200k"])
+    launches.update(ring_launches)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -597,6 +614,8 @@ def main() -> int:
          "tsta_tpu/ops/psa_diff.py:543", striped_times["psa_dp_striped"]),
         ("psa_walk_pair2", src % "psa_walk_pair2.cu",
          "tsta_tpu/ops/traceback.py:723", striped_times["psa_walk_pair2"]),
+        ("psa_ring", src % "psa_ring.cu", "tsta_tpu/ops/psa_ring.py:78",
+         ring_times["psa_ring"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -604,7 +623,9 @@ def main() -> int:
                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                        "bound_by": t["bound_by"], "library_ms": None,
                        "shape": t["shape"],
-                       **{k: t[k] for k in ("k1_ms", "k3_ms") if k in t}}
+                       **{k: t[k] for k in ("k1_ms", "k3_ms", "ms_200k",
+                                            "bound_ms_200k", "gcups_200k",
+                                            "k1_s_200k") if k in t}}
                       for n, s, r, t in entries]})
     print(smi_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1109,7 +1130,7 @@ def check_200k(dev, smi_line, seqs, out):
     # sequences, so phase 15's pair, read 0 against read 1, has the same
     # score and corner)
     return times, {"score": k1_scores[0], "corner": corners[0],
-                   "round1": out.round_scores[0]}
+                   "round1": out.round_scores[0], "s": pairwise_s}
 
 
 def mutated_stretch(read: bytes, start: int, length: int, seed: int):
@@ -1571,6 +1592,7 @@ def edit_phases(dev, smi_line, batch_pairs):
             == rescored) or not degapped or run["chunks"] != 3:
         raise AssertionError("edit scoring, 200 kbp pair: score/corner/rows "
                              "disagree with K1, or not 3 chunks")
+    times["k1_200k"] = {"score": k1_score, "corner": k1_corner, "s": k1_s}
     if (plain_d or ld["psa_dp_chunk"] < run["chunks"] + run["remats"]
             or ld["psa_walk_bounded"] < run["walks"]
             or ld["psa_dp_traced"] or ld["psa_walk"]):
@@ -1921,6 +1943,156 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
                              % (t, lw, lo))
     return {"psa_dp_striped": js["launches"]["psa_dp_striped"],
             "psa_walk_pair2": lw["psa_walk_pair2"]}, times
+
+
+def ring_phases(dev, smi_line, k1, k1_edit):
+    """Phase 19, the ring wavefront (``psa_ring.cu``): (a) the kernel
+    against its plain version on the card (best, corner, every packet) on
+    the 10 kbp example, D = 8 at T = 256 and D = the SM count at T = 32,
+    and at the main path's own shape: the 200 kbp pair's ``a`` (C = 1,536
+    columns per shard at D = 132), T = 256, ``b`` cut to its first two row
+    blocks, both timed there for the kernels record; (b) the 200 kbp pair of
+    ``check_200k``'s K1 call (read 1 against read 0) through
+    ``align_long_ring`` on a virtual one-card mesh of D = the SM count, T
+    = 256, the launch counters and the plain calls on the card reset
+    before and read after, its best and corner equal to ``k1`` (phase
+    14), then 3 launches timed (CUDA events); (c) the same under edit
+    scoring against ``k1_edit`` (phase 16's K1 pass); (d) D = 16 and 66
+    at full width, each held to ``k1``; (e) one shard past the card's
+    resident limit raises, without launching.  Returns the launches of
+    (b) and the kernels record's timing."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, psa_ring
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    p = (2, -5, -2, -4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def pair(a, b, D, T):
+        a_p, b_p, n_real, m_real = psa_ring.pad_pair(a, b, D, T)
+        return (torch.from_numpy(a_p).to(dev), torch.from_numpy(b_p).to(dev),
+                n_real, m_real)
+
+    # (a) kernel against plain: the example, then the main path's shape
+    s1, s2 = golden_example()
+    reads = long_reads(13, 200000)
+    ra, rb = reads[1], reads[0]          # K1's a and b in check_200k
+    cells = len(ra) * len(rb)
+    recs, err = {}, 0
+    for key, x, y, D, T in (("example D = 8", s1, s2, 8, 256),
+                            ("example", s1, s2, sms, 32),
+                            ("main", ra, rb[:512], sms, 256)):
+        a, b, n_real, m_real = pair(x, y, D, T)
+        ms, got = cuda_ms(lambda: psa_ring.ring_kernel(a, b, n_real, m_real,
+                                                       p, D, T), 3)
+        pms, want = cuda_ms(lambda: psa_ring.ring_plain(a, b, n_real, m_real,
+                                                        p, D, T), 1, False)
+        e = max(max_err(g, w) for g, w in zip(got, want))
+        err = max(err, e)
+        best, corner = got[0].amax(dim=0).tolist()
+        recs[key] = {
+            "shape": "%s, %d x %d bp padded to %d x %d, D = %d, C = %d, "
+                     "T = %d" % ("the 200 kbp pair's a, b cut to 2 row blocks"
+                                 if key == "main" else "the example", len(x),
+                                 len(y), a.numel(), b.numel(), D,
+                                 a.numel() // D, T),
+            "ms": ms, "plain_ms": pms, "max_abs_err": e,
+            "best": best, "corner": corner,
+            "gcups": len(x) * len(y) / ms / 1e6,
+            **bound(nbytes(a, b, *got), OPS_PSA_CELL * len(x) * len(y))}
+    del a, b, got, want
+    emit({"phase": "ring_vs_plain", "records": list(recs.values()),
+          "smi": smi_line})
+    if err or recs["example"]["best"] != -5 or recs["example D = 8"][
+            "best"] != -5:
+        raise AssertionError("psa_ring differs from its plain version or "
+                             "the example's maxsorce: %s" % recs)
+
+    # (b) the 200 kbp pair at full width through the entry point
+    mesh = meshlib.make_mesh(1, sms, devices=[dev] * sms)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p0 = start()
+    t0 = time.perf_counter()
+    best, corner = psa_ring.align_long_ring(ra, rb, p, mesh=mesh, T=256)
+    wall = time.perf_counter() - t0
+    lb, plain_b = stop(p0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    a, b, n_real, m_real = pair(ra, rb, sms, 256)
+    ms, out = cuda_ms(lambda: psa_ring.ring_kernel(a, b, n_real, m_real, p,
+                                                   sms, 256)[0], 3, False)
+    full = {"shape": "200 kbp pair, %d x %d bp padded to %d x %d, D = %d, "
+                     "T = 256" % (len(ra), len(rb), a.numel(), b.numel(), sms),
+            "ms": ms, "wall_s": wall, "gcups": cells / ms / 1e6,
+            "peak_device_gb": peak, "best": best, "corner": corner,
+            "timed_best_corner": out.amax(dim=0).tolist(),
+            "k1": [k1["score"], k1["corner"]], "k1_s": k1["s"],
+            "rows": b.numel() + (sms - 1) * 256, "n_pad": a.numel(),
+            **bound(nbytes(a, b, out) + 8 * sms * b.numel(),
+                    OPS_PSA_CELL * cells)}
+    emit({"phase": "ring_200k", **full, "launches": lb["psa_ring"],
+          "plain_calls": plain_b, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    if ([best, corner] != full["k1"] or full["timed_best_corner"]
+            != full["k1"] or lb["psa_ring"] != 1 or plain_b
+            or sum(lb.values()) != 1):
+        raise AssertionError("psa_ring at 200 kbp: (%d, %d) against K1's %s,"
+                             " launches %s, plain calls %d"
+                             % (best, corner, full["k1"], lb, plain_b))
+
+    # (c) edit scoring, against phase 16's K1 pass over the pair
+    p0 = start()
+    t0 = time.perf_counter()
+    got_edit = psa_ring.align_long_ring(ra, rb, EDIT, mesh=mesh, T=256)
+    wall_c = time.perf_counter() - t0
+    lc, plain_c = stop(p0)
+    want_edit = (k1_edit["score"], k1_edit["corner"])
+    emit({"phase": "ring_200k_edit", "best_corner": got_edit,
+          "k1": want_edit, "k1_s": k1_edit["s"], "wall_s": wall_c,
+          "launches": lc["psa_ring"], "plain_calls": plain_c})
+    if got_edit != want_edit or lc["psa_ring"] != 1 or plain_c:
+        raise AssertionError("psa_ring at 200 kbp, edit scoring: %s against "
+                             "K1's %s" % (got_edit, want_edit))
+
+    # (d) the shard count at full width
+    sweep = {}
+    for D in (16, 66):
+        a, b, n_real, m_real = pair(ra, rb, D, 256)
+        ms_d, out = cuda_ms(lambda: psa_ring.ring_kernel(
+            a, b, n_real, m_real, p, D, 256)[0], 1, False)
+        sweep[D] = {"ms": ms_d, "gcups": cells / ms_d / 1e6,
+                    "columns_per_shard": a.numel() // D,
+                    "best_corner": out.amax(dim=0).tolist()}
+    sweep[sms] = {"ms": ms, "gcups": full["gcups"],
+                  "columns_per_shard": full["n_pad"] // sms,
+                  "best_corner": full["timed_best_corner"]}
+    del a, b, out
+
+    # (e) one shard past the resident limit
+    limit = _kernels.psa_ring_max_blocks(128, 32, dev)
+    over = meshlib.make_mesh(1, limit + 1, devices=[dev] * (limit + 1))
+    p0 = start()
+    t0 = time.perf_counter()
+    try:
+        psa_ring.align_long_ring(s1[:1000], s2[:1000], p, mesh=over, T=32)
+        raised = None
+    except _kernels.KernelError as exc:
+        raised = str(exc)
+    le, _ = stop(p0)
+    over_s = time.perf_counter() - t0
+    emit({"phase": "ring_sweep", "sweep": sweep, "resident_limit": limit,
+          "over_limit_raised": raised, "over_limit_s": over_s,
+          "over_limit_launches": le["psa_ring"], "smi": smi_line})
+    if any(v["best_corner"] != full["k1"] for v in sweep.values()):
+        raise AssertionError("psa_ring's D sweep disagrees with K1: %s"
+                             % sweep)
+    if (raised is None or "at most %d" % limit not in raised
+            or le["psa_ring"]):
+        raise AssertionError("psa_ring past the resident limit (%d) did not "
+                             "raise its own KernelError: %s" % (limit, raised))
+    rec = dict(recs["main"], max_abs_err=err, ms_200k=ms,
+               bound_ms_200k=full["bound_ms"], gcups_200k=full["gcups"],
+               k1_s_200k=k1["s"])
+    return {"psa_ring": lb["psa_ring"]}, {"psa_ring": rec}
 
 
 if __name__ == "__main__":

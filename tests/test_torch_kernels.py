@@ -1,10 +1,11 @@
 """The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, the
 short-pair DP, the difference-method (int16) DP, the striped-layout DP,
-PSA walk, two-pair walk and bounded walk, POA round DP in its single-call,
-forward-chunk and window-remat uses, POA walk and bounded walk) against
-their plain PyTorch versions on the card, with exact integer equality,
-and the kernel routes of the MSA engine, chunked rounds included, of the
-chunked traced PSA and of the round-1 PSA (M <= 0) against the CPU.
+PSA walk, two-pair walk and bounded walk, the ring wavefront, POA round
+DP in its single-call, forward-chunk and window-remat uses, POA walk and
+bounded walk) against their plain PyTorch versions on the card, with
+exact integer equality, and the kernel routes of the MSA engine, chunked
+rounds included, of the chunked traced PSA, of the round-1 PSA (M <= 0)
+and of the ring against the CPU.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 false (this file imports no jax, so it also runs on a host without it):
@@ -877,3 +878,91 @@ def test_striped_and_pair2_wrappers_refuse_bad_tensors(cuda):
     with pytest.raises(ValueError):   # words too short
         _kernels.psa_walk_pair2(plane[:2], nm[:2], words[:2, :8].contiguous(),
                                 counts[:2])
+
+
+# (D, T, n, m, params) for the ring: one shard (no packet), chains of 2, 8
+# and 132 shards, T 32 and 256, ragged lengths, frontiers in shared memory
+# and (C > 25,600 columns) in global scratch
+RING_CASES = [
+    (1, 32, 300, 200, P0), (1, 256, 1000, 700, (3, -2, -1, -6)),
+    (1, 32, 30000, 150, P0),
+    (2, 32, 1000, 100, (0, -1, -1, 0)), (2, 256, 513, 600, P0),
+    (2, 32, 60000, 70, (3, -2, -1, -6)),
+    (8, 32, 1000, 100, P0), (8, 256, 3000, 2900, (0, -1, -1, 0)),
+    (8, 32, 5000, 333, (3, -2, -1, -6)),
+    (132, 32, 20000, 300, P0), (132, 32, 17000, 250, (0, -1, -1, 0)),
+    (132, 256, 17000, 600, (3, -2, -1, -6)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,T,n,m,params", RING_CASES)
+def test_ring_kernel_matches_plain(cuda, D, T, n, m, params):
+    """``psa_ring.cu`` against ``psa_ring.ring_plain`` on the card: each
+    shard's best and corner and every packet of every row block."""
+    from tsta_tpu_torch.ops import psa_ring
+    rng = np.random.default_rng(D * 1000 + n)
+    a = rng.integers(65, 69, n).astype(np.uint8)
+    b = a[rng.integers(0, n, m)] if m < n else rng.integers(65, 69, m)
+    a_p, b_p, n_real, m_real = psa_ring.pad_pair(a, b.astype(np.uint8), D, T)
+    a_t, b_t = torch.from_numpy(a_p).to(cuda), torch.from_numpy(b_p).to(cuda)
+    want = psa_ring.ring_plain(a_t, b_t, n_real, m_real, params, D, T)
+    n0 = _kernels.launches["psa_ring"]
+    got = psa_ring.ring_kernel(a_t, b_t, n_real, m_real, params, D, T)
+    torch.cuda.synchronize()
+    assert _kernels.launches["psa_ring"] == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ring_routes_on_one_card(cuda):
+    """``align_long_ring`` and ``align_long`` on a virtual one-card mesh:
+    one ``psa_ring`` launch each (T = ``block`` for ``align_long``), no
+    plain call, the CPU mesh's numbers."""
+    from tsta_tpu_torch.ops import psa_ring
+    from tsta_tpu_torch.parallel import longseq, mesh
+    rng = np.random.default_rng(31)
+    a = rng.integers(65, 69, 3000).astype(np.uint8)
+    b = rng.integers(65, 69, 900).astype(np.uint8)
+    card = mesh.make_mesh(2, 8, devices=[cuda] * 16)
+    cpu = mesh.make_mesh(1, 8, devices=["cpu"] * 8)
+    for fn, kw in ((psa_ring.align_long_ring, {"T": 64}),
+                   (longseq.align_long, {"block": 32})):
+        n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+        got = fn(a, b, P0, mesh=card, **kw)
+        assert psa_scan.plain_calls == p0
+        assert {k for k in _kernels.KERNELS
+                if _kernels.launches[k] != n0[k]} == {"psa_ring"}
+        assert _kernels.launches["psa_ring"] == n0["psa_ring"] + 1
+        assert got == fn(a, b, P0, mesh=cpu, **kw)
+
+
+@pytest.mark.cuda
+def test_ring_past_the_resident_limit_raises(cuda):
+    """One shard more than the card holds resident raises KernelError
+    before launching, at once, instead of hanging."""
+    import time
+
+    from tsta_tpu_torch.ops import psa_ring
+    from tsta_tpu_torch.parallel import mesh
+    limit = _kernels.psa_ring_max_blocks(128, 32, cuda)
+    assert limit >= torch.cuda.get_device_properties(cuda).multi_processor_count
+    a = np.frombuffer(b"ACGT" * 50, np.uint8)
+    card = mesh.make_mesh(1, limit + 1, devices=[cuda] * (limit + 1))
+    n0 = _kernels.launches["psa_ring"]
+    t0 = time.perf_counter()
+    with pytest.raises(_kernels.KernelError, match="at most %d" % limit):
+        psa_ring.align_long_ring(a, a, P0, mesh=card, T=32)
+    assert time.perf_counter() - t0 < 10
+    assert _kernels.launches["psa_ring"] == n0
+    out = torch.empty((2, 2), dtype=torch.int32, device=cuda)
+    comm = torch.empty((2, 1, 64), dtype=torch.int32, device=cuda)
+    a_t = torch.zeros((256,), dtype=torch.uint8, device=cuda)
+    b_t = torch.ones((32,), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):   # n not a multiple of 128 * D
+        _kernels.psa_ring(a_t[:200], b_t, 2, 32, 100, 20, P0, comm, out)
+    with pytest.raises(ValueError):   # comm of another shape
+        _kernels.psa_ring(a_t, b_t, 2, 32, 100, 20, P0, comm[:1], out)
+    with pytest.raises(ValueError):   # a real length past the padding
+        _kernels.psa_ring(a_t, b_t, 2, 32, 300, 20, P0, comm, out)

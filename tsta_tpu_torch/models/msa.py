@@ -21,6 +21,7 @@ from typing import List
 
 from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.io import read_records
+from tsta_tpu_torch.parallel.mesh import refuse_data_axis
 
 __all__ = ["MsaOutput", "align_file", "align_seqs", "write_result"]
 
@@ -41,16 +42,14 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
     """Progressive POA MSA of ``seqs`` (byte strings).  ``width`` and
     ``threads`` are the compat engine's stripe multiplier (reference -W)
     and OpenMP cap (-T); ``checkpoint_path``, ``progress``, ``kernel`` and
-    ``device`` belong to the native engine.  ``mesh`` (multi-GPU) is not
-    ported and raises ``NotImplementedError``."""
+    ``device`` belong to the native engine.  ``mesh`` (the JAX engine's
+    sharded rounds) raises ``NotImplementedError``."""
     if not seqs:
         raise ValueError("no sequences")
     for i, s in enumerate(seqs):
         if len(s) == 0:
             raise ValueError("sequence %d is empty" % i)
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU MSA is a later slice of the "
-                                  "port")
+    refuse_data_axis(mesh, "an MSA")
     if engine == "native":
         from tsta_tpu_torch.ops import msa_native
         return msa_native.align_seqs(seqs, params,

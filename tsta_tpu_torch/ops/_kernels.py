@@ -31,7 +31,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _SOURCES = ("psa_dp.cu", "psa_dp_short.cu", "psa_dp_diff.cu",
             "psa_dp_striped.cu", "psa_walk.cu", "psa_walk_pair2.cu",
             "psa_walk_bounded.cu", "poa_dp.cu", "poa_walk.cu",
-            "poa_walk_bounded.cu")
+            "poa_walk_bounded.cu", "psa_ring.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -46,14 +46,16 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # poa_walk are the MSA round DP and its walk on a single-call round;
 # poa_dp_chunk and poa_dp_window are the POA DP kernel's forward chunk and
 # window remat in a chunked round, and poa_walk_bounded its walk inside one
-# (chunk, window) cell.
+# (chunk, window) cell; psa_ring is one long pair's DP with its columns
+# sharded over co-resident blocks (Q2-10).
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
-           "poa_dp_window", "poa_walk_bounded")
+           "poa_dp_window", "poa_walk_bounded", "psa_ring")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 POA_THREADS = 1024   # poa_dp.cu's block: one column strip per thread
+COOP_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge (CUDA >= 10.1)
 launches = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
@@ -176,6 +178,12 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_poa_walk_bounded.restype = ci
             lib.tsta_poa_walk_bounded.argtypes = [vp, vp] + [ci] * 8 + [
                 vp, vp, vp]
+            lib.tsta_psa_ring.restype = ci
+            lib.tsta_psa_ring.argtypes = [vp, vp] + [ci] * 10 + [vp] * 5
+            lib.tsta_psa_ring_scratch_words.restype = ci
+            lib.tsta_psa_ring_scratch_words.argtypes = [ci]
+            lib.tsta_psa_ring_max_blocks.restype = ci
+            lib.tsta_psa_ring_max_blocks.argtypes = [ci, ci]
             _LIB = lib
         return _LIB
 
@@ -575,3 +583,58 @@ def poa_walk_bounded(words, preds, row, j, state, base, col0, align,
         base, col0, align.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(rc, "poa_walk_bounded")
     launches["poa_walk_bounded"] += 1
+
+
+def psa_ring_max_blocks(C: int, T: int, dev) -> int:
+    """The most ``psa_ring`` blocks (shards of C columns, T-row packets)
+    the card ``dev`` holds resident at once."""
+    with torch.cuda.device(dev):
+        limit = _lib().tsta_psa_ring_max_blocks(C, T)
+    if limit < 0:
+        _raise_on(-limit, "psa_ring occupancy query")
+    return limit
+
+
+def psa_ring(a, b, D, T, n_real, m_real, params, comm, out) -> None:
+    """Launch the ring wavefront (one cooperative launch of D blocks, one
+    per shard of C = n / D columns) over one padded pair: ``a``: (n,)
+    uint8, C a multiple of 128; ``b``: (m,) uint8, m a multiple of T;
+    outputs ``comm`` ((D, m / T, 2T) int32, every edge packet) and ``out``
+    ((D, 2) int32, each shard's best and corner).  Raises
+    :class:`KernelError`, without launching, when the card cannot hold D
+    blocks resident together (the C side's check, :data:`COOP_TOO_LARGE`):
+    a shard would wait on one never scheduled."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("psa_ring kernel needs CUDA tensors, got %s" % dev)
+    n, m = a.numel(), b.numel()
+    if D < 1 or T < 1 or n % (128 * D) or m < 1 or m % T:
+        raise ValueError("psa_ring: n %d must be a multiple of 128 * D (D %d)"
+                         " and m %d of T %d" % (n, D, m, T))
+    C, mb = n // D, m // T
+    _check(a, "a", torch.uint8, (n,), dev)
+    _check(b, "b", torch.uint8, (m,), dev)
+    _check(comm, "comm", torch.int32, (D, mb, 2 * T), dev)
+    _check(out, "out", torch.int32, (D, 2), dev)
+    if not (1 <= n_real <= n and 1 <= m_real <= m):
+        raise ValueError("psa_ring: real lengths (%d, %d) outside (%d, %d)"
+                         % (n_real, m_real, n, m))
+    lib = _lib()
+    sw = lib.tsta_psa_ring_scratch_words(C)
+    scratch = (torch.empty((D, sw), dtype=torch.int32, device=dev) if sw
+               else None)
+    flags = torch.zeros((D, mb), dtype=torch.int32, device=dev)
+    m_, x_, e_, o_ = params
+    with torch.cuda.device(dev):
+        rc = lib.tsta_psa_ring(
+            a.data_ptr(), b.data_ptr(), D, C, mb, T, n_real, m_real, m_, x_,
+            e_, o_, comm.data_ptr(), flags.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), _stream(dev))
+    if rc == COOP_TOO_LARGE:
+        raise KernelError(
+            "psa_ring: %d shards need %d co-resident blocks, but %s holds at "
+            "most %d at C = %d columns, T = %d rows (cooperative launch)"
+            % (D, D, torch.cuda.get_device_name(dev),
+               psa_ring_max_blocks(C, T, dev), C, T))
+    _raise_on(rc, "psa_ring")
+    launches["psa_ring"] += 1

@@ -51,6 +51,7 @@ from tsta_tpu_torch.device import device_budget, resolve_device
 from tsta_tpu_torch.ops import _kernels, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
 from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, NEG, as_params
+from tsta_tpu_torch.parallel.mesh import refuse_data_axis
 
 LANES = 128
 T_R = 256               # row padding quantum (the JAX kernel's rows/step)
@@ -91,12 +92,6 @@ def diff_layout(n: int) -> tuple:
     nseg = -(-w // SEG_MAX)
     g = (-(-w // nseg) + 3) & ~3
     return nseg * g, g
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU batches are a later slice of "
-                                  "the port")
 
 
 def _traced_n_pad(n_max: int) -> int:
@@ -431,8 +426,8 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
     exact for D <= 57 and a ValueError beyond.  Otherwise ``layout``
     (default: ``TSTA_PSA_LAYOUT``, else ``packed``, as in the JAX
     package) picks the striped DP, :func:`run_dp_striped`, for
-    ``striped`` and K1 for any other value.  ``mesh`` belongs to a later
-    slice and raises.
+    ``striped`` and K1 for any other value.  ``mesh`` (sharding the
+    batch over cards) raises ``NotImplementedError``.
     """
     if use_int16 is None:
         use_int16 = bool(os.environ.get("TSTA_DIFF_INT16"))
@@ -440,7 +435,7 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
         layout = os.environ.get("TSTA_PSA_LAYOUT", "packed")
     if use_int16:
         layout = "packed"   # the difference method has the packed form only
-    _refuse_mesh(mesh)
+    refuse_data_axis(mesh, "a score-only batch")
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed kernel requires M>0>X, E<0, O<=0 "
@@ -499,7 +494,7 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
     :func:`psa_chunked.psa_align_traced_chunked`.
     """
     from tsta_tpu_torch.ops import psa_chunked
-    _refuse_mesh(mesh)
+    refuse_data_axis(mesh, "a traced batch")
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed traced kernel requires M>0>X, E<0, O<=0"

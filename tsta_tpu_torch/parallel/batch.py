@@ -6,8 +6,8 @@ each, traced batches through the DP kernel with code planes and the
 device walk (the round-1 chain of ``ops/psa_pallas.py`` pair by pair for
 M <= 0), and a traced pair over the device budget through the chunked
 path (``ops/psa_chunked.py``).  Score-only batches refuse M <= 0, as the
-JAX package's do.  Multi-GPU meshes are a later slice: passing ``mesh``
-raises.
+JAX package's do.  Sharding a batch over a mesh's ``data`` axis waits for
+the multi-GPU slice: passing ``mesh`` raises (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.models.psa import KERNELS
 from tsta_tpu_torch.ops import psa_diff, psa_pallas, psa_scan
 from tsta_tpu_torch.ops.psa_scan import bucket
+from tsta_tpu_torch.parallel.mesh import refuse_data_axis
 
 
 def stride_for_process(items: list) -> list:
@@ -34,12 +35,6 @@ def stride_for_process(items: list) -> list:
     if n_proc <= 1:
         return items
     return items[proc_id::n_proc]
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("multi-GPU meshes are a later slice of "
-                                  "the port")
 
 
 def _prep(pairs, swap: bool):
@@ -68,7 +63,7 @@ def align_batch(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     traced batch, runs the ``psa_scan`` row scan over each bucket and
     returns the three traceback planes.
     """
-    _refuse_mesh(mesh)
+    refuse_data_axis(mesh, "a PSA batch")
     p = (params.match, params.mismatch, params.gap_extend, params.gap_open)
     if not (p[0] > 0 and p[1] < 0 and p[2] < 0 and p[3] <= 0):
         # padding to a bucket shape is score-neutral only for sane signs
@@ -122,7 +117,7 @@ def align_batch_traced_device(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     rest of the round-1 domain (X < 0, E < 0, O <= 0, any M) the round-1
     chain pair by pair (``psa_pallas.psa_align_traced_device``); a pair
     over the device budget runs in row-chunks either way."""
-    _refuse_mesh(mesh)
+    refuse_data_axis(mesh, "a PSA batch")
     p = psa_pallas._traced_params(params)
     dev = resolve_device(device)
     prepped = _prep(pairs, swap)
@@ -142,7 +137,7 @@ def align_manifest(manifest_path: str, params: AlignParams = AlignParams(),
     recorded there are skipped, so a preempted job restarts at pair
     granularity.
     """
-    _refuse_mesh(mesh)
+    refuse_data_axis(mesh, "a PSA batch")
     store = None
     if resume:
         from tsta_tpu_torch.utils.checkpoint import ShardedResults
