@@ -80,6 +80,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     (65,536 rows x the full width), its DP from the entry frontier and
     its walk from the state (c)'s walk entered it with, held to the plain
     versions in every output, which give the kernels record's plain ms;
+    the chunk DP's plan (D shards of C columns, W per thread, T rows per
+    packet: ``psa_chunked.chunk_plan``, equal to the kernel's) and the T
+    sweep, the same chunk at T = 16 to 256, every output equal;
 16. edit scoring (M = 0, X = -1, E = -1, O = 0) on the round-1 kernels,
     the launch counters and the count of plain calls on the card reset
     before each path and read after it: (a) ``tsta-torch psa`` on the 10
@@ -189,6 +192,7 @@ OPS_PSA_CELL, OPS_PSA_CODE, OPS_WALK_STEP = 12, 6, 8
 CELLS_PER_S16X2 = 2
 D57 = [(57, -1, -1, 0), (2, -57, -2, -4)]   # the int16 gate's edge sets
 OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
+CHUNK_T_SWEEP = (16, 32, 64, 128, 256)   # packet heights of the chunk DP's sweep
 EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
                       "2ad36f0eab7b90b84292d06f98c7ca72")
 
@@ -596,7 +600,8 @@ def main() -> int:
          chunk_times["poa_dp_window"]),
         ("poa_walk_bounded", src % "poa_walk_bounded.cu",
          "tsta_tpu/ops/msa_pallas.py:775", chunk_times["poa_walk_bounded"]),
-        ("psa_dp_chunk", src % "psa_dp.cu", "tsta_tpu/ops/psa_pallas.py:585",
+        ("psa_dp_chunk", src % "psa_dp_chunk.cu",
+         "tsta_tpu/ops/psa_pallas.py:585",
          psa_times["psa_dp_chunk"]),
         ("psa_walk_bounded", src % "psa_walk_bounded.cu",
          "tsta_tpu/ops/traceback.py:823", psa_times["psa_walk_bounded"]),
@@ -1306,6 +1311,28 @@ def psa_chunked_phases(dev, smi_line, k1):
     dp_plain_ms, _ = cuda_ms(
         lambda: outs.update(plain=psa_chunked.chunk_dp_plain(*args)), 1, False)
     err_dp = max(max_err(k, w) for k, w in zip(outs["kernel"], outs["plain"]))
+    del outs["plain"]
+    # the kernel's plan for this width, and the T sweep: the same chunk at
+    # each packet height, every output equal to the plan's run
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = psa_chunked.chunk_plan(n_pad, sms)
+    got = [torch.empty_like(x) for x in outs["kernel"]]
+    sweep, sweep_equal = {}, True
+    for T in CHUNK_T_SWEEP:
+        sweep[T], _ = cuda_ms(lambda: _kernels.psa_dp_chunk(
+            *args[:4], args[6], args[4], args[5], got[3], got[4], got[0],
+            got[1], got[2], T=T), 1, False)
+        sweep_equal &= all(torch.equal(g, k)
+                           for g, k in zip(got, outs["kernel"]))
+    del got
+    emit({"phase": "psa_chunk_plan", "shape": [mc, n_pad], "sms": sms,
+          "plan": dict(zip("DCWT", plan)),
+          "layout_equals_plan": _kernels.psa_dp_chunk_layout(n_pad, sms)
+          == plan, "t_sweep_ms": sweep, "t_sweep_equal": sweep_equal,
+          "fill_rows": (plan[0] - 1) * plan[3]})
+    if not sweep_equal or _kernels.psa_dp_chunk_layout(n_pad, sms) != plan:
+        raise AssertionError("chunk DP: the T sweep's outputs differ, or the "
+                             "kernel's plan is not chunk_plan's")
     plane = outs["kernel"][2]
     del outs
     state = tuple(run["walk_from"][-1])
@@ -1336,10 +1363,11 @@ def psa_chunked_phases(dev, smi_line, k1):
 
     times = {
         "psa_dp_chunk": {
-            "shape": "ms: (c) median of %d launches, %d x %d rows x columns; "
-                     "plain_ms: (d) chunk 0 of (c), the same shape; "
-                     "max_abs_err: (d) and every chunk of (b), %d x %d"
-                     % (len(run["dp_ms"]), mc, n_pad, mc_b, n_pad),
+            "shape": "ms: (c) median of %d launches, %d x %d rows x columns "
+                     "(D %d, C %d, W %d, T %d); plain_ms: (d) chunk 0 of (c), "
+                     "the same shape; max_abs_err: (d) and every chunk of "
+                     "(b), %d x %d"
+                     % (len(run["dp_ms"]), mc, n_pad, *plan, mc_b, n_pad),
             "ms": statistics.median(run["dp_ms"]), "plain_ms": dp_plain_ms,
             "max_abs_err": max(errs["psa_dp_chunk"], err_dp),
             # a, the chunk's b, lens, h/e in and out, best, corner, plane

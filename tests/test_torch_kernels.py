@@ -1,4 +1,4 @@
-"""The CUDA kernels of tsta_tpu_torch (PSA DP, its row-chunk mode, the
+"""The CUDA kernels of tsta_tpu_torch (PSA DP, the row-chunk DP, the
 short-pair DP, the difference-method (int16) DP, the striped-layout DP,
 PSA walk, two-pair walk and bounded walk, the ring wavefront, POA round
 DP in its single-call, forward-chunk and window-remat uses, POA walk and
@@ -408,7 +408,7 @@ def _long_pair(seed, n, m):
 @pytest.mark.parametrize("n,m", [(100, 700), (1500, 1300), (9000, 600)])
 def test_psa_chunk_dp_and_bounded_walk_kernels_match_plain(cuda, n, m):
     """Every chunk of a pair cut into 256-row chunks, from the same entry
-    frontier: the chunk-mode DP on the card equals its plain version on
+    frontier: the chunk DP on the card equals its plain version on
     the CPU (best, corner, every code, frontier out); then every chunk's
     bounded walk (moves, exit state) from the same entry."""
     from tsta_tpu_torch.ops import psa_chunked
@@ -505,6 +505,107 @@ def test_psa_chunk_wrappers_refuse_bad_tensors(cuda):
         _kernels.psa_walk_bounded(plane, a, 64, 10, 10, 0, 0, moves, out)
     with pytest.raises(ValueError):   # too few moves for the walk left
         _kernels.psa_walk_bounded(plane, a, 0, 63, 255, 100, 0, moves, out)
+
+
+def _chunk_cases(a, b, params, mc, dev):
+    """Each chunk's DP arguments on ``dev`` and the plain version's
+    outputs on the CPU, every chunk entered from the plain frontier."""
+    from tsta_tpu_torch.ops import psa_chunked
+    pc = psa_chunked.ChunkedPair(a, b, params, mc, torch.device("cpu"))
+    pk = psa_chunked.ChunkedPair(a, b, params, mc, dev)
+    h, e = pc.entry()
+    for c in range(pc.nchunks):
+        want = psa_chunked.chunk_dp_plain(*pc.chunk_call(c, h, e))
+        yield pk.chunk_call(c, h.to(dev), e.to(dev)), want
+        h, e = want[3], want[4]
+
+
+def _chunk_launch(args, D=None, T=None):
+    a, b, lens, row_base, h, e, params = args
+    rows, n_pad = b.shape[0], a.shape[0]
+    dev = a.device
+    out = [torch.empty((1,), dtype=torch.int32, device=dev) for _ in range(2)]
+    plane = torch.empty((rows, n_pad), dtype=torch.uint8, device=dev)
+    h_out, e_out = torch.empty_like(h), torch.empty_like(e)
+    plan = _kernels.psa_dp_chunk(a, b, lens, row_base, params, h, e, h_out,
+                                 e_out, *out, plane, D=D, T=T)
+    return plan, (out[0], out[1], plane, h_out, e_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [P0, (0, -1, -1, 0)])
+@pytest.mark.parametrize("D,T", [(1, None), (2, None), (7, 48), (None, None)])
+def test_psa_dp_chunk_kernel_matches_plain(cuda, params, D, T):
+    """psa_dp_chunk.cu at D = 1, 2, 7 (T = 48: row blocks cut short) and
+    the card's plan, against the plain version in every output: a pair of
+    9,000 columns (n_pad 9,088) cut into chunks of 256 rows, so chunk 0
+    starts at row 0, chunk 1 at row 256 without row m - 1, chunk 2 holds
+    it; the first and the last shard in every D > 1."""
+    from tsta_tpu_torch.ops import psa_chunked
+    a, b = _long_pair(11, 9000, 700)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want_d = D or psa_chunked.chunk_plan(9088, sms)[0]
+    n0 = _kernels.launches["psa_dp_chunk"]
+    corners = []
+    for k, (args, want) in enumerate(_chunk_cases(a, b, params, 256, cuda)):
+        plan, got = _chunk_launch(args, D, T)
+        torch.cuda.synchronize()
+        assert plan[0] == want_d and plan[2] == (T or psa_chunked.CHUNK_T)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        corners.append(int(want[1]))
+    assert _kernels.launches["psa_dp_chunk"] == n0 + 3
+    assert corners[:2] == [psa_scan.NEG] * 2 and corners[2] > psa_scan.NEG
+
+
+@pytest.mark.cuda
+def test_psa_dp_chunk_wide_strips_take_the_global_frontier(cuda):
+    """One shard of 25,600 columns: 100 columns per thread, past what
+    shared memory holds, so the frontier is in global scratch."""
+    from tsta_tpu_torch.ops import psa_chunked
+    a, b = _long_pair(12, 25600, 300)
+    for args, want in _chunk_cases(a, b, P0, 256, cuda):
+        plan, got = _chunk_launch(args, D=1)
+        torch.cuda.synchronize()
+        assert plan[:2] == (1, 25600)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert psa_chunked.chunk_plan(25600, 1)[2] == 100
+
+
+@pytest.mark.cuda
+def test_psa_dp_chunk_layout_is_chunk_plan(cuda):
+    """The kernel's exported plan equals psa_chunked.chunk_plan."""
+    from tsta_tpu_torch.ops import psa_chunked
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for s in sorted({1, 7, 132, sms}):
+        for n_pad in (4, 128, 1024, 2048, 4100, 9088, 10112, 33792 * 4,
+                      200064, 1 << 22):
+            assert (_kernels.psa_dp_chunk_layout(n_pad, s)
+                    == psa_chunked.chunk_plan(n_pad, s)), (n_pad, s)
+
+
+@pytest.mark.cuda
+def test_psa_dp_chunk_past_the_resident_limit_raises(cuda):
+    """One shard more than the card holds resident raises KernelError
+    naming the limit, before launching; bad plans raise ValueError."""
+    limit = _kernels.psa_dp_chunk_max_blocks(4, 64, cuda)
+    assert limit >= torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_pad = 4 * (limit + 1)
+    i32 = torch.int32
+    a = torch.zeros((n_pad,), dtype=torch.uint8, device=cuda)
+    b = torch.ones((8,), dtype=torch.uint8, device=cuda)
+    lens = torch.tensor([n_pad, 8], dtype=i32, device=cuda)
+    h = torch.zeros((n_pad,), dtype=i32, device=cuda)
+    args = (a, b, lens, 0, h, h.clone(), P0)
+    n0 = _kernels.launches["psa_dp_chunk"]
+    with pytest.raises(_kernels.KernelError, match="at most %d" % limit):
+        _chunk_launch(args, D=limit + 1, T=64)
+    assert _kernels.launches["psa_dp_chunk"] == n0
+    with pytest.raises(ValueError):   # 12 columns make 3 shards of 4, not 7
+        _chunk_launch((a[:12], b, lens, 0, h[:12], h[:12], P0), D=7)
+    with pytest.raises(ValueError):   # T past the shared memory plan
+        _chunk_launch(args, T=257)
 
 
 # the round-1 domain's parameter sets: edit scoring, M < X, and one with M > 0

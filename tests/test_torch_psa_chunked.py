@@ -185,6 +185,30 @@ def test_chunk_rows_follow_the_jax_rule():
                                              (0, 0, -1, -1), device="cpu")
 
 
+@pytest.mark.parametrize("n_pad,sms,rows,want", [
+    (200_064, 132, 65_536, (98, 2048, 8, 32)),   # the 200 kbp pair
+    (10_112, 132, 512, (5, 2048, 8, 32)),        # the 10 kbp example, mc 512
+    (1_024, 132, 256, (1, 1024, 4, 32)),         # under one shard
+    (5_000, 132, 256, (3, 2048, 8, 32)),         # not a multiple of D * W
+    (200_064, 16, 65_536, (16, 13_312, 52, 32)),
+])
+def test_chunk_plan_cuts_the_columns_into_shards(n_pad, sms, rows, want):
+    """The chunk kernel's plan: at most one shard per SM, >= 4 columns
+    per thread (a multiple of 4: whole code words), every column in
+    exactly one shard, a shard's columns within its 256 threads' strips,
+    T no more than the chunk's rows, the fill (D - 1) * T within them."""
+    D, C, W, T = plan = psa_chunked.chunk_plan(n_pad, sms)
+    assert plan == want
+    assert 1 <= D <= sms and W >= 4 and W % 4 == 0 and C % 4 == 0
+    assert C <= psa_chunked.CHUNK_THREADS * W
+    cover = np.zeros(n_pad, np.int32)
+    for d in range(D):
+        assert d * C < n_pad   # no empty shard
+        cover[d * C:(d + 1) * C] += 1
+    assert (cover == 1).all()
+    assert T <= rows and (D - 1) * T <= rows
+
+
 def test_frontier_conversion_round_trip():
     rng = np.random.default_rng(5)
     h = torch.from_numpy(rng.integers(-9, 9, 384).astype(np.int32))

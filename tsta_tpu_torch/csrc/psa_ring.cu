@@ -35,19 +35,15 @@
 // needs one only because it reuses one send buffer.  Every block publishes
 // every row block, padded rows included.
 //
-// Watchdog.  Shard d's longest honest wait is the pipeline's fill: d*T
-// rows of the shards to its left, and no later wait is longer.  A wait
-// past wait_limit_ns, 20 s plus (d+1)*T rows at 10 us + 2 us per column
-// of a strip (an H100 takes ~0.63 us + 0.086 us per column here with the
-// frontier in shared memory; K1 pays 0.37 us per column through L2), is a
-// fault, not a schedule, so the block traps and the launch fails rather
-// than hangs.  A trap is sticky: the process's CUDA context is lost.
+// Watchdog (ring_common.cuh): a wait on the left neighbour past 20 s plus
+// the fill traps rather than hangs (an H100 takes ~0.63 us + 0.086 us per
+// column of a strip a row here with the frontier in shared memory; K1
+// pays 0.37 us per column through L2).
 //
-// Co-residency: a consumer spins on a producer that must be running, so
-// all D blocks must be resident at once.  tsta_psa_ring checks D against
-// tsta_psa_ring_max_blocks and returns cudaErrorCooperativeLaunchTooLarge
-// without launching (the wrapper raises); the cooperative launch refuses
-// such a grid too.
+// Co-residency: all D blocks must be resident at once.  tsta_psa_ring
+// checks D against tsta_psa_ring_max_blocks and returns
+// cudaErrorCooperativeLaunchTooLarge without launching (the wrapper
+// raises); the cooperative launch refuses such a grid too.
 //
 // Result: out (D, 2) int32, each block's best over its rows i < m_real
 // (every padded column included, as JAX's) and its corner H(m_real-1,
@@ -65,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include "dp_common.cuh"
+#include "ring_common.cuh"
 
 namespace {
 
@@ -74,11 +71,6 @@ using tsta::kNeg;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSmemW = 100;  // widest strip whose frontier is in shared memory
-// The watchdog's budget (ns): a fixed 20 s, and per row the left shards
-// may still have to run, a fixed cost and one per column of a strip.
-constexpr unsigned long long kWaitBaseNs = 20ull * 1000 * 1000 * 1000;
-constexpr unsigned long long kRowNs = 10 * 1000;
-constexpr unsigned long long kColNs = 2 * 1000;
 
 struct Params {
   int m, x, e, o;
@@ -86,39 +78,6 @@ struct Params {
 
 __host__ __device__ inline int strip_width(int C) {
   return (C + kThreads - 1) / kThreads;
-}
-
-// How long shard d may wait on its left neighbour's flag before it traps.
-__host__ __device__ inline unsigned long long wait_limit_ns(int d, int T,
-                                                            int W) {
-  return kWaitBaseNs + (unsigned long long)(d + 1) * T * (kRowNs + W * kColNs);
-}
-
-__device__ __forceinline__ int ld_acquire(const int32_t* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int32_t* p, int v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ int block_max(int v, int* s_warp) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v = max(v, __shfl_xor_sync(kFull, v, s));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = kNeg;
-  for (int w = 0; w < kWarps; ++w) r = max(r, s_warp[w]);
-  return r;
 }
 
 // Dynamic shared memory: the incoming packet (2T ints), then, with
@@ -148,7 +107,7 @@ psa_ring_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
   int32_t* my_comm = comm + (size_t)d * m_blocks * 2 * T;
   const int32_t* left_comm = comm + (size_t)(d - 1) * m_blocks * 2 * T;
   const int oe = p.o + p.e;
-  const unsigned long long wait_ns = wait_limit_ns(d, T, W);
+  const unsigned long long wait_ns = tsta::wait_limit_ns(d, T, W);
 
   for (int j = j0; j < jend; ++j) {
     const int k = (j - j0) * kThreads + t;
@@ -162,16 +121,8 @@ psa_ring_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 
   for (int rb = 0; rb < m_blocks; ++rb) {
     if (d > 0) {
-      if (t == 0) {
-        const int32_t* f = flags + (size_t)(d - 1) * m_blocks + rb;
-        unsigned ns = 32;
-        const unsigned long long t0 = global_ns();
-        while (ld_acquire(f) == 0) {
-          __nanosleep(ns);
-          if (ns < 256) ns <<= 1;
-          if (global_ns() - t0 > wait_ns) __trap();
-        }
-      }
+      if (t == 0) tsta::wait_flag(flags + (size_t)(d - 1) * m_blocks + rb,
+                                  wait_ns);
       __syncthreads();
       for (int k = t; k < 2 * T; k += kThreads)
         s_pkt[k] = __ldcg(left_comm + (size_t)rb * 2 * T + k);
@@ -228,14 +179,11 @@ psa_ring_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
       }
       __syncthreads();
     }
-    if (t == t_last) {
-      __threadfence();
-      st_release(flags + (size_t)d * m_blocks + rb, 1);
-    }
+    if (t == t_last) tsta::publish(flags + (size_t)d * m_blocks + rb);
   }
 
-  best = block_max(best, s_warp);
-  corner = block_max(corner, s_warp);
+  best = tsta::block_max<kThreads>(best, s_warp);
+  corner = tsta::block_max<kThreads>(corner, s_warp);
   if (t == 0) {
     out[2 * d] = best;
     out[2 * d + 1] = corner;
@@ -247,22 +195,6 @@ size_t smem_bytes(int C, int T, bool* in_smem) {
   *in_smem = W <= kSmemW;
   return sizeof(int32_t) * (2 * (size_t)T +
                             (*in_smem ? 2 * (size_t)W * kThreads : 0));
-}
-
-template <bool kSmem>
-int max_blocks(size_t smem) {
-  auto fn = psa_ring_kernel<kSmem>;
-  cudaError_t rc = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc != cudaSuccess) return -(int)rc;
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                     smem);
-  if (rc != cudaSuccess) return -(int)rc;
-  return coop ? per_sm * sms : 0;
 }
 
 }  // namespace
@@ -278,7 +210,9 @@ extern "C" int tsta_psa_ring_scratch_words(int C) {
 extern "C" int tsta_psa_ring_max_blocks(int C, int T) {
   bool in_smem;
   const size_t smem = smem_bytes(C, T, &in_smem);
-  return in_smem ? max_blocks<true>(smem) : max_blocks<false>(smem);
+  return in_smem ? tsta::coresident_limit(psa_ring_kernel<true>, kThreads, smem)
+                 : tsta::coresident_limit(psa_ring_kernel<false>, kThreads,
+                                          smem);
 }
 
 // a: (D*C,) uint8, b: (m_blocks*T,) uint8, both padded; comm: (D,

@@ -28,16 +28,17 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("psa_dp.cu", "psa_dp_short.cu", "psa_dp_diff.cu",
-            "psa_dp_striped.cu", "psa_walk.cu", "psa_walk_pair2.cu",
-            "psa_walk_bounded.cu", "poa_dp.cu", "poa_walk.cu",
-            "poa_walk_bounded.cu", "psa_ring.cu")
+_SOURCES = ("psa_dp.cu", "psa_dp_chunk.cu", "psa_dp_short.cu",
+            "psa_dp_diff.cu", "psa_dp_striped.cu", "psa_walk.cu",
+            "psa_walk_pair2.cu", "psa_walk_bounded.cu", "poa_dp.cu",
+            "poa_walk.cu", "poa_walk_bounded.cu", "psa_ring.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 # K1 and K2 are the score-only and traced uses of the one PSA DP kernel
-# source, psa_dp_chunk its row-chunk of a long traced pair; psa_dp_short is
+# source; psa_dp_chunk is a row-chunk of a long traced pair with its
+# columns sharded over co-resident blocks (Q2-7); psa_dp_short is
 # the score-only DP of short pairs, one warp each; psa_dp_diff is the
 # score-only DP by the difference method (int16 offsets, Q2-9) and
 # psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
@@ -149,9 +150,15 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_scratch_words.restype = ci
             lib.tsta_psa_dp_scratch_words.argtypes = [ci]
             lib.tsta_psa_dp_chunk.restype = ci
-            lib.tsta_psa_dp_chunk.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 9
+            lib.tsta_psa_dp_chunk.argtypes = [vp] * 3 + [ci] * 7 + [
+                vp] * 7 + [ci] * 3 + [vp] * 4
             lib.tsta_psa_dp_chunk_scratch_words.restype = ci
             lib.tsta_psa_dp_chunk_scratch_words.argtypes = [ci]
+            lib.tsta_psa_dp_chunk_max_blocks.restype = ci
+            lib.tsta_psa_dp_chunk_max_blocks.argtypes = [ci, ci]
+            lib.tsta_psa_dp_chunk_layout.restype = None
+            lib.tsta_psa_dp_chunk_layout.argtypes = [ci, ci] + [
+                ctypes.POINTER(ci)] * 4
             lib.tsta_psa_dp_short.restype = ci
             lib.tsta_psa_dp_short.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3
             lib.tsta_psa_dp_diff.restype = ci
@@ -384,15 +391,39 @@ def psa_walk_pair2(plane, nm, words, counts) -> None:
     launches["psa_walk_pair2"] += 1
 
 
+def psa_dp_chunk_layout(n_pad: int, sms: int) -> tuple:
+    """(D, C, W, T): the shards, columns per shard, columns per thread and
+    rows per packet ``psa_dp_chunk.cu`` plans for a chunk of ``n_pad``
+    columns on a card of ``sms`` SMs, read from the built library."""
+    out = [ctypes.c_int() for _ in range(4)]
+    _lib().tsta_psa_dp_chunk_layout(n_pad, sms, *map(ctypes.byref, out))
+    return tuple(v.value for v in out)
+
+
+def psa_dp_chunk_max_blocks(C: int, T: int, dev) -> int:
+    """The most ``psa_dp_chunk`` blocks (shards of C columns, T-row
+    packets) the card ``dev`` holds resident at once."""
+    with torch.cuda.device(dev):
+        limit = _lib().tsta_psa_dp_chunk_max_blocks(C, T)
+    if limit < 0:
+        _raise_on(-limit, "psa_dp_chunk occupancy query")
+    return limit
+
+
 def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,
-                 best, corner, plane) -> None:
-    """Launch the DP kernel's chunk mode (one block of 1,024 threads) over
-    the rows [row_base, row_base + rows) of one pair: ``a``: (n_pad,)
-    uint8, ``b``: (rows,) uint8 the chunk's rows, ``lens``: (2,) int32
-    real (n, m); ``h_in``/``e_in``: (n_pad,) int32 frontier of row
-    row_base - 1; outputs ``h_out``/``e_out`` (n_pad,) int32 (the chunk's
-    last row), ``best``/``corner`` (1,) int32 and ``plane`` (rows, n_pad)
-    uint8, every cell's code."""
+                 best, corner, plane, *, D=None, T=None) -> tuple:
+    """Launch the chunk DP (one cooperative launch of D blocks, one per
+    shard of C columns) over the rows [row_base, row_base + rows) of one
+    pair: ``a``: (n_pad,) uint8, ``b``: (rows,) uint8 the chunk's rows,
+    ``lens``: (2,) int32 real (n, m); ``h_in``/``e_in``: (n_pad,) int32
+    frontier of row row_base - 1; outputs ``h_out``/``e_out`` (n_pad,)
+    int32 (the chunk's last row), ``best``/``corner`` (1,) int32 and
+    ``plane`` (rows, n_pad) uint8, every cell's code.  D, C and T are the
+    kernel's plan for n_pad on this card (:func:`psa_dp_chunk_layout`);
+    ``D`` (C = n_pad / D rounded up to 4, which must give D shards) and
+    ``T`` (1-256) override it, for tests and the smoke's T sweep.
+    Raises :class:`KernelError`, without launching, when the card cannot
+    hold D blocks resident together.  Returns the (D, C, T) it ran."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("psa_dp_chunk kernel needs CUDA tensors, got %s"
@@ -407,20 +438,46 @@ def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,
     _check(best, "best", torch.int32, (1,), dev)
     _check(corner, "corner", torch.int32, (1,), dev)
     _check(plane, "plane", torch.uint8, (rows, n_pad), dev)
-    if n_pad % 4 or rows < 1 or row_base < 0:
+    if n_pad % 4 or n_pad < 4 or rows < 1 or row_base < 0:
         raise ValueError("psa_dp_chunk: n_pad %d (a multiple of 4), rows "
                          "%d, row_base %d" % (n_pad, rows, row_base))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_d, C, _, plan_t = psa_dp_chunk_layout(n_pad, sms)
+    if D is None:
+        D = plan_d
+    else:
+        C = (-(-n_pad // max(D, 1)) + 3) // 4 * 4
+        if D < 1 or -(-n_pad // C) != D:
+            raise ValueError("psa_dp_chunk: %d columns do not make %d shards "
+                             "of a multiple of 4" % (n_pad, D))
+    T = plan_t if T is None else T
+    if not 1 <= T <= 256:
+        raise ValueError("psa_dp_chunk: T %d outside 1..256" % T)
+    mb = -(-rows // T)
     lib = _lib()
-    scratch = torch.empty((lib.tsta_psa_dp_chunk_scratch_words(n_pad),),
-                          dtype=torch.int32, device=dev)
+    comm = torch.empty((D, mb, 3 * T), dtype=torch.int32, device=dev)
+    flags = torch.zeros((D, mb), dtype=torch.int32, device=dev)
+    sw = lib.tsta_psa_dp_chunk_scratch_words(C)
+    scratch = (torch.empty((D, sw), dtype=torch.int32, device=dev) if sw
+               else None)
     m_, x_, e_, o_ = params
-    rc = lib.tsta_psa_dp_chunk(
-        a.data_ptr(), b.data_ptr(), lens.data_ptr(), n_pad, rows, row_base,
-        m_, x_, e_, o_, h_in.data_ptr(), e_in.data_ptr(), h_out.data_ptr(),
-        e_out.data_ptr(), best.data_ptr(), corner.data_ptr(),
-        plane.data_ptr(), scratch.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        rc = lib.tsta_psa_dp_chunk(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), n_pad, rows,
+            row_base, m_, x_, e_, o_, h_in.data_ptr(), e_in.data_ptr(),
+            h_out.data_ptr(), e_out.data_ptr(), best.data_ptr(),
+            corner.data_ptr(), plane.data_ptr(), D, C, T, comm.data_ptr(),
+            flags.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            _stream(dev))
+    if rc == COOP_TOO_LARGE:
+        raise KernelError(
+            "psa_dp_chunk: %d shards need %d co-resident blocks, but %s holds "
+            "at most %d at C = %d columns, T = %d rows (cooperative launch)"
+            % (D, D, torch.cuda.get_device_name(dev),
+               psa_dp_chunk_max_blocks(C, T, dev), C, T))
     _raise_on(rc, "psa_dp_chunk")
     launches["psa_dp_chunk"] += 1
+    return D, C, T
 
 
 def psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,

@@ -7,7 +7,8 @@ into chunks of ``mc`` and the DP runs in two passes:
 
 1. **Forward.**  For each chunk in order: keep the H/E frontier that
    enters it (the snapshot, 2 x n_pad int32), run the chunk's rows from it
-   (:func:`chunk_dp`, ``csrc/psa_dp.cu``'s chunk mode), which writes the
+   (:func:`chunk_dp`, ``csrc/psa_dp_chunk.cu``: the chunk's columns
+   sharded over co-resident blocks, :func:`chunk_plan`), which writes the
    chunk's code plane and the frontier out, and keep the chunk's last code
    row.  The pair's score is the max of the chunks' bests, its corner the
    last chunk's.  The last chunk's plane is kept for the walk; the others
@@ -51,6 +52,10 @@ from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, NEG, as_params
 # that reach this module through an entry point (the CLI, a batch).
 last_clock = None
 
+# csrc/psa_dp_chunk.cu's plan: threads per block (one shard each), rows
+# per packet, and the fewest columns per thread of a shard
+CHUNK_THREADS, CHUNK_T, CHUNK_MIN_W = 256, 32, 8
+
 
 def chunk_rows(m_pad: int, n_pad: int, budget: int) -> int:
     """Rows per chunk, as ``psa_align_traced_chunked`` chooses them:
@@ -62,9 +67,24 @@ def chunk_rows(m_pad: int, n_pad: int, budget: int) -> int:
     return mc
 
 
+def chunk_plan(n_pad: int, sms: int) -> tuple:
+    """(D, C, W, T): how ``csrc/psa_dp_chunk.cu`` cuts a chunk of ``n_pad``
+    columns on a card of ``sms`` SMs (its ``tsta_psa_dp_chunk_layout``).
+    W columns per thread: n_pad over all the SMs' threads, at least
+    CHUNK_MIN_W, a multiple of 4; C = CHUNK_THREADS * W columns per shard
+    (n_pad when that is less); D = ceil(n_pad / C) <= sms shards, the last
+    one n_pad - (D - 1) * C wide; T = CHUNK_T rows per packet, so the
+    pipeline's fill is (D - 1) * T rows."""
+    def round4(x):
+        return (x + 3) // 4 * 4
+    w0 = round4(max(CHUNK_MIN_W, -(-n_pad // (sms * CHUNK_THREADS))))
+    C = min(w0 * CHUNK_THREADS, n_pad)
+    return -(-n_pad // C), C, round4(-(-C // CHUNK_THREADS)), CHUNK_T
+
+
 def chunk_dp_plain(a, b_chunk, lens, row_base: int, h, e, params):
     """One row-chunk of the traced DP in PyTorch (``psa_scan.scan_from``):
-    the plain version of ``csrc/psa_dp.cu``'s chunk mode and the
+    the plain version of ``csrc/psa_dp_chunk.cu`` and the
     counterpart of ``psa_pallas._psa_chunk_call``.
 
     ``a``: (n_pad,) uint8; ``b_chunk``: (rows,) uint8, rows [row_base,
@@ -82,8 +102,8 @@ def chunk_dp_plain(a, b_chunk, lens, row_base: int, h, e, params):
 
 def chunk_dp(a, b_chunk, lens, row_base: int, h, e, params):
     """:func:`chunk_dp_plain`'s function: CPU tensors take it; CUDA
-    tensors launch ``csrc/psa_dp.cu``'s chunk mode (one block) or
-    raise."""
+    tensors launch ``csrc/psa_dp_chunk.cu`` (:func:`chunk_plan`'s D
+    co-resident blocks) or raise."""
     if a.device.type == "cpu":
         return chunk_dp_plain(a, b_chunk, lens, row_base, h, e, params)
     dev = a.device

@@ -88,8 +88,8 @@ _CBANK = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
 def is_k1(name: str) -> bool:
     """Whether a mangled ``psa_dp_kernel`` instantiation is K1's: every
-    bool template argument false (``<false>`` before the chunk mode,
-    ``<256, false, false>`` after)."""
+    bool template argument false (``<false>``, or ``<256, false, false>``
+    in a checkout whose ``psa_dp.cu`` still has the row-chunk mode)."""
     m = re.search(r"psa_dp_kernelI((?:L[a-z]-?\d+E)+)E", name)
     return bool(m) and "Lb1E" not in m.group(1)
 
