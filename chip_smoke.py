@@ -28,7 +28,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    record's errors are these;
 7. POA kernels: the round DP and the walk against their plain versions
    on the card on seeded grown graphs (multi-pred nodes), every real
-   word, score and aligned row equal;
+   word, score and aligned row equal; the DP also at forced D = 2, 3 and
+   5 shards (T = 16, 1, 32), which its plan gives one shard at these
+   2,048 columns, and at 5 shards on 2 blocks and 3 on 1, each block
+   walking its shards in turn; then a round of a 1.1 Mbp read (1,105,920
+   columns, 135 shards, more than the card's co-resident blocks) against
+   a small grown graph, single call and forward chunk (words, scores,
+   ring, checkpoints) equal to the plain version;
 8. MSA main path: ``tsta-torch msa --engine native`` on the reference's
    5 x 5,000 bp example (recovered from ``tests/golden/example_big``),
    launch counters reset before and read after: one DP and one walk per
@@ -41,17 +47,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    cells/s, peak device memory and each round's split;
 10. the fleet: 6 problems of 5 x 5 kbp (seeds 100-105, as
     ``bench.stage_msa_fleet``) through ``align_seqs_many``, equal to
-    per-problem runs: problems/s;
+    per-problem runs: problems/s of the process's first call and of a
+    second one;
 11. POA timings: each POA kernel and its plain version at the 3 x 50 kbp
     round-2 shape and the example's last round (CUDA events), every
-    output of the timed runs equal; the kernels record's errors are these;
+    output of the timed runs equal; the kernels record's errors are these,
+    with the DP's plan (D shards of C columns, S a thread, T nodes a
+    packet: ``msa_poa.poa_plan``); then the plan's S x T sweep at the 50
+    kbp round 2 (S = 8, 16, 32; T = 16, 32, 64), every output equal to the
+    plan's run;
 12. chunked kernels against their plain versions, with times (CUDA
     events): a forward chunk of the 3 x 50 kbp round 2 cut into 8,192-row
-    chunks (scores, ring out, checkpoints); after phase 14, round 1 of the
-    200 kbp reads forward again, its last chunk from its entry ring
-    (scores, ring out, checkpoints) and the first cell its walk
+    chunks (scores, ring out, checkpoints); after phase 14, rounds 1 and 2
+    of the 200 kbp reads forward again (round 2 on the graph round 1
+    through the kernels gives), each round's last chunk from its entry
+    ring (scores, ring out, checkpoints) and the first cell its walk
     rematerialises (words, ring out) and walks (exit state, align
-    entries);
+    entries), and round 1's forward chunk over the plan's S x T sweep,
+    every output equal to the plan's run;
 13. 3 x 50 kbp with a budget that cuts every round into >= 4 chunks,
     equal to phase 9's unchunked run, through the chunk, window and
     bounded-walk kernels and no plain round;
@@ -63,7 +76,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
     its read; after the timed run, round 1's score equal to the PSA DP's
     score of reads 1 and 0 (a global pairwise alignment: the graph is
     read 0's chain) and to the score of MSA rows 0 and 1, and round 2's
-    at least read 2's pairwise score with read 0 and with read 1;
+    equal to phase 12's forward of it and at least read 2's pairwise
+    score with read 0 and with read 1;
 15. the chunked traced PSA: (a) the 10 kbp example through 20 chunks of 512
     rows, byte-identical to the golden and equal to the unchunked path;
     (b) a 200,000-column pair (read 0 of the 200 kbp set against a ~2 kbp
@@ -193,6 +207,14 @@ CELLS_PER_S16X2 = 2
 D57 = [(57, -1, -1, 0), (2, -57, -2, -4)]   # the int16 gate's edge sets
 OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
 CHUNK_T_SWEEP = (16, 32, 64, 128, 256)   # packet heights of the chunk DP's sweep
+# columns a thread and nodes a packet of the POA DP's plan sweep
+POA_S_SWEEP, POA_T_SWEEP = (8, 16, 32), (16, 32, 64)
+# phase 7's forced shards (D, T, G) on its 2,048-column rounds: G blocks
+# (None: one a shard), fewer walking several shards each
+POA_FORCED = ((2, 16, None), (3, 1, None), (5, 32, None), (5, 16, 2),
+              (3, 1, 1))
+# phase 7's wide round: a read past 132 shards of 8,192 columns
+POA_WIDE_READ = 1_100_000
 EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
                       "2ad36f0eab7b90b84292d06f98c7ca72")
 
@@ -630,7 +652,8 @@ def main() -> int:
                        "shape": t["shape"],
                        **{k: t[k] for k in ("k1_ms", "k3_ms", "ms_200k",
                                             "bound_ms_200k", "gcups_200k",
-                                            "k1_s_200k") if k in t}}
+                                            "k1_s_200k", "plan", "forced",
+                                            "sweep") if k in t}}
                       for n, s, r, t in entries]})
     print(smi_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -672,9 +695,11 @@ def next_round(seqs, rounds, params, dev, budget=None):
                      % (len(order), n, N, max_in, W)}
 
 
-def poa_compare(r, params, reps: int, plain_warm: bool):
+def poa_compare(r, params, reps: int, plain_warm: bool, forced=()):
     """Kernel and plain version of the POA DP and walk on one round's
-    inputs: times and the largest difference of every output."""
+    inputs: times, the DP's plan (D, C, S, T) and the largest difference
+    of every output; ``forced`` (D, T, G) triples run the DP again at
+    those overrides, each held to the plain version too."""
     from tsta_tpu_torch.ops import msa_native, msa_poa
     args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
     ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(*args), reps)
@@ -682,6 +707,10 @@ def poa_compare(r, params, reps: int, plain_warm: bool):
                             plain_warm)
     nn = r["n_nodes"]
     dp_err = max(max_err(kw[:nn], pw[:nn]), max_err(ks, ps))
+    for D, T, G in forced:
+        fw, fs = msa_poa.poa_dp(*args, D=D, T=T, G=G)
+        dp_err = max(dp_err, max_err(fw[:nn], pw[:nn]), max_err(fs, ps))
+        del fw, fs
     best = msa_poa.best_sink(ps, r["mask"])
     wms, kal = cuda_ms(lambda: msa_poa.poa_walk(kw, r["preds"], best,
                                                 r["n_real"]), reps)
@@ -696,11 +725,92 @@ def poa_compare(r, params, reps: int, plain_warm: bool):
     # the walk consumes n_real columns at least: a word and a pred each
     walk_bytes = n_real * 6 + nbytes(kal, best)
     return ({"shape": r["shape"], "ms": ms, "plain_ms": pms,
-             "max_abs_err": dp_err,
+             "max_abs_err": dp_err, "plan": list(msa_poa.poa_plan(n)),
+             "forced": [[*msa_poa.poa_plan(n, D, T), G or D]
+                        for D, T, G in forced],
              **bound(nbytes(*tables, kw, ks), dp_ops)},
             {"shape": r["shape"], "ms": wms, "plain_ms": wpms,
              "max_abs_err": max_err(kal, pal),
              **bound(walk_bytes, OPS_WALK_STEP * n_real)})
+
+
+def poa_wide_check(params, dev) -> dict:
+    """``poa_dp.cu`` past the card's co-resident blocks: a 1.1 Mbp read
+    against a graph grown from two 300 bp reads, planned at S = 32 into
+    more shards than blocks, so blocks walk two shards each.  The single
+    call (words, scores) and the round as one forward chunk from a zero
+    ring (scores, ring, checkpoints at 4 windows) against the plain
+    version on the card; returns the plan, the grid, the single call's
+    time and its plain version's (CUDA events) and the largest
+    difference."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
+    rng = np.random.default_rng(SEED + 3)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(acgt, 300)
+    s = base.copy()
+    s[rng.integers(0, 300, 36)] = rng.choice(acgt, 36)
+    reads = [base.tobytes(), np.delete(s, rng.integers(0, 300, 5)).tobytes(),
+             rng.choice(acgt, POA_WIDE_READ).tobytes()]
+    r = next_round(reads, 1, params, dev)
+    args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
+    n, nn, W = r["tables"][4].shape[0], r["n_nodes"], r["W"]
+    D, C, S, T = msa_poa.poa_plan(n)
+    G = max(1, min(D, _kernels.poa_dp_max_blocks(T, S, dev)))
+    if G >= D:
+        raise AssertionError("wide round: %d shards fit %d blocks" % (D, G))
+    ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(*args), 3)
+    pms, (pw, ps) = cuda_ms(lambda: msa_native.round_dp_plain(*args), 1,
+                            False)
+    err = max(max_err(kw[:nn], pw[:nn]), max_err(ks, ps))
+    del kw, pw
+    N = r["tables"][0].shape[1]
+    rings = [msa_poa.new_ring(W, n, dev) for _ in range(2)]
+    ckpts = [torch.zeros((N, 4, 3), dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    _, ks = msa_poa.poa_dp(*args, ring=rings[0], ckpt=ckpts[0],
+                           with_words=False)
+    _, ps = msa_native.round_dp_plain(*args, ring=rings[1], ckpt=ckpts[1],
+                                      with_words=False)
+    err = max(err, max_err(ks, ps), max_err(*rings), max_err(*ckpts))
+    return {"shape": r["shape"], "plan": [D, C, S, T], "blocks": G,
+            "ms": ms, "plain_ms": pms,
+            "multi_pred_nodes": int((r["tables"][1].sum(0) > 1).sum()),
+            "max_abs_err": err}
+
+
+def plan_sweep(run, n, check):
+    """The S x T sweep of ``poa_dp.cu``'s plan at an n-column launch:
+    ``run(D, T)`` launches at D shards (C = 256 S columns) and T nodes a
+    packet and returns its outputs, each held by ``check`` to the plan's
+    run (largest difference).  Returns one record per (S, T): D, C, S, T,
+    median ms of 3 launches and the error."""
+    from tsta_tpu_torch.ops import msa_poa
+    out = []
+    for S in POA_S_SWEEP:
+        D = -(-n // (256 * S))
+        for T in POA_T_SWEEP:
+            ms, got = cuda_ms(lambda: run(D, T), 3)
+            out.append({"plan": list(msa_poa.poa_plan(n, D, T)), "ms": ms,
+                        "max_abs_err": check(got)})
+            del got
+    return out
+
+
+def relaid(ring, n, D_from, D_to):
+    """A ring of an n-column launch laid out for D_from shards, laid out
+    for D_to (None: the plan's)."""
+    import torch
+
+    from tsta_tpu_torch.ops import msa_poa
+    dev = ring.device
+    out = torch.zeros((ring.shape[0], 2, msa_poa.ring_width(n, D_to)),
+                      dtype=ring.dtype, device=dev)
+    out[:, :, msa_poa.ring_positions(n, dev, D_to)] = \
+        ring[:, :, msa_poa.ring_positions(n, dev, D_from)]
+    return out
 
 
 def msa_phases(dev, smi_line):
@@ -729,11 +839,14 @@ def msa_phases(dev, smi_line):
             reads.append(np.delete(s, rng.integers(0, 2000, 30)).tobytes())
         for rounds in range(4):
             r = next_round(reads, rounds, params, dev)
-            dp, walk = poa_compare(r, params, 1, False)
+            dp, walk = poa_compare(r, params, 1, False, POA_FORCED)
             errs["poa_dp"] = max(errs["poa_dp"], dp["max_abs_err"])
             errs["poa_walk"] = max(errs["poa_walk"], walk["max_abs_err"])
             shapes.append(r["shape"])
-    emit({"phase": "poa_kernels", "max_abs_err": errs, "rounds": shapes})
+    wide = poa_wide_check(params, dev)
+    errs["poa_dp"] = max(errs["poa_dp"], wide["max_abs_err"])
+    emit({"phase": "poa_kernels", "max_abs_err": errs, "rounds": shapes,
+          "plan": dp["plan"], "forced": dp["forced"], "wide": wide})
     if any(errs.values()):
         raise AssertionError("POA kernel differs from its plain version: %s"
                              % errs)
@@ -841,27 +954,47 @@ def msa_phases(dev, smi_line):
     outs = msa_native.align_seqs_many(problems, params, device=dev)
     torch.cuda.synchronize()
     t_fleet = time.perf_counter() - t0
+    fleet_launches = {k: _kernels.launches[k] for k in ("poa_dp", "poa_walk")}
+    # a second call: the first one pays the streams' first use
+    t0 = time.perf_counter()
+    again = msa_native.align_seqs_many(problems, params, device=dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
     cells = sum(msa_cells(pr, o) for pr, o in zip(problems, outs))
     emit({"phase": "msa_fleet", "problems": len(problems),
-          "equal_to_single_runs": outs == singles, "wall_s": t_fleet,
-          "problems_per_s": len(problems) / t_fleet,
+          "equal_to_single_runs": outs == singles == again,
+          "wall_s": t_fleet, "problems_per_s": len(problems) / t_fleet,
           "cells_per_s": cells / t_fleet, "sequential_wall_s": t_seq,
-          "launches": {k: _kernels.launches[k]
-                       for k in ("poa_dp", "poa_walk")}})
-    if outs != singles or _kernels.launches["poa_dp"] != 24:
+          "warm_wall_s": t_warm,
+          "warm_problems_per_s": len(problems) / t_warm,
+          "launches": fleet_launches})
+    if not outs == singles == again or fleet_launches["poa_dp"] != 24:
         raise AssertionError("fleet differs from per-problem runs")
 
     # 11. POA kernels and plain versions at the main path's shapes
-    times = {}
+    times, rounds_in = {}, {}
     for label, rseqs, rounds, warm in (("50 kbp round 2", seqs, 1, False),
                                        ("example round 4", ex, 3, True)):
-        dp, walk = poa_compare(next_round(rseqs, rounds, params, dev),
-                               params, 3, warm)
+        rounds_in[label] = r = next_round(rseqs, rounds, params, dev)
+        dp, walk = poa_compare(r, params, 3, warm)
         times["poa_dp " + label] = dp
         times["poa_walk " + label] = walk
+    # the plan's S x T sweep at the 50 kbp round 2
+    r = rounds_in.pop("50 kbp round 2")
+    args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
+    nn = r["n_nodes"]
+    want = msa_poa.poa_dp(*args)
+    sweep = plan_sweep(
+        lambda D, T: msa_poa.poa_dp(*args, D=D, T=T), args[4].shape[0],
+        lambda got: max(max_err(got[0][:nn], want[0][:nn]),
+                        max_err(got[1], want[1])))
+    times["poa_dp 50 kbp round 2"]["sweep"] = sweep
+    del r, args, want, rounds_in
     emit({"phase": "poa_timings", "times": times, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
     bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
+    bad.update({"sweep %s" % x["plan"]: x["max_abs_err"] for x in sweep
+                if x["max_abs_err"]})
     if bad:
         raise AssertionError("POA kernel differs from its plain version at "
                              "the main path's shapes: %s" % bad)
@@ -1001,29 +1134,25 @@ def pair_rows(out, i: int, k: int):
     return bytes(ri[c] for c in keep), bytes(rk[c] for c in keep)
 
 
-def check_200k(dev, smi_line, seqs, out):
-    """Phase 12 at 200 kbp and the checks of phase 14's result, after its
-    timed run.  Round 1 of ``seqs`` runs forward again through the
-    kernel; its last chunk, from the ring that entered it, and the first
-    cell its walk rematerialises and walks are each held against their
-    plain versions.  Round 1 aligns read 1 to read 0's chain, a global
-    pairwise alignment, so its score must equal the PSA DP's corner and
-    the score of MSA rows 0 and 1; round 2's graph holds the paths of
-    reads 0 and 1, so its score is at least either pairwise score of
-    read 2.  Returns the timing records of the three chunked kernels."""
-    import numpy as np
+def hold_round(dev, g, seq, label: str, sweep: bool):
+    """One chunked round of ``seq`` against ``g`` at the card's budget,
+    forward through the kernel, then held piece by piece to the plain
+    versions: its last forward chunk from the ring that entered it
+    (scores, ring out, checkpoints, each also against the forward's), and
+    the first cell its walk rematerialises (words, ring out) and walks
+    (exit state, align entries).  With ``sweep``, the S x T sweep of the
+    forward chunk, every output equal to the plan's run.  Returns the
+    timing records of the three chunked kernels, the forward's seconds
+    and best-sink score and the walk's exit state."""
     import torch
 
     from tsta_tpu_torch import AlignParams
     from tsta_tpu_torch.device import device_budget
-    from tsta_tpu_torch.models.poa_graph import PoaGraph
-    from tsta_tpu_torch.ops import msa_chunked, msa_native, msa_poa, psa_diff
-    from tsta_tpu_torch.ops import traceback as tb
+    from tsta_tpu_torch.ops import msa_chunked, msa_native, msa_poa
     params = AlignParams()
     times = {}
-    g = PoaGraph.from_sequence(seqs[0], len(seqs))
     prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(
-        g, seqs[1], params, device_budget(dev))
+        g, seq, params, device_budget(dev))
     r = msa_chunked.ChunkedRound(g, prep, a, n_real, NC, NWIN, params, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1037,11 +1166,14 @@ def check_200k(dev, smi_line, seqs, out):
     sl = slice(c * NC, (c + 1) * NC)
     outs = {}
 
-    def forward(fn, key):
-        ring = snaps[c].clone()
+    def forward(fn, key, D=None, T=None):
+        ring = relaid(snaps[c], n, None, D)
         ck = torch.zeros((NC, NWIN, 3), dtype=torch.int32, device=dev)
         args, kw = r.forward_call(c, ring, ck)
+        if D or T:
+            kw.update(D=D, T=T)
         outs[key] = (fn(*args, **kw)[1], ring, ck)
+        return D, outs[key]
 
     ms, _ = cuda_ms(lambda: forward(msa_poa.poa_dp, "kernel"), 3)
     pms, _ = cuda_ms(lambda: forward(msa_native.round_dp_plain, "plain"), 1,
@@ -1051,11 +1183,22 @@ def check_200k(dev, smi_line, seqs, out):
               max_err(ksc, scores[sl]), max_err(kck, ckpt[sl]))
     args, _ = r.forward_call(c, None, None)
     times["poa_dp_chunk"] = {
-        "shape": "200 kbp round 1, chunk %d: %d of %d rows x %d columns, "
-                 "NWIN %d, W %d" % (c, r.rows(c), NC, n, NWIN, r.W),
+        "shape": "200 kbp %s, chunk %d: %d of %d rows x %d columns, "
+                 "NWIN %d, W %d" % (label, c, r.rows(c), NC, n, NWIN, r.W),
         "ms": ms, "plain_ms": pms, "max_abs_err": err,
+        "plan": list(msa_poa.poa_plan(n)),
         **bound(nbytes(*args[:5], snaps[c], *outs["kernel"]),
                 chunk_ops(args[:2], r.rows(c), n, False))}
+    if sweep:
+        want = outs["kernel"]
+
+        def check(got):
+            D, (sc, ring, ck) = got
+            return max(max_err(sc, want[0]), max_err(ck, want[2]),
+                       max_err(relaid(ring, n, D, None), want[1]))
+
+        times["poa_dp_chunk"]["sweep"] = plan_sweep(
+            lambda D, T: forward(msa_poa.poa_dp, "sweep", D, T), n, check)
     del outs
 
     # the first cell the walk rematerialises, and its walk
@@ -1077,9 +1220,10 @@ def check_200k(dev, smi_line, seqs, out):
     words = res["kernel"][0]
     err = max(max_err(k, p) for k, p in zip(res["kernel"], res["plain"]))
     times["poa_dp_window"] = {
-        "shape": "200 kbp round 1, cell (%d, %d): %d of %d rows x %d columns"
-                 % (c, w, r.rows(c), NC, r.CW),
+        "shape": "200 kbp %s, cell (%d, %d): %d of %d rows x %d columns"
+                 % (label, c, w, r.rows(c), NC, r.CW),
         "ms": ms, "plain_ms": pms, "max_abs_err": err,
+        "plan": list(msa_poa.poa_plan(r.CW)),
         **bound(nbytes(*[x for x in args if torch.is_tensor(x)], ring_in,
                        *res["kernel"]),
                 chunk_ops(args[:2], r.rows(c), r.CW, True))}
@@ -1100,10 +1244,45 @@ def check_200k(dev, smi_line, seqs, out):
         "shape": times["poa_dp_window"]["shape"] + ", %d columns walked"
                  % consumed,
         "ms": wms, "plain_ms": wpms, "max_abs_err": werr,
+        "consumed": consumed,
         # per consumed column a word and a pred read and an align write
         **bound(consumed * 10 + 12, OPS_WALK_STEP * consumed)}
-    exit_state = walks["kernel"][0].tolist()
-    del res, walks, words, snaps, ckpt, hb, r
+    return times, forward_s, forward_score, walks["kernel"][0].tolist()
+
+
+def check_200k(dev, smi_line, seqs, out):
+    """Phase 12 at 200 kbp and the checks of phase 14's result, after its
+    timed run.  Rounds 1 and 2 of ``seqs`` run forward again through the
+    kernel (round 2 on the graph that round 1 through the kernels and
+    the merge gives), each held to the plain versions by
+    :func:`hold_round`, round 1 with the plan's S x T sweep; round 2's
+    forward score must equal phase 14's.  Round 1 aligns read 1 to read
+    0's chain, a global pairwise alignment, so its score must equal the
+    PSA DP's corner and the score of MSA rows 0 and 1; round 2's graph
+    holds the paths of reads 0 and 1, so its score is at least either
+    pairwise score of read 2.  Returns round 1's timing records of the
+    three chunked kernels."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams
+    from tsta_tpu_torch.device import device_budget
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa, psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+    params = AlignParams()
+    g = PoaGraph.from_sequence(seqs[0], len(seqs))
+    times, forward_s, forward_score, exit_state = hold_round(
+        dev, g, seqs[1], "round 1", True)
+    packed, order, _ = msa_poa.run_round(g, seqs[1], params, dev, "cuda",
+                                         device_budget(dev))
+    msa_native._finish_round(g, seqs[1], 1, order, packed.cpu().numpy(),
+                             [], [], [])
+    times2, forward2_s, forward2_score, exit2 = hold_round(
+        dev, g, seqs[2], "round 2", False)
+    consumed = min(times["poa_walk_bounded"]["consumed"],
+                   times2["poa_walk_bounded"]["consumed"])
+    del g, packed
 
     # the round scores against the pairwise DP
     reads = [np.frombuffer(bytes(s), np.uint8) for s in seqs]
@@ -1117,14 +1296,22 @@ def check_200k(dev, smi_line, seqs, out):
     pairwise_s = time.perf_counter() - t0
     rescored = tb.score_alignment(*pair_rows(out, 0, 1), params)
     scores_ok = (out.round_scores[0] == forward_score == corners[0]
-                 == rescored and out.round_scores[1] >= max(corners[1:]))
+                 == rescored and out.round_scores[1] >= max(corners[1:])
+                 and out.round_scores[1] == forward2_score)
     emit({"phase": "check_200k", "rounds": out.round_scores,
           "round1_forward_s": forward_s, "round1_forward_score": forward_score,
+          "round2_forward_s": forward2_s,
+          "round2_forward_score": forward2_score,
           "pairwise_scores": k1_scores, "pairwise_corners": corners,
           "pairwise_s": pairwise_s,
           "rows01_rescored": rescored, "scores_ok": scores_ok,
-          "times": times, "exit_state": exit_state, "smi": smi_line})
-    bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
+          "times": times, "exit_state": exit_state, "round2_times": times2,
+          "round2_exit_state": exit2, "smi": smi_line})
+    bad = {"%s %s" % (rd, k): t["max_abs_err"]
+           for rd, tt in (("round 1", times), ("round 2", times2))
+           for k, t in tt.items() if t["max_abs_err"]}
+    bad.update({"sweep %s" % x["plan"]: x["max_abs_err"]
+                for x in times["poa_dp_chunk"]["sweep"] if x["max_abs_err"]})
     if bad or consumed < 1:
         raise AssertionError("200 kbp: kernel differs from its plain "
                              "version: %s" % bad)

@@ -78,6 +78,59 @@ def test_psa_notrace_json_matches_jax_cli(kernel, capsys):
         "poa_dp_window", "poa_walk_bounded", "psa_ring"}
 
 
+@pytest.mark.parametrize("traced", [False, True])
+def test_psa_kernel_scan_matches_jax_cli(traced, tmp_path, capsys):
+    """``--kernel scan`` (the JAX CLI's value) runs the plain route and
+    prints what the JAX CLI prints with it: maxsorce=378 on psa_small5,
+    and the same alignment file when traced."""
+    d = os.path.join(GOLDEN, "psa_small5")
+    args = ["psa", "-1", d + "/a.fa", "-2", d + "/b.fa",
+            "--kernel", "scan"] + ([] if traced else ["--notrace"])
+    assert jcli.main(args + ["-o", str(tmp_path / "j.out")]) == 0
+    want = capsys.readouterr().out
+    assert want.strip() == "maxsorce=378"
+    assert tcli.main(args + ["--device", "cpu",
+                             "-o", str(tmp_path / "t.out")]) == 0
+    assert capsys.readouterr().out == want
+    if traced:
+        assert ((tmp_path / "t.out").read_bytes()
+                == (tmp_path / "j.out").read_bytes())
+
+
+@pytest.mark.parametrize("cmd,extra", [
+    ("psa", ["-1", "a.fa", "-2", "b.fa"]), ("msa", ["-i", "r.fa"]),
+    ("msa-batch", ["--inputs", "l.txt", "--out-dir", "o"]),
+    ("batch", ["--pairs", "m.tsv"])])
+def test_kernel_aliases_resolve(cmd, extra, monkeypatch):
+    """Every subcommand takes the JAX CLI's --kernel values: scan is the
+    plain route, pallas the kernels-only one (which needs a card)."""
+    seen = []
+    fn = {"psa": "cmd_psa", "msa": "cmd_msa", "msa-batch": "cmd_msa_batch",
+          "batch": "cmd_batch"}[cmd]
+    monkeypatch.setattr(tcli, fn, lambda args: seen.append(args.kernel) or 0)
+    for value, want in (("scan", "plain"), ("pallas", "cuda"),
+                        ("auto", "auto"), ("cuda", "cuda")):
+        assert tcli.main([cmd, *extra, "--kernel", value]) == 0
+        assert seen.pop() == want
+
+
+def test_psa_profile_writes_a_trace(tmp_path, capsys):
+    """``--profile DIR`` leaves a torch.profiler trace in DIR and prints
+    the same result as without it."""
+    d = os.path.join(GOLDEN, "psa_small5")
+    args = ["psa", "--device", "cpu", "-1", d + "/a.fa", "-2", d + "/b.fa"]
+    outs = []
+    for extra in ([], ["--profile", str(tmp_path / "prof")]):
+        out = tmp_path / ("o%d.txt" % len(outs))
+        assert tcli.main(args + ["-o", str(out)] + extra) == 0
+        outs.append((capsys.readouterr().out, out.read_bytes()))
+    assert outs[0] == outs[1] and outs[0][0].strip() == "maxsorce=378"
+    traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "psa traced" for e in events)
+
+
 def test_psa_errors_exit_1(capsys, tmp_path):
     assert tcli.main(["psa", "--device", "cpu", "-1", "/nonexistent.fa",
                       "-2", "/also.fa"]) == 1

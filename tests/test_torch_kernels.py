@@ -358,6 +358,7 @@ def test_chunked_kernel_route_matches_cpu(cuda):
 
 @pytest.mark.cuda
 def test_chunk_wrappers_refuse_bad_tensors(cuda):
+    from tsta_tpu_torch.ops import msa_poa
     i32 = torch.int32
     predsT = torch.zeros((2, 128), dtype=i32, device=cuda)
     bases = torch.zeros((128,), dtype=i32, device=cuda)
@@ -365,8 +366,7 @@ def test_chunk_wrappers_refuse_bad_tensors(cuda):
     a = torch.zeros((2048,), dtype=torch.uint8, device=cuda)
     words = torch.zeros((128, 2048), dtype=torch.int16, device=cuda)
     scores = torch.zeros((128,), dtype=i32, device=cuda)
-    ring = torch.zeros((2, 2, _kernels.poa_ring_width(2048)), dtype=i32,
-                       device=cuda)
+    ring = msa_poa.new_ring(2, 2048, cuda)
     ckpt = torch.zeros((128, 2, 3), dtype=i32, device=cuda)
     with pytest.raises(ValueError):   # ring laid out for another width
         _kernels.poa_dp(predsT, predsT, bases, fills,
@@ -389,6 +389,238 @@ def test_chunk_wrappers_refuse_bad_tensors(cuda):
         _kernels.poa_walk_bounded(words, predsT.T.contiguous(), 5, 5, 3, 0,
                                   0, torch.full((2048,), -1, dtype=i32,
                                                 device=cuda), out)
+
+
+@pytest.fixture(scope="module")
+def grown_2k():
+    """Round 3 of 4 seeded 2 kbp reads (2,318 nodes, 345 with more than
+    one pred, n = 2,048) and its plain version on the CPU in all three
+    uses: the single call; the round cut into chunks of 512 rows with 2
+    column windows, each forward chunk from its entry ring (scores, ring
+    out, checkpoints); and every (chunk, window) cell's remat (words,
+    ring out)."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_chunked, msa_native, msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    reads = _reads(7, 4, 2000, 0.12)
+    g = PoaGraph.from_sequence(reads[0], 4)
+    for sno in (1, 2):
+        packed, order, _ = msa_poa.run_round(g, reads[sno], AP, cpu, "plain",
+                                             1 << 34)
+        msa_native._finish_round(g, reads[sno], sno, order, packed.numpy(),
+                                 [], [], [])
+    prep, n, n_real, a, _, _ = msa_poa.prep_round(g, reads[3], AP, 1 << 34)
+    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+    assert n == 2048 and (pmaskT.sum(0) > 1).sum() > 100
+    tabs = [torch.from_numpy(np.ascontiguousarray(x))
+            for x in (predsT, pmaskT, bases.reshape(N), fills, a)]
+    single = msa_native.round_dp_plain(*tabs, n_real, len(order), AP, W)
+    r = msa_chunked.ChunkedRound(g, prep, a, n_real, 512, 2, AP, cpu)
+    ring = msa_poa.new_ring(W, n, cpu)
+    ckpt = torch.zeros((r.nchunks * 512, 2, 3), dtype=torch.int32)
+    snaps, forward = [], []
+    for c in range(r.nchunks):
+        snaps.append(ring.clone())
+        args, kw = r.forward_call(c, ring, ckpt[c * 512:(c + 1) * 512])
+        forward.append((msa_native.round_dp_plain(*args, **kw)[1],
+                        ring.clone()))
+    hb = ckpt[:, :, 0].contiguous()
+    remats = {}
+    for c in range(r.nchunks):
+        for w in range(2):
+            args, kw = r.remat_call(c, w, snaps[c], ckpt, hb)
+            ring_in = kw["ring"].clone()
+            remats[c, w] = (ring_in, msa_native.round_dp_plain(*args, **kw)[0],
+                            kw["ring"])
+    return {"g": g, "prep": prep, "a": a, "n": n, "n_real": n_real,
+            "tabs": tabs, "single": single, "r": r, "snaps": snaps,
+            "forward": forward, "ckpt": ckpt, "remats": remats, "AP": AP}
+
+
+def _relaid(ring, n, D_from, D_to):
+    """A ring of an n-column launch laid out for D_from shards, laid out
+    for D_to (None: the plan's)."""
+    from tsta_tpu_torch.ops import msa_poa
+    dev = ring.device
+    out = torch.zeros((ring.shape[0], 2, msa_poa.ring_width(n, D_to)),
+                      dtype=ring.dtype, device=dev)
+    out[:, :, msa_poa.ring_positions(n, dev, D_to)] = \
+        ring[:, :, msa_poa.ring_positions(n, dev, D_from)]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,T", [(1, None), (2, 1), (2, 16), (5, 32), (5, 1),
+                                 (None, None)])
+def test_poa_dp_sharded_kernel_matches_plain(cuda, grown_2k, D, T):
+    """``poa_dp.cu`` at forced D shards (narrow: 412 columns a shard at D
+    = 5, 52 threads of 256 busy) and packet heights T, one block a shard,
+    in its three uses on a grown graph, equals the plain version."""
+    _three_uses_match_plain(cuda, grown_2k, D, T, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,T,G", [(5, 16, 2), (5, 1, 1), (5, 32, 3),
+                                   (2, 16, 1)])
+def test_poa_dp_blocks_walk_their_shards(cuda, grown_2k, D, T, G):
+    """D shards on G < D blocks, block g walking shards g, g + G, ... in
+    turn (a cooperative launch for G >= 2, a plain one at G = 1), equal
+    the plain version in the three uses."""
+    _three_uses_match_plain(cuda, grown_2k, D, T, G)
+
+
+def _three_uses_match_plain(cuda, grown_2k, D, T, blocks):
+    """Words and scores of the single call; scores, ring (in the forced
+    layout, compared column by column) and checkpoints of every forward
+    chunk, the ring carried on the card; words and ring of every cell's
+    window remat: each equal to the plain version, with the launches
+    counted."""
+    from tsta_tpu_torch.ops import msa_chunked, msa_poa
+    G = grown_2k
+    AP, n, W = G["AP"], G["n"], G["prep"][6]
+    nn = len(G["prep"][7])
+    n0 = dict(_kernels.launches)
+    kw, ks = msa_poa.poa_dp(*[t.to(cuda) for t in G["tabs"]], G["n_real"], nn,
+                            AP, W, D=D, T=T, G=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(kw.cpu()[:nn], G["single"][0][:nn])
+    assert torch.equal(ks.cpu(), G["single"][1])
+
+    r = msa_chunked.ChunkedRound(G["g"], G["prep"], G["a"], G["n_real"], 512,
+                                 2, AP, cuda)
+    ring = msa_poa.new_ring(W, n, cuda, D)
+    ckpt = torch.zeros((r.nchunks * 512, 2, 3), dtype=torch.int32,
+                       device=cuda)
+    for c in range(r.nchunks):
+        args, kw_ = r.forward_call(c, ring, ckpt[c * 512:(c + 1) * 512])
+        _, sc = msa_poa.poa_dp(*args, **kw_, D=D, T=T, G=blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(sc.cpu(), G["forward"][c][0]), c
+        assert torch.equal(_relaid(ring, n, D, None).cpu(),
+                           G["forward"][c][1]), c
+    assert torch.equal(ckpt.cpu(), G["ckpt"])
+
+    cw = n // 2
+    cells = 0
+    for (c, w), (ring_in, words, ring_out) in G["remats"].items():
+        args, kw_ = r.remat_call(c, w, G["snaps"][c].to(cuda),
+                                 G["ckpt"].to(cuda),
+                                 G["ckpt"][:, :, 0].contiguous().to(cuda))
+        kw_["ring"] = _relaid(ring_in.to(cuda), cw, None, D)
+        got, _ = msa_poa.poa_dp(*args, **kw_, D=D, T=T, G=blocks)
+        torch.cuda.synchronize()
+        rows = r.rows(c)
+        assert torch.equal(got.cpu()[:rows], words[:rows]), (c, w)
+        assert torch.equal(_relaid(kw_["ring"], cw, D, None).cpu(),
+                           ring_out), (c, w)
+        cells += 1
+    assert _kernels.launches["poa_dp"] == n0["poa_dp"] + 1
+    assert _kernels.launches["poa_dp_chunk"] == n0["poa_dp_chunk"] + r.nchunks
+    assert _kernels.launches["poa_dp_window"] == n0["poa_dp_window"] + cells
+
+
+@pytest.mark.cuda
+def test_poa_dp_layout_is_poa_plan(cuda):
+    from tsta_tpu_torch.ops import msa_poa
+    for n in (128, 768, 2048, 5120, 24576, 57344, 196608, 204800, 270336,
+              270340, 1048576, 4194304):
+        assert _kernels.poa_dp_layout(n) == msa_poa.poa_plan(n), n
+
+
+@pytest.mark.cuda
+def test_poa_dp_past_the_resident_limit_raises(cuda):
+    """One block more than the card holds resident raises KernelError
+    before launching; the limit itself launches, and so do one shard more
+    than the limit on the default grid (a block walks two), both equal to
+    the plain version."""
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    limit = _kernels.poa_dp_max_blocks(32, 8, cuda)   # 4 columns a shard
+    assert limit >= 132
+    i32 = torch.int32
+    rng = np.random.default_rng(3)
+    n, N = 4 * (limit + 1), 128
+    predsT = torch.zeros((1, N), dtype=i32)
+    pmaskT = torch.ones((1, N), dtype=i32)
+    predsT[0, 1:] = torch.arange(1, N, dtype=i32)   # a chain
+    bases = torch.from_numpy(rng.integers(65, 69, N).astype(np.int32))
+    fills = torch.tensor([[-4 + k * -2 for k in range(N)], [0] * N,
+                          [-8 + k * -2 for k in range(N)], [psa_scan.NEG] * N],
+                         dtype=i32)
+    a = torch.from_numpy(rng.integers(65, 69, n).astype(np.uint8))
+    tabs = [t.to(cuda) for t in (predsT, pmaskT, bases, fills, a)]
+    n0 = dict(_kernels.launches)
+    with pytest.raises(_kernels.KernelError, match="co-resident"):
+        msa_poa.poa_dp(*tabs, n, N, P0, 2 * N, D=limit + 1, T=32,
+                       G=limit + 1)
+    assert _kernels.launches == n0
+    for cols in (4 * limit, n):
+        words, scores = msa_poa.poa_dp(*tabs[:4], tabs[4][:cols], cols, N,
+                                       P0, 2 * N, D=cols // 4, T=32)
+        want = msa_native.round_dp_plain(predsT, pmaskT, bases, fills,
+                                         a[:cols], cols, N, P0, 2 * N)
+        torch.cuda.synchronize()
+        assert torch.equal(words.cpu(), want[0]), cols
+        assert torch.equal(scores.cpu(), want[1]), cols
+
+
+@pytest.mark.cuda
+def test_poa_dp_past_132_shards_matches_plain(cuda):
+    """A round wider than 132 shards of 8,192 columns (1,081,344): a 1.1
+    Mbp read against a graph grown from two 300 bp reads plans 135 shards
+    at S = 32, more than the card's co-resident blocks, so blocks walk
+    two.  The single call's words and scores, and the round as one
+    forward chunk (scores, ring, checkpoints), equal the plain version."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    reads = _reads(11, 2, 300)
+    g = PoaGraph.from_sequence(reads[0], 3)
+    packed, order, _ = msa_poa.run_round(g, reads[1], AP, cpu, "plain",
+                                         1 << 34)
+    msa_native._finish_round(g, reads[1], 1, order, packed.numpy(), [], [],
+                             [])
+    rng = np.random.default_rng(12)
+    wide = rng.choice(np.frombuffer(b"ACGT", np.uint8), 1_100_000).tobytes()
+    prep, n, n_real, a, _, _ = msa_poa.prep_round(g, wide, AP, 1 << 40)
+    predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+    assert n == 1105920 and (pmaskT.sum(0) > 1).sum() > 0
+    D, C, S, T = msa_poa.poa_plan(n)
+    assert (D, S) == (135, 32)
+    assert _kernels.poa_dp_max_blocks(T, S, cuda) < D
+    tabs = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in (predsT, pmaskT, bases.reshape(N), fills, a)]
+    nn = len(order)
+    kw, ks = msa_poa.poa_dp(*tabs, n_real, nn, AP, W)
+    pw, ps = msa_native.round_dp_plain(*tabs, n_real, nn, AP, W)
+    assert torch.equal(kw[:nn], pw[:nn]) and torch.equal(ks, ps)
+    del kw, pw
+    rings = [msa_poa.new_ring(W, n, cuda) for _ in range(2)]
+    ckpts = [torch.zeros((N, 4, 3), dtype=torch.int32, device=cuda)
+             for _ in range(2)]
+    _, ks = msa_poa.poa_dp(*tabs, n_real, nn, AP, W, ring=rings[0],
+                           ckpt=ckpts[0], with_words=False)
+    _, ps = msa_native.round_dp_plain(*tabs, n_real, nn, AP, W,
+                                      ring=rings[1], ckpt=ckpts[1],
+                                      with_words=False)
+    assert torch.equal(ks, ps) and torch.equal(*rings)
+    assert torch.equal(*ckpts)
+
+
+@pytest.mark.cuda
+def test_cli_kernel_pallas_on_card(cuda, capsys):
+    """``--kernel pallas`` is ``cuda``: the kernels on the card, the JAX
+    CLI's result (maxsorce=378 on psa_small5)."""
+    import os
+    from tsta_tpu_torch import cli
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                     "psa_small5")
+    n0 = sum(_kernels.launches.values())
+    assert cli.main(["psa", "--notrace", "--device", "cuda", "--kernel",
+                     "pallas", "-1", d + "/a.fa", "-2", d + "/b.fa"]) == 0
+    assert capsys.readouterr().out.strip() == "maxsorce=378"
+    assert sum(_kernels.launches.values()) > n0
 
 
 def _long_pair(seed, n, m):

@@ -368,17 +368,20 @@ def test_window_remat_matches_pallas(chunked_2000, c):
 
 @pytest.mark.parametrize("n,cw", [(2048, 1024), (196608, 24576)])
 def test_ring_window_round_trip(n, cw):
-    """``poa_dp.cu`` keeps column t*S + k of an n-column launch at k*1024
-    + t (S = the strip width, ceil(n / 1024) rounded up to 4); a window
-    cut at one width and laid out for another keeps every column's
-    value, and cutting the whole width is the identity."""
+    """``poa_dp.cu`` keeps column d*C + t*S + k of an n-column launch (shard
+    d of C = 256*S columns, thread t) at d*256*S + k*256 + t, the plan
+    (D, C, S) a function of n alone (``msa_poa.poa_plan``: S = 8 at these
+    widths); a window cut at one width and laid out for another keeps
+    every column's value, and cutting the whole width is the identity."""
     W = 2
 
     def layout(width):
-        S = -(-width // 1024)
-        S = (S + 3) // 4 * 4
+        S = 8
+        C = 256 * S
         cols = np.arange(width)
-        return (cols % S) * 1024 + cols // S, S * 1024
+        r = cols % C
+        return ((cols // C) * C + (r % S) * 256 + r // S,
+                -(-width // C) * C)
 
     pos, rs = layout(n)
     assert np.array_equal(msa_poa.ring_positions(n, CPU).numpy(), pos)

@@ -8,12 +8,15 @@
 Same flags, stdout and output files as ``tsta psa`` / ``msa`` /
 ``msa-batch`` / ``batch`` of the JAX package, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions).  ``--kernel``
-takes auto|plain|cuda.  ``psa`` and ``batch --traced`` run a pair whose
-traceback plane exceeds the card's budget in row-chunks, with no option.
+takes auto|plain|cuda, and the JAX CLI's scan (= plain) and pallas (=
+cuda).  ``--profile DIR`` writes a ``torch.profiler`` Chrome/Perfetto
+trace of the command into DIR.  ``psa`` and ``batch --traced`` run a pair
+whose traceback plane exceeds the card's budget in row-chunks, with no
+option.
 ``TSTA_DIFF_INT16`` set to any non-empty value sends ``psa --notrace`` and
 ``batch`` (M > 0) to the int16 difference method, as in the JAX package;
 ``TSTA_PSA_LAYOUT=striped`` sends them to the striped layout's DP.
-``--mesh`` (multi-GPU) and ``--profile`` belong to later slices.
+``--mesh`` (multi-GPU) belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from tsta_tpu_torch.device import DEFAULT_DEVICE, DeviceError
 from tsta_tpu_torch.utils.logging import emit_json, get_logger
 
 _INT_FLAGS = {"-M", "-X", "-E", "-O", "-T", "-W"}
+# the JAX CLI's --kernel values, as the port's routes that keep the values
+KERNEL_ALIASES = {"scan": "plain", "pallas": "cuda"}
 
 
 def _merge_negative_values(argv):
@@ -72,9 +77,13 @@ def _add_scoring_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--json", action="store_true",
                    help="emit a JSON result line instead of reference stdout")
     p.add_argument("--kernel", default="auto",
-                   choices=["auto", "plain", "cuda"],
-                   help="auto: the CUDA kernels where they apply; plain: "
-                        "their plain PyTorch versions; cuda: kernels only")
+                   choices=["auto", "plain", "cuda", *KERNEL_ALIASES],
+                   help="auto: the CUDA kernels where they apply; plain "
+                        "(or scan): their plain PyTorch versions; cuda (or "
+                        "pallas): kernels only")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the command into "
+                        "DIR (Chrome/Perfetto)")
     p.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device [%s]; 'cpu' runs the plain "
                         "versions" % DEFAULT_DEVICE)
@@ -272,8 +281,11 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = ap.parse_args(_merge_negative_values(list(argv)))
+    args.kernel = KERNEL_ALIASES.get(args.kernel, args.kernel)
+    from tsta_tpu_torch.utils import profiling
     try:
-        return args.fn(args)
+        with profiling.trace(args.profile):
+            return args.fn(args)
     except (FileNotFoundError, ValueError, NotImplementedError,
             DeviceError) as e:
         get_logger().error(str(e))

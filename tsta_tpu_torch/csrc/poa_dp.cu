@@ -1,4 +1,7 @@
-// POA round DP (exact int32), one thread block per launch.
+// POA round DP (exact int32), its columns cut into D shards on G <= D
+// co-resident 256-thread blocks (a cooperative launch for G >= 2), one
+// shard a block up to the card's resident limit, past it a block walks
+// several in turn.
 //
 // Replaces the TPU kernel tsta_tpu/ops/msa_pallas.py:_poa_kernel in its
 // three uses (launched through _poa_chunk_call, :400):
@@ -25,11 +28,12 @@
 //
 // Columns: the launch covers the n columns [col0, col0 + n) of the round.
 // The arithmetic uses the global column col0 + j (virtual row, j*e in F
-// and its running max, the sink column n_real-1); the words, the ring and
-// the read are addressed by the local column j.  Rows: the launch covers
-// the nodes [chunk_base, chunk_base + n_nodes) of the round; the pred
-// table, bases, fills, words, scores and checkpoints are addressed by the
-// local row i, the ring by the global buffer row id (chunk_base + i + 1).
+// and its running max, the sink column n_real-1, the checkpoints); the
+// words and the read are addressed by the local column j.  Rows: the
+// launch covers the nodes [chunk_base, chunk_base + n_nodes) of the round;
+// the pred table, bases, fills, words, scores and checkpoints are
+// addressed by the local row i, the ring by the global buffer row id
+// (chunk_base + i + 1).
 //
 // Tie rules, bit for bit as the TPU kernel (msa_pallas.py:239-259, :309):
 // the preds are reduced in table order with strict '>' updates (first max
@@ -46,55 +50,137 @@
 // into ckpt[i][w][0..2], an (rows, nwin, 3) int32 tensor.  A window
 // remat starting at column col0 = w*cw takes its fills from them.
 //
-// Block layout: thread t owns the strip of S consecutive columns starting
-// at t*S (S a multiple of 4), as in psa_dp.cu.  Per node:
-//   pass 1  each thread reduces its strip's preds and takes the strip max
-//           of C(k) - k*e;
-//   scan    block-wide exclusive prefix max, seeded with fills[2]
-//           (dp_common.cuh);
-//   pass 2  the strip again: F, H, the words (four per 8-byte store), the
-//           checkpoints and the node's H and E rows into its ring slot;
-//   barrier then each strip's first word gets its f_ext from the left
-//           neighbour's last F (shared memory) and is stored.
-// Node state lives in a global ring of W slots (slot = buffer row id % W,
-// W > the largest topo distance of an edge, from the host), so a pred's
-// rows are complete and never overwritten while a successor reads them;
-// the node's closing barrier orders its ring writes before the next
-// node's reads.  A chunked round hands the ring from one launch to the
-// next; the slots are indexed by global row, so a chunk's first nodes
-// read their preds' rows from the previous chunk's launch.  The diagonal
-// term at a strip's first column, max over the preds of H(p, t*S - 1), is
-// read from the ring directly.  Ring layout: slot s holds H then E, each
-// interleaved for the launch width (column t*S+k at k*kThreads+t) so a
-// warp's accesses coalesce; a ring taken at one width is re-laid for
-// another on the host side (msa_poa.ring_window).  Thread 0 compacts the
-// next node's valid preds into shared memory before the closing barrier.
+// Plan (tsta_poa_dp_layout, from n alone; msa_poa.poa_plan is its twin):
+// S columns per thread, a power of two from kMinS to kMaxS (the strip's
+// state lives in registers, one build per S): the least with n <= 256 *
+// S * kMaxShards; C = 256 * S columns per shard; D = ceil(n / C) shards,
+// the last one possibly narrower (past kMaxShards only at S = kMaxS); T =
+// kT = 16 nodes per packet (the fastest of 16, 32 and 64 at the main
+// shapes: a taller packet adds D - 1 nodes of fill a node, a shorter one
+// more waits).  At 196,608 columns: S = 8, C = 2,048, D = 96; at
+// the 50 kbp round 2's 49,152: D = 24; at a 24,576-column window: D = 12.
+// The grid: G = min(D, the card's co-resident limit) blocks (the
+// wrapper's default; 132 at S = 32 on an H100 SXM, so G = D up to
+// 1,081,344 columns), block g walking the shards g, g + G, g + 2G, ...
+// in turn (a build of its own, kWalk, launched only when G < D).  The
+// wrapper may force D (C = n / D rounded up to 4, S = C / 256 rounded up
+// to a power of two, at least kMinS), T and G, for the tests and the
+// smoke's sweeps; a G past the limit is refused by the cooperative
+// launch itself (cudaErrorCooperativeLaunchTooLarge).
 //
-// What bounds it on the H100: the rows are a sequential chain (each node
-// waits for its preds), so one block on one SM runs the launch: per node
-// three barriers and two passes over the ring rows of its preds (L1 and
-// L2 hits), ~30 integer operations per cell and pred, and 2 bytes of
-// words per cell written as strided 8-byte stores (none in a forward
-// chunk).  Later work: several blocks per round over independent nodes or
-// column tiles, DPX max-plus instructions, shared-memory frontiers for
-// chain nodes.
+// Shard d covers the launch's columns [d*C, d*C + C_d); thread t the
+// strip of S consecutive columns from d*C + t*S, whose read bytes it keeps
+// in registers for the shard.  Per node, each shard runs the one-block
+// body over its own columns:
+//   preds   each thread reduces the node's preds over its strip and the
+//           column left of it, preds outer: one pred's S + 1 H and S E
+//           values are loads in flight together, and the reductions stay
+//           in registers for both passes;
+//   pass 1  the strip max of C(k) - k*e;
+//   scan    block-wide exclusive prefix max (dp_common.cuh), seeded with
+//           fills[2] on shard 0 and the packet's q on shard d >= 1;
+//   pass 2  F, H, the words (four per 8-byte store), the checkpoints and
+//           the node's H and E into its ring slot;
+//   barrier then each strip's first word gets its f_ext from the left
+//           neighbour's last F (shared memory; the packet's or fills[3]
+//           for thread 0) and is stored.
+// Warp 0 reads the next node's pred-table row (a lane per entry) when a
+// node starts and compacts its valid preds into shared memory before the
+// node's closing barrier.
+//
+// The ring.  Node state lives in a global ring of W slots (slot = buffer
+// row id % W, W > the largest topo distance of an edge, from the host).
+// Each H or E row is D * 256 * S ints: shard d's columns at [d*256*S,
+// (d+1)*256*S), column d*C + t*S + k at offset k*256 + t, so a warp's
+// accesses coalesce (msa_poa.ring_positions).  A chunked round hands the
+// ring from one launch to the next (the same width each time: the plan is
+// a function of n); the window remat's ring is re-laid for its width on
+// the host side (msa_chunked.ring_window).
+//
+// Packets.  comm is (D, ceil(n_nodes / T), 4T) int32, one slot per block
+// of T nodes; slot b of shard d holds, for node i = b*T + r, the four
+// fills values of shard d+1's first column: [r] the max over preds of
+// H(p, last column) and [T + r] its first-max index (the last column's
+// pred reduction), [2T + r] the inclusive running max q after the last
+// column, [3T + r] F(v, last column).  The thread that owns the shard's
+// last column writes them as it goes, then, after the block's last node,
+// publishes flags[d][b] (ring_common.cuh: fence, release store); thread
+// 0 of shard d+1's block waits on it at the start of node block b, the
+// block meets at a barrier and reads the slot past L1 (__ldcg) into
+// shared memory.  Slots are never reused.  The last shard publishes
+// nothing; D = 1 needs no packet and is a plain launch.
+//
+// Why no shard touches another's ring columns, whatever the lag.  The
+// diagonal term of a shard's first column, max over preds of H(p, dC-1),
+// is the packet's [0], not a ring read: shard d reads and writes only its
+// own columns of every slot.  Within a shard the one-block argument holds
+// unchanged: node i's pred rows are complete (written by the same block
+// at an earlier node, before that node's closing barrier) and not yet
+// overwritten (slot reuse needs W more nodes, and W exceeds every edge's
+// topo distance).  Across shards the only data is the packet, written
+// once, published behind a release flag and read after the acquire.  So
+// shard d may run any number of nodes behind shard d-1 -- the pipeline's
+// fill lets shard d start (d * T nodes late at the least; shard 0 never
+// waits and may finish a launch before shard D-1 starts it), and no lag
+// can make a shard read a slot its left neighbour has reused.
+//
+// Why a block that walks several shards cannot deadlock.  Shard d waits
+// only on shard d-1, and every block takes its shards in increasing
+// order.  By induction on d: shard 0 waits on nothing; if every shard
+// below d completes, then shard d's block completes its earlier shards
+// (all below d), reaches d, and every wait of d is on d-1, which
+// completes.  All G blocks are resident (the cooperative launch), so a
+// spinning block never keeps another from running.  Ring and packets are
+// per shard, so the walk changes nothing above; the shared memory a
+// shard leaves (s_preds, s_edge, s_pkt) is re-seeded behind the barrier
+// that opens the next one.
+//
+// Watchdog: a wait on the left neighbour past tsta::wait_limit_ns traps.
+// A POA node reads up to max_in pred rows per column, so the limit takes
+// S * max_in as its per-row column count, and the shard index d (not the
+// block's) as its fill: a walked shard starts later, never further
+// behind its left neighbour.
+//
+// What bounds it on the H100: ~9 integer operations per cell and valid
+// pred (E candidate, H and E first-max updates) and ~20 per cell (diag,
+// C, F, H, running max, the word), so a 50 kbp round 2 is bound at ~4.5
+// ms by operations; the words (2 bytes a cell) bound the window remats by
+// bytes.  The nodes are a sequential chain: per node a shard pays three
+// barriers, a block scan, one round trip to L2 for its preds' ring rows
+// and the strip's dependent integer chain, which with one 256-thread
+// block an SM sets the pace (~2.3 us a node at S = 8, ~4.3 at S = 16),
+// and the pipeline adds (D - 1) * T nodes of fill.  Later work: more
+// warps an SM for the same columns (512 threads at S = 4), the ring rows
+// of chain nodes (one pred, the node before) in shared memory, DPX
+// max-plus instructions.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "dp_common.cuh"
+#include "ring_common.cuh"
 
 namespace {
 
+using tsta::kFull;
 using tsta::kNeg;
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxIn = 64;
+constexpr int kMinS = 8;         // columns per thread, at least
+constexpr int kMaxS = 32;        // at most (the strip lives in registers)
+constexpr int kMaxShards = 132;  // past this many shards S grows
+constexpr int kT = 16;           // nodes per packet: PERF.md's sweep
+constexpr int kTMax = 256;
 
-__host__ __device__ inline int strip_width(int n) {
-  int w = (n + kThreads - 1) / kThreads;
-  return (w + 3) & ~3;
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// The smallest power of two >= x and >= kMinS.
+__host__ __device__ inline int pow2_at_least(int x) {
+  int s = kMinS;
+  while (s < x) s *= 2;
+  return s;
 }
 
 struct Params {
@@ -109,238 +195,408 @@ struct Preds {
   int deg;
 };
 
-__device__ void load_preds(Preds& P, const int32_t* __restrict__ predsT,
-                           const int32_t* __restrict__ pmaskT, int N,
-                           int max_in, int i, int W) {
-  int d = 0;
-  for (int kk = 0; kk < max_in; ++kk) {
-    if (pmaskT[(size_t)kk * N + i] == 0) continue;
-    const int r = predsT[(size_t)kk * N + i];
-    P.slot[d] = r == 0 ? -1 : r % W;
-    P.idx[d] = kk;
-    ++d;
-  }
-  P.deg = d;
-}
-
-// The pred reduction at column j (ring index k): first-max H over the
-// preds and its index; first-max E candidate, its index and whether it
-// extends E.
-struct Red {
-  int hb, ha, eb, ea, ex;
+struct Launch {
+  const int32_t* predsT;  // (max_in, N)
+  const int32_t* pmaskT;  // (max_in, N)
+  const int32_t* bases;   // (N,)
+  const int32_t* fills;   // (4, N)
+  const uint8_t* a;       // (n,)
+  uint16_t* words;        // (N, n) or null
+  int32_t* scores;        // (N,)
+  int32_t* ring;          // (W, 2, D * 256 * S)
+  int32_t* ckpt;          // (N, nwin, 3) or null
+  int32_t* comm;          // (D, n_blocks, 4T) or null (D = 1)
+  int32_t* flags;         // (D, n_blocks), zero, or null
+  int N, n_nodes, n, n_real, W, max_in;
+  int chunk_base, col0, nwin, cw;  // global row/column origin, windows
+  int D, C, S, T, n_blocks;  // shards, their columns, a thread's, a packet's
+  Params p;
 };
 
-__device__ __forceinline__ Red reduce_preds(const Preds& P,
-                                            const int32_t* ring, int RS,
-                                            int k, int j, const Params& p) {
-  Red r{kNeg, 0, kNeg, 0, 0};
-  for (int c = 0; c < P.deg; ++c) {
-    const int s = P.slot[c];
-    int hp, ep;
-    if (s < 0) {
-      hp = p.o + (j + 1) * p.e;
-      ep = kNeg;
-    } else {
-      const int32_t* h = ring + (size_t)s * 2 * RS;
-      hp = h[k];
-      ep = h[RS + k];
-    }
-    if (hp > r.hb) {
-      r.hb = hp;
-      r.ha = P.idx[c];
-    }
-    const int ec = max(ep + p.e, hp + p.o + p.e);
-    if (ec > r.eb) {
-      r.eb = ec;
-      r.ea = P.idx[c];
-      r.ex = ep + p.e == ec;
-    }
-  }
-  return r;
-}
-
-// Columns and rows of one launch (see the header): global column col0 + j,
-// global row chunk_base + i; checkpoints every cw columns, nwin of them.
-struct Span {
-  int chunk_base, col0, nwin, cw;
+// Node i's pred-table entries kk = lane and lane + 32, read by warp 0 a
+// node ahead, so the loads' latency hides behind the node before.
+struct PredRow {
+  int r0, r1;
+  bool v0, v1;
 };
 
-template <bool kWords, bool kCkpt>
-__global__ void __launch_bounds__(kThreads)
-poa_dp_kernel(const int32_t* __restrict__ predsT,
-              const int32_t* __restrict__ pmaskT,
-              const int32_t* __restrict__ bases,
-              const int32_t* __restrict__ fills,
-              const uint8_t* __restrict__ a, int N, int n_nodes, int n,
-              int n_real, int W, int max_in, Params p, Span sp,
-              uint16_t* __restrict__ words, int32_t* __restrict__ scores,
-              int32_t* ring, int32_t* __restrict__ ckpt) {
+__device__ __forceinline__ PredRow fetch_preds(const Launch& L, int i,
+                                               int lane) {
+  PredRow q{0, 0, false, false};
+  if (i < L.n_nodes) {
+    if (lane < L.max_in) {
+      q.v0 = __ldg(L.pmaskT + (size_t)lane * L.N + i) != 0;
+      q.r0 = __ldg(L.predsT + (size_t)lane * L.N + i);
+    }
+    if (lane + 32 < L.max_in) {
+      q.v1 = __ldg(L.pmaskT + (size_t)(lane + 32) * L.N + i) != 0;
+      q.r1 = __ldg(L.predsT + (size_t)(lane + 32) * L.N + i);
+    }
+  }
+  return q;
+}
+
+// Warp 0 compacts the valid entries into P in table order.
+__device__ __forceinline__ void store_preds(Preds& P, const PredRow& q,
+                                            int lane, int W) {
+  const unsigned m0 = __ballot_sync(kFull, q.v0);
+  const unsigned m1 = __ballot_sync(kFull, q.v1);
+  const unsigned below = (1u << lane) - 1;
+  if (q.v0) {
+    const int k = __popc(m0 & below);
+    P.slot[k] = q.r0 == 0 ? -1 : q.r0 % W;
+    P.idx[k] = lane;
+  }
+  if (q.v1) {
+    const int k = __popc(m0) + __popc(m1 & below);
+    P.slot[k] = q.r1 == 0 ? -1 : q.r1 % W;
+    P.idx[k] = lane + 32;
+  }
+  if (lane == 0) P.deg = __popc(m0) + __popc(m1);
+}
+
+// One shard's DP, all the launch's nodes, by the whole block.  Shared
+// memory: the left shard's packet (4T ints), the block scan's warp
+// totals, the current and next node's preds, each thread's last F.
+template <int kS, bool kWords, bool kCkpt>
+__device__ __forceinline__ void run_shard(const Launch& L, const int d,
+                                          const int D, int32_t* s_pkt,
+                                          int* s_warp, Preds* s_preds,
+                                          int* s_edge) {
+  const Params p = L.p;
+  const int t = threadIdx.x, lane = t & 31;
+  const int T = L.T, N = L.N, W = L.W;
+  const int RS = D * kThreads * kS;     // ints per ring H or E row
+  const int c0 = d * L.C;               // the shard's first local column
+  const int Cd = min(L.C, L.n - c0);    // its columns
+  const int j0 = c0 + t * kS;
+  const int ncol = min(kS, c0 + Cd - j0);  // <= 0: no columns
+  const int t_last = (Cd - 1) / kS;        // owns the shard's last column
+  const int g0 = L.col0 + j0;              // global column of j0
+  const bool pub = d + 1 < D && t == t_last;
+  const unsigned long long wait_ns = tsta::wait_limit_ns(d, T, kS * L.max_in);
+  // this thread's column k of ring slot s's H row: ring0[s*2*RS + k*256]
+  const int32_t* ring0 = L.ring + (size_t)d * kThreads * kS + t;
+  // the strip's read bytes, four a word, for the whole shard
+  uint32_t a4[kS / 4];
+#pragma unroll
+  for (int q = 0; q < kS / 4; ++q)
+    a4[q] = 4 * q < ncol
+                ? __ldg(reinterpret_cast<const uint32_t*>(L.a + j0) + q)
+                : 0u;
+
+  PredRow next{0, 0, false, false};
+  if (t < 32) store_preds(s_preds[0], fetch_preds(L, 0, lane), lane, W);
+  __syncthreads();
+  for (int b = 0; b < L.n_blocks; ++b) {
+    if (d > 0) {
+      const size_t slot = (size_t)(d - 1) * L.n_blocks + b;
+      if (t == 0) tsta::wait_flag(L.flags + slot, wait_ns);
+      __syncthreads();
+      for (int q = t; q < 4 * T; q += kThreads)
+        s_pkt[q] = __ldcg(L.comm + slot * 4 * T + q);
+      __syncthreads();
+    }
+    int32_t* pkt = pub ? L.comm + ((size_t)d * L.n_blocks + b) * 4 * T
+                       : nullptr;
+    const int i_end = min(L.n_nodes, (b + 1) * T);
+    for (int i = b * T; i < i_end; ++i) {
+      const int r = i - b * T;
+      const Preds& P = s_preds[i & 1];
+      const int base = __ldg(L.bases + i);
+      if (t < 32) next = fetch_preds(L, i + 1, lane);
+
+      // The pred reductions of the strip's columns and of the column left
+      // of it (j0 - 1), preds outer so that one pred's loads are in
+      // flight together: first-max H and its index; first-max E
+      // candidate, its index and whether it extends E (ha | ea << 6 |
+      // ex << 12).
+      int hb[kS], eb[kS], pk[kS];
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        hb[k] = kNeg;
+        eb[k] = kNeg;
+        pk[k] = 0;
+      }
+      int hl = kNeg, al = 0;
+      if (ncol > 0) {
+        for (int c = 0; c < P.deg; ++c) {
+          const int s = P.slot[c], idx = P.idx[c];
+          int hp[kS], ep[kS], hq;
+          if (s < 0) {
+            hq = p.o + g0 * p.e;
+#pragma unroll
+            for (int k = 0; k < kS; ++k) {
+              hp[k] = p.o + (g0 + k + 1) * p.e;
+              ep[k] = kNeg;
+            }
+          } else {
+            const int32_t* h = ring0 + (size_t)s * 2 * RS;
+            hq = h[(kS - 1) * kThreads - 1];  // thread t-1's last column
+#pragma unroll
+            for (int k = 0; k < kS; ++k) {
+              hp[k] = h[k * kThreads];
+              ep[k] = h[RS + k * kThreads];
+            }
+          }
+          if (hq > hl) {
+            hl = hq;
+            al = idx;
+          }
+#pragma unroll
+          for (int k = 0; k < kS; ++k) {
+            if (hp[k] > hb[k]) {
+              hb[k] = hp[k];
+              pk[k] = (pk[k] & ~63) | idx;
+            }
+            const int ec = max(ep[k] + p.e, hp[k] + p.o + p.e);
+            if (ec > eb[k]) {
+              eb[k] = ec;
+              pk[k] = (pk[k] & 63) | idx << 6 | (ep[k] + p.e == ec) << 12;
+            }
+          }
+        }
+      }
+      // max over the preds of H(p, j0 - 1) and its first-max index
+      const int hd0 = t > 0 ? hl : (d == 0 ? __ldg(L.fills + i) : s_pkt[r]);
+      const int ad0 =
+          t > 0 ? al : (d == 0 ? __ldg(L.fills + N + i) : s_pkt[T + r]);
+      const int seed = d == 0 ? __ldg(L.fills + 2 * N + i) : s_pkt[2 * T + r];
+
+      // pass 1: strip max of C(k) - k*e
+      int agg = kNeg;
+      int hd = hd0;
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        if (k < ncol) {
+          const int aj = (a4[k / 4] >> (8 * (k % 4))) & 0xff;
+          const int diag = hd + (aj == base ? p.m : p.x);
+          agg = max(agg, max(diag, eb[k]) - (g0 + k) * p.e);
+          hd = hb[k];
+        }
+      }
+      int run = tsta::block_excl_max<kThreads>(agg, seed, s_warp);
+
+      // pass 2: F, H, words, checkpoints, ring rows
+      int32_t* own = L.ring + (size_t)((L.chunk_base + i + 1) % W) * 2 * RS +
+                     (ring0 - L.ring);
+      hd = hd0;
+      int ad = ad0;
+      int fl = 0;  // F(v, j-1)
+      int f0 = 0;
+      uint64_t acc = 0, first = 0;
+      // the next checkpoint column at or after g0
+      int nb = kCkpt ? (g0 / L.cw + 1) * L.cw - 1 : 0;
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        if (k < ncol) {
+          const int jg = g0 + k;
+          const int aj = (a4[k / 4] >> (8 * (k % 4))) & 0xff;
+          const int diag = hd + (aj == base ? p.m : p.x);
+          const int c = max(diag, eb[k]);
+          const int f = p.o + jg * p.e + run;
+          const int h = max(c, f);
+          run = max(run, c - jg * p.e);
+          own[k * kThreads] = h;
+          own[RS + k * kThreads] = eb[k];
+          if (jg == L.n_real - 1) L.scores[i] = h;
+          if constexpr (kCkpt) {
+            if (jg == nb) {
+              const int w = nb / L.cw;
+              if (w < L.nwin) {
+                int32_t* ck = L.ckpt + ((size_t)i * L.nwin + w) * 3;
+                ck[0] = h;
+                ck[1] = run;  // q: the running max including this column
+                ck[2] = f;
+              }
+              nb += L.cw;
+            }
+          }
+          if constexpr (kWords) {
+            const int htype = h == diag ? 0 : (h == eb[k] ? 1 : 2);
+            int w = (htype * 4 + ((pk[k] >> 12) & 1) * 2) | (ad << 4) |
+                    (((pk[k] >> 6) & 63) << 10);
+            if (k == 0) {
+              f0 = f;  // its f_ext needs the neighbour's F(v, j0-1)
+            } else {
+              w |= f == fl + p.e;
+            }
+            acc |= (uint64_t)(uint16_t)w << (16 * (k % 4));
+            if (k % 4 == 3) {
+              if (k == 3) {
+                first = acc;
+              } else {
+                *reinterpret_cast<uint64_t*>(L.words + (size_t)i * L.n + j0 +
+                                             k - 3) = acc;
+              }
+              acc = 0;
+            }
+          }
+          ad = pk[k] & 63;
+          fl = f;
+          hd = hb[k];
+        }
+      }
+      if (pub) {  // shard d+1's fills: this shard's last column
+        pkt[r] = hd;
+        pkt[T + r] = ad;
+        pkt[2 * T + r] = run;
+        pkt[3 * T + r] = fl;
+      }
+      if constexpr (kWords) s_edge[t] = fl;  // F(v, j0 + ncol - 1)
+      if (t < 32) store_preds(s_preds[(i + 1) & 1], next, lane, W);
+      __syncthreads();
+      if constexpr (kWords) {
+        if (ncol > 0) {
+          const int fleft =
+              t > 0 ? s_edge[t - 1]
+                    : (d == 0 ? __ldg(L.fills + 3 * N + i) : s_pkt[3 * T + r]);
+          first |= (uint64_t)(f0 == fleft + p.e);
+          *reinterpret_cast<uint64_t*>(L.words + (size_t)i * L.n + j0) =
+              first;
+        }
+      }
+    }
+    if (pub) tsta::publish(L.flags + (size_t)d * L.n_blocks + b);
+  }
+}
+
+// Dynamic shared memory: the left shard's packet, 4T ints.  Block g runs
+// shard g; with kWalk (a grid narrower than the shards) then g + G, g +
+// 2G, ... in turn.  A separate build: the loop costs the one-shard launch
+// registers and time (on an H100, a one-shard loop, or a second inlined
+// copy of the shard, ran the 50 kbp round 9-15% slower).
+template <int kS, bool kWords, bool kCkpt, bool kWalk>
+__global__ void __launch_bounds__(kThreads) poa_dp_kernel(const Launch L) {
+  extern __shared__ int32_t s_pkt[];
   __shared__ int s_warp[2 * kWarps];
   __shared__ Preds s_preds[2];
   __shared__ int s_edge[kThreads];
-
-  const int t = threadIdx.x;
-  const int S = strip_width(n);
-  const int RS = S * kThreads;
-  const int j0 = t * S;
-  const int jend = min(j0 + S, n);  // jend <= j0: no columns
-  const int g0 = sp.col0 + j0;      // global column of j0
-
-  if (t == 0 && n_nodes > 0) load_preds(s_preds[0], predsT, pmaskT, N,
-                                        max_in, 0, W);
-  __syncthreads();
-
-  for (int i = 0; i < n_nodes; ++i) {
-    const Preds& P = s_preds[i & 1];
-    const int base = __ldg(bases + i);
-    int32_t* own = ring + (size_t)((sp.chunk_base + i + 1) % W) * 2 * RS;
-
-    // max over the preds of H(p, j0 - 1) and its first-max index
-    int hd0 = kNeg, ad0 = 0;
-    if (t == 0) {
-      hd0 = __ldg(fills + i);
-      ad0 = __ldg(fills + N + i);
-    } else if (jend > j0) {
-      const int k = (S - 1) * kThreads + (t - 1);
-      for (int c = 0; c < P.deg; ++c) {
-        const int s = P.slot[c];
-        const int hp =
-            s < 0 ? p.o + g0 * p.e : ring[(size_t)s * 2 * RS + k];
-        if (hp > hd0) {
-          hd0 = hp;
-          ad0 = P.idx[c];
-        }
-      }
-    }
-
-    // pass 1: strip max of C(k) - k*e
-    int agg = kNeg;
-    int hd = hd0;
-    for (int j = j0; j < jend; ++j) {
-      const int k = (j - j0) * kThreads + t;
-      const int jg = sp.col0 + j;
-      const Red r = reduce_preds(P, ring, RS, k, jg, p);
-      const int diag = hd + (__ldg(a + j) == base ? p.m : p.x);
-      agg = max(agg, max(diag, r.eb) - jg * p.e);
-      hd = r.hb;
-    }
-    int run = tsta::block_excl_max<kThreads>(agg, __ldg(fills + 2 * N + i),
-                                             s_warp);
-
-    // pass 2: F, H, words, checkpoints, ring rows
-    hd = hd0;
-    int ad = ad0;
-    int fl = 0;  // F(v, j-1)
-    int f0 = 0;
-    uint64_t acc = 0, first = 0;
-    // the next checkpoint column at or after g0
-    int nb = kCkpt ? (g0 / sp.cw + 1) * sp.cw - 1 : 0;
-    for (int j = j0; j < jend; ++j) {
-      const int k = (j - j0) * kThreads + t;
-      const int jg = sp.col0 + j;
-      const Red r = reduce_preds(P, ring, RS, k, jg, p);
-      const int diag = hd + (__ldg(a + j) == base ? p.m : p.x);
-      const int c = max(diag, r.eb);
-      const int f = p.o + jg * p.e + run;
-      const int h = max(c, f);
-      run = max(run, c - jg * p.e);
-      own[k] = h;
-      own[RS + k] = r.eb;
-      if (jg == n_real - 1) scores[i] = h;
-      if constexpr (kCkpt) {
-        if (jg == nb) {
-          const int w = nb / sp.cw;
-          if (w < sp.nwin) {
-            int32_t* ck = ckpt + ((size_t)i * sp.nwin + w) * 3;
-            ck[0] = h;
-            ck[1] = run;  // q: the running max including this column
-            ck[2] = f;
-          }
-          nb += sp.cw;
-        }
-      }
-      if constexpr (kWords) {
-        const int htype = h == diag ? 0 : (h == r.eb ? 1 : 2);
-        int w = (htype * 4 + r.ex * 2) | (ad << 4) | (r.ea << 10);
-        if (j == j0) {
-          f0 = f;  // its f_ext needs the neighbour's F(v, j0-1)
-        } else {
-          w |= f == fl + p.e;
-        }
-        const int q = (j - j0) & 3;
-        acc |= (uint64_t)(uint16_t)w << (16 * q);
-        if (q == 3) {
-          if (j - j0 == 3) {
-            first = acc;
-          } else {
-            *reinterpret_cast<uint64_t*>(words + (size_t)i * n + j - 3) =
-                acc;
-          }
-          acc = 0;
-        }
-        ad = r.ha;
-        fl = f;
-      }
-      hd = r.hb;
-    }
-    if constexpr (kWords) s_edge[t] = fl;  // F(v, jend - 1)
-    if (t == 0 && i + 1 < n_nodes) {
-      load_preds(s_preds[(i + 1) & 1], predsT, pmaskT, N, max_in, i + 1, W);
-    }
-    __syncthreads();
-    if constexpr (kWords) {
-      if (jend > j0) {
-        const int fleft = t == 0 ? __ldg(fills + 3 * N + i) : s_edge[t - 1];
-        first |= (uint64_t)(f0 == fleft + p.e);
-        *reinterpret_cast<uint64_t*>(words + (size_t)i * n + j0) = first;
-      }
-    }
+  if constexpr (kWalk) {
+    for (int d = blockIdx.x; d < L.D; d += gridDim.x)
+      run_shard<kS, kWords, kCkpt>(L, d, L.D, s_pkt, s_warp, s_preds,
+                                   s_edge);
+  } else {
+    run_shard<kS, kWords, kCkpt>(L, blockIdx.x, gridDim.x, s_pkt, s_warp,
+                                 s_preds, s_edge);
   }
 }
 
+// The kernel of one use, strip width and grid kind, or null for an S it
+// has none of.
+template <bool kWords, bool kCkpt, bool kWalk>
+const void* kernel_for(int S) {
+  switch (S) {
+    case 8: return (const void*)poa_dp_kernel<8, kWords, kCkpt, kWalk>;
+    case 16: return (const void*)poa_dp_kernel<16, kWords, kCkpt, kWalk>;
+    case 32: return (const void*)poa_dp_kernel<32, kWords, kCkpt, kWalk>;
+    default: return nullptr;
+  }
+}
+
+// The kernel of a launch: with words (window remat, single call), with
+// checkpoints (forward chunk) or neither; walking its shards or not.
+const void* kernel_of(bool words, bool ckpt, bool walk, int S) {
+  if (walk)
+    return words  ? kernel_for<true, false, true>(S)
+           : ckpt ? kernel_for<false, true, true>(S)
+                  : kernel_for<false, false, true>(S);
+  return words  ? kernel_for<true, false, false>(S)
+         : ckpt ? kernel_for<false, true, false>(S)
+                : kernel_for<false, false, false>(S);
+}
+
 }  // namespace
+
+// The plan for an n-column launch: D shards of C columns (the last one
+// n - (D-1)*C), S columns per thread, T nodes per packet.  The wrapper's
+// twin is msa_poa.poa_plan.
+extern "C" void tsta_poa_dp_layout(int n, int* D, int* C, int* S, int* T) {
+  const int span = kMaxShards * kThreads;
+  const int s = pow2_at_least((n + span - 1) / span);
+  *S = s > kMaxS ? kMaxS : s;
+  *C = *S * kThreads;
+  *D = (n + *C - 1) / *C;
+  *T = kT;
+}
+
+// The most blocks of S columns a thread with T-node packets the current
+// card holds resident at once, the least over the kernel's three uses,
+// each in both builds (for the wrapper's default grid and its error
+// message; the launch itself is refused with
+// cudaErrorCooperativeLaunchTooLarge); a negative value is minus a CUDA
+// error.
+extern "C" int tsta_poa_dp_max_blocks(int T, int S) {
+  if (!kernel_of(false, false, false, S))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, coop = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  for (int k = 0; k < 6; ++k) {
+    int per_sm = 0;
+    const void* fn = kernel_of(k % 3 == 0, k % 3 == 1, k >= 3, S);
+    const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fn, kThreads, sizeof(int32_t) * 4 * (size_t)T);
+    if (rc != cudaSuccess) return -static_cast<int>(rc);
+    if (k == 0 || per_sm * sms < limit) limit = per_sm * sms;
+  }
+  return coop ? limit : 0;
+}
 
 // predsT, pmaskT: (max_in, N) int32 buffer row ids (0 = virtual) and
 // validity; bases: (N,) int32; fills: (4, N) int32; a: (n,) uint8, the
 // read's columns [col0, col0 + n), n % 4 == 0; scores: (N,) int32, rows <
 // n_nodes written where the launch holds column n_real - 1; ring: (W, 2,
-// strip_width(n) * kThreads) int32, read and written in place.  words:
-// (N, n) uint16 or null; ckpt: (N, nwin, 3) int32 or null (cw > 0, nwin
-// windows of cw columns).  words and ckpt are not both given.  Returns
-// cudaGetLastError() after the launch.
+// D * 256 * S) int32, read and written in place.  words: (N, n) uint16 or
+// null; ckpt: (N, nwin, 3) int32 or null (cw > 0, nwin windows of cw
+// columns).  words and ckpt are not both given.  D shards of C columns
+// (C a multiple of 4, D = ceil(n / C)) on G blocks (1 <= G <= D), S
+// columns a thread (8, 16 or 32; C <= 256 * S), T nodes per packet
+// (1..256); comm: (D, ceil(n_nodes / T), 4T) int32 and flags: (D,
+// ceil(n_nodes / T)) int32, zero, both null for D = 1 or no nodes.
+// Returns cudaGetLastError() after the launch (cooperative for G >= 2),
+// or the launch's error: cudaErrorCooperativeLaunchTooLarge, without
+// launching, when G blocks cannot be resident together.
 extern "C" int tsta_poa_dp(const void* predsT, const void* pmaskT,
                            const void* bases, const void* fills,
                            const void* a, int N, int n_nodes, int n,
                            int n_real, int W, int max_in, int M, int X,
                            int E, int O, int chunk_base, int col0, int nwin,
                            int cw, void* words, void* scores, void* ring,
-                           void* ckpt, void* stream) {
-  if (max_in > kMaxIn || (words && ckpt) || (ckpt && (nwin < 1 || cw < 1)))
+                           void* ckpt, int D, int C, int S, int T, int G,
+                           void* comm, void* flags, void* stream) {
+  const void* fn = kernel_of(words, ckpt, G < D, S);
+  if (!fn || max_in > kMaxIn || (words && ckpt) ||
+      (ckpt && (nwin < 1 || cw < 1)) || T < 1 || T > kTMax || C % 4 ||
+      C > S * kThreads || D < 1 || (D - 1) * C >= n || D * C < n || G < 1 ||
+      G > D || (D > 1 && n_nodes > 0 && !(comm && flags)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{M, X, E, O};
-  const Span sp{chunk_base, col0, nwin, cw};
-  auto* pt = static_cast<const int32_t*>(predsT);
-  auto* pm = static_cast<const int32_t*>(pmaskT);
-  auto* bs = static_cast<const int32_t*>(bases);
-  auto* fl = static_cast<const int32_t*>(fills);
-  auto* rd = static_cast<const uint8_t*>(a);
-  auto* wd = static_cast<uint16_t*>(words);
-  auto* sc = static_cast<int32_t*>(scores);
-  auto* rg = static_cast<int32_t*>(ring);
-  auto* ck = static_cast<int32_t*>(ckpt);
+  const Launch L{static_cast<const int32_t*>(predsT),
+                 static_cast<const int32_t*>(pmaskT),
+                 static_cast<const int32_t*>(bases),
+                 static_cast<const int32_t*>(fills),
+                 static_cast<const uint8_t*>(a),
+                 static_cast<uint16_t*>(words),
+                 static_cast<int32_t*>(scores),
+                 static_cast<int32_t*>(ring),
+                 static_cast<int32_t*>(ckpt),
+                 static_cast<int32_t*>(comm),
+                 static_cast<int32_t*>(flags),
+                 N, n_nodes, n, n_real, W, max_in,
+                 chunk_base, col0, nwin, cw,
+                 D, C, S, T, (n_nodes + T - 1) / T,
+                 Params{M, X, E, O}};
+  const size_t smem = sizeof(int32_t) * 4 * (size_t)T;
   auto st = static_cast<cudaStream_t>(stream);
-  if (words) {
-    poa_dp_kernel<true, false><<<1, kThreads, 0, st>>>(
-        pt, pm, bs, fl, rd, N, n_nodes, n, n_real, W, max_in, p, sp, wd, sc,
-        rg, ck);
-  } else if (ckpt) {
-    poa_dp_kernel<false, true><<<1, kThreads, 0, st>>>(
-        pt, pm, bs, fl, rd, N, n_nodes, n, n_real, W, max_in, p, sp, wd, sc,
-        rg, ck);
-  } else {
-    poa_dp_kernel<false, false><<<1, kThreads, 0, st>>>(
-        pt, pm, bs, fl, rd, N, n_nodes, n, n_real, W, max_in, p, sp, wd, sc,
-        rg, ck);
+  void* args[] = {(void*)&L};
+  const cudaError_t rc =
+      G == 1 ? cudaLaunchKernel(fn, dim3(1), dim3(kThreads), args, smem, st)
+             : cudaLaunchCooperativeKernel(fn, dim3(G), dim3(kThreads), args,
+                                           smem, st);
+  if (rc != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch would report it
+    return static_cast<int>(rc);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,7 @@ from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.io import encode_dna, read_first_record
 from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.ops import psa_pallas, psa_scan, traceback
+from tsta_tpu_torch.utils import profiling
 
 KERNELS = ("auto", "plain", "cuda")
 
@@ -70,16 +71,18 @@ def align_pair(seq1: bytes, seq2: bytes, params: AlignParams = AlignParams(),
     a = encode_dna(seq1)
     b = encode_dna(seq2)
     kernels = kernel != "plain" and psa_pallas.in_round1_domain(params)
-    if kernels and traced:
-        score, corner, aln = psa_pallas.psa_align_traced_device(a, b, params,
-                                                                device=dev)
-        return PsaOutput(score=score, corner=corner, swapped=swapped,
-                         a_row=aln.a_row, b_row=aln.b_row)
-    if kernels:
-        sc, co = psa_pallas.psa_align_batch([(a, b)], params, device=dev)
-        return PsaOutput(score=int(sc[0]), corner=int(co[0]),
-                         swapped=swapped)
-    res = psa_scan.psa_align(a, b, params, traced=traced, device=dev)
+    with profiling.span("psa traced" if traced else "psa score"):
+        if kernels and traced:
+            score, corner, aln = psa_pallas.psa_align_traced_device(
+                a, b, params, device=dev)
+            return PsaOutput(score=score, corner=corner, swapped=swapped,
+                             a_row=aln.a_row, b_row=aln.b_row)
+        if kernels:
+            sc, co = psa_pallas.psa_align_batch([(a, b)], params,
+                                                device=dev)
+            return PsaOutput(score=int(sc[0]), corner=int(co[0]),
+                             swapped=swapped)
+        res = psa_scan.psa_align(a, b, params, traced=traced, device=dev)
     out = PsaOutput(score=res.score, corner=res.last, swapped=swapped)
     if traced:
         aln = traceback.decode_pair(res.back.cpu().numpy(),

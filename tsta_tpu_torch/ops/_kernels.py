@@ -44,9 +44,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
 # psa_walk_pair2 the walk of two pairs per thread (Q2-12) and
 # psa_walk_bounded the walk inside one such chunk; poa_dp and
-# poa_walk are the MSA round DP and its walk on a single-call round;
-# poa_dp_chunk and poa_dp_window are the POA DP kernel's forward chunk and
-# window remat in a chunked round, and poa_walk_bounded its walk inside one
+# poa_walk are the MSA round DP (its columns sharded over co-resident
+# blocks) and its walk on a single-call round; poa_dp_chunk and
+# poa_dp_window are the POA DP kernel's forward chunk and window remat in
+# a chunked round, and poa_walk_bounded its walk inside one
 # (chunk, window) cell; psa_ring is one long pair's DP with its columns
 # sharded over co-resident blocks (Q2-10).
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
@@ -55,12 +56,17 @@ KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "poa_dp_window", "poa_walk_bounded", "psa_ring")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
-POA_THREADS = 1024   # poa_dp.cu's block: one column strip per thread
+# poa_dp.cu's plan (tsta_poa_dp_layout): threads of a shard's block, the
+# fewest and most columns a thread, the most shards before S grows, nodes
+# a packet
+SHARD_THREADS, SHARD_MIN_S, SHARD_MAX_S, SHARD_MAX, SHARD_T = (
+    256, 8, 32, 132, 16)
 COOP_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge (CUDA >= 10.1)
 launches = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
 _LIB = None
+_POA_LIMITS: dict = {}   # (card, T, S) -> poa_dp's co-resident limit
 build_info: dict = {}
 
 
@@ -179,7 +185,12 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_walk_pair2.restype = ci
             lib.tsta_psa_walk_pair2.argtypes = lib.tsta_psa_walk.argtypes
             lib.tsta_poa_dp.restype = ci
-            lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 5
+            lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 4 + [
+                ci] * 5 + [vp] * 3
+            lib.tsta_poa_dp_layout.restype = None
+            lib.tsta_poa_dp_layout.argtypes = [ci] + [ctypes.POINTER(ci)] * 4
+            lib.tsta_poa_dp_max_blocks.restype = ci
+            lib.tsta_poa_dp_max_blocks.argtypes = [ci, ci]
             lib.tsta_poa_walk.restype = ci
             lib.tsta_poa_walk.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp]
             lib.tsta_poa_walk_bounded.restype = ci
@@ -512,31 +523,92 @@ def psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,
     launches["psa_walk_bounded"] += 1
 
 
-def poa_ring_width(n: int) -> int:
-    """Ints per H or E row of ``poa_dp.cu``'s ring at ``n`` columns: the
-    strip width (ceil(n / 1024) rounded up to 4) times 1024."""
-    w = -(-n // POA_THREADS)
-    return ((w + 3) & ~3) * POA_THREADS
+def poa_plan(n: int, D: int | None = None, T: int | None = None) -> tuple:
+    """(D, C, S, T): how ``csrc/poa_dp.cu`` cuts an n-column launch (its
+    ``tsta_poa_dp_layout``).  S columns per thread, a power of two (the
+    kernel's strip lives in registers, one build per S): n over
+    SHARD_MAX shards of SHARD_THREADS threads, at least SHARD_MIN_S, at
+    most SHARD_MAX_S; C = SHARD_THREADS * S columns per shard; D = ceil(n
+    / C) shards, the last one n - (D - 1) * C wide (past SHARD_MAX
+    shards only at S = SHARD_MAX_S, where the card's blocks walk several
+    each); T = SHARD_T nodes per packet, so the pipeline's fill is (D -
+    1) * T nodes.  ``D`` forces the shard count (C = n / D rounded up to
+    4, which must give D shards; S = C / SHARD_THREADS rounded up to a
+    power of two, at least SHARD_MIN_S) and ``T`` the packet height: the
+    kernel's overrides, for tests and sweeps."""
+    def pow2(x):
+        s = SHARD_MIN_S
+        while s < x:
+            s *= 2
+        return s
+    if D is None:
+        S = min(SHARD_MAX_S, pow2(-(-n // (SHARD_MAX * SHARD_THREADS))))
+        C = SHARD_THREADS * S
+    else:
+        C = (-(-n // max(D, 1)) + 3) // 4 * 4
+        S = pow2(-(-C // SHARD_THREADS))
+        if D < 1 or -(-n // C) != D or S > SHARD_MAX_S:
+            raise ValueError("poa_plan: %d columns do not make %d shards of "
+                             "a multiple of 4 and at most %d columns a "
+                             "thread" % (n, D, SHARD_MAX_S))
+    return -(-n // C), C, S, SHARD_T if T is None else T
+
+
+def ring_width(n: int, D: int | None = None) -> int:
+    """Ints per H or E row of an n-column launch's ring: D shards of
+    SHARD_THREADS * S (:func:`poa_plan`, ``D`` as there)."""
+    D, _, S, _ = poa_plan(n, D)
+    return D * SHARD_THREADS * S
+
+
+def poa_dp_layout(n: int) -> tuple:
+    """(D, C, S, T): the shards, columns per shard, columns per thread and
+    nodes per packet ``poa_dp.cu`` plans for an n-column launch, read from
+    the built library (:func:`poa_plan` is its twin)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    _lib().tsta_poa_dp_layout(n, *map(ctypes.byref, out))
+    return tuple(v.value for v in out)
+
+
+def poa_dp_max_blocks(T: int, S: int, dev) -> int:
+    """The most ``poa_dp`` blocks of S columns a thread with T-node
+    packets the card ``dev`` holds resident at once (0 without
+    cooperative launch), queried once per card, T and S."""
+    with torch.cuda.device(dev):
+        key = (torch.cuda.current_device(), T, S)
+        if key not in _POA_LIMITS:
+            limit = _lib().tsta_poa_dp_max_blocks(T, S)
+            if limit < 0:
+                _raise_on(-limit, "poa_dp occupancy query")
+            _POA_LIMITS[key] = limit
+    return _POA_LIMITS[key]
 
 
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
-           words, scores, *, ring=None, chunk_base=0, col0=0,
-           ckpt=None) -> None:
-    """Launch the POA round DP (one block).  ``predsT``, ``pmaskT``:
-    (max_in, N) int32 pred table (buffer row ids, 0 = the virtual row)
-    and validity; ``bases``: (N,) int32; ``fills``: (4, N) int32
-    left-boundary seeds; ``a``: (n,) uint8, the read's columns [col0,
-    col0 + n); ``W``: ring slots.  Writes rows < ``n_nodes`` of ``scores``
-    ((N,) int32) and of ``words`` ((N, n) int16, or None for none).
+           words, scores, *, ring=None, chunk_base=0, col0=0, ckpt=None,
+           D=None, T=None, G=None) -> tuple:
+    """Launch the POA round DP: D shards of C columns on G co-resident
+    blocks (one cooperative launch for G >= 2), by default one shard a
+    block up to the card's resident limit and past it several a block,
+    walked in turn.  ``predsT``, ``pmaskT``: (max_in, N) int32 pred table
+    (buffer row ids, 0 = the virtual row) and validity; ``bases``: (N,)
+    int32; ``fills``: (4, N) int32 left-boundary seeds; ``a``: (n,)
+    uint8, the read's columns [col0, col0 + n); ``W``: ring slots.
+    Writes rows < ``n_nodes`` of ``scores`` ((N,) int32) and of
+    ``words`` ((N, n) int16, or None for none).
 
     Three uses, each with its launch counter: ``ring`` None is the single
     call (``poa_dp``, a private ring, words required); with ``ring``
-    ((W, 2, poa_ring_width(n)) int32, read and written in place) the rows
+    ((W, 2, ring_width(n, D)) int32, read and written in place) the rows
     are those of global rows ``chunk_base + i`` of a chunked round,
     either its forward chunk (``poa_dp_chunk``: no words, and ``ckpt``
     ((N, nwin, 3) int32) gets the H, q and F checkpoints at the last
-    column of each of nwin windows of n / nwin columns) or a window
-    remat (``poa_dp_window``: words, no checkpoints)."""
+    column of each of nwin windows of n / nwin columns) or a window remat
+    (``poa_dp_window``: words, no checkpoints).  D, C, S and T are
+    :func:`poa_plan`'s; ``D`` and ``T`` (1-256) override it and ``G``
+    (1..D) the grid, for tests and the smoke's sweeps.  Raises
+    :class:`KernelError`, without launching, when the card cannot hold G
+    blocks resident together.  Returns the (D, C, S, T, G) it ran."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("poa_dp kernel needs CUDA tensors, got %s" % dev)
@@ -550,6 +622,9 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     _check(scores, "scores", torch.int32, (N,), dev)
     if words is not None:
         _check(words, "words", torch.int16, (N, n), dev)
+    if a.data_ptr() % 4:
+        raise ValueError("poa_dp reads a four bytes at a time: a must be "
+                         "4-byte aligned")
     if max_in > POA_MAX_IN:
         raise ValueError("poa_dp packs pred indices into 6 bits: max_in %d "
                          "> %d" % (max_in, POA_MAX_IN))
@@ -558,15 +633,22 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
         raise ValueError("poa_dp: bad sizes n=%d n_real=%d n_nodes=%d N=%d "
                          "W=%d chunk_base=%d col0=%d"
                          % (n, n_real, n_nodes, N, W, chunk_base, col0))
+    width = ring_width(n, D)   # the layout of the plan or of a forced D
+    D, C, S, T = poa_plan(n, D, T)
+    if not 1 <= T <= 256:
+        raise ValueError("poa_dp: T %d outside 1..256" % T)
+    if G is None:
+        G = max(1, min(D, poa_dp_max_blocks(T, S, dev)))
+    elif not 1 <= G <= D:
+        raise ValueError("poa_dp: G %d blocks outside 1..%d" % (G, D))
     nwin = cw = 0
     if ring is None:
         if words is None or ckpt is not None or chunk_base or col0:
             raise ValueError("poa_dp: a single call takes words only")
         kind = "poa_dp"
-        ring = torch.empty((W, 2, poa_ring_width(n)), dtype=torch.int32,
-                           device=dev)
+        ring = torch.empty((W, 2, width), dtype=torch.int32, device=dev)
     else:
-        _check(ring, "ring", torch.int32, (W, 2, poa_ring_width(n)), dev)
+        _check(ring, "ring", torch.int32, (W, 2, width), dev)
         if words is not None and ckpt is not None:
             raise ValueError("poa_dp: words and ckpt are not both given")
         kind = "poa_dp_window" if words is not None else "poa_dp_chunk"
@@ -576,16 +658,30 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
         if nwin < 1 or n % nwin:
             raise ValueError("poa_dp: %d columns in %d windows" % (n, nwin))
         cw = n // nwin
+    comm = flags = None
+    if D > 1:
+        nb = -(-n_nodes // T)
+        comm = torch.empty((D, nb, 4 * T), dtype=torch.int32, device=dev)
+        flags = torch.zeros((D, nb), dtype=torch.int32, device=dev)
     m_, x_, e_, o_ = params
-    rc = _lib().tsta_poa_dp(
-        predsT.data_ptr(), pmaskT.data_ptr(), bases.data_ptr(),
-        fills.data_ptr(), a.data_ptr(), N, n_nodes, n, n_real, W, max_in,
-        m_, x_, e_, o_, chunk_base, col0, nwin, cw,
-        None if words is None else words.data_ptr(), scores.data_ptr(),
-        ring.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
-        _stream(dev))
+    with torch.cuda.device(dev):
+        rc = _lib().tsta_poa_dp(
+            predsT.data_ptr(), pmaskT.data_ptr(), bases.data_ptr(),
+            fills.data_ptr(), a.data_ptr(), N, n_nodes, n, n_real, W, max_in,
+            m_, x_, e_, o_, chunk_base, col0, nwin, cw,
+            None if words is None else words.data_ptr(), scores.data_ptr(),
+            ring.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
+            D, C, S, T, G, None if comm is None else comm.data_ptr(),
+            None if flags is None else flags.data_ptr(), _stream(dev))
+    if rc == COOP_TOO_LARGE:
+        raise KernelError(
+            "%s: %d blocks of %d shards are not co-resident: %s holds at "
+            "most %d at S = %d columns a thread, T = %d nodes (cooperative "
+            "launch)" % (kind, G, D, torch.cuda.get_device_name(dev),
+                         poa_dp_max_blocks(T, S, dev), S, T))
     _raise_on(rc, kind)
     launches[kind] += 1
+    return D, C, S, T, G
 
 
 def poa_walk(words, preds, best, n_real, align) -> None:

@@ -70,7 +70,7 @@ def _warn_ambiguity(seqs) -> None:
 @torch.no_grad()
 def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
                    W, *, ring=None, chunk_base=0, col0=0, ckpt=None,
-                   with_words=True):
+                   with_words=True, cw=None):
     """One round's DP in PyTorch, one topo row at a time: the plain
     version of ``csrc/poa_dp.cu`` in all three of its uses, and the
     counterpart of the JAX package's ``_round_dp``, with the kernel's
@@ -85,7 +85,8 @@ def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
     else the kernel's (W, 2, ring width) int32 ring
     (:func:`msa_poa.ring_positions`), read and written in place.
     ``ckpt`` ((N, nwin, 3) int32 or None) gets H, the running max q and F
-    at the last column of each of nwin windows of n / nwin columns.
+    at global column (w + 1) * cw - 1 of each window w < nwin the launch
+    holds, ``cw`` by default n / nwin (a forward chunk's windows).
     Returns ``(words, scores)``: per cell ``(h_type*4 + e_ext*2 + f_ext)
     | h_pred << 4 | e_pred << (4 + b)``, an (N, n) int16 plane with b = 6
     when max_in <= 64, else int32 with b = 13 (None without
@@ -124,7 +125,7 @@ def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
     sink = n_real - 1 - col0
     if ckpt is not None:
         nwin = ckpt.shape[1]
-        cw = n // nwin
+        cw = n // nwin if cw is None else cw
         ck_w = [w for w in range(nwin) if 0 <= (w + 1) * cw - 1 - col0 < n]
         ck_j = torch.tensor([(w + 1) * cw - 1 - col0 for w in ck_w],
                             dtype=torch.long, device=dev)

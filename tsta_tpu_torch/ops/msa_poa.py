@@ -37,8 +37,12 @@ import numpy as np
 import torch
 
 from tsta_tpu_torch.ops import _kernels
+# poa_dp.cu's plan and ring width, from n alone (re-exported)
+from tsta_tpu_torch.ops._kernels import (SHARD_MAX, SHARD_THREADS,  # noqa
+                                         poa_plan, ring_width)
 from tsta_tpu_torch.native.build import load_poa
 from tsta_tpu_torch.ops.psa_scan import NEG, as_params, bucket
+from tsta_tpu_torch.utils import profiling
 
 LANES = 128
 MAX_IN = _kernels.POA_MAX_IN   # the 16-bit words' 6-bit pred fields
@@ -201,31 +205,39 @@ def prep_round(g, seq: bytes, params, budget: int, cap: bool = True):
     return prep, n, n_real, a, NC, NWIN
 
 
-def ring_positions(n: int, dev) -> torch.Tensor:
+def ring_positions(n: int, dev, D: int | None = None) -> torch.Tensor:
     """(n,) int64: where ``poa_dp.cu``'s ring keeps column j of an
-    n-column launch in each H or E row (column t*S + k at k*1024 + t, S
-    the strip width)."""
-    S = _kernels.poa_ring_width(n) // _kernels.POA_THREADS
+    n-column launch in each H or E row: column d*C + t*S + k (shard d,
+    thread t) at d*SHARD_THREADS*S + k*SHARD_THREADS + t, so a warp's
+    accesses coalesce (:func:`poa_plan`, ``D`` as there)."""
+    _, C, S, _ = poa_plan(n, D)
     j = torch.arange(n, device=dev)
-    return (j % S) * _kernels.POA_THREADS + j // S
+    r = j % C
+    return (j // C) * (SHARD_THREADS * S) + (r % S) * SHARD_THREADS + r // S
 
 
-def new_ring(W: int, n: int, dev) -> torch.Tensor:
+def new_ring(W: int, n: int, dev, D: int | None = None) -> torch.Tensor:
     """A zeroed (W, 2, ring width) int32 ring for an n-column launch."""
-    return torch.zeros((W, 2, _kernels.poa_ring_width(n)),
-                       dtype=torch.int32, device=dev)
+    return torch.zeros((W, 2, ring_width(n, D)), dtype=torch.int32,
+                       device=dev)
 
 
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
-           ring=None, chunk_base=0, col0=0, ckpt=None, with_words=True):
+           ring=None, chunk_base=0, col0=0, ckpt=None, with_words=True,
+           D=None, T=None, G=None):
     """The round DP over rows < ``n_nodes``: returns ``(words, scores)``,
     words (N, n) int16 (rows >= n_nodes zero; None without
     ``with_words``) and scores (N,) int32 (NEG past n_nodes).  The other
     arguments are :func:`msa_native.round_dp_plain`'s: without ``ring``
     the single call, with it a chunked round's forward chunk (no words,
     ``ckpt``) or window remat (words).  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/poa_dp.cu`` or raise."""
+    version; CUDA tensors launch ``csrc/poa_dp.cu`` (:func:`poa_plan`'s
+    D shards on co-resident blocks; ``D`` and ``T`` override the plan, a
+    ring is then laid out for the forced D, and ``G`` the grid) or
+    raise."""
     if a.device.type == "cpu":
+        if D is not None or T is not None or G is not None:
+            raise ValueError("poa_dp: D, T and G are the kernel's overrides")
         from tsta_tpu_torch.ops.msa_native import round_dp_plain
         return round_dp_plain(predsT, pmaskT, bases, fills, a, n_real,
                               n_nodes, params, W, ring=ring,
@@ -239,7 +251,8 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
     scores = torch.full((N,), NEG, dtype=torch.int32, device=a.device)
     _kernels.poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes,
                     as_params(params), W, words, scores, ring=ring,
-                    chunk_base=chunk_base, col0=col0, ckpt=ckpt)
+                    chunk_base=chunk_base, col0=col0, ckpt=ckpt, D=D, T=T,
+                    G=G)
     if words is not None:
         words[n_nodes:].zero_()
     return words, scores
@@ -451,8 +464,9 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
                          % (max_in, WIDE_MAX_IN))
     if NC is not None:
         from tsta_tpu_torch.ops import msa_chunked
-        packed = msa_chunked.round_chunked(g, prep, a, n_real, NC, NWIN,
-                                           params, dev, use_kernel, clock)
+        with profiling.span("msa round chunked"):
+            packed = msa_chunked.round_chunked(g, prep, a, n_real, NC, NWIN,
+                                               params, dev, use_kernel, clock)
         if clock:
             clock.mark("walk1")
         return packed, order, wide
@@ -467,14 +481,15 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
     mask = put(sink_mask(g, order, N))
     if clock:
         clock.mark("dp0")
-    dp = poa_dp if use_kernel else round_dp_plain
-    words, scores = dp(*tables, n_real, len(order), params, W)
-    if clock:
-        clock.mark("dp1")
-    best = best_sink(scores, mask)
-    walk = poa_walk if use_kernel else walk_plain
-    align = walk(words, preds_d, best, n_real)
-    packed = pack_round(scores, align, best)
+    with profiling.span("msa round"):
+        dp = poa_dp if use_kernel else round_dp_plain
+        words, scores = dp(*tables, n_real, len(order), params, W)
+        if clock:
+            clock.mark("dp1")
+        best = best_sink(scores, mask)
+        walk = poa_walk if use_kernel else walk_plain
+        align = walk(words, preds_d, best, n_real)
+        packed = pack_round(scores, align, best)
     if clock:
         clock.mark("walk1")
     return packed, order, wide
