@@ -12,9 +12,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build: the kernels of ``tsta_tpu_torch/csrc`` compiled with nvcc for
    sm_90a into the ignored ``build/`` directory;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   exact integer equality (DP score-only on a mixed 100-3,000 bp batch and
-   a 40 kbp pair; DP traced on 4 pairs of 2-4 kbp, every cell code; the
-   walk on that plane, moves and counts);
+   exact integer equality (DP score-only, K1, on a mixed 100-3,000 bp
+   batch and a 40 kbp pair; the traced DP, ``psa_dp_traced.cu``, on 4
+   pairs of 2-4 kbp, every cell code; the walk on that plane, moves and
+   counts);
 4. main path: ``tsta-torch psa`` on the reference's 10,000 x 10,000 bp
    example pair (recovered from ``tests/golden/example_big``), traced and
    score-only, with the launch counters reset before and read after; the
@@ -25,7 +26,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
 6. timings: kernel and plain version on the card at the main path's
    shapes (CUDA events), and every output of those runs (scores, corners,
    each plane byte, walk words and counts) exactly equal; the kernels
-   record's errors are these;
+   record's errors are these; then ``psa_traced_plan``: the traced DP's
+   plan at 32 x 10 kbp and 1 x 10 kbp (``psa_diff.traced_plan``, equal to
+   the kernel's layout) and its sweep, the group at the D of each plan
+   with the least W 4 or 8 and 1 or 2 blocks an SM, every output equal
+   to the plan's run;
 7. POA kernels: the round DP and the walk against their plain versions
    on the card on seeded grown graphs (multi-pred nodes), every real
    word, score and aligned row equal; the DP also at forced D = 2, 3 and
@@ -95,16 +100,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
     its walk from the state (c)'s walk entered it with, held to the plain
     versions in every output, which give the kernels record's plain ms;
     the chunk DP's plan (D shards of C columns, W per thread, T rows per
-    packet: ``psa_chunked.chunk_plan``, equal to the kernel's) and the T
-    sweep, the same chunk at T = 16 to 256, every output equal;
+    packet: ``psa_chunked.chunk_plan``, equal to the kernel's), its
+    median over PR 10's 108.78 ms, and the T sweep, the same chunk at T =
+    16 to 256, every output equal;
 16. edit scoring (M = 0, X = -1, E = -1, O = 0) on the round-1 kernels,
     the launch counters and the count of plain calls on the card reset
     before each path and read after it: (a) ``tsta-torch psa`` on the 10
     kbp example, traced and ``--notrace``, equal in bytes to ``--kernel
     plain`` on the card, the rows re-scoring to the corner, through the
-    DP (Q2-13), the walk (Q2-16) and, ``--notrace``, K1, then the DP and
-    the walk against their plain versions at that shape (every plane
-    byte, the moves); (b)
+    traced DP (Q2-13), the walk (Q2-16) and, ``--notrace``, K1, then the
+    DP and the walk against their plain versions at that shape (every
+    plane byte, the moves), with the DP's plan and sweep as in phase 6;
+    (b)
     ``psa_pallas.psa_align_batch`` on phase 5's 128 x 10,240 bp pairs
     (Q2-14, K1) against the plain version; (c) 4,096 seeded pairs of
     150-2,000 bp with ~10% edits through it (Q2-15, the short-pair kernel)
@@ -155,7 +162,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
     launches (CUDA events), GCUPS, bound, peak device memory; (c) the
     same under edit scoring, equal to phase 16's K1 pass; (d) D = 16 and
     66 at full width, equal to K1; (e) one shard past the card's resident
-    limit raises ``KernelError`` without launching.
+    limit raises ``KernelError`` without launching;
+20. a traced mid-length pair: reads 0 and 1 of the 200 kbp set cut to
+    100,000 bp through ``tsta-torch psa --json``, whose plane the card
+    holds, so it runs unchunked on the traced DP at its plan's 98 shards
+    and K3, the launch counters and the plain calls on the card reset
+    before and read after: wall, maxsorce, plan, peak device memory;
+    score and corner equal to K1's, the rows re-scoring to the corner, and
+    the output bytes equal to the chunked route's
+    (``psa_align_traced_chunked`` at 8,192 rows a chunk).
 
 The last three lines are the kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
@@ -207,6 +222,14 @@ CELLS_PER_S16X2 = 2
 D57 = [(57, -1, -1, 0), (2, -57, -2, -4)]   # the int16 gate's edge sets
 OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
 CHUNK_T_SWEEP = (16, 32, 64, 128, 256)   # packet heights of the chunk DP's sweep
+# the chunk DP's 65,536 x 200,064 launch in PR 10 (NVIDIA H100 80GB HBM3,
+# 700 W), against which phase 15 prints its own
+PR10_CHUNK_MS = 108.78
+# phase 20's traced mid-length pair: bp of each read, and the rows a chunk
+# of the chunked route it is held to
+TRACED_MID_BP, TRACED_MID_MC = 100_000, 8192
+# the traced DP's plan sweep: the least columns a thread, blocks an SM
+TRACED_MIN_W_SWEEP, TRACED_PER_SM_SWEEP = (4, 8), (1, 2)
 # columns a thread and nodes a packet of the POA DP's plan sweep
 POA_S_SWEEP, POA_T_SWEEP = (8, 16, 32), (16, 32, 64)
 # phase 7's forced shards (D, T, G) on its 2,048-column rounds: G blocks
@@ -565,10 +588,12 @@ def main() -> int:
                                    False)
         if group is tpairs:   # phase 18 holds the two-pair walk to it
             walk_plain = (pw, pcnt, wpms)
+        plan, sweep = traced_sweep(a, b, nm, p, (ks, kc, plane))
         times["psa_dp_traced " + label] = {
             "shape": label + " traced", "ms": ms, "plain_ms": pms,
             "gcups": cells / ms / 1e6, "plain_gcups": cells / pms / 1e6,
-            "max_abs_err": dp_err,
+            "max_abs_err": max(dp_err, sweep["max_abs_err"]),
+            "plan": plan, "sweep": sweep,
             **bound(nbytes(a, b, nm, ks, kc, plane),
                     (OPS_PSA_CELL + OPS_PSA_CODE) * plane.numel())}
         steps = int(kcnt.sum())   # one plane byte read per move
@@ -579,6 +604,10 @@ def main() -> int:
         del a, b, nm, plane, ks, kc, ps, pc, kw, kcnt, pw, pcnt
     emit({"phase": "timings", "times": times, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    emit({"phase": "psa_traced_plan", "smi": smi_line, **{
+        label: {k: times["psa_dp_traced " + label][k]
+                for k in ("ms", "plan", "sweep")}
+        for label in ("32 x 10 kbp", "1 x 10 kbp")}})
     bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
     if bad:
         raise AssertionError("kernel differs from its plain version at the "
@@ -601,6 +630,7 @@ def main() -> int:
     ring_launches, ring_times = ring_phases(dev, smi_line, k1,
                                             edit_times["k1_200k"])
     launches.update(ring_launches)
+    traced_100k_phase(dev, smi_line)
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -608,7 +638,8 @@ def main() -> int:
     entries = [
         ("psa_dp_score", src % "psa_dp.cu", "tsta_tpu/ops/psa_diff.py:309",
          times["psa_dp_score"]),
-        ("psa_dp_traced", src % "psa_dp.cu", "tsta_tpu/ops/psa_diff.py:309",
+        ("psa_dp_traced", src % "psa_dp_traced.cu",
+         "tsta_tpu/ops/psa_diff.py:309",
          times["psa_dp_traced 32 x 10 kbp"]),
         ("psa_walk", src % "psa_walk.cu", "tsta_tpu/ops/traceback.py:614",
          times["psa_walk 32 x 10 kbp"]),
@@ -622,12 +653,13 @@ def main() -> int:
          chunk_times["poa_dp_window"]),
         ("poa_walk_bounded", src % "poa_walk_bounded.cu",
          "tsta_tpu/ops/msa_pallas.py:775", chunk_times["poa_walk_bounded"]),
-        ("psa_dp_chunk", src % "psa_dp_chunk.cu",
+        ("psa_dp_chunk", src % "psa_dp_traced.cu",
          "tsta_tpu/ops/psa_pallas.py:585",
          psa_times["psa_dp_chunk"]),
         ("psa_walk_bounded", src % "psa_walk_bounded.cu",
          "tsta_tpu/ops/traceback.py:823", psa_times["psa_walk_bounded"]),
-        ("psa_r1_dp", src % "psa_dp.cu", "tsta_tpu/ops/psa_pallas.py:52",
+        ("psa_r1_dp", src % "psa_dp_traced.cu",
+         "tsta_tpu/ops/psa_pallas.py:52",
          edit_times["psa_r1_dp"]),
         ("psa_r1_batch", src % "psa_dp.cu", "tsta_tpu/ops/psa_pallas.py:274",
          edit_times["psa_r1_batch"]),
@@ -659,6 +691,41 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def traced_sweep(a, b, nm, params, want):
+    """The traced DP's plan for a group (``psa_diff.traced_plan``, and
+    whether the kernel's exported layout equals it), then the sweep: the
+    same group at the D of each other plan, the least W 4 or 8 and 1 or 2
+    blocks an SM (CUDA events, median of 2 after a warm-up), every output
+    held to ``want`` (the plan's run)."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, psa_diff
+    P, n_pad = a.shape
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = psa_diff.traced_plan(P, n_pad, sms)
+    out = {"plan": dict(zip("DCWT", plan)), "sms": sms,
+           "layout_equals_plan": _kernels.psa_dp_traced_layout(
+               P, n_pad, sms) == plan, "fill_rows": (plan[0] - 1) * plan[3]}
+    runs, err = {}, 0
+    for min_w in TRACED_MIN_W_SWEEP:
+        for per_sm in TRACED_PER_SM_SWEEP:
+            D, _, W, _ = psa_diff.traced_plan(P, n_pad, sms, min_w, per_sm)
+            if D not in runs:
+                ms, got = cuda_ms(lambda: psa_diff.run_dp(
+                    a, b, nm, params, True, D=D), 2)
+                err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+                runs[D] = {"D": D, "W": W, "blocks": P * D, "ms": ms}
+                del got
+            runs[D].setdefault("plans", []).append(
+                "min W %d, %d a SM" % (min_w, per_sm))
+    plan_sweep = {"max_abs_err": err, "runs": list(runs.values())}
+    if err or not out["layout_equals_plan"]:
+        raise AssertionError("traced DP: the sweep's outputs differ (%d), "
+                             "or the kernel's layout is not traced_plan's"
+                             % err)
+    return out, plan_sweep
 
 
 def next_round(seqs, rounds, params, dev, budget=None):
@@ -1514,6 +1581,7 @@ def psa_chunked_phases(dev, smi_line, k1):
     del got
     emit({"phase": "psa_chunk_plan", "shape": [mc, n_pad], "sms": sms,
           "plan": dict(zip("DCWT", plan)),
+          "ms_over_pr10": statistics.median(run["dp_ms"]) / PR10_CHUNK_MS,
           "layout_equals_plan": _kernels.psa_dp_chunk_layout(n_pad, sms)
           == plan, "t_sweep_ms": sweep, "t_sweep_equal": sweep_equal,
           "fill_rows": (plan[0] - 1) * plan[3]})
@@ -1683,9 +1751,11 @@ def edit_phases(dev, smi_line, batch_pairs):
     steps = int(kcnt.sum())
     shape = "%d x %d padded to %d x %d, edit scoring" % (
         len(ea), len(eb), plane.shape[2], plane.shape[1])
+    plan, sweep = traced_sweep(a, b, nm, EDIT, (ks, kc, plane))
     times["psa_r1_dp"] = {
-        "shape": shape + ", traced (K2 at P = 1)", "ms": ms, "plain_ms": pms,
-        "max_abs_err": dp_err,
+        "shape": shape + ", traced (the traced DP at P = 1)", "ms": ms,
+        "plain_ms": pms, "max_abs_err": max(dp_err, sweep["max_abs_err"]),
+        "plan": plan, "sweep": sweep,
         **bound(nbytes(a, b, nm, ks, kc, plane),
                 (OPS_PSA_CELL + OPS_PSA_CODE) * plane.numel())}
     times["psa_r1_walk"] = {
@@ -1814,6 +1884,94 @@ def edit_phases(dev, smi_line, batch_pairs):
         raise AssertionError("edit scoring, 200 kbp pair did not run on the "
                              "chunked kernels alone: %s %s" % (ld, plain_d))
     return launches, times
+
+
+def traced_100k_phase(dev, smi_line):
+    """Phase 20, a traced mid-length pair: reads 0 and 1 of the 200 kbp set
+    cut to 100,000 bp through ``tsta-torch psa --json`` (its plane fits the
+    card, so the traced DP at the plan's D shards and K3 run it unchunked),
+    the launch counters and the plain calls on the card reset before and
+    read after; held to K1's score and corner, the rows re-scoring to the
+    corner, and its output bytes to the chunked route's
+    (``psa_chunked.psa_align_traced_chunked`` at 8,192 rows a chunk)."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams, cli
+    from tsta_tpu_torch.io import encode_dna
+    from tsta_tpu_torch.ops import psa_chunked, psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+    params = AlignParams()
+    p = (params.match, params.mismatch, params.gap_extend, params.gap_open)
+    r0, r1 = (r[:TRACED_MID_BP] for r in long_reads(13, 200000)[:2])
+    with tempfile.TemporaryDirectory() as tmp:
+        fa, fb = os.path.join(tmp, "r0.fa"), os.path.join(tmp, "r1.fa")
+        with open(fa, "wb") as f:
+            f.write(b">r0\n" + r0 + b"\n")
+        with open(fb, "wb") as f:
+            f.write(b">r1\n" + r1 + b"\n")
+        out = os.path.join(tmp, "out.txt")
+        buf = io.StringIO()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p0 = start()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["psa", "-1", fa, "-2", fb, "-o", out, "--device",
+                           "cuda", "--json"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = stop(p0)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        with open(out, "rb") as f:
+            text = f.read()
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    lines = text.split(b"\n")
+    rescored = tb.score_alignment(lines[1], lines[3], params)
+    degapped = (lines[1].replace(b"-", b"") == r0
+                and lines[3].replace(b"-", b"") == r1)
+    ea, eb = encode_dna(r0), encode_dna(r1)
+    t0 = time.perf_counter()
+    k1 = [int(x[0]) for x in psa_diff.psa_align_batch_diff([(ea, eb)], p,
+                                                           device=dev)]
+    k1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score_c, corner_c, aln = psa_chunked.psa_align_traced_chunked(
+        ea, eb, p, mc=TRACED_MID_MC, device=dev)
+    chunked_s = time.perf_counter() - t0
+    chunks = psa_chunked.last_clock.chunks
+    chunked_text = b">1\n" + aln.a_row + b"\n>2\n" + aln.b_row
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_pad = psa_diff._traced_n_pad(len(r0))
+    plan = psa_diff.traced_plan(1, n_pad, sms)
+    cells = len(r0) * len(r1)
+    emit({"phase": "traced_100k", "rc": rc, "maxsorce": res["score"],
+          "score": res["score"], "corner": res["corner"], "wall_s": wall,
+          "gcups": cells / wall / 1e9, "cells": cells,
+          "lengths": [len(r0), len(r1)], "peak_device_gb": peak,
+          "plan": dict(zip("DCWT", plan)), "n_pad": n_pad,
+          "launches": {k: launches[k] for k in (
+              "psa_dp_traced", "psa_walk", "psa_dp_chunk",
+              "psa_walk_bounded", "psa_dp_score")},
+          "plain_calls": plain, "k1": k1, "k1_s": k1_s,
+          "rescored": rescored, "rows_degapped_equal_reads": degapped,
+          "chunked": {"mc": TRACED_MID_MC, "chunks": chunks,
+                      "score": score_c, "corner": corner_c,
+                      "wall_s": chunked_s,
+                      "bytes_equal": chunked_text == text},
+          "smi": smi_line})
+    if rc != 0 or [res["score"], res["corner"]] != k1 \
+            or rescored != k1[1] or not degapped:
+        raise AssertionError("traced 100 kbp pair: score/corner/rows "
+                             "disagree with K1: %s %s %d" % (res, k1,
+                                                             rescored))
+    if chunked_text != text or [score_c, corner_c] != k1 or chunks < 2:
+        raise AssertionError("traced 100 kbp pair: the chunked route's "
+                             "output differs")
+    if (plain or launches["psa_dp_traced"] != 1 or launches["psa_walk"] != 1
+            or launches["psa_dp_chunk"] or launches["psa_dp_score"]):
+        raise AssertionError("traced 100 kbp pair did not run unchunked on "
+                             "the traced DP and K3: %s, plain %d"
+                             % (launches, plain))
 
 
 def start():

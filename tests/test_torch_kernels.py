@@ -768,11 +768,11 @@ def _chunk_launch(args, D=None, T=None):
 @pytest.mark.parametrize("params", [P0, (0, -1, -1, 0)])
 @pytest.mark.parametrize("D,T", [(1, None), (2, None), (7, 48), (None, None)])
 def test_psa_dp_chunk_kernel_matches_plain(cuda, params, D, T):
-    """psa_dp_chunk.cu at D = 1, 2, 7 (T = 48: row blocks cut short) and
-    the card's plan, against the plain version in every output: a pair of
-    9,000 columns (n_pad 9,088) cut into chunks of 256 rows, so chunk 0
-    starts at row 0, chunk 1 at row 256 without row m - 1, chunk 2 holds
-    it; the first and the last shard in every D > 1."""
+    """psa_dp_traced.cu's chunk launch at D = 1, 2, 7 (T = 48: row blocks
+    cut short) and the card's plan, against the plain version in every
+    output: a pair of 9,000 columns (n_pad 9,088) cut into chunks of 256
+    rows, so chunk 0 starts at row 0, chunk 1 at row 256 without row m -
+    1, chunk 2 holds it; the first and the last shard in every D > 1."""
     from tsta_tpu_torch.ops import psa_chunked
     a, b = _long_pair(11, 9000, 700)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -782,7 +782,7 @@ def test_psa_dp_chunk_kernel_matches_plain(cuda, params, D, T):
     for k, (args, want) in enumerate(_chunk_cases(a, b, params, 256, cuda)):
         plan, got = _chunk_launch(args, D, T)
         torch.cuda.synchronize()
-        assert plan[0] == want_d and plan[2] == (T or psa_chunked.CHUNK_T)
+        assert plan[0] == want_d and plan[2] == (T or psa_diff.TRACED_T)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
         corners.append(int(want[1]))
@@ -821,7 +821,7 @@ def test_psa_dp_chunk_layout_is_chunk_plan(cuda):
 def test_psa_dp_chunk_past_the_resident_limit_raises(cuda):
     """One shard more than the card holds resident raises KernelError
     naming the limit, before launching; bad plans raise ValueError."""
-    limit = _kernels.psa_dp_chunk_max_blocks(4, 64, cuda)
+    limit = _kernels.psa_dp_traced_max_blocks(4, 64, cuda)
     assert limit >= torch.cuda.get_device_properties(cuda).multi_processor_count
     n_pad = 4 * (limit + 1)
     i32 = torch.int32
@@ -838,6 +838,135 @@ def test_psa_dp_chunk_past_the_resident_limit_raises(cuda):
         _chunk_launch((a[:12], b, lens, 0, h[:12], h[:12], P0), D=7)
     with pytest.raises(ValueError):   # T past the shared memory plan
         _chunk_launch(args, T=257)
+
+
+def _traced_group(P, n, m, seed):
+    """P seeded pairs of about n x m (similar and unrelated in turns, the
+    last ones shorter), laid out as one traced group on the CPU."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for k in range(P):
+        nk = n - (k * 37) % max(1, n // 3)
+        mk = m - (k * 53) % max(1, m // 3)
+        a, b = _long_pair(seed * 1000 + k, nk, mk)
+        if k % 2:
+            b = rng.integers(65, 69, mk).astype(np.uint8)
+        pairs.append((a, b))
+    return psa_diff.pack_pairs(pairs, torch.device("cpu"), traced=True)
+
+
+def _traced_vs_plain(cuda, group, params, D=None, T=None):
+    """The traced kernel at (D, T) against the plain version in every
+    output; returns the (D, C, T) it ran."""
+    a, b, nm = group
+    want = psa_diff.run_dp(a, b, nm, params, traced=True)
+    ga, gb, gnm = a.to(cuda), b.to(cuda), nm.to(cuda)
+    got = [torch.empty((a.shape[0],), dtype=torch.int32, device=cuda)
+           for _ in range(2)]
+    plane = torch.empty((a.shape[0], b.shape[1], a.shape[1]),
+                        dtype=torch.uint8, device=cuda)
+    plan = _kernels.psa_dp_traced(ga, gb, gnm, params, *got, plane, D=D, T=T)
+    torch.cuda.synchronize()
+    for g, w in zip(got + [plane], want):
+        assert torch.equal(g.cpu(), w)
+    return plan
+
+
+# (P, n, m): one pair, three and a batch of 32, narrow enough for CPU plain
+TRACED_GROUPS = [(1, 1500, 1300), (3, 2100, 700), (32, 700, 500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [P0, (0, -1, -1, 0)])
+@pytest.mark.parametrize("D,T", [(1, None), (2, None), (5, 48), (2, 1),
+                                 (None, None), (None, 32)])
+@pytest.mark.parametrize("P,n,m", TRACED_GROUPS)
+def test_psa_dp_traced_kernel_matches_plain(cuda, P, n, m, params, D, T):
+    """psa_dp_traced.cu (K2, and Q2-13 traced at P = 1) at P = 1, 3 and
+    32, D = 1, 2, 5 and the plan, T = 1, 32, 48 and the plan, default
+    and edit scoring: every score, corner and plane byte equal to the
+    plain version's; the first and the last shard in every D > 1 (C =
+    n_pad / D rounded up to 4 leaves the last one narrower)."""
+    group = _traced_group(P, n, m, P + n)
+    n_pad = group[0].shape[1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n0 = _kernels.launches["psa_dp_traced"]
+    plan = _traced_vs_plain(cuda, group, params, D, T)
+    assert _kernels.launches["psa_dp_traced"] == n0 + 1
+    want = psa_diff.traced_plan(P, n_pad, sms)
+    assert plan[0] == (D or want[0]) and plan[2] == (T or want[3])
+    if D:
+        assert plan[1] == (-(-n_pad // D) + 3) // 4 * 4
+
+
+@pytest.mark.cuda
+def test_psa_dp_traced_run_dp_routes_to_it(cuda):
+    """``run_dp(traced=True)`` on the card launches the traced kernel
+    (never K1, never a plain scan) and takes the D/T overrides."""
+    a, b, nm = _traced_group(3, 900, 600, 4)
+    want = psa_diff.run_dp(a, b, nm, P0, traced=True)
+    n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+    for kw in ({}, {"D": 3, "T": 16}):
+        got = psa_diff.run_dp(a.to(cuda), b.to(cuda), nm.to(cuda), P0,
+                              traced=True, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert _kernels.launches["psa_dp_traced"] == n0["psa_dp_traced"] + 2
+    assert _kernels.launches["psa_dp_score"] == n0["psa_dp_score"]
+    assert psa_scan.plain_calls == p0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2])
+def test_psa_dp_traced_wide_strips_take_the_global_frontier(cuda, D):
+    """Strips past kSmemW (96 columns a thread): 2 pairs of 25,600
+    columns at D = 1 and 51,200 at D = 2 (100 a thread), the frontier in
+    global scratch; equal to the plain version."""
+    group = _traced_group(2, 25600 * D, 260, 30 + D)
+    plan = _traced_vs_plain(cuda, group, P0, D)
+    assert -(-plan[1] // 256) > 96
+
+
+@pytest.mark.cuda
+def test_psa_dp_traced_layout_is_traced_plan(cuda):
+    """The kernel's exported plan equals psa_diff.traced_plan, and at one
+    pair the chunk's plan."""
+    from tsta_tpu_torch.ops import psa_chunked
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for s in sorted({1, 16, 132, sms}):
+        for P in (1, 2, 3, 32, 128, 200, 5000):
+            for n_pad in (4, 128, 1024, 9088, 10240, 30720, 100352, 200064):
+                assert (_kernels.psa_dp_traced_layout(P, n_pad, s)
+                        == psa_diff.traced_plan(P, n_pad, s)), (P, n_pad, s)
+        for n_pad in (1024, 10240, 200064):
+            assert (_kernels.psa_dp_traced_layout(1, n_pad, s)
+                    == _kernels.psa_dp_chunk_layout(n_pad, s)
+                    == psa_chunked.chunk_plan(n_pad, s))
+
+
+@pytest.mark.cuda
+def test_psa_dp_traced_past_the_resident_limit(cuda):
+    """D = 2 over more pairs than the card holds resident raises
+    KernelError naming the limit, without launching; D = 1 over the same
+    pairs, past the limit, is an ordinary launch and equals the plain
+    version."""
+    a, b, nm = _traced_group(1, 120, 60, 9)
+    C = (-(-a.shape[1] // 2) + 3) // 4 * 4
+    limit = _kernels.psa_dp_traced_max_blocks(C, 32, cuda)
+    P = limit // 2 + 1
+    group = (a.expand(P, -1).contiguous(), b.expand(P, -1).contiguous(),
+             nm.expand(P, -1).contiguous())
+    n0 = _kernels.launches["psa_dp_traced"]
+    with pytest.raises(_kernels.KernelError, match="at most %d" % limit):
+        _traced_vs_plain(cuda, group, P0, D=2, T=32)
+    assert _kernels.launches["psa_dp_traced"] == n0
+    limit1 = _kernels.psa_dp_traced_max_blocks(a.shape[1], 32, cuda)
+    P = limit1 + 5
+    group = tuple(x[:1].expand(P, -1).contiguous() for x in group)
+    assert _traced_vs_plain(cuda, group, P0, D=1)[0] == 1
+    assert _kernels.launches["psa_dp_traced"] == n0 + 1
+    with pytest.raises(ValueError):   # 128 columns make 32 shards of 4
+        _traced_vs_plain(cuda, tuple(x[:1] for x in group), P0, D=200)
 
 
 # the round-1 domain's parameter sets: edit scoring, M < X, and one with M > 0

@@ -15,7 +15,7 @@ import torch
 from tsta_tpu.ops import psa_pallas as jpallas
 from tsta_tpu.ops import traceback as jtb
 from tsta_tpu_torch import convert
-from tsta_tpu_torch.ops import psa_chunked, psa_pallas
+from tsta_tpu_torch.ops import psa_chunked, psa_diff, psa_pallas
 from tsta_tpu_torch.ops import traceback as tb
 
 # tests/test_psa_pallas.py's parameter sets; its chunked cases draw
@@ -187,9 +187,9 @@ def test_chunk_rows_follow_the_jax_rule():
 
 @pytest.mark.parametrize("n_pad,sms,rows,want", [
     (200_064, 132, 65_536, (98, 2048, 8, 32)),   # the 200 kbp pair
-    (10_112, 132, 512, (5, 2048, 8, 32)),        # the 10 kbp example, mc 512
+    (10_112, 132, 512, (10, 1024, 4, 32)),       # the 10 kbp example, mc 512
     (1_024, 132, 256, (1, 1024, 4, 32)),         # under one shard
-    (5_000, 132, 256, (3, 2048, 8, 32)),         # not a multiple of D * W
+    (5_000, 132, 256, (5, 1024, 4, 32)),         # not a multiple of D * W
     (200_064, 16, 65_536, (16, 13_312, 52, 32)),
 ])
 def test_chunk_plan_cuts_the_columns_into_shards(n_pad, sms, rows, want):
@@ -200,7 +200,7 @@ def test_chunk_plan_cuts_the_columns_into_shards(n_pad, sms, rows, want):
     D, C, W, T = plan = psa_chunked.chunk_plan(n_pad, sms)
     assert plan == want
     assert 1 <= D <= sms and W >= 4 and W % 4 == 0 and C % 4 == 0
-    assert C <= psa_chunked.CHUNK_THREADS * W
+    assert C <= psa_diff.TRACED_THREADS * W
     cover = np.zeros(n_pad, np.int32)
     for d in range(D):
         assert d * C < n_pad   # no empty shard

@@ -8,7 +8,7 @@ traceback word plane and the striped DP's input tile.
   ``plane[w, p*Rp + j // 128, j % 128]`` is the code of pair p's cell
   (4w + k, j) (``tsta_tpu/ops/psa_diff.py`` ``_psa_diff_traced_call``).
 * Port PSA plane: ``(P, m_pad, n_pad)`` uint8, one code per cell,
-  row-major per pair (``csrc/psa_dp.cu``).
+  row-major per pair (``csrc/psa_dp_traced.cu``).
 * JAX round-1 plane of one pair: ``(m_pad, R, 128)`` int8, the code of
   cell (i, j) at ``plane[i, j // 128, j % 128]``
   (``tsta_tpu/ops/psa_pallas.py`` ``_psa_pallas``); the port's is the

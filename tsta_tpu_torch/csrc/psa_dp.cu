@@ -1,13 +1,14 @@
-// Exact int32 Gotoh global-alignment DP, one thread block per pair.
+// Exact int32 Gotoh global-alignment DP, score-only, one thread block per
+// pair.
 //
-// Replaces the TPU kernels tsta_tpu/ops/psa_diff.py:_abs_kernel in both of
-// its uses, score-only (K1, launched through _psa_diff_call) and
-// traced=True (K2, through _psa_diff_traced_call), the round-1 kernels
-// tsta_tpu/ops/psa_pallas.py:_kernel (Q2-13: K1 score-only, K2 at P = 1
-// traced) and :_batch_kernel (Q2-14: K1).  The TPU kernel packs P pairs
-// along the sublanes of (P*Rp, 128) tiles; here each pair is one block and
-// the batch is the grid, so 128 pairs fill 128 of the 132 SMs.  One long
-// pair's row-chunk (Q2-7) is psa_dp_chunk.cu's, over all the SMs.
+// Replaces the TPU kernel tsta_tpu/ops/psa_diff.py:_abs_kernel in its
+// score-only use (K1, launched through _psa_diff_call), and the round-1
+// kernels tsta_tpu/ops/psa_pallas.py:_kernel score-only (Q2-13's
+// score-only half) and :_batch_kernel (Q2-14).  The TPU kernel packs P
+// pairs along the sublanes of (P*Rp, 128) tiles; here each pair is one
+// block and the batch is the grid, so 128 pairs fill 128 of the 132 SMs.
+// The traced DP (K2, Q2-13 traced) and one long pair's row-chunk (Q2-7)
+// are psa_dp_traced.cu's, each pair's columns over co-resident blocks.
 //
 // Recurrence (rows i over b, columns j over a):
 //   E(i,j) = max(E(i-1,j) + e, H(i-1,j) + o + e)
@@ -24,25 +25,14 @@
 //           with H(i,-1) + e (dp_common.cuh: warp shuffles, then one
 //           warp over the warp totals in shared memory);
 //   pass 2  each thread walks its strip again, carrying the running max,
-//           and writes H, E (and in traced mode the cell codes).
+//           and writes H and E.
 // The H/E frontier lives in global scratch in an interleaved layout
 // (column t*W+k at k*256+t) so that a warp's accesses are coalesced;
 // it is per pair and has no length cap.  The diagonal term at a strip's
-// first column, H(i-1, t*W-1), and the left term of its f code,
-// H(i, t*W-1), come from the neighbour thread through a double-buffered
-// shared edge array; the first code word of a strip is written after the
-// row's final barrier, once the neighbour's H(i, t*W-1) is known.
+// first column, H(i-1, t*W-1), comes from the neighbour thread through a
+// double-buffered shared edge array.  Each pair runs over its real extent.
 //
-// Score-only launches run each pair over its real extent; traced launches
-// run every padded cell of the group (A_PAD/B_PAD bytes) so the code plane
-// matches the JAX kernel's cell for cell.  Padding is exact whenever every
-// move into it lowers the score, X < 0, E < 0 and O <= 0, whatever M: the
-// round-1 kernels' domain (psa_pallas.py) as well as the packed ones'.
-// Cell code = back*9 + f*3 + e: back 1 diag > 0 left (F) > 2 up (E); f/e
-// 0 extend, 1 open, 2 open with an open/extend tie.  One byte per cell,
-// row-major per pair: plane[pair][i][j].
-//
-// What bounds it on the H100: per cell about 20 integer operations and
+// What bounds it on the H100: per cell about 12 integer operations and
 // six 4-byte frontier accesses that hit L1/L2, plus three barriers per row
 // and one resident block per pair, so a single pair uses one SM and the
 // row barriers serialise it.  Later work: anti-diagonal wavefronts,
@@ -70,14 +60,13 @@ struct Params {
   int m, x, e, o;
 };
 
-template <bool kTraced>
 __global__ void __launch_bounds__(kThreads)
 psa_dp_kernel(const uint8_t* __restrict__ a_all,
               const uint8_t* __restrict__ b_all,
               const int32_t* __restrict__ lens, int n_stride, int m_stride,
               Params p, int32_t* __restrict__ score,
-              int32_t* __restrict__ corner, uint8_t* __restrict__ plane_all,
-              int32_t* __restrict__ scratch, int scratch_stride) {
+              int32_t* __restrict__ corner, int32_t* __restrict__ scratch,
+              int scratch_stride) {
   __shared__ int s_warp[2 * kWarps];
   __shared__ int s_edge[2][kThreads];
 
@@ -85,17 +74,13 @@ psa_dp_kernel(const uint8_t* __restrict__ a_all,
   const int t = threadIdx.x;
   const int n_real = lens[2 * pair];
   const int m_real = lens[2 * pair + 1];
-  const int n_ext = kTraced ? n_stride : n_real;
-  const int m_ext = kTraced ? m_stride : m_real;
-  const int W = strip_width(n_ext);
+  const int W = strip_width(n_real);
   const int j0 = t * W;
-  const int jend = min(j0 + W, n_ext);  // jend <= j0: no columns
+  const int jend = min(j0 + W, n_real);  // jend <= j0: no columns
   const uint8_t* a = a_all + (size_t)pair * n_stride;
   const uint8_t* b = b_all + (size_t)pair * m_stride;
   int32_t* H = scratch + (size_t)pair * scratch_stride;
   int32_t* E = H + (size_t)W * kThreads;
-  uint8_t* plane =
-      kTraced ? plane_all + (size_t)pair * m_stride * n_stride : nullptr;
   const int oe = p.o + p.e;
 
   // row -1
@@ -108,7 +93,7 @@ psa_dp_kernel(const uint8_t* __restrict__ a_all,
   __syncthreads();
 
   int best = kNeg;
-  for (int i = 0; i < m_ext; ++i) {
+  for (int i = 0; i < m_real; ++i) {
     const int bound_prev = i == 0 ? 0 : p.o + i * p.e;  // H(i-1, -1)
     const int bound_cur = p.o + (i + 1) * p.e;          // H(i, -1)
     const int bi = b[i];
@@ -127,12 +112,9 @@ psa_dp_kernel(const uint8_t* __restrict__ a_all,
     }
     int run = tsta::block_excl_max<kThreads>(agg, bound_cur + p.e, s_warp);
 
-    // pass 2: F, H, codes
+    // pass 2: F, H, E
     hd = hd0;
     int hl = 0;  // H(i, j-1)
-    uint32_t word = 0, first_word = 0;
-    int f0 = 0, rest0 = 0;
-    bool tie0 = false;
     for (int j = j0; j < jend; ++j) {
       const int k = (j - j0) * kThreads + t;
       const int hp = H[k];
@@ -146,43 +128,11 @@ psa_dp_kernel(const uint8_t* __restrict__ a_all,
       E[k] = ev;
       best = max(best, h);
       if (i == m_real - 1 && j == n_real - 1) corner[pair] = h;
-      if (kTraced) {
-        const int back = h == diag ? 1 : (h == f ? 0 : 2);
-        const bool f_tie = f + p.e == h + oe;
-        const int ecode = ev == hp + oe ? (ev + p.e == h + oe ? 2 : 1) : 0;
-        const int rest = back * 9 + ecode;
-        int code = 0;
-        if (j == j0) {  // f code needs the neighbour's H(i, j0-1)
-          f0 = f;
-          tie0 = f_tie;
-          rest0 = rest;
-        } else {
-          code = rest + 3 * (f == hl + oe ? (f_tie ? 2 : 1) : 0);
-        }
-        const int q = (j - j0) & 3;
-        word |= (uint32_t)code << (8 * q);
-        if (q == 3) {
-          if (j - j0 == 3) {
-            first_word = word;
-          } else {
-            *reinterpret_cast<uint32_t*>(plane + (size_t)i * n_stride + j -
-                                         3) = word;
-          }
-          word = 0;
-        }
-      }
       hd = hp;
       hl = h;
     }
     s_edge[i & 1][t] = hl;  // H(i, jend - 1)
     __syncthreads();
-    if (kTraced && jend > j0) {
-      const int hleft = t == 0 ? bound_cur : s_edge[i & 1][t - 1];
-      const int fcode = f0 == hleft + oe ? (tie0 ? 2 : 1) : 0;
-      first_word |= (uint32_t)(rest0 + 3 * fcode);
-      *reinterpret_cast<uint32_t*>(plane + (size_t)i * n_stride + j0) =
-          first_word;
-    }
   }
 
 #pragma unroll
@@ -203,29 +153,17 @@ extern "C" int tsta_psa_dp_scratch_words(int n_stride) {
 }
 
 // a: (B, n_stride) uint8, b: (B, m_stride) uint8, lens: (B, 2) int32 real
-// (n, m); score, corner: (B,) int32; plane: (B, m_stride, n_stride) uint8
-// or null for score-only; scratch: (B, scratch_stride) int32.  Returns
-// cudaGetLastError() after the launch.
+// (n, m); score, corner: (B,) int32; scratch: (B, scratch_stride) int32.
+// Returns cudaGetLastError() after the launch.
 extern "C" int tsta_psa_dp(const void* a, const void* b, const void* lens,
                            int B, int n_stride, int m_stride, int M, int X,
                            int E, int O, void* score, void* corner,
-                           void* plane, void* scratch, int scratch_stride,
-                           void* stream) {
+                           void* scratch, int scratch_stride, void* stream) {
   const Params p{M, X, E, O};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (plane != nullptr) {
-    psa_dp_kernel<true><<<B, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-        static_cast<const int32_t*>(lens), n_stride, m_stride, p,
-        static_cast<int32_t*>(score), static_cast<int32_t*>(corner),
-        static_cast<uint8_t*>(plane), static_cast<int32_t*>(scratch),
-        scratch_stride);
-  } else {
-    psa_dp_kernel<false><<<B, kThreads, 0, s>>>(
-        static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
-        static_cast<const int32_t*>(lens), n_stride, m_stride, p,
-        static_cast<int32_t*>(score), static_cast<int32_t*>(corner),
-        nullptr, static_cast<int32_t*>(scratch), scratch_stride);
-  }
+  psa_dp_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+      static_cast<const int32_t*>(lens), n_stride, m_stride, p,
+      static_cast<int32_t*>(score), static_cast<int32_t*>(corner),
+      static_cast<int32_t*>(scratch), scratch_stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,8 @@
 // Replaces the TPU kernel tsta_tpu/ops/traceback.py:_walk_kernel_bounded
 // (Q2-8, launched through _bounded_banded_ops, :958).  The chunked traced
 // path (ops/psa_chunked.py) keeps one chunk's plane at a time: rows
-// [base, base + rows) of the pair, rematerialised by psa_dp.cu's chunk
-// mode.  This kernel walks from (i, j, forced) with the step rules of
+// [base, base + rows) of the pair, rematerialised by psa_dp_traced.cu at
+// one pair.  This kernel walks from (i, j, forced) with the step rules of
 // psa_walk_step.cuh until the walk leaves the chunk (i < base), or, in the
 // chunk at base 0, until it is done (i < 0 and j < 0).  The e code of the
 // cell above the chunk's first row comes from ``prev_row``, the codes of

@@ -1,5 +1,5 @@
 // The protocol shared by the column-sharded wavefronts (psa_ring.cu,
-// psa_dp_chunk.cu): D co-resident blocks of one cooperative launch, block
+// psa_dp_traced.cu): D co-resident blocks of one cooperative launch, block
 // d owning a shard of columns; per row block, block d publishes an edge
 // packet for block d+1 behind a release flag and block d+1 spins on it.
 //

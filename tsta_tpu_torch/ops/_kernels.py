@@ -28,7 +28,7 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SOURCES = ("psa_dp.cu", "psa_dp_chunk.cu", "psa_dp_short.cu",
+_SOURCES = ("psa_dp.cu", "psa_dp_traced.cu", "psa_dp_short.cu",
             "psa_dp_diff.cu", "psa_dp_striped.cu", "psa_walk.cu",
             "psa_walk_pair2.cu", "psa_walk_bounded.cu", "poa_dp.cu",
             "poa_walk.cu", "poa_walk_bounded.cu", "psa_ring.cu")
@@ -36,9 +36,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-# K1 and K2 are the score-only and traced uses of the one PSA DP kernel
-# source; psa_dp_chunk is a row-chunk of a long traced pair with its
-# columns sharded over co-resident blocks (Q2-7); psa_dp_short is
+# K1 is the score-only PSA DP, one block per pair; K2 (psa_dp_traced) the
+# traced DP of a batch of pairs and psa_dp_chunk a row-chunk of one long
+# traced pair (Q2-7), both launches of the one traced body that cuts each
+# pair's columns into shards on co-resident blocks; psa_dp_short is
 # the score-only DP of short pairs, one warp each; psa_dp_diff is the
 # score-only DP by the difference method (int16 offsets, Q2-9) and
 # psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
@@ -152,18 +153,18 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp.restype = ci
             lib.tsta_psa_dp.argtypes = [vp, vp, vp, ci, ci, ci,
                                         ci, ci, ci, ci,
-                                        vp, vp, vp, vp, ci, vp]
+                                        vp, vp, vp, ci, vp]
             lib.tsta_psa_dp_scratch_words.restype = ci
             lib.tsta_psa_dp_scratch_words.argtypes = [ci]
-            lib.tsta_psa_dp_chunk.restype = ci
-            lib.tsta_psa_dp_chunk.argtypes = [vp] * 3 + [ci] * 7 + [
+            lib.tsta_psa_dp_traced.restype = ci
+            lib.tsta_psa_dp_traced.argtypes = [vp] * 3 + [ci] * 8 + [
                 vp] * 7 + [ci] * 3 + [vp] * 4
-            lib.tsta_psa_dp_chunk_scratch_words.restype = ci
-            lib.tsta_psa_dp_chunk_scratch_words.argtypes = [ci]
-            lib.tsta_psa_dp_chunk_max_blocks.restype = ci
-            lib.tsta_psa_dp_chunk_max_blocks.argtypes = [ci, ci]
-            lib.tsta_psa_dp_chunk_layout.restype = None
-            lib.tsta_psa_dp_chunk_layout.argtypes = [ci, ci] + [
+            lib.tsta_psa_dp_traced_scratch_words.restype = ci
+            lib.tsta_psa_dp_traced_scratch_words.argtypes = [ci]
+            lib.tsta_psa_dp_traced_max_blocks.restype = ci
+            lib.tsta_psa_dp_traced_max_blocks.argtypes = [ci, ci]
+            lib.tsta_psa_dp_traced_layout.restype = None
+            lib.tsta_psa_dp_traced_layout.argtypes = [ci, ci, ci] + [
                 ctypes.POINTER(ci)] * 4
             lib.tsta_psa_dp_short.restype = ci
             lib.tsta_psa_dp_short.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3
@@ -228,13 +229,12 @@ def _raise_on(rc: int, what: str) -> None:
                           % (what, rc, torch.cuda.get_device_name()))
 
 
-def psa_dp(a, b, lens, params, score, corner, plane=None) -> None:
-    """Launch the DP kernel (one block per pair).  ``a``: (B, n_stride)
-    uint8, ``b``: (B, m_stride) uint8, ``lens``: (B, 2) int32 real
-    (n, m); ``score``/``corner``: (B,) int32 outputs.  With ``plane``
-    ((B, m_stride, n_stride) uint8) every padded cell is computed and
-    its code written (K2); without it each pair runs over its real
-    extent only (K1)."""
+def psa_dp(a, b, lens, params, score, corner) -> None:
+    """Launch the score-only DP kernel (K1, one block per pair, each pair
+    over its real extent).  ``a``: (B, n_stride) uint8, ``b``: (B,
+    m_stride) uint8, ``lens``: (B, 2) int32 real (n, m); ``score``/
+    ``corner``: (B,) int32 outputs.  The traced DP is
+    :func:`psa_dp_traced`."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("psa_dp kernel needs CUDA tensors, got %s" % dev)
@@ -245,10 +245,6 @@ def psa_dp(a, b, lens, params, score, corner, plane=None) -> None:
     _check(lens, "lens", torch.int32, (B, 2), dev)
     _check(score, "score", torch.int32, (B,), dev)
     _check(corner, "corner", torch.int32, (B,), dev)
-    if plane is not None:
-        _check(plane, "plane", torch.uint8, (B, m_stride, n_stride), dev)
-        if n_stride % 4:
-            raise ValueError("traced DP needs n_stride % 4 == 0")
     lib = _lib()
     sw = lib.tsta_psa_dp_scratch_words(n_stride)
     scratch = torch.empty((B, sw), dtype=torch.int32, device=dev)
@@ -256,10 +252,9 @@ def psa_dp(a, b, lens, params, score, corner, plane=None) -> None:
     rc = lib.tsta_psa_dp(a.data_ptr(), b.data_ptr(), lens.data_ptr(), B,
                          n_stride, m_stride, m_, x_, e_, o_,
                          score.data_ptr(), corner.data_ptr(),
-                         None if plane is None else plane.data_ptr(),
                          scratch.data_ptr(), sw, _stream(dev))
     _raise_on(rc, "psa_dp")
-    launches["psa_dp_score" if plane is None else "psa_dp_traced"] += 1
+    launches["psa_dp_score"] += 1
 
 
 def psa_dp_short(a, b, lens, params, score, corner) -> None:
@@ -402,39 +397,133 @@ def psa_walk_pair2(plane, nm, words, counts) -> None:
     launches["psa_walk_pair2"] += 1
 
 
-def psa_dp_chunk_layout(n_pad: int, sms: int) -> tuple:
+def psa_dp_traced_layout(P: int, n_pad: int, sms: int) -> tuple:
     """(D, C, W, T): the shards, columns per shard, columns per thread and
-    rows per packet ``psa_dp_chunk.cu`` plans for a chunk of ``n_pad``
+    rows per packet ``psa_dp_traced.cu`` plans for P pairs of ``n_pad``
     columns on a card of ``sms`` SMs, read from the built library."""
     out = [ctypes.c_int() for _ in range(4)]
-    _lib().tsta_psa_dp_chunk_layout(n_pad, sms, *map(ctypes.byref, out))
+    _lib().tsta_psa_dp_traced_layout(P, n_pad, sms, *map(ctypes.byref, out))
     return tuple(v.value for v in out)
 
 
-def psa_dp_chunk_max_blocks(C: int, T: int, dev) -> int:
-    """The most ``psa_dp_chunk`` blocks (shards of C columns, T-row
-    packets) the card ``dev`` holds resident at once."""
+def psa_dp_chunk_layout(n_pad: int, sms: int) -> tuple:
+    """(D, C, W, T): the plan ``psa_dp_traced.cu`` takes for one pair's
+    row-chunk of ``n_pad`` columns, its layout at P = 1."""
+    return psa_dp_traced_layout(1, n_pad, sms)
+
+
+def psa_dp_traced_max_blocks(C: int, T: int, dev) -> int:
+    """The most traced-DP blocks (shards of C columns, T-row packets) the
+    card ``dev`` holds resident at once."""
     with torch.cuda.device(dev):
-        limit = _lib().tsta_psa_dp_chunk_max_blocks(C, T)
+        limit = _lib().tsta_psa_dp_traced_max_blocks(C, T)
     if limit < 0:
-        _raise_on(-limit, "psa_dp_chunk occupancy query")
+        _raise_on(-limit, "psa_dp_traced occupancy query")
     return limit
+
+
+def _traced_launch(what, a, b, lens, row_base, params, h_in, e_in, h_out,
+                   e_out, best, corner, plane, D, T) -> tuple:
+    """One launch of the traced body over P pairs at the kernel's plan
+    for them on this card, or at ``D`` shards (C = n_pad / D rounded up
+    to 4, which must give D shards) and ``T`` rows a packet (1-256): the
+    packets and the scratch allocated here, D = 1 an ordinary launch, D
+    >= 2 a cooperative one; a refused launch raises
+    :class:`KernelError`.  Returns the (D, C, T) it ran."""
+    dev = a.device
+    P, n_pad = a.shape
+    rows = b.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_d, C, _, plan_t = psa_dp_traced_layout(P, n_pad, sms)
+    if D is None:
+        D = plan_d
+    else:
+        C = (-(-n_pad // max(D, 1)) + 3) // 4 * 4
+        if D < 1 or -(-n_pad // C) != D:
+            raise ValueError("%s: %d columns do not make %d shards of a "
+                             "multiple of 4" % (what, n_pad, D))
+    T = plan_t if T is None else T
+    if not 1 <= T <= 256:
+        raise ValueError("%s: T %d outside 1..256" % (what, T))
+    mb = -(-rows // T)
+    lib = _lib()
+    comm = flags = None
+    if D >= 2:
+        comm = torch.empty((P, D, mb, 3 * T), dtype=torch.int32, device=dev)
+        flags = torch.zeros((P, D, mb), dtype=torch.int32, device=dev)
+    sw = lib.tsta_psa_dp_traced_scratch_words(C)
+    scratch = (torch.empty((P, D, sw), dtype=torch.int32, device=dev) if sw
+               else None)
+    m_, x_, e_, o_ = params
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = lib.tsta_psa_dp_traced(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), P, n_pad, rows,
+            row_base, m_, x_, e_, o_, ptr(h_in), ptr(e_in), ptr(h_out),
+            ptr(e_out), best.data_ptr(), corner.data_ptr(), plane.data_ptr(),
+            D, C, T, ptr(comm), ptr(flags), ptr(scratch), _stream(dev))
+    if rc == COOP_TOO_LARGE:
+        raise KernelError(
+            "%s: %d pairs of %d shards need %d co-resident blocks, but %s "
+            "holds at most %d at C = %d columns, T = %d rows (cooperative "
+            "launch)" % (what, P, D, P * D, torch.cuda.get_device_name(dev),
+                         psa_dp_traced_max_blocks(C, T, dev), C, T))
+    _raise_on(rc, what)
+    return D, C, T
+
+
+def psa_dp_traced(a, b, lens, params, score, corner, plane, *, D=None,
+                  T=None) -> tuple:
+    """Launch the traced DP over P pairs of one padded shape, every padded
+    cell from row 0: ``a``: (P, n_pad) uint8, n_pad a multiple of 4,
+    ``b``: (P, m_pad) uint8, ``lens``: (P, 2) int32 real (n, m); outputs
+    ``score``/``corner`` (P,) int32 (the max over every cell of the pair,
+    H(m-1, n-1)) and ``plane`` (P, m_pad, n_pad) uint8, every cell's
+    code.  Each pair's columns are cut into D shards of C columns, one
+    co-resident block each, T rows a packet: the kernel's plan for P pairs
+    on this card (:func:`psa_dp_traced_layout`); ``D`` and ``T`` override
+    it, for tests and sweeps (:func:`_traced_launch`).  D = 1 launches P
+    blocks, any P; D >= 2 is a cooperative launch of P * D blocks, which
+    raises :class:`KernelError`, without launching, past the card's
+    co-resident limit.  Returns the (D, C, T) it ran."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("psa_dp_traced kernel needs CUDA tensors, got %s"
+                         % dev)
+    P, n_pad = a.shape
+    m_pad = b.shape[1]
+    _check(a, "a", torch.uint8, (P, n_pad), dev)
+    _check(b, "b", torch.uint8, (P, m_pad), dev)
+    _check(lens, "lens", torch.int32, (P, 2), dev)
+    _check(score, "score", torch.int32, (P,), dev)
+    _check(corner, "corner", torch.int32, (P,), dev)
+    _check(plane, "plane", torch.uint8, (P, m_pad, n_pad), dev)
+    if n_pad % 4 or n_pad < 4 or m_pad < 1 or P < 1:
+        raise ValueError("psa_dp_traced: %d pairs of n_pad %d (a multiple of "
+                         "4) x m_pad %d" % (P, n_pad, m_pad))
+    ran = _traced_launch("psa_dp_traced", a, b, lens, 0, params, None, None,
+                         None, None, score, corner, plane, D, T)
+    launches["psa_dp_traced"] += 1
+    return ran
 
 
 def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,
                  best, corner, plane, *, D=None, T=None) -> tuple:
-    """Launch the chunk DP (one cooperative launch of D blocks, one per
-    shard of C columns) over the rows [row_base, row_base + rows) of one
-    pair: ``a``: (n_pad,) uint8, ``b``: (rows,) uint8 the chunk's rows,
-    ``lens``: (2,) int32 real (n, m); ``h_in``/``e_in``: (n_pad,) int32
-    frontier of row row_base - 1; outputs ``h_out``/``e_out`` (n_pad,)
-    int32 (the chunk's last row), ``best``/``corner`` (1,) int32 and
-    ``plane`` (rows, n_pad) uint8, every cell's code.  D, C and T are the
-    kernel's plan for n_pad on this card (:func:`psa_dp_chunk_layout`);
-    ``D`` (C = n_pad / D rounded up to 4, which must give D shards) and
-    ``T`` (1-256) override it, for tests and the smoke's T sweep.
-    Raises :class:`KernelError`, without launching, when the card cannot
-    hold D blocks resident together.  Returns the (D, C, T) it ran."""
+    """Launch the traced body at P = 1 over the rows [row_base, row_base +
+    rows) of one pair: ``a``: (n_pad,) uint8, ``b``: (rows,) uint8 the
+    chunk's rows, ``lens``: (2,) int32 real (n, m); ``h_in``/``e_in``:
+    (n_pad,) int32 frontier of row row_base - 1; outputs ``h_out``/
+    ``e_out`` (n_pad,) int32 (the chunk's last row), ``best``/``corner``
+    (1,) int32 and ``plane`` (rows, n_pad) uint8, every cell's code.  D,
+    C and T are the kernel's plan for n_pad on this card
+    (:func:`psa_dp_chunk_layout`); ``D`` (C = n_pad / D rounded up to 4,
+    which must give D shards) and ``T`` (1-256) override it, for tests
+    and the smoke's T sweep.  Raises :class:`KernelError`, without
+    launching, when the card cannot hold D blocks resident together.
+    Returns the (D, C, T) it ran."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("psa_dp_chunk kernel needs CUDA tensors, got %s"
@@ -452,43 +541,11 @@ def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,
     if n_pad % 4 or n_pad < 4 or rows < 1 or row_base < 0:
         raise ValueError("psa_dp_chunk: n_pad %d (a multiple of 4), rows "
                          "%d, row_base %d" % (n_pad, rows, row_base))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan_d, C, _, plan_t = psa_dp_chunk_layout(n_pad, sms)
-    if D is None:
-        D = plan_d
-    else:
-        C = (-(-n_pad // max(D, 1)) + 3) // 4 * 4
-        if D < 1 or -(-n_pad // C) != D:
-            raise ValueError("psa_dp_chunk: %d columns do not make %d shards "
-                             "of a multiple of 4" % (n_pad, D))
-    T = plan_t if T is None else T
-    if not 1 <= T <= 256:
-        raise ValueError("psa_dp_chunk: T %d outside 1..256" % T)
-    mb = -(-rows // T)
-    lib = _lib()
-    comm = torch.empty((D, mb, 3 * T), dtype=torch.int32, device=dev)
-    flags = torch.zeros((D, mb), dtype=torch.int32, device=dev)
-    sw = lib.tsta_psa_dp_chunk_scratch_words(C)
-    scratch = (torch.empty((D, sw), dtype=torch.int32, device=dev) if sw
-               else None)
-    m_, x_, e_, o_ = params
-    with torch.cuda.device(dev):
-        rc = lib.tsta_psa_dp_chunk(
-            a.data_ptr(), b.data_ptr(), lens.data_ptr(), n_pad, rows,
-            row_base, m_, x_, e_, o_, h_in.data_ptr(), e_in.data_ptr(),
-            h_out.data_ptr(), e_out.data_ptr(), best.data_ptr(),
-            corner.data_ptr(), plane.data_ptr(), D, C, T, comm.data_ptr(),
-            flags.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            _stream(dev))
-    if rc == COOP_TOO_LARGE:
-        raise KernelError(
-            "psa_dp_chunk: %d shards need %d co-resident blocks, but %s holds "
-            "at most %d at C = %d columns, T = %d rows (cooperative launch)"
-            % (D, D, torch.cuda.get_device_name(dev),
-               psa_dp_chunk_max_blocks(C, T, dev), C, T))
-    _raise_on(rc, "psa_dp_chunk")
+    ran = _traced_launch("psa_dp_chunk", a.view(1, n_pad), b.view(1, rows),
+                         lens.view(1, 2), row_base, params, h_in, e_in, h_out,
+                         e_out, best, corner, plane, D, T)
     launches["psa_dp_chunk"] += 1
-    return D, C, T
+    return ran
 
 
 def psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,

@@ -7,12 +7,12 @@ into chunks of ``mc`` and the DP runs in two passes:
 
 1. **Forward.**  For each chunk in order: keep the H/E frontier that
    enters it (the snapshot, 2 x n_pad int32), run the chunk's rows from it
-   (:func:`chunk_dp`, ``csrc/psa_dp_chunk.cu``: the chunk's columns
-   sharded over co-resident blocks, :func:`chunk_plan`), which writes the
-   chunk's code plane and the frontier out, and keep the chunk's last code
-   row.  The pair's score is the max of the chunks' bests, its corner the
-   last chunk's.  The last chunk's plane is kept for the walk; the others
-   are dropped.
+   (:func:`chunk_dp`, ``csrc/psa_dp_traced.cu`` at one pair: the chunk's
+   columns sharded over co-resident blocks, :func:`chunk_plan`), which
+   writes the chunk's code plane and the frontier out, and keep the
+   chunk's last code row.  The pair's score is the max of the chunks'
+   bests, its corner the last chunk's.  The last chunk's plane is kept for
+   the walk; the others are dropped.
 2. **Backward.**  From (m-1, n-1), in chunk ``i // mc``: rematerialise the
    chunk's plane from its snapshot (the same DP, the same values), walk it
    (:func:`traceback.walk_bounded`, ``csrc/psa_walk_bounded.cu``) until the
@@ -45,16 +45,12 @@ import torch
 from tsta_tpu_torch.device import device_budget, resolve_device
 from tsta_tpu_torch.ops import _kernels, psa_pallas, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
-from tsta_tpu_torch.ops.psa_diff import LANES, T_R
+from tsta_tpu_torch.ops.psa_diff import LANES, T_R, traced_plan
 from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, NEG, as_params
 
 # The clock of the last chunked pair (:class:`ChunkClock`), for callers
 # that reach this module through an entry point (the CLI, a batch).
 last_clock = None
-
-# csrc/psa_dp_chunk.cu's plan: threads per block (one shard each), rows
-# per packet, and the fewest columns per thread of a shard
-CHUNK_THREADS, CHUNK_T, CHUNK_MIN_W = 256, 32, 8
 
 
 def chunk_rows(m_pad: int, n_pad: int, budget: int) -> int:
@@ -68,23 +64,17 @@ def chunk_rows(m_pad: int, n_pad: int, budget: int) -> int:
 
 
 def chunk_plan(n_pad: int, sms: int) -> tuple:
-    """(D, C, W, T): how ``csrc/psa_dp_chunk.cu`` cuts a chunk of ``n_pad``
-    columns on a card of ``sms`` SMs (its ``tsta_psa_dp_chunk_layout``).
-    W columns per thread: n_pad over all the SMs' threads, at least
-    CHUNK_MIN_W, a multiple of 4; C = CHUNK_THREADS * W columns per shard
-    (n_pad when that is less); D = ceil(n_pad / C) <= sms shards, the last
-    one n_pad - (D - 1) * C wide; T = CHUNK_T rows per packet, so the
-    pipeline's fill is (D - 1) * T rows."""
-    def round4(x):
-        return (x + 3) // 4 * 4
-    w0 = round4(max(CHUNK_MIN_W, -(-n_pad // (sms * CHUNK_THREADS))))
-    C = min(w0 * CHUNK_THREADS, n_pad)
-    return -(-n_pad // C), C, round4(-(-C // CHUNK_THREADS)), CHUNK_T
+    """(D, C, W, T): how ``csrc/psa_dp_traced.cu`` cuts a chunk of
+    ``n_pad`` columns on a card of ``sms`` SMs (its
+    ``tsta_psa_dp_traced_layout`` at one pair): ``psa_diff.traced_plan``,
+    so D <= sms shards of C columns, W columns per thread, the pipeline's
+    fill (D - 1) * T rows."""
+    return traced_plan(1, n_pad, sms)
 
 
 def chunk_dp_plain(a, b_chunk, lens, row_base: int, h, e, params):
     """One row-chunk of the traced DP in PyTorch (``psa_scan.scan_from``):
-    the plain version of ``csrc/psa_dp_chunk.cu`` and the
+    the plain version of ``csrc/psa_dp_traced.cu`` at one pair and the
     counterpart of ``psa_pallas._psa_chunk_call``.
 
     ``a``: (n_pad,) uint8; ``b_chunk``: (rows,) uint8, rows [row_base,
@@ -102,7 +92,7 @@ def chunk_dp_plain(a, b_chunk, lens, row_base: int, h, e, params):
 
 def chunk_dp(a, b_chunk, lens, row_base: int, h, e, params):
     """:func:`chunk_dp_plain`'s function: CPU tensors take it; CUDA
-    tensors launch ``csrc/psa_dp_chunk.cu`` (:func:`chunk_plan`'s D
+    tensors launch ``csrc/psa_dp_traced.cu`` (:func:`chunk_plan`'s D
     co-resident blocks) or raise."""
     if a.device.type == "cpu":
         return chunk_dp_plain(a, b_chunk, lens, row_base, h, e, params)

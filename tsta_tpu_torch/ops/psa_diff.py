@@ -2,20 +2,22 @@
 kernels, for the parameter sets of :func:`supports_params` (M > 0).
 
 Counterpart of ``tsta_tpu/ops/psa_diff.py`` (single device, int32).  The
-TPU packs P pairs along the sublanes of one tile; on the GPU each pair is
-one thread block of ``csrc/psa_dp.cu``, so a batch is one launch over a
-(B, n_pad) byte matrix with a (B, 2) real-length table:
+TPU packs P pairs along the sublanes of one tile; on the GPU a batch is
+one launch over a (B, n_pad) byte matrix with a (B, 2) real-length table:
 
-* score-only (:func:`psa_align_batch_diff`): any pair length; each pair
-  runs over its own real extent, so mixing lengths costs no padding;
+* score-only (:func:`psa_align_batch_diff`): ``csrc/psa_dp.cu``, one
+  thread block per pair; any pair length; each pair runs over its own
+  real extent, so mixing lengths costs no padding;
 * traced (:func:`psa_align_batch_traced_packed`): pairs grouped by padded
-  width; each group's DP writes a (P, m_pad, n_pad) uint8 code plane on
-  the device, the walk kernel turns it into packed moves, and only the
-  moves cross to the host.  A pair whose plane the device budget will not
-  hold alone goes to ``ops/psa_chunked.py`` (row-chunks, rematerialised
-  one at a time for the walk).
+  width; each group's DP (``csrc/psa_dp_traced.cu``: each pair's columns
+  cut into D shards on co-resident blocks, :func:`traced_plan`) writes a
+  (P, m_pad, n_pad) uint8 code plane on the device, the walk kernel turns
+  it into packed moves, and only the moves cross to the host.  A pair
+  whose plane the device budget will not hold alone goes to
+  ``ops/psa_chunked.py`` (row-chunks of the same traced body,
+  rematerialised one at a time for the walk).
 
-:func:`run_dp` is the DP kernel's wrapper: a CPU tensor takes the plain
+:func:`run_dp` is the DP kernels' wrapper: a CPU tensor takes the plain
 version (``psa_scan.scan_rows``), a CUDA tensor launches the kernel or
 raises.  :func:`dp_packed` is it behind the packed routes' gate; the
 round-1 routes of ``ops/psa_pallas.py`` (any M), which also hold the
@@ -58,6 +60,9 @@ T_R = 256               # row padding quantum (the JAX kernel's rows/step)
 K_REANCHOR = 16         # rows between the int16 anchors' re-bases (JAX's)
 SEG_MAX = 128           # widest segment one int32 anchor carries
 DIFF_THREADS = 256      # csrc/psa_dp_diff.cu's block: one strip per thread
+# csrc/psa_dp_traced.cu's plan: threads per block (one shard each), rows
+# per packet, and the fewest columns per thread of a shard
+TRACED_THREADS, TRACED_T, TRACED_MIN_W = 256, 32, 4
 
 
 def supports_params(params) -> bool:
@@ -94,6 +99,27 @@ def diff_layout(n: int) -> tuple:
     return nseg * g, g
 
 
+def traced_plan(P: int, n_pad: int, sms: int, min_w: int = TRACED_MIN_W,
+                per_sm: int = 1) -> tuple:
+    """(D, C, W, T): how ``csrc/psa_dp_traced.cu`` cuts each of P pairs of
+    ``n_pad`` columns on a card of ``sms`` SMs (its
+    ``tsta_psa_dp_traced_layout``).  max(1, sms // P) blocks a pair; W
+    columns per thread: n_pad over those blocks' threads, at least
+    TRACED_MIN_W, a multiple of 4; C = TRACED_THREADS * W columns per
+    shard (n_pad when that is less); D = ceil(n_pad / C) shards, the last
+    one n_pad - (D - 1) * C wide, so P * D <= sms whenever D >= 2; T =
+    TRACED_T rows per packet, so the pipeline's fill is (D - 1) * T rows.
+    At P = 1 it is ``psa_chunked.chunk_plan``.  ``min_w`` (the least W)
+    and ``per_sm`` (blocks an SM: per_sm * sms // P blocks a pair) give
+    the smoke's sweep its other plans; the kernel's are the defaults."""
+    def round4(x):
+        return (x + 3) // 4 * 4
+    blocks = max(1, per_sm * sms // P)
+    w0 = round4(max(min_w, -(-n_pad // (blocks * TRACED_THREADS))))
+    C = min(w0 * TRACED_THREADS, n_pad)
+    return -(-n_pad // C), C, round4(-(-C // TRACED_THREADS)), TRACED_T
+
+
 def _traced_n_pad(n_max: int) -> int:
     """Padded per-pair width of a traced group: LANES-rounded, then
     512-rounded when that costs < 25% padding, so near-miss lengths
@@ -125,7 +151,7 @@ def dp_packed(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
 
 
 def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
-           traced: bool = False):
+           traced: bool = False, *, D=None, T=None):
     """Run the DP over B padded pairs.
 
     ``a``: (B, n_pad) uint8, ``b``: (B, m_pad) uint8, ``lens``: (B, 2)
@@ -134,19 +160,32 @@ def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
     plane of every padded cell.  Scores agree with the JAX kernels'
     (which include padded cells) whenever every move into padding lowers
     the score: X < 0, E < 0 and O <= 0, which the callers' gates hold.
+    On the card score-only launches K1 (``_kernels.psa_dp``) and traced
+    the sharded traced DP (``_kernels.psa_dp_traced``), whose plan ``D``
+    and ``T`` override, for tests and sweeps; the plain version takes
+    neither.
     """
     p = as_params(params)
+    forced = D is not None or T is not None
+    if forced and not traced:
+        raise ValueError("D and T are the traced DP's overrides")
     if a.device.type == "cpu":
+        if forced:
+            raise ValueError("D and T are the card kernel's overrides; the "
+                             "plain version takes neither")
         best, corner, codes = psa_scan.scan_rows(a, b, lens[:, 0],
                                                  lens[:, 1], p, traced)
         return (best, corner, codes) if traced else (best, corner)
     B = a.shape[0]
     score = torch.empty((B,), dtype=torch.int32, device=a.device)
     corner = torch.empty((B,), dtype=torch.int32, device=a.device)
-    plane = (torch.empty((B, b.shape[1], a.shape[1]), dtype=torch.uint8,
-                         device=a.device) if traced else None)
-    _kernels.psa_dp(a, b, lens, p, score, corner, plane)
-    return (score, corner, plane) if traced else (score, corner)
+    if not traced:
+        _kernels.psa_dp(a, b, lens, p, score, corner)
+        return score, corner
+    plane = torch.empty((B, b.shape[1], a.shape[1]), dtype=torch.uint8,
+                        device=a.device)
+    _kernels.psa_dp_traced(a, b, lens, p, score, corner, plane, D=D, T=T)
+    return score, corner, plane
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """Exact affine-gap global alignment (Gotoh) as a PyTorch row scan.
 
-The port's oracle and the plain version of the DP kernel
-(``csrc/psa_dp.cu``); counterpart of ``tsta_tpu/ops/psa_scan.py``, with
-the same recurrence, boundary terms, padding and tie rules:
+The port's oracle and the plain version of the DP kernels
+(``csrc/psa_dp.cu``, ``csrc/psa_dp_traced.cu``); counterpart of
+``tsta_tpu/ops/psa_scan.py``, with the same recurrence, boundary terms,
+padding and tie rules:
 
     H(i,j) = max(H(i-1,j-1) + sub(a_j, b_i), E(i,j), F(i,j))
     E(i,j) = max(E(i-1,j) + e,  H(i-1,j) + o + e)
@@ -91,13 +92,25 @@ def scan_rows(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
 def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
               m_real: torch.Tensor, params, traced: bool = False,
               row_base: int = 0, h: Optional[torch.Tensor] = None,
-              e: Optional[torch.Tensor] = None):
+              e: Optional[torch.Tensor] = None, col0: int = 0,
+              left: Optional[torch.Tensor] = None,
+              right: Optional[torch.Tensor] = None):
     """:func:`scan_rows` over rows ``row_base .. row_base + m - 1`` of the
     matrix (``b`` holds just those rows), started from the (B, n) int32
     H/E frontier of row ``row_base - 1`` (default: the top boundary, row
     -1).  ``corner`` is NEG for a pair whose row m_real-1 is not among
     them.  Returns ``(best, corner, codes, h, e)``, the last two the
-    frontier of the last row."""
+    frontier of the last row.
+
+    A column shard, as ``csrc/psa_dp_traced.cu`` cuts a row (the tests'
+    proof that its packets are enough): ``a`` holds the global columns
+    ``col0 .. col0 + n - 1``, the corner is the pair's only where they
+    hold column n_real-1, and ``left`` ((B, m, 3) int32, default the
+    matrix's left boundary) gives for each row i the shard's left edge
+    as the kernel's packet: H(i-1, col0-1), the inclusive F prefix max(
+    H(i,-1) + e, max_{k<col0} (C(k) - k*e)) and H(i, col0-1).  ``right``,
+    a (B, m, 3) int32 tensor, receives the same three values at the
+    shard's last column, the next shard's ``left``."""
     global plain_calls
     if a.device.type == "cuda":
         plain_calls += 1
@@ -107,7 +120,7 @@ def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     m = b.shape[1]
     dev = a.device
     i32 = torch.int32
-    j_idx = torch.arange(n, dtype=i32, device=dev)
+    j_idx = torch.arange(col0, col0 + n, dtype=i32, device=dev)
     j_e = j_idx * e_
     if h is None:
         h = (o_ + (j_idx + 1) * e_).expand(B, n).contiguous()
@@ -115,32 +128,45 @@ def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     e_prev = e
     best = torch.full((B,), NEG, dtype=i32, device=dev)
     corner = torch.full((B,), NEG, dtype=i32, device=dev)
-    ncol = (n_real.to(device=dev, dtype=torch.int64) - 1).view(B, 1)
+    ncol = (n_real.to(device=dev, dtype=torch.int64) - 1 - col0).view(B, 1)
     mrow = m_real.to(device=dev, dtype=torch.int64) - 1
-    col = torch.empty((B, 1), dtype=i32, device=dev)
+    # a pair whose corner column lies outside the shard never takes it
+    mrow = torch.where((ncol.view(B) >= 0) & (ncol.view(B) < n), mrow, -1)
+    ncol = ncol.clamp(0, n - 1)
+    bound = torch.empty((B, 3), dtype=i32, device=dev)
     codes = (torch.empty((B, m, n), dtype=torch.uint8, device=dev)
              if traced else None)
     a32 = a.to(i32)
     b32 = b.to(i32)
     for r in range(m):
         i = row_base + r
-        bound_prev = 0 if i == 0 else o_ + i * e_     # H(i-1, -1)
-        bound_cur = o_ + (i + 1) * e_                 # H(i, -1)
+        if left is None:   # H(i-1, -1), H(i, -1) + e, H(i, -1)
+            edge = bound
+            edge[:, 0] = 0 if i == 0 else o_ + i * e_
+            edge[:, 1] = o_ + (i + 1) * e_ + e_
+            edge[:, 2] = o_ + (i + 1) * e_
+        else:
+            edge = left[:, r]
+        fill, seed, h_edge = edge[:, 0:1], edge[:, 1:2], edge[:, 2:3]
         sub = torch.where(a32 == b32[:, r:r + 1], m_, x_).to(i32)
-        diag = torch.cat([col.fill_(bound_prev), h[:, :-1]], dim=1) + sub
+        diag = torch.cat([fill, h[:, :-1]], dim=1) + sub
         e_row = torch.maximum(e_prev + e_, h + oe)
         c = torch.maximum(diag, e_row)
-        g = torch.cat([col.fill_(bound_cur + e_), c[:, :-1] - j_e[:-1]],
-                      dim=1)
-        f = torch.cummax(g, dim=1).values + (o_ + j_e)
+        g = torch.cat([seed, c[:, :-1] - j_e[:-1]], dim=1)
+        run = torch.cummax(g, dim=1).values
+        f = run + (o_ + j_e)
         h_row = torch.maximum(c, f)
+        if right is not None:
+            right[:, r, 0] = h[:, -1]
+            right[:, r, 1] = torch.maximum(run[:, -1], c[:, -1] - j_e[-1])
+            right[:, r, 2] = h_row[:, -1]
         best = torch.maximum(best, h_row.amax(dim=1))
         corner = torch.where(mrow == i,
                              h_row.gather(1, ncol).view(B), corner)
         if traced:
             back = torch.where(h_row == diag, 1,
                                torch.where(h_row == f, 0, 2))
-            h_left = torch.cat([col.fill_(bound_cur), h_row[:, :-1]], dim=1)
+            h_left = torch.cat([h_edge, h_row[:, :-1]], dim=1)
             f_tie = f + e_ == h_row + oe
             fcode = torch.where(f == h_left + oe,
                                 torch.where(f_tie, 2, 1), 0)

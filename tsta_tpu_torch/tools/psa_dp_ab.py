@@ -1,29 +1,40 @@
-"""K1, the score-only PSA DP of ``csrc/psa_dp.cu``, in two checkouts on one
-card: their compiled code side by side, then their times, alternating.
+"""The PSA DP kernels in two checkouts on one card: K1's compiled code side
+by side, then the chosen kernel's times, alternating, outputs compared.
 
 Run from the root of a checkout, on a machine with a card and ``nvcc``::
 
-    python -m tsta_tpu_torch.tools.psa_dp_ab --other DIR [--rounds 2]
+    python -m tsta_tpu_torch.tools.psa_dp_ab --other DIR \
+        [--kernel k1|traced|chunk] [--rounds 2]
 
 ``DIR`` is the root of another checkout of the repo, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
 
 1. **Code.**  Each checkout's ``psa_dp.cu`` is compiled to a cubin with the
-   port's flags and ``-Xptxas -v``.  For K1's instantiation (every bool
-   template argument false) it prints ptxas's resource lines and its SASS
-   (``cuobjdump -sass``), the instructions compared with the constant-bank
-   offsets of the kernel's parameters masked, since a new parameter moves
-   them.
+   port's flags and ``-Xptxas -v``.  For K1 (the score-only kernel, or its
+   instantiation with every bool template argument false) it prints
+   ptxas's resource lines and its SASS (``cuobjdump -sass``), the
+   instructions compared with the constant-bank offsets of the kernel's
+   parameters masked, since a new parameter moves them.
 2. **Time.**  Each run is a fresh process started in one checkout's root
    with that root on ``PYTHONPATH``: it builds that checkout's kernels and
-   times ``psa_diff.dp_packed`` (one K1 launch) with CUDA events, median
-   of ``--reps`` after a warm-up, on 128 pairs of 10,240 bp made from
-   ``--seed`` (the smoke's K1 shape).  Each round runs other, this, this,
-   other, so neither side always goes first.
+   times, with CUDA events, the median of ``--reps`` after a warm-up:
 
-Prints one JSON object per line; the last is the summary: each side's
-median of its runs' medians, this over other, and whether every run's
-scores and corners agree.
+   * ``k1``: ``psa_diff.dp_packed`` score-only (one K1 launch) on 128
+     pairs of 10,240 bp made from ``--seed`` (the smoke's K1 shape);
+   * ``traced``: ``psa_diff.dp_packed(traced=True)`` (K2) on the 10 kbp
+     example (``tests/golden/example_big``), on 32 x 10 kbp (slot 0 the
+     example, the rest from ``--seed``) and, one launch with no warm-up,
+     on reads 0 and 1 of the seed-13 200 kbp set cut to 100,000 bp;
+   * ``chunk``: ``psa_chunked.chunk_dp`` (Q2-7) on chunk 0 of reads 0 and
+     1 of that set at 65,536 rows per chunk (65,536 x 200,064).
+
+   Each round runs other, this, this, other, so neither side always goes
+   first.
+
+Prints one JSON object per line; the last is the summary: for each shape
+each side's median of its runs' medians, this over other, and whether
+every run's outputs agree (scores and corners byte for byte, each plane
+and frontier through a checksum computed on the card).
 """
 
 from __future__ import annotations
@@ -46,38 +57,114 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 # the timed process, run in either checkout: only what both have
 CHILD = r"""
-import hashlib, json, statistics, sys
+import hashlib, json, os, statistics, sys
 import numpy as np, torch
 from tsta_tpu_torch import AlignParams
 from tsta_tpu_torch.ops import _kernels, psa_diff
-seed, reps = int(sys.argv[1]), int(sys.argv[2])
-rng = np.random.default_rng(seed)
-acgt = np.frombuffer(b"ACGT", np.uint8)
-pairs = []
-for _ in range(128):
-    a = rng.integers(0, 4, 10240).astype(np.uint8)
-    b = a.copy()
-    b[rng.integers(0, 10240, 1280)] = rng.integers(0, 4, 1280)
-    b = np.delete(b, rng.integers(0, 10240, 170))
-    pairs.append((acgt[a], acgt[b]))
+kernel, seed, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda")
 P = AlignParams()
 p = (P.match, P.mismatch, P.gap_extend, P.gap_open)
-a, b, lens = psa_diff.pack_pairs(pairs, torch.device("cuda"))
-scores, corners = psa_diff.dp_packed(a, b, lens, p)   # build, load, warm up
-torch.cuda.synchronize()
-ms = []
-for _ in range(reps):
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    psa_diff.dp_packed(a, b, lens, p)
-    ev[1].record()
+rng = np.random.default_rng(seed)
+acgt = np.frombuffer(b"ACGT", np.uint8)
+
+
+def mutated(n, subs, dels):
+    a = rng.integers(0, 4, n).astype(np.uint8)
+    b = a.copy()
+    b[rng.integers(0, n, subs)] = rng.integers(0, 4, subs)
+    return acgt[a], acgt[np.delete(b, rng.integers(0, n, dels))]
+
+
+def long_reads(seed=13, length=200000):
+    r = np.random.default_rng(seed)
+    base = r.choice(acgt, length).tobytes()
+
+    def mut(s, rate):
+        s = np.frombuffer(s, np.uint8).copy()
+        m = r.random(len(s)) < rate
+        s[m] = acgt[r.integers(0, 4, m.sum())]
+        return np.delete(s, r.integers(0, len(s), len(s) // 50)).tobytes()
+
+    return [base, mut(base, 0.05), mut(base, 0.08)]
+
+
+def example():
+    with open(os.path.join("tests", "golden", "example_big",
+                           "psa_default.out"), "rb") as f:
+        lines = f.read().split(b"\n")
+    return tuple(np.frombuffer(lines[k].replace(b"-", b""), np.uint8)
+                 for k in (1, 3))
+
+
+def checksum(t):
+    # per 64 MB slice of int32 words, their sum and their sum weighted by
+    # position, accumulated in int64 on the card
+    v = t.reshape(-1).view(torch.uint8)
+    out = []
+    for k in range(0, v.numel(), 1 << 26):
+        x = v[k:k + (1 << 26)]
+        if x.numel() % 4:
+            x = torch.cat([x, x.new_zeros(4 - x.numel() % 4)])
+        w = x.view(torch.int32).to(torch.int64)
+        out += [int(w.sum()), int((w * torch.arange(
+            1, w.numel() + 1, device=w.device)).sum())]
+    return hashlib.sha256(json.dumps(out).encode()).hexdigest()
+
+
+def timed(fn, reps, warm=True):
+    out = fn() if warm else None
     torch.cuda.synchronize()
-    ms.append(ev[0].elapsed_time(ev[1]))
-out = torch.stack([scores, corners]).cpu().numpy().tobytes()
-print(json.dumps({"ms": ms, "median_ms": statistics.median(ms),
-                  "launches": _kernels.launches["psa_dp_score"],
-                  "outputs_sha256": hashlib.sha256(out).hexdigest(),
-                  "build_s": _kernels.build_info.get("seconds")}))
+    ms = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return ms, out
+
+
+def record(ms, outs, counter):
+    return {"ms": ms, "median_ms": statistics.median(ms),
+            "launches": _kernels.launches[counter],
+            "outputs": hashlib.sha256(json.dumps(
+                [checksum(o) for o in outs]).encode()).hexdigest()}
+
+
+res = {}
+if kernel == "k1":
+    pairs = [mutated(10240, 1280, 170) for _ in range(128)]
+    a, b, lens = psa_diff.pack_pairs(pairs, dev)
+    ms, out = timed(lambda: psa_diff.dp_packed(a, b, lens, p), reps)
+    res["128 x 10240 score-only"] = record(ms, out, "psa_dp_score")
+elif kernel == "traced":
+    ex = example()
+    reads = long_reads()
+    shapes = [("1 x 10 kbp", [ex], reps),
+              ("32 x 10 kbp",
+               [ex] + [mutated(10000, 1250, 200) for _ in range(31)], reps),
+              ("1 x 100 kbp", [tuple(np.frombuffer(r[:100000], np.uint8)
+                                     for r in reads[:2])], 1)]
+    for label, group, n in shapes:
+        a, b, nm = psa_diff.pack_pairs(group, dev, traced=True)
+        ms, out = timed(lambda: psa_diff.dp_packed(a, b, nm, p, True), n,
+                        warm=n > 1)
+        res[label] = record(ms, out, "psa_dp_traced")
+        res[label]["shape"] = [len(group), b.shape[1], a.shape[1]]
+        del a, b, nm, out
+        torch.cuda.empty_cache()
+else:
+    from tsta_tpu_torch.ops import psa_chunked
+    reads = long_reads()
+    pair = psa_chunked.ChunkedPair(
+        *(np.frombuffer(r, np.uint8) for r in reads[:2]), p, 65536, dev)
+    args = pair.chunk_call(0, *pair.entry())
+    ms, out = timed(lambda: psa_chunked.chunk_dp(*args), reps)
+    res["65536 x %d chunk 0" % pair.n_pad] = record(ms, out, "psa_dp_chunk")
+print(json.dumps({"shapes": res, "build_s": _kernels.build_info.get(
+    "seconds")}))
 """
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
@@ -87,9 +174,13 @@ _CBANK = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
 
 def is_k1(name: str) -> bool:
-    """Whether a mangled ``psa_dp_kernel`` instantiation is K1's: every
-    bool template argument false (``<false>``, or ``<256, false, false>``
-    in a checkout whose ``psa_dp.cu`` still has the row-chunk mode)."""
+    """Whether a mangled ``psa_dp_kernel`` is K1's: the plain function
+    (``psa_dp.cu`` score-only alone), or an instantiation with every bool
+    template argument false (``<false>`` beside the traced ``<true>``, or
+    ``<256, false, false>`` in a checkout that still has the row-chunk
+    mode)."""
+    if re.search(r"13psa_dp_kernelEP", name):
+        return True
     m = re.search(r"psa_dp_kernelI((?:L[a-z]-?\d+E)+)E", name)
     return bool(m) and "Lb1E" not in m.group(1)
 
@@ -145,11 +236,11 @@ def k1_code(root: str, work: str, tag: str) -> dict:
             "sass": sass_functions(dump)[names[0]]}
 
 
-def timed_run(root: str, seed: int, reps: int) -> dict:
+def timed_run(root: str, kernel: str, seed: int, reps: int) -> dict:
     env = dict(os.environ, PYTHONPATH=root)
-    r = subprocess.run([sys.executable, "-c", CHILD, str(seed), str(reps)],
-                       cwd=root, env=env, capture_output=True, text=True,
-                       timeout=900)
+    r = subprocess.run([sys.executable, "-c", CHILD, kernel, str(seed),
+                        str(reps)], cwd=root, env=env, capture_output=True,
+                       text=True, timeout=1800)
     if r.returncode:
         raise RuntimeError("timed run in %s failed:\n%s" % (root, r.stderr))
     return json.loads(r.stdout.strip().splitlines()[-1])
@@ -163,6 +254,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
+    ap.add_argument("--kernel", choices=("k1", "traced", "chunk"),
+                    default="k1", help="which DP to time (default k1)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
@@ -185,15 +278,20 @@ def main(argv=None) -> int:
     runs = {"other": [], "this": []}
     for rnd in range(args.rounds):
         for k in ("other", "this", "this", "other"):
-            res = timed_run(trees[k], args.seed, args.reps)
-            runs[k].append(res)
+            res = timed_run(trees[k], args.kernel, args.seed, args.reps)
+            runs[k].append(res["shapes"])
             emit({"round": rnd, "tree": k, **res})
-    med = {k: statistics.median(r["median_ms"] for r in v)
-           for k, v in runs.items()}
-    emit({"median_ms": med, "this_over_other": med["this"] / med["other"],
-          "outputs_equal": len({r["outputs_sha256"] for v in runs.values()
-                                for r in v}) == 1,
-          "runs": {k: [r["median_ms"] for r in v] for k, v in runs.items()}})
+    summary = {}
+    for shape in runs["this"][0]:
+        med = {k: statistics.median(r[shape]["median_ms"] for r in v)
+               for k, v in runs.items()}
+        summary[shape] = {
+            "median_ms": med, "this_over_other": med["this"] / med["other"],
+            "outputs_equal": len({r[shape]["outputs"] for v in runs.values()
+                                  for r in v}) == 1,
+            "runs": {k: [r[shape]["median_ms"] for r in v]
+                     for k, v in runs.items()}}
+    emit({"kernel": args.kernel, "summary": summary})
     return 0
 
 
