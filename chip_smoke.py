@@ -12,25 +12,34 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. build: the kernels of ``tsta_tpu_torch/csrc`` compiled with nvcc for
    sm_90a into the ignored ``build/`` directory;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   exact integer equality (DP score-only, K1, on a mixed 100-3,000 bp
-   batch and a 40 kbp pair; the traced DP, ``psa_dp_traced.cu``, on 4
+   exact integer equality (the score-only DP, K1, ``psa_dp.cu``, on a
+   mixed 100-3,000 bp batch and a 40 kbp pair at its plan's shards; the
+   traced DP, ``psa_dp_traced.cu``, on 4
    pairs of 2-4 kbp, every cell code; the walk on that plane, moves and
    counts);
 4. main path: ``tsta-torch psa`` on the reference's 10,000 x 10,000 bp
    example pair (recovered from ``tests/golden/example_big``), traced and
-   score-only, with the launch counters reset before and read after; the
-   output must be byte-identical to the golden and stdout ``maxsorce=-5``;
-   then ``python -m tsta_tpu_torch psa -X -3`` against ``psa_x3.out``;
+   score-only, with the launch counters reset before each and read after;
+   the output must be byte-identical to the golden and stdout
+   ``maxsorce=-5``, and ``--notrace`` one K1 launch over its plan's
+   shards at one pair (``psa_diff.score_plan``, D >= 2, equal to the
+   kernel's layout) and no plain call; then ``python -m tsta_tpu_torch
+   psa -X -3`` against ``psa_x3.out``;
 5. batches: 128 x 10,240 bp score-only and 32 x 10 kbp traced (slot 0 the
    example pair), exact against the plain versions and the golden;
 6. timings: kernel and plain version on the card at the main path's
    shapes (CUDA events), and every output of those runs (scores, corners,
    each plane byte, walk words and counts) exactly equal; the kernels
-   record's errors are these; then ``psa_traced_plan``: the traced DP's
-   plan at 32 x 10 kbp and 1 x 10 kbp (``psa_diff.traced_plan``, equal to
-   the kernel's layout) and its sweep, the group at the D of each plan
-   with the least W 4 or 8 and 1 or 2 blocks an SM, every output equal
-   to the plan's run;
+   record's errors are these (K1 also at one pair, the example); then
+   ``psa_traced_plan``: the traced DP's plan at 32 x 10 kbp and 1 x 10
+   kbp (``psa_diff.traced_plan``, equal to the kernel's layout) and its
+   sweep, the group at the D of each plan with the least W 4 or 8 and 1
+   or 2 blocks an SM, every output equal to the plan's run; and
+   ``psa_score_plan``: the score-only DP's plan at 1 (the example), 32
+   and 128 x 10,240 bp (``psa_diff.score_plan``, equal to the kernel's
+   layout) and its sweep, the least W 2, 4 or 8 and 1 or 2 blocks an SM,
+   and at one pair T = 16, 32 and 64, every output equal to the plan's
+   run;
 7. POA kernels: the round DP and the walk against their plain versions
    on the card on seeded grown graphs (multi-pred nodes), every real
    word, score and aligned row equal; the DP also at forced D = 2, 3 and
@@ -102,7 +111,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
     the chunk DP's plan (D shards of C columns, W per thread, T rows per
     packet: ``psa_chunked.chunk_plan``, equal to the kernel's), its
     median over PR 10's 108.78 ms, and the T sweep, the same chunk at T =
-    16 to 256, every output equal;
+    16 to 256, every output equal; (e) ``tsta-torch psa --notrace --json``
+    on (c)'s reads, the counters and plain calls reset before and read
+    after: one K1 launch over its plan's shards and nothing else, wall,
+    maxsorce and corner equal to (c)'s and to the plain version's on the
+    card;
 16. edit scoring (M = 0, X = -1, E = -1, O = 0) on the round-1 kernels,
     the launch counters and the count of plain calls on the card reset
     before each path and read after it: (a) ``tsta-torch psa`` on the 10
@@ -149,18 +162,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
     5's 32 x 10 kbp traced plane walked by K3 and the two-pair walk (CUDA
     events), every word and count equal to phase 6's plain walk of that
     plane, then its first 31 pairs, which take K3;
-19. the ring wavefront (``psa_ring.cu``, one long pair's columns sharded
-    over co-resident blocks, one per ``seq`` shard of a virtual one-card
-    mesh): (a) the kernel against its plain version (best, corner, every
+19. the ring wavefront (``psa_dp.cu`` at one pair, every padded cell:
+    one long pair's columns sharded over co-resident blocks, one per
+    ``seq`` shard of a virtual one-card mesh): (a) the kernel against its
+    plain version (best, corner, every
     edge packet) on the 10 kbp example at D = 8, T = 256 and D = the SM
     count, T = 32, and at (b)'s own D, T and C = 1,536 columns per shard:
     the 200 kbp pair's ``a`` against its ``b`` cut to two row blocks (the
     kernels record's times); (b) ``align_long_ring`` on phase
     14's 200 kbp pair (K1's a and b) at D = the SM count, T = 256, the
     launch counters and the plain calls on the card reset before and read
-    after, best and corner equal to phase 14's K1, then the median of 3
+    after, best and corner equal to phase 14's K1 (the same body) and to
+    phase 15 (c)'s traced route (another body), then the median of 3
     launches (CUDA events), GCUPS, bound, peak device memory; (c) the
-    same under edit scoring, equal to phase 16's K1 pass; (d) D = 16 and
+    same under edit scoring, equal to phase 16's K1 pass and (d)'s traced
+    route; (d) D = 16 and
     66 at full width, equal to K1; (e) one shard past the card's resident
     limit raises ``KernelError`` without launching;
 20. a traced mid-length pair: reads 0 and 1 of the 200 kbp set cut to
@@ -170,11 +186,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
     before and read after: wall, maxsorce, plan, peak device memory;
     score and corner equal to K1's, the rows re-scoring to the corner, and
     the output bytes equal to the chunked route's
-    (``psa_align_traced_chunked`` at 8,192 rows a chunk).
+    (``psa_align_traced_chunked`` at 8,192 rows a chunk); then ``tsta-torch
+    psa --notrace --json`` on the pair: one K1 launch over its plan's
+    shards and nothing else, wall, maxsorce and corner equal to the
+    traced route's and to the plain version's on the card.
 
-The last three lines are the kernels record (each kernel's launches on
+A ``done`` line gives the script's wall.  The last three lines are the
+kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
-what bounds it), the ``nvidia-smi`` name and power limit, and ``{"ok":
+what bounds it; K1 twice, at 128 x 10,240 bp and at one pair, the
+``--notrace`` example), the ``nvidia-smi`` name and power limit, and ``{"ok":
 true, "device": {...}}``.  Exits non-zero, printing no result, without
 CUDA or outside a checkout of the repo.
 """
@@ -230,6 +251,10 @@ PR10_CHUNK_MS = 108.78
 TRACED_MID_BP, TRACED_MID_MC = 100_000, 8192
 # the traced DP's plan sweep: the least columns a thread, blocks an SM
 TRACED_MIN_W_SWEEP, TRACED_PER_SM_SWEEP = (4, 8), (1, 2)
+# the score-only DP's: the least columns a thread, blocks an SM, and at one
+# pair the rows a packet
+SCORE_MIN_W_SWEEP, SCORE_PER_SM_SWEEP, SCORE_T_SWEEP = (2, 4, 8), (1, 2), (
+    16, 32, 64)
 # columns a thread and nodes a packet of the POA DP's plan sweep
 POA_S_SWEEP, POA_T_SWEEP = (8, 16, 32), (16, 32, 64)
 # phase 7's forced shards (D, T, G) on its 2,048-column rounds: G blocks
@@ -385,6 +410,7 @@ def random_pairs(rng, lengths, similar):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -473,16 +499,21 @@ def main() -> int:
         out = os.path.join(tmp, "out.txt")
         argv = ["psa", "-1", fa, "-2", fb, "--device", "cuda"]
         buf = io.StringIO()
-        _kernels.reset_launches()
+        p0 = start()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc1 = cli.main(argv + ["-o", out])
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+            traced_launches, _ = stop(p0)
+            _kernels.reset_launches()
+            t1n = time.perf_counter()
             rc2 = cli.main(argv + ["--notrace"])
             torch.cuda.synchronize()
         t2 = time.perf_counter()
-        launches = dict(_kernels.launches)
+        notrace_launches, plain_main = stop(p0)
+        launches = {k: traced_launches[k] + notrace_launches[k]
+                    for k in traced_launches}
         with open(out, "rb") as f:
             traced_ok = f.read() == gold
         stdout = buf.getvalue().split()
@@ -499,11 +530,21 @@ def main() -> int:
         x3 = json.loads(proc.stdout.strip().splitlines()[-1])
         with open(out + ".x3", "rb") as f:
             x3_ok = f.read() == gold_x3
+    # K1's plan for the --notrace pair: one launch over several SMs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_pad_ex = -(-max(len(s1), len(s2)) // psa_diff.LANES) * psa_diff.LANES
+    plan_1 = psa_diff.score_plan(1, n_pad_ex, sms)
+    score_plan_1 = {**dict(zip("DCWT", plan_1)), "n_pad": n_pad_ex,
+                    "layout_equals_plan": _kernels.psa_dp_layout(
+                        1, n_pad_ex, sms) == plan_1}
     emit({"phase": "main_path", "rc": [rc1, rc2], "stdout": stdout,
           "golden_identical": traced_ok, "x3_golden_identical": x3_ok,
           "launches": launches, "x3_launches": x3["launches"],
           "psa_traced_wall_s": round(t1 - t0, 4),
-          "psa_notrace_wall_s": round(t2 - t1, 4),
+          "psa_notrace_wall_s": round(t2 - t1n, 4),
+          "notrace_launches": {k: v for k, v in notrace_launches.items()
+                               if v},
+          "plain_calls": plain_main, "notrace_plan": score_plan_1,
           "x3_subprocess_wall_s": round(t4 - t3, 4),
           "x3_align_wall_s": x3["wall_s"],
           "example": [len(s1), len(s2)]})
@@ -516,6 +557,12 @@ def main() -> int:
             x3["launches"]["psa_dp_traced"], x3["launches"]["psa_walk"]) < 1:
         raise AssertionError("a kernel of the main path never launched: "
                              "%s %s" % (launches, x3["launches"]))
+    if (notrace_launches["psa_dp_score"] != 1 or plain_main
+            or sum(notrace_launches.values()) != 1 or plan_1[0] < 2
+            or not score_plan_1["layout_equals_plan"]):
+        raise AssertionError("--notrace is not one K1 launch over several "
+                             "SMs: %s, plain calls %d, plan %s"
+                             % (notrace_launches, plain_main, score_plan_1))
 
     # 5. batches at the users' scale
     ex = (np.frombuffer(s1, np.uint8), np.frombuffer(s2, np.uint8))
@@ -571,6 +618,31 @@ def main() -> int:
                                         for g, w in zip(got, want[:2]))),
         **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells_score)}
     del a, b, lens, got, want
+    # K1 at one pair, the --notrace example: kernel and plain version
+    a, b, lens = psa_diff.pack_pairs([ex], dev)
+    cells_ex = len(ex[0]) * len(ex[1])
+    ms, got = cuda_ms(lambda: psa_diff.dp_packed(a, b, lens, p), 3)
+    pms, want = cuda_ms(lambda: psa_scan.scan_rows(a, b, lens[:, 0],
+                                                   lens[:, 1], p), 1, False)
+    times["psa_dp_score 1 pair"] = {
+        "shape": "1 pair, the example, %d x %d bp score-only" % (
+            len(ex[0]), len(ex[1])), "ms": ms, "plain_ms": pms,
+        "gcups": cells_ex / ms / 1e6,
+        "max_abs_err": max(max_err(g, w) for g, w in zip(got, want[:2])),
+        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells_ex)}
+    del a, b, lens, got, want
+    # the score-only DP's plan and its sweep at 1, 32 and 128 pairs
+    score_plans = {}
+    for label, group in (("1 x 10 kbp (the example)", [ex]),
+                         ("32 x 10240", pairs[:32]), ("128 x 10240", pairs)):
+        a, b, lens = psa_diff.pack_pairs(group, dev)
+        want = psa_diff.dp_packed(a, b, lens, p)
+        score_plans[label] = dict(zip(("plan", "sweep"), score_sweep(
+            a, b, lens, p, want)))
+        del a, b, lens, want
+    times["psa_dp_score 1 pair"]["plan"] = score_plans[
+        "1 x 10 kbp (the example)"]["plan"]
+    times["psa_dp_score"]["plan"] = score_plans["128 x 10240"]["plan"]
     for label, group in (("32 x 10 kbp", tpairs), ("1 x 10 kbp", [ex])):
         a, b, nm = psa_diff.pack_pairs(group, dev, traced=True)
         cells = sum(len(x) * len(y) for x, y in group)
@@ -608,6 +680,7 @@ def main() -> int:
         label: {k: times["psa_dp_traced " + label][k]
                 for k in ("ms", "plan", "sweep")}
         for label in ("32 x 10 kbp", "1 x 10 kbp")}})
+    emit({"phase": "psa_score_plan", "smi": smi_line, **score_plans})
     bad = {k: t["max_abs_err"] for k, t in times.items() if t["max_abs_err"]}
     if bad:
         raise AssertionError("kernel differs from its plain version at the "
@@ -627,17 +700,23 @@ def main() -> int:
     striped_launches, striped_times = striped_phases(
         dev, smi_line, batches, pairs, tpairs, walk_plain)
     launches.update(striped_launches)
-    ring_launches, ring_times = ring_phases(dev, smi_line, k1,
-                                            edit_times["k1_200k"])
+    ring_launches, ring_times = ring_phases(
+        dev, smi_line, k1, edit_times["k1_200k"], psa_times["traced_200k"],
+        edit_times["traced_200k"])
     launches.update(ring_launches)
     traced_100k_phase(dev, smi_line)
 
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
+          "smi": smi_line})
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     src = "tsta_tpu_torch/csrc/%s"
+    launches["psa_dp_score_1pair"] = notrace_launches["psa_dp_score"]
     entries = [
         ("psa_dp_score", src % "psa_dp.cu", "tsta_tpu/ops/psa_diff.py:309",
          times["psa_dp_score"]),
+        ("psa_dp_score_1pair", src % "psa_dp.cu",
+         "tsta_tpu/ops/psa_diff.py:309", times["psa_dp_score 1 pair"]),
         ("psa_dp_traced", src % "psa_dp_traced.cu",
          "tsta_tpu/ops/psa_diff.py:309",
          times["psa_dp_traced 32 x 10 kbp"]),
@@ -673,7 +752,7 @@ def main() -> int:
          "tsta_tpu/ops/psa_diff.py:543", striped_times["psa_dp_striped"]),
         ("psa_walk_pair2", src % "psa_walk_pair2.cu",
          "tsta_tpu/ops/traceback.py:723", striped_times["psa_walk_pair2"]),
-        ("psa_ring", src % "psa_ring.cu", "tsta_tpu/ops/psa_ring.py:78",
+        ("psa_ring", src % "psa_dp.cu", "tsta_tpu/ops/psa_ring.py:78",
          ring_times["psa_ring"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
@@ -726,6 +805,85 @@ def traced_sweep(a, b, nm, params, want):
                              "or the kernel's layout is not traced_plan's"
                              % err)
     return out, plan_sweep
+
+
+def score_sweep(a, b, lens, params, want):
+    """The score-only DP's plan for a group (``psa_diff.score_plan``, and
+    whether the kernel's exported layout equals it), then the sweep: the
+    same group at the D of each other plan, the least W 2, 4 or 8 and 1 or
+    2 blocks an SM, and at one pair the plan's D at each packet height
+    (CUDA events, median of 3 after a warm-up), every output held to
+    ``want`` (the plan's run)."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, psa_diff
+    P, n_pad = a.shape
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = psa_diff.score_plan(P, n_pad, sms)
+    out = {"plan": dict(zip("DCWT", plan)), "sms": sms,
+           "layout_equals_plan": _kernels.psa_dp_layout(
+               P, n_pad, sms) == plan, "fill_rows": (plan[0] - 1) * plan[3]}
+    runs, err = {}, 0
+    for min_w in SCORE_MIN_W_SWEEP:
+        for per_sm in SCORE_PER_SM_SWEEP:
+            D, _, W, _ = psa_diff.score_plan(P, n_pad, sms, min_w, per_sm)
+            if D not in runs:
+                ms, got = cuda_ms(lambda: psa_diff.run_dp(
+                    a, b, lens, params, D=D), 3)
+                err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+                runs[D] = {"D": D, "W": W, "blocks": P * D, "ms": ms}
+            runs[D].setdefault("plans", []).append(
+                "min W %d, %d a SM" % (min_w, per_sm))
+    t_runs = {}
+    for T in SCORE_T_SWEEP if P == 1 else ():
+        t_runs[T], got = cuda_ms(lambda: psa_diff.run_dp(
+            a, b, lens, params, D=plan[0], T=T), 3)
+        err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+    sweep = {"max_abs_err": err, "runs": list(runs.values()),
+             "t_sweep_ms": t_runs}
+    if err or not out["layout_equals_plan"]:
+        raise AssertionError("score-only DP: the sweep's outputs differ "
+                             "(%d), or the kernel's layout is not "
+                             "score_plan's" % err)
+    return out, sweep
+
+
+def notrace_cli(fa, fb, pair):
+    """``tsta-torch psa --notrace --json`` in this process on ``fa`` and
+    ``fb``, the launch counters and the plain calls on the card reset
+    before and read after: its score, corner and wall, the kernels it
+    launched, the plain calls, and whether that was one K1 launch and
+    nothing else; then the plain version (``psa_scan.scan_rows`` on the
+    card) on ``pair``, the two reads as bytes, longer first, as the CLI
+    orders them: its score, corner and seconds."""
+    import torch
+
+    from tsta_tpu_torch import cli
+    from tsta_tpu_torch.io import encode_dna
+    from tsta_tpu_torch.ops import psa_diff, psa_scan
+    buf = io.StringIO()
+    p0 = start()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["psa", "-1", fa, "-2", fb, "--device", "cuda",
+                       "--notrace", "--json"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = stop(p0)
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    a, b, lens = psa_diff.pack_pairs([tuple(encode_dna(x) for x in pair)],
+                                     torch.device("cuda"))
+    t0 = time.perf_counter()
+    ps, pc, _ = psa_scan.scan_rows(a, b, lens[:, 0], lens[:, 1],
+                                   (2, -5, -2, -4))
+    plain_out = [int(ps[0]), int(pc[0])]
+    return {"rc": rc, "wall_s": wall, "score": res["score"],
+            "corner": res["corner"],
+            "launches": {k: v for k, v in launches.items() if v},
+            "plain_calls": plain,
+            "one_k1_launch": rc == 0 and launches["psa_dp_score"] == 1
+            and sum(launches.values()) == 1 and plain == 0,
+            "plain": plain_out, "plain_s": time.perf_counter() - t0}
 
 
 def next_round(seqs, rounds, params, dev, budget=None):
@@ -1522,7 +1680,9 @@ def psa_chunked_phases(dev, smi_line, k1):
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         with open(out, "rb") as f:
             lines = f.read().split(b"\n")
-    run = psa_chunked.last_clock.record()
+        run = psa_chunked.last_clock.record()
+        # (e) the same pair score-only: TSTA_psa_notrace's route
+        notrace = notrace_cli(fa, fb, reads[:2])
     a_row, b_row = lines[1], lines[3]
     rescored = tb.score_alignment(a_row, b_row, params)
     degapped = (a_row.replace(b"-", b"") == reads[0]
@@ -1551,6 +1711,18 @@ def psa_chunked_phases(dev, smi_line, k1):
             or launches["psa_dp_traced"] or launches["psa_walk"]):
         raise AssertionError("200 kbp pair did not run on the chunked "
                              "kernels alone: %s %s" % (launches, run))
+    n_pad_200k = -(-len(reads[0]) // psa_diff.LANES) * psa_diff.LANES
+    notrace["plan"] = dict(zip("DCWT", psa_diff.score_plan(
+        1, n_pad_200k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)))
+    notrace["gcups"] = cells / notrace["wall_s"] / 1e9
+    emit({"phase": "psa_notrace_200k", **notrace,
+          "traced": [run["score"], run["corner"]], "smi": smi_line})
+    if (not notrace["one_k1_launch"] or notrace["plan"]["D"] < 2
+            or not [notrace["score"], notrace["corner"]]
+            == [run["score"], run["corner"]] == notrace["plain"]):
+        raise AssertionError("200 kbp pair, --notrace: %s against the "
+                             "traced route's %s" % (notrace, run))
 
     # (d) (c)'s chunk 0 at (c)'s shape, after the timed run: its DP from
     # the entry frontier, and its walk from the state (c)'s walk entered
@@ -1617,6 +1789,7 @@ def psa_chunked_phases(dev, smi_line, k1):
                              % (err_dp, err_walk, state, kst))
 
     times = {
+        "traced_200k": {"score": run["score"], "corner": run["corner"]},
         "psa_dp_chunk": {
             "shape": "ms: (c) median of %d launches, %d x %d rows x columns "
                      "(D %d, C %d, W %d, T %d); plain_ms: (d) chunk 0 of (c), "
@@ -1878,6 +2051,7 @@ def edit_phases(dev, smi_line, batch_pairs):
         raise AssertionError("edit scoring, 200 kbp pair: score/corner/rows "
                              "disagree with K1, or not 3 chunks")
     times["k1_200k"] = {"score": k1_score, "corner": k1_corner, "s": k1_s}
+    times["traced_200k"] = {"score": run["score"], "corner": run["corner"]}
     if (plain_d or ld["psa_dp_chunk"] < run["chunks"] + run["remats"]
             or ld["psa_walk_bounded"] < run["walks"]
             or ld["psa_dp_traced"] or ld["psa_walk"]):
@@ -1924,6 +2098,8 @@ def traced_100k_phase(dev, smi_line):
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         with open(out, "rb") as f:
             text = f.read()
+        # the same pair score-only: one K1 launch over the plan's shards
+        notrace = notrace_cli(fa, fb, (r0, r1))
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
     lines = text.split(b"\n")
     rescored = tb.score_alignment(lines[1], lines[3], params)
@@ -1944,6 +2120,9 @@ def traced_100k_phase(dev, smi_line):
     n_pad = psa_diff._traced_n_pad(len(r0))
     plan = psa_diff.traced_plan(1, n_pad, sms)
     cells = len(r0) * len(r1)
+    notrace["plan"] = dict(zip("DCWT", psa_diff.score_plan(
+        1, -(-len(r0) // psa_diff.LANES) * psa_diff.LANES, sms)))
+    notrace["gcups"] = cells / notrace["wall_s"] / 1e9
     emit({"phase": "traced_100k", "rc": rc, "maxsorce": res["score"],
           "score": res["score"], "corner": res["corner"], "wall_s": wall,
           "gcups": cells / wall / 1e9, "cells": cells,
@@ -1958,7 +2137,7 @@ def traced_100k_phase(dev, smi_line):
                       "score": score_c, "corner": corner_c,
                       "wall_s": chunked_s,
                       "bytes_equal": chunked_text == text},
-          "smi": smi_line})
+          "notrace": notrace, "smi": smi_line})
     if rc != 0 or [res["score"], res["corner"]] != k1 \
             or rescored != k1[1] or not degapped:
         raise AssertionError("traced 100 kbp pair: score/corner/rows "
@@ -1967,6 +2146,11 @@ def traced_100k_phase(dev, smi_line):
     if chunked_text != text or [score_c, corner_c] != k1 or chunks < 2:
         raise AssertionError("traced 100 kbp pair: the chunked route's "
                              "output differs")
+    if (not notrace["one_k1_launch"] or notrace["plan"]["D"] < 2
+            or not [notrace["score"], notrace["corner"]]
+            == [res["score"], res["corner"]] == notrace["plain"]):
+        raise AssertionError("100 kbp pair, --notrace: %s against the "
+                             "traced route's %s" % (notrace, res))
     if (plain or launches["psa_dp_traced"] != 1 or launches["psa_walk"] != 1
             or launches["psa_dp_chunk"] or launches["psa_dp_score"]):
         raise AssertionError("traced 100 kbp pair did not run unchunked on "
@@ -2318,8 +2502,9 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
             "psa_walk_pair2": lw["psa_walk_pair2"]}, times
 
 
-def ring_phases(dev, smi_line, k1, k1_edit):
-    """Phase 19, the ring wavefront (``psa_ring.cu``): (a) the kernel
+def ring_phases(dev, smi_line, k1, k1_edit, traced, traced_edit):
+    """Phase 19, the ring wavefront (``psa_dp.cu`` at one pair, every
+    padded cell): (a) the kernel
     against its plain version on the card (best, corner, every packet) on
     the 10 kbp example, D = 8 at T = 256 and D = the SM count at T = 32,
     and at the main path's own shape: the 200 kbp pair's ``a`` (C = 1,536
@@ -2329,11 +2514,13 @@ def ring_phases(dev, smi_line, k1, k1_edit):
     ``align_long_ring`` on a virtual one-card mesh of D = the SM count, T
     = 256, the launch counters and the plain calls on the card reset
     before and read after, its best and corner equal to ``k1`` (phase
-    14), then 3 launches timed (CUDA events); (c) the same under edit
-    scoring against ``k1_edit`` (phase 16's K1 pass); (d) D = 16 and 66
-    at full width, each held to ``k1``; (e) one shard past the card's
-    resident limit raises, without launching.  Returns the launches of
-    (b) and the kernels record's timing."""
+    14) and to ``traced``, the maxsorce and corner of a route with its
+    own body (phase 15 (c), the chunked traced DP), then 3 launches timed
+    (CUDA events); (c) the same under edit scoring against ``k1_edit``
+    (phase 16's K1 pass) and ``traced_edit`` (phase 16 (d)'s traced
+    route); (d) D = 16 and 66 at full width, each held to ``k1``; (e) one
+    shard past the card's resident limit raises, without launching.
+    Returns the launches of (b) and the kernels record's timing."""
     import torch
 
     from tsta_tpu_torch.ops import _kernels, psa_ring
@@ -2399,6 +2586,7 @@ def ring_phases(dev, smi_line, k1, k1_edit):
             "peak_device_gb": peak, "best": best, "corner": corner,
             "timed_best_corner": out.amax(dim=0).tolist(),
             "k1": [k1["score"], k1["corner"]], "k1_s": k1["s"],
+            "traced": [traced["score"], traced["corner"]],
             "rows": b.numel() + (sms - 1) * 256, "n_pad": a.numel(),
             **bound(nbytes(a, b, out) + 8 * sms * b.numel(),
                     OPS_PSA_CELL * cells)}
@@ -2406,8 +2594,8 @@ def ring_phases(dev, smi_line, k1, k1_edit):
           "plain_calls": plain_b, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
     if ([best, corner] != full["k1"] or full["timed_best_corner"]
-            != full["k1"] or lb["psa_ring"] != 1 or plain_b
-            or sum(lb.values()) != 1):
+            != full["k1"] or full["traced"] != full["k1"]
+            or lb["psa_ring"] != 1 or plain_b or sum(lb.values()) != 1):
         raise AssertionError("psa_ring at 200 kbp: (%d, %d) against K1's %s,"
                              " launches %s, plain calls %d"
                              % (best, corner, full["k1"], lb, plain_b))
@@ -2419,10 +2607,13 @@ def ring_phases(dev, smi_line, k1, k1_edit):
     wall_c = time.perf_counter() - t0
     lc, plain_c = stop(p0)
     want_edit = (k1_edit["score"], k1_edit["corner"])
+    traced_e = (traced_edit["score"], traced_edit["corner"])
     emit({"phase": "ring_200k_edit", "best_corner": got_edit,
-          "k1": want_edit, "k1_s": k1_edit["s"], "wall_s": wall_c,
-          "launches": lc["psa_ring"], "plain_calls": plain_c})
-    if got_edit != want_edit or lc["psa_ring"] != 1 or plain_c:
+          "k1": want_edit, "traced": traced_e, "k1_s": k1_edit["s"],
+          "wall_s": wall_c, "launches": lc["psa_ring"],
+          "plain_calls": plain_c})
+    if (got_edit != want_edit or got_edit != traced_e or lc["psa_ring"] != 1
+            or plain_c):
         raise AssertionError("psa_ring at 200 kbp, edit scoring: %s against "
                              "K1's %s" % (got_edit, want_edit))
 

@@ -107,6 +107,123 @@ def test_wrappers_refuse_bad_tensors(cuda):
         tb.walk_packed(plane[:, :, :64], lens.to(cuda))
 
 
+_SCORE_INPUTS = {}
+
+
+def _score_inputs(name):
+    """The smoke's phase 3 shapes on the CPU with their plain outputs,
+    made once: 64 mixed pairs of 100-3,000 bp (every other one similar)
+    and a similar 40 kbp pair, packed as the score-only route packs
+    them."""
+    if name not in _SCORE_INPUTS:
+        rng = np.random.default_rng(3)
+        if name == "mixed":
+            lengths = [(int(rng.integers(100, 3001)),
+                        int(rng.integers(100, 3001))) for _ in range(64)]
+        else:
+            lengths = [(40000, 39700)]
+        pairs = [_long_pair(k, n, m) if k % 2 == 0 else
+                 (rng.integers(65, 69, n).astype(np.uint8),
+                  rng.integers(65, 69, m).astype(np.uint8))
+                 for k, (n, m) in enumerate(lengths)]
+        group = psa_diff.pack_pairs(pairs, torch.device("cpu"))
+        _SCORE_INPUTS[name] = (group, psa_diff.run_dp(*group, P0))
+    return _SCORE_INPUTS[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16, 32])
+@pytest.mark.parametrize("D", [None, 1, 2, 3, 5])
+@pytest.mark.parametrize("name", ["mixed", "40 kbp"])
+def test_psa_dp_score_kernel_matches_plain(cuda, name, D, T):
+    """psa_dp.cu's K1 launch against the plain version on the smoke's
+    phase 3 batch (pairs that end in an earlier shard than the widest)
+    and a 40 kbp pair (at D = 1 past the shared-memory frontier), at the
+    plan and at forced D = 1, 2, 3 and 5, T = 1, 16 and 32: every score
+    and corner equal; one launch."""
+    (a, b, lens), want = _score_inputs(name)
+    got = [torch.empty((a.shape[0],), dtype=torch.int32, device=cuda)
+           for _ in range(2)]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n0 = _kernels.launches["psa_dp_score"]
+    ran = _kernels.psa_dp(a.to(cuda), b.to(cuda), lens.to(cuda), P0, *got,
+                          D=D, T=T)
+    torch.cuda.synchronize()
+    assert _kernels.launches["psa_dp_score"] == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    plan = psa_diff.score_plan(a.shape[0], a.shape[1], sms)
+    assert ran == (D or plan[0], plan[1] if D is None
+                   else -(-a.shape[1] // D), T)
+
+
+@pytest.mark.cuda
+def test_psa_dp_score_run_dp_routes_to_it(cuda):
+    """``run_dp`` score-only on the card launches K1 (never the traced
+    DP, never a plain scan) and takes the D/T overrides."""
+    (a, b, lens), want = _score_inputs("mixed")
+    n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+    for kw in ({}, {"D": 4, "T": 8}):
+        got = psa_diff.run_dp(a.to(cuda), b.to(cuda), lens.to(cuda), P0,
+                              **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert _kernels.launches["psa_dp_score"] == n0["psa_dp_score"] + 2
+    assert _kernels.launches["psa_dp_traced"] == n0["psa_dp_traced"]
+    assert psa_scan.plain_calls == p0
+
+
+@pytest.mark.cuda
+def test_psa_dp_layout_is_score_plan(cuda):
+    """The kernel's exported plan equals psa_diff.score_plan, and at one
+    pair of the example's width it cuts the columns over several SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for s in sorted({1, 16, 132, sms}):
+        for P in (1, 2, 3, 32, 128, 200, 5000, 70000):
+            for n_pad in (1, 4, 128, 1024, 9088, 10112, 10240, 30720,
+                          100096, 200064):
+                assert (_kernels.psa_dp_layout(P, n_pad, s)
+                        == psa_diff.score_plan(P, n_pad, s)), (P, n_pad, s)
+    assert _kernels.psa_dp_layout(1, 10112, sms)[0] >= 2
+
+
+@pytest.mark.cuda
+def test_psa_dp_score_past_the_sms_and_the_resident_limit(cuda):
+    """More pairs than SMs: the plan's D = 1, an ordinary launch of every
+    pair's block, equal to the plain version, also past the card's
+    resident limit; D = 2 past the limit raises KernelError naming it,
+    without launching."""
+    rng = np.random.default_rng(8)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pairs = [(rng.integers(65, 69, int(rng.integers(20, 300))).astype(
+              np.uint8), rng.integers(65, 69, int(rng.integers(20, 200)))
+              .astype(np.uint8)) for _ in range(3 * sms)]
+    a, b, lens = psa_diff.pack_pairs(pairs, torch.device("cpu"))
+    limit1 = _kernels.psa_dp_max_blocks(a.shape[1], 32, cuda)
+    reps = -(-(limit1 + 5) // len(pairs))
+    a, b, lens = (x.repeat(reps, 1) for x in (a, b, lens))
+    P = a.shape[0]
+    want = psa_diff.run_dp(a, b, lens, P0)
+    got = [torch.empty((P,), dtype=torch.int32, device=cuda)
+           for _ in range(2)]
+    n0 = _kernels.launches["psa_dp_score"]
+    ran = _kernels.psa_dp(a.to(cuda), b.to(cuda), lens.to(cuda), P0, *got)
+    torch.cuda.synchronize()
+    assert ran[0] == 1 and P > limit1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    C = -(-a.shape[1] // 2)
+    limit = _kernels.psa_dp_max_blocks(C, 32, cuda)
+    Q = limit // 2 + 1
+    with pytest.raises(_kernels.KernelError, match="at most %d" % limit):
+        _kernels.psa_dp(a[:Q].to(cuda), b[:Q].to(cuda), lens[:Q].to(cuda),
+                        P0, got[0][:Q], got[1][:Q], D=2, T=32)
+    assert _kernels.launches["psa_dp_score"] == n0 + 1
+    with pytest.raises(ValueError):   # 128 columns make 128 shards of 1
+        _kernels.psa_dp(a[:1].to(cuda)[:, :128].contiguous(), b[:1].to(cuda),
+                        lens[:1].to(cuda), P0, got[0][:1], got[1][:1], D=200)
+
+
 def _reads(seed, n_reads, length, div=0.12):
     """A seeded base read and ``n_reads - 1`` copies with ~``div``
     substitutions and ~``div``/8 deletions."""

@@ -211,6 +211,9 @@ def test_cpu_traced_dp_takes_the_plain_scan_and_refuses_overrides(
             psa_diff.run_dp(a, b, nm, P0, traced=True, **kw)
     with pytest.raises(ValueError):
         psa_diff.run_dp(a, b, nm, P0, D=2)
+    for kw in ({"T": 16}, {"D": 1, "T": 32}):   # score-only refuses them too
+        with pytest.raises(ValueError, match="overrides"):
+            psa_diff.run_dp(a, b, nm, P0, **kw)
     plane = torch.empty((1, b.shape[1], a.shape[1]), dtype=torch.uint8)
     one = torch.empty((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -221,15 +224,16 @@ def test_cpu_traced_dp_takes_the_plain_scan_and_refuses_overrides(
 
 def test_psa_dp_ab_child_parses_and_times_each_kernel():
     """The A/B tool's timed process (run in either checkout on the card)
-    is valid Python and times K1 and K2 through ``dp_packed`` and Q2-7
-    through ``chunk_dp``, as ``--kernel k1|traced|chunk`` asks."""
+    is valid Python and times K1 and K2 through ``dp_packed``, the ring
+    through ``ring_kernel`` and Q2-7 through ``chunk_dp``, as ``--kernel
+    k1|ring|traced|chunk`` asks; any other kernel is refused."""
     import ast
     from tsta_tpu_torch.tools import psa_dp_ab
     tree = ast.parse(psa_dp_ab.CHILD)
     calls = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
-    assert {"dp_packed", "chunk_dp", "ChunkedPair"} <= calls
+    assert {"dp_packed", "ring_kernel", "chunk_dp", "ChunkedPair"} <= calls
     kinds = {n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
-             and n.value in ("k1", "traced")}
-    assert kinds == {"k1", "traced"}
+             and n.value in ("k1", "ring", "traced")}
+    assert kinds == {"k1", "ring", "traced"}
     with pytest.raises(SystemExit):
-        psa_dp_ab.main(["--other", ".", "--kernel", "ring"])
+        psa_dp_ab.main(["--other", ".", "--kernel", "walk"])

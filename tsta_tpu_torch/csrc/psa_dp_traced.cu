@@ -26,7 +26,7 @@
 // with H(-1,j) = o + (j+1)e, H(i,-1) = o + (i+1)e, H(-1,-1) = 0 and
 // E(-1,j) = NEG (-2^28, not INT_MIN: gap terms are added to it).  The
 // closed-form F composes across shards: shard d's seed is shard d-1's
-// inclusive prefix (psa_ring.cu does the same for the score-only DP).
+// inclusive prefix (psa_dp.cu does the same for the score-only DP).
 // Cell code = back*9 + f*3 + e: back 1 diag > 0 left (F) > 2 up (E); f/e
 // 0 extend, 1 open, 2 open with an open/extend tie.  One byte per cell,
 // row-major per pair: plane[pair][r][j].

@@ -1,4 +1,4 @@
-// The protocol shared by the column-sharded wavefronts (psa_ring.cu,
+// The protocol shared by the column-sharded wavefronts (psa_dp.cu,
 // psa_dp_traced.cu): D co-resident blocks of one cooperative launch, block
 // d owning a shard of columns; per row block, block d publishes an edge
 // packet for block d+1 behind a release flag and block d+1 spins on it.

@@ -31,15 +31,17 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _SOURCES = ("psa_dp.cu", "psa_dp_traced.cu", "psa_dp_short.cu",
             "psa_dp_diff.cu", "psa_dp_striped.cu", "psa_walk.cu",
             "psa_walk_pair2.cu", "psa_walk_bounded.cu", "poa_dp.cu",
-            "poa_walk.cu", "poa_walk_bounded.cu", "psa_ring.cu")
+            "poa_walk.cu", "poa_walk_bounded.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-# K1 is the score-only PSA DP, one block per pair; K2 (psa_dp_traced) the
-# traced DP of a batch of pairs and psa_dp_chunk a row-chunk of one long
-# traced pair (Q2-7), both launches of the one traced body that cuts each
-# pair's columns into shards on co-resident blocks; psa_dp_short is
+# K1 (psa_dp_score) is the score-only PSA DP of a batch of pairs and
+# psa_ring one long pair's over the mesh's shards (Q2-10), both launches of
+# the one score-only body that cuts each pair's columns into shards on
+# co-resident blocks; K2 (psa_dp_traced) the traced DP of a batch of pairs
+# and psa_dp_chunk a row-chunk of one long traced pair (Q2-7), both
+# launches of the one traced body that does the same; psa_dp_short is
 # the score-only DP of short pairs, one warp each; psa_dp_diff is the
 # score-only DP by the difference method (int16 offsets, Q2-9) and
 # psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
@@ -49,8 +51,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # blocks) and its walk on a single-call round; poa_dp_chunk and
 # poa_dp_window are the POA DP kernel's forward chunk and window remat in
 # a chunked round, and poa_walk_bounded its walk inside one
-# (chunk, window) cell; psa_ring is one long pair's DP with its columns
-# sharded over co-resident blocks (Q2-10).
+# (chunk, window) cell.
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
@@ -151,11 +152,14 @@ def _lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.tsta_psa_dp.restype = ci
-            lib.tsta_psa_dp.argtypes = [vp, vp, vp, ci, ci, ci,
-                                        ci, ci, ci, ci,
-                                        vp, vp, vp, ci, vp]
+            lib.tsta_psa_dp.argtypes = [vp] * 3 + [ci] * 11 + [vp] * 5
             lib.tsta_psa_dp_scratch_words.restype = ci
-            lib.tsta_psa_dp_scratch_words.argtypes = [ci]
+            lib.tsta_psa_dp_scratch_words.argtypes = [ci, ci]
+            lib.tsta_psa_dp_max_blocks.restype = ci
+            lib.tsta_psa_dp_max_blocks.argtypes = [ci, ci]
+            lib.tsta_psa_dp_layout.restype = None
+            lib.tsta_psa_dp_layout.argtypes = [ci, ci, ci] + [
+                ctypes.POINTER(ci)] * 4
             lib.tsta_psa_dp_traced.restype = ci
             lib.tsta_psa_dp_traced.argtypes = [vp] * 3 + [ci] * 8 + [
                 vp] * 7 + [ci] * 3 + [vp] * 4
@@ -197,12 +201,6 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_poa_walk_bounded.restype = ci
             lib.tsta_poa_walk_bounded.argtypes = [vp, vp] + [ci] * 8 + [
                 vp, vp, vp]
-            lib.tsta_psa_ring.restype = ci
-            lib.tsta_psa_ring.argtypes = [vp, vp] + [ci] * 10 + [vp] * 5
-            lib.tsta_psa_ring_scratch_words.restype = ci
-            lib.tsta_psa_ring_scratch_words.argtypes = [ci]
-            lib.tsta_psa_ring_max_blocks.restype = ci
-            lib.tsta_psa_ring_max_blocks.argtypes = [ci, ci]
             _LIB = lib
         return _LIB
 
@@ -229,11 +227,77 @@ def _raise_on(rc: int, what: str) -> None:
                           % (what, rc, torch.cuda.get_device_name()))
 
 
-def psa_dp(a, b, lens, params, score, corner) -> None:
-    """Launch the score-only DP kernel (K1, one block per pair, each pair
-    over its real extent).  ``a``: (B, n_stride) uint8, ``b``: (B,
-    m_stride) uint8, ``lens``: (B, 2) int32 real (n, m); ``score``/
-    ``corner``: (B,) int32 outputs.  The traced DP is
+def psa_dp_layout(P: int, n_pad: int, sms: int) -> tuple:
+    """(D, C, W, T): the shards, columns per shard, columns per thread and
+    rows per packet ``psa_dp.cu`` plans for a score-only launch over P
+    pairs of ``n_pad`` columns on a card of ``sms`` SMs, read from the
+    built library (``psa_diff.score_plan`` is its twin)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    _lib().tsta_psa_dp_layout(P, n_pad, sms, *map(ctypes.byref, out))
+    return tuple(v.value for v in out)
+
+
+def psa_dp_max_blocks(C: int, T: int, dev) -> int:
+    """The most score-only DP blocks (shards of C columns, T-row packets)
+    the card ``dev`` holds resident at once."""
+    with torch.cuda.device(dev):
+        limit = _lib().tsta_psa_dp_max_blocks(C, T)
+    if limit < 0:
+        _raise_on(-limit, "psa_dp occupancy query")
+    return limit
+
+
+def _score_launch(what, a, b, lens, params, full, D, C, T, comm, out):
+    """One launch of the score-only body over P pairs (``a``: (P, n_pad),
+    ``b``: (P, m_stride), ``lens``: (P, 2)) at D shards of C columns and
+    T-row packets, writing ``out`` ((P, D, 2) int32, each shard's best and
+    corner) and, when given, ``comm`` ((P, D, ceil(m_stride / T), 2T)
+    int32, every packet): the flags and the scratch allocated here, D = 1
+    an ordinary launch, D >= 2 a cooperative one; ``full`` runs every
+    padded cell (the ring), else each pair's real extent (K1).  A refused
+    launch raises :class:`KernelError`."""
+    dev = a.device
+    P, n_pad = a.shape
+    m_stride = b.shape[1]
+    lib = _lib()
+    flags = None
+    if comm is not None:
+        flags = torch.zeros(comm.shape[:3], dtype=torch.int32, device=dev)
+    sw = lib.tsta_psa_dp_scratch_words(C, T)
+    scratch = (torch.empty((P, D, sw), dtype=torch.int32, device=dev) if sw
+               else None)
+    m_, x_, e_, o_ = params
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = lib.tsta_psa_dp(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), P, n_pad, m_stride,
+            m_, x_, e_, o_, int(full), D, C, T, ptr(comm), ptr(flags),
+            out.data_ptr(), ptr(scratch), _stream(dev))
+    if rc == COOP_TOO_LARGE:
+        raise KernelError(
+            "%s: %d pairs of %d shards need %d co-resident blocks, but %s "
+            "holds at most %d at C = %d columns, T = %d rows (cooperative "
+            "launch)" % (what, P, D, P * D, torch.cuda.get_device_name(dev),
+                         psa_dp_max_blocks(C, T, dev), C, T))
+    _raise_on(rc, what)
+
+
+def psa_dp(a, b, lens, params, score, corner, *, D=None, T=None) -> tuple:
+    """Launch the score-only DP (K1) over B pairs, each over its real
+    extent: ``a``: (B, n_stride) uint8, ``b``: (B, m_stride) uint8,
+    ``lens``: (B, 2) int32 real (n, m); ``score``/``corner``: (B,) int32
+    outputs, the max over each pair's cells and H(m-1, n-1).  Each pair's
+    columns are cut into D shards of C columns, one co-resident block
+    each, T rows a packet: the kernel's plan for B pairs on this card
+    (:func:`psa_dp_layout`); ``D`` (C = n_stride / D rounded up, which
+    must give D shards) and ``T`` override it, for tests and sweeps.  D =
+    1 launches B blocks, any B; D >= 2 is a cooperative launch of B * D
+    blocks, which raises :class:`KernelError`, without launching, past the
+    card's co-resident limit.  The shards' (best, corner) are reduced by a
+    max after the launch.  Returns the (D, C, T) it ran.  The traced DP is
     :func:`psa_dp_traced`."""
     dev = a.device
     if dev.type != "cuda":
@@ -245,16 +309,31 @@ def psa_dp(a, b, lens, params, score, corner) -> None:
     _check(lens, "lens", torch.int32, (B, 2), dev)
     _check(score, "score", torch.int32, (B,), dev)
     _check(corner, "corner", torch.int32, (B,), dev)
-    lib = _lib()
-    sw = lib.tsta_psa_dp_scratch_words(n_stride)
-    scratch = torch.empty((B, sw), dtype=torch.int32, device=dev)
-    m_, x_, e_, o_ = params
-    rc = lib.tsta_psa_dp(a.data_ptr(), b.data_ptr(), lens.data_ptr(), B,
-                         n_stride, m_stride, m_, x_, e_, o_,
-                         score.data_ptr(), corner.data_ptr(),
-                         scratch.data_ptr(), sw, _stream(dev))
-    _raise_on(rc, "psa_dp")
+    if B < 1 or n_stride < 1 or m_stride < 1:
+        raise ValueError("psa_dp: %d pairs of n_stride %d x m_stride %d"
+                         % (B, n_stride, m_stride))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_d, C, _, plan_t = psa_dp_layout(B, n_stride, sms)
+    if D is None:
+        D = plan_d
+    else:
+        C = -(-n_stride // max(D, 1))
+        if D < 1 or -(-n_stride // C) != D:
+            raise ValueError("psa_dp: %d columns do not make %d shards"
+                             % (n_stride, D))
+    T = plan_t if T is None else T
+    if T < 1:
+        raise ValueError("psa_dp: T %d rows a packet" % T)
+    comm = None
+    if D >= 2:
+        comm = torch.empty((B, D, -(-m_stride // T), 2 * T),
+                           dtype=torch.int32, device=dev)
+    out = torch.empty((B, D, 2), dtype=torch.int32, device=dev)
+    _score_launch("psa_dp", a, b, lens, params, False, D, C, T, comm, out)
+    torch.amax(out[:, :, 0], 1, out=score)
+    torch.amax(out[:, :, 1], 1, out=corner)
     launches["psa_dp_score"] += 1
+    return D, C, T
 
 
 def psa_dp_short(a, b, lens, params, score, corner) -> None:
@@ -797,23 +876,21 @@ def poa_walk_bounded(words, preds, row, j, state, base, col0, align,
 
 def psa_ring_max_blocks(C: int, T: int, dev) -> int:
     """The most ``psa_ring`` blocks (shards of C columns, T-row packets)
-    the card ``dev`` holds resident at once."""
-    with torch.cuda.device(dev):
-        limit = _lib().tsta_psa_ring_max_blocks(C, T)
-    if limit < 0:
-        _raise_on(-limit, "psa_ring occupancy query")
-    return limit
+    the card ``dev`` holds resident at once: the score-only body's
+    (:func:`psa_dp_max_blocks`)."""
+    return psa_dp_max_blocks(C, T, dev)
 
 
 def psa_ring(a, b, D, T, n_real, m_real, params, comm, out) -> None:
-    """Launch the ring wavefront (one cooperative launch of D blocks, one
-    per shard of C = n / D columns) over one padded pair: ``a``: (n,)
-    uint8, C a multiple of 128; ``b``: (m,) uint8, m a multiple of T;
+    """Launch the ring wavefront: the score-only body at one pair over D
+    shards of C = n / D columns, one co-resident block each, every padded
+    cell run (D = 1 an ordinary launch, D >= 2 a cooperative one): ``a``:
+    (n,) uint8, C a multiple of 128; ``b``: (m,) uint8, m a multiple of T;
     outputs ``comm`` ((D, m / T, 2T) int32, every edge packet) and ``out``
-    ((D, 2) int32, each shard's best and corner).  Raises
-    :class:`KernelError`, without launching, when the card cannot hold D
-    blocks resident together (the C side's check, :data:`COOP_TOO_LARGE`):
-    a shard would wait on one never scheduled."""
+    ((D, 2) int32, each shard's best over the rows < m_real and its
+    corner).  Raises :class:`KernelError`, without launching, when the
+    card cannot hold D blocks resident together (the C side's check,
+    :data:`COOP_TOO_LARGE`): a shard would wait on one never scheduled."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("psa_ring kernel needs CUDA tensors, got %s" % dev)
@@ -829,22 +906,7 @@ def psa_ring(a, b, D, T, n_real, m_real, params, comm, out) -> None:
     if not (1 <= n_real <= n and 1 <= m_real <= m):
         raise ValueError("psa_ring: real lengths (%d, %d) outside (%d, %d)"
                          % (n_real, m_real, n, m))
-    lib = _lib()
-    sw = lib.tsta_psa_ring_scratch_words(C)
-    scratch = (torch.empty((D, sw), dtype=torch.int32, device=dev) if sw
-               else None)
-    flags = torch.zeros((D, mb), dtype=torch.int32, device=dev)
-    m_, x_, e_, o_ = params
-    with torch.cuda.device(dev):
-        rc = lib.tsta_psa_ring(
-            a.data_ptr(), b.data_ptr(), D, C, mb, T, n_real, m_real, m_, x_,
-            e_, o_, comm.data_ptr(), flags.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), _stream(dev))
-    if rc == COOP_TOO_LARGE:
-        raise KernelError(
-            "psa_ring: %d shards need %d co-resident blocks, but %s holds at "
-            "most %d at C = %d columns, T = %d rows (cooperative launch)"
-            % (D, D, torch.cuda.get_device_name(dev),
-               psa_ring_max_blocks(C, T, dev), C, T))
-    _raise_on(rc, "psa_ring")
+    lens = torch.tensor([[n_real, m_real]], dtype=torch.int32, device=dev)
+    _score_launch("psa_ring", a.view(1, n), b.view(1, m), lens, params, True,
+                  D, C, T, comm.view(1, D, mb, 2 * T), out.view(1, D, 2))
     launches["psa_ring"] += 1

@@ -5,8 +5,9 @@ Counterpart of ``tsta_tpu/ops/psa_diff.py`` (single device, int32).  The
 TPU packs P pairs along the sublanes of one tile; on the GPU a batch is
 one launch over a (B, n_pad) byte matrix with a (B, 2) real-length table:
 
-* score-only (:func:`psa_align_batch_diff`): ``csrc/psa_dp.cu``, one
-  thread block per pair; any pair length; each pair runs over its own
+* score-only (:func:`psa_align_batch_diff`): ``csrc/psa_dp.cu``, each
+  pair's columns cut into D shards on co-resident blocks
+  (:func:`score_plan`); any pair length; each pair runs over its own
   real extent, so mixing lengths costs no padding;
 * traced (:func:`psa_align_batch_traced_packed`): pairs grouped by padded
   width; each group's DP (``csrc/psa_dp_traced.cu``: each pair's columns
@@ -63,6 +64,10 @@ DIFF_THREADS = 256      # csrc/psa_dp_diff.cu's block: one strip per thread
 # csrc/psa_dp_traced.cu's plan: threads per block (one shard each), rows
 # per packet, and the fewest columns per thread of a shard
 TRACED_THREADS, TRACED_T, TRACED_MIN_W = 256, 32, 4
+# csrc/psa_dp.cu's (the score-only body's): the same three, and the
+# one-block-an-SM strips that take two blocks an SM instead
+SCORE_THREADS, SCORE_T, SCORE_MIN_W = 256, 32, 2
+SCORE_SPLIT_W, SCORE_SPLIT_MAX_W = 6, 48
 
 
 def supports_params(params) -> bool:
@@ -120,6 +125,32 @@ def traced_plan(P: int, n_pad: int, sms: int, min_w: int = TRACED_MIN_W,
     return -(-n_pad // C), C, round4(-(-C // TRACED_THREADS)), TRACED_T
 
 
+def score_plan(P: int, n_pad: int, sms: int, min_w: int = SCORE_MIN_W,
+               per_sm=None) -> tuple:
+    """(D, C, W, T): how ``csrc/psa_dp.cu`` cuts each of P pairs of
+    ``n_pad`` columns on a card of ``sms`` SMs for a score-only launch (its
+    ``tsta_psa_dp_layout``).  max(1, per_sm * sms // P) blocks a pair; W
+    columns per thread: n_pad over those blocks' threads, at least
+    SCORE_MIN_W; C = SCORE_THREADS * W columns per shard (n_pad when that
+    is less); D = ceil(n_pad / C) shards, the last one n_pad - (D - 1) * C
+    wide; T = SCORE_T rows per packet, so the pipeline's fill is (D - 1) *
+    T rows.  per_sm is 2 when one block an SM gives a strip of
+    SCORE_SPLIT_W to SCORE_SPLIT_MAX_W columns, else 1 (PERF.md's sweep:
+    a second block an SM hides the row's barriers where a strip's cells
+    are many), so P * D <= 2 * sms whenever D >= 2.  The body needs no
+    multiple of W: score-only has no code word.  ``min_w`` (the least W)
+    and ``per_sm`` (forced) give the smoke's sweep its other plans; the
+    kernel's are the defaults."""
+    def width(k):
+        blocks = max(1, k * sms // P)
+        return max(min_w, -(-n_pad // (blocks * SCORE_THREADS)))
+    if per_sm is None:
+        w1 = width(1)
+        per_sm = 2 if SCORE_SPLIT_W <= w1 <= SCORE_SPLIT_MAX_W else 1
+    C = min(width(per_sm) * SCORE_THREADS, n_pad)
+    return -(-n_pad // C), C, -(-C // SCORE_THREADS), SCORE_T
+
+
 def _traced_n_pad(n_max: int) -> int:
     """Padded per-pair width of a traced group: LANES-rounded, then
     512-rounded when that costs < 25% padding, so near-miss lengths
@@ -161,16 +192,13 @@ def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
     (which include padded cells) whenever every move into padding lowers
     the score: X < 0, E < 0 and O <= 0, which the callers' gates hold.
     On the card score-only launches K1 (``_kernels.psa_dp``) and traced
-    the sharded traced DP (``_kernels.psa_dp_traced``), whose plan ``D``
-    and ``T`` override, for tests and sweeps; the plain version takes
-    neither.
+    the traced DP (``_kernels.psa_dp_traced``), each pair's columns in
+    shards on co-resident blocks; their plan ``D`` and ``T`` override,
+    for tests and sweeps; the plain version takes neither.
     """
     p = as_params(params)
-    forced = D is not None or T is not None
-    if forced and not traced:
-        raise ValueError("D and T are the traced DP's overrides")
     if a.device.type == "cpu":
-        if forced:
+        if D is not None or T is not None:
             raise ValueError("D and T are the card kernel's overrides; the "
                              "plain version takes neither")
         best, corner, codes = psa_scan.scan_rows(a, b, lens[:, 0],
@@ -180,7 +208,7 @@ def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
     score = torch.empty((B,), dtype=torch.int32, device=a.device)
     corner = torch.empty((B,), dtype=torch.int32, device=a.device)
     if not traced:
-        _kernels.psa_dp(a, b, lens, p, score, corner)
+        _kernels.psa_dp(a, b, lens, p, score, corner, D=D, T=T)
         return score, corner
     plane = torch.empty((B, b.shape[1], a.shape[1]), dtype=torch.uint8,
                         device=a.device)

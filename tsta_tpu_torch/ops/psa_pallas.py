@@ -8,8 +8,9 @@ kernels take (``psa_diff.supports_params``, M > 0) there instead:
 
 * Q2-13 ``_kernel`` (:func:`psa_align`, :func:`dp_pair`): one pair, n
   padded to LANES and m to T_R.  Score-only it is ``csrc/psa_dp.cu``'s K1
-  over the pair's real extent; traced, ``csrc/psa_dp_traced.cu`` at P = 1
-  (the pair's columns in D shards over co-resident blocks) over every
+  at P = 1 over the pair's real extent; traced, ``csrc/psa_dp_traced.cu``
+  at P = 1 (each body cuts the pair's columns into D shards over
+  co-resident blocks) over every
   padded cell, so the (m_pad, n_pad) code plane equals the JAX kernel's
   byte for byte, padding included.  The JAX kernel's last H row is read
   by no caller, and is not produced here.

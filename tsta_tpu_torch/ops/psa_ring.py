@@ -14,8 +14,10 @@ sent that block's *edge packet*, 2T int32 (JAX's layout, ``comm_ref``):
 
 On the TPU each shard is a chip and the packet travels by remote DMA.
 Here every ``seq`` shard of a one-card mesh is a co-resident thread block
-of one launch of ``csrc/psa_ring.cu``, and a packet is a store to global
-memory published behind a release flag (no slot is reused, so no ack).
+of one launch of the score-only body ``csrc/psa_dp.cu`` at one pair (K1's
+kernel, with C = n / D and T the caller's), and a packet is a store to
+global memory published behind a release flag (no slot is reused, so no
+ack).
 A CPU mesh runs the plain version :func:`ring_plain`, JAX's ``longseq``
 schedule as torch ops: at pipeline step s every shard d runs row block
 s - d at once, so it costs (m + (D - 1) T) rows of (D, C) tensor ops.
@@ -64,8 +66,9 @@ def pad_pair(a, b, D: int, T: int):
 @torch.no_grad()
 def ring_plain(a: torch.Tensor, b: torch.Tensor, n_real: int, m_real: int,
                params, D: int, T: int):
-    """The plain version of ``csrc/psa_ring.cu``: ``a`` (n,) uint8, n a
-    multiple of D, ``b`` (m,) uint8, m a multiple of T, both padded.
+    """The plain version of the ring's launch of ``csrc/psa_dp.cu``: ``a``
+    (n,) uint8, n a multiple of D, ``b`` (m,) uint8, m a multiple of T,
+    both padded.
     Returns ``(out, comm)``: ``out`` (D, 2) int32, each shard's best and
     its corner (NEG where the corner is not in the shard), and ``comm``
     (D, m // T, 2T) int32, the packet each shard sent for each row block.
@@ -126,8 +129,8 @@ def ring_plain(a: torch.Tensor, b: torch.Tensor, n_real: int, m_real: int,
 
 def ring_kernel(a: torch.Tensor, b: torch.Tensor, n_real: int, m_real: int,
                 params, D: int, T: int):
-    """One launch of ``csrc/psa_ring.cu``, D blocks on one card: the
-    arguments and outputs of :func:`ring_plain`."""
+    """One launch of ``csrc/psa_dp.cu`` at one pair, D blocks on one
+    card: the arguments and outputs of :func:`ring_plain`."""
     mb = b.numel() // T
     out = torch.empty((D, 2), dtype=torch.int32, device=a.device)
     comm = torch.empty((D, mb, 2 * T), dtype=torch.int32, device=a.device)
@@ -164,7 +167,7 @@ def align_long_ring(a, b, params: AlignParams = AlignParams(), mesh=None,
     columns sharded over the mesh's ``seq`` axis (``parallel.mesh``).
 
     Returns ``(best, corner)`` with the reference's matrix-max semantics.
-    A one-card mesh runs one launch of ``csrc/psa_ring.cu`` with D =
+    A one-card mesh runs one launch of ``csrc/psa_dp.cu`` with D =
     ``mesh.shape["seq"]`` blocks; a CPU mesh the plain version."""
     if mesh is None:
         raise ValueError("align_long_ring requires a mesh with a 'seq' axis")

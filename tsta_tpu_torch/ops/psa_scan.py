@@ -102,15 +102,17 @@ def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     them.  Returns ``(best, corner, codes, h, e)``, the last two the
     frontier of the last row.
 
-    A column shard, as ``csrc/psa_dp_traced.cu`` cuts a row (the tests'
-    proof that its packets are enough): ``a`` holds the global columns
-    ``col0 .. col0 + n - 1``, the corner is the pair's only where they
-    hold column n_real-1, and ``left`` ((B, m, 3) int32, default the
-    matrix's left boundary) gives for each row i the shard's left edge
-    as the kernel's packet: H(i-1, col0-1), the inclusive F prefix max(
-    H(i,-1) + e, max_{k<col0} (C(k) - k*e)) and H(i, col0-1).  ``right``,
-    a (B, m, 3) int32 tensor, receives the same three values at the
-    shard's last column, the next shard's ``left``."""
+    A column shard, as ``csrc/psa_dp_traced.cu`` and ``csrc/psa_dp.cu``
+    cut a row (the tests' proof that their packets are enough): ``a``
+    holds the global columns ``col0 .. col0 + n - 1``, the corner is the
+    pair's only where they hold column n_real-1, and ``left`` ((B, m, 3)
+    int32, default the matrix's left boundary) gives for each row i the
+    shard's left edge as the traced kernel's packet: H(i-1, col0-1), the
+    inclusive F prefix max(H(i,-1) + e, max_{k<col0} (C(k) - k*e)) and
+    H(i, col0-1).  ``right``, a (B, m, 3) int32 tensor, receives the same
+    three values at the shard's last column, the next shard's ``left``.
+    Score-only, both may be (B, m, 2), the score-only kernel's two-lane
+    packet: the third value feeds only the codes."""
     global plain_calls
     if a.device.type == "cuda":
         plain_calls += 1
@@ -159,7 +161,8 @@ def scan_from(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
         if right is not None:
             right[:, r, 0] = h[:, -1]
             right[:, r, 1] = torch.maximum(run[:, -1], c[:, -1] - j_e[-1])
-            right[:, r, 2] = h_row[:, -1]
+            if right.shape[2] > 2:
+                right[:, r, 2] = h_row[:, -1]
         best = torch.maximum(best, h_row.amax(dim=1))
         corner = torch.where(mrow == i,
                              h_row.gather(1, ncol).view(B), corner)

@@ -8,8 +8,8 @@ running F prefix) to shard d + 1 between steps.  JAX writes it at XLA
 level (``shard_map`` + ``ppermute``); it replaces no Pallas kernel and its
 values are the ring's (``ops/psa_ring.py``), so here it is the ring with
 T = ``block``: a CPU mesh runs the shared plain schedule
-(``psa_ring.ring_plain``), a one-card mesh one launch of
-``csrc/psa_ring.cu``, so that no plain DP runs on the card.
+(``psa_ring.ring_plain``), a one-card mesh one launch of the score-only
+body ``csrc/psa_dp.cu`` at one pair, so that no plain DP runs on the card.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ JAX mesh's two logical axes:
 
 A device may repeat: ``make_mesh(1, 8, devices=[torch.device("cuda", 0)]
 * 8)`` is a virtual mesh of eight ``seq`` shards on one card, each shard a
-co-resident thread block of ``csrc/psa_ring.cu``, the counterpart of the
+co-resident thread block of ``csrc/psa_dp.cu``, the counterpart of the
 JAX tests' eight virtual CPU devices; ``[torch.device("cpu")] * 8`` runs
 the plain versions.  :func:`seq_device` picks the route from the devices.
 

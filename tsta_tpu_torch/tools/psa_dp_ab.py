@@ -4,14 +4,15 @@ by side, then the chosen kernel's times, alternating, outputs compared.
 Run from the root of a checkout, on a machine with a card and ``nvcc``::
 
     python -m tsta_tpu_torch.tools.psa_dp_ab --other DIR \
-        [--kernel k1|traced|chunk] [--rounds 2]
+        [--kernel k1|ring|traced|chunk] [--rounds 2]
 
 ``DIR`` is the root of another checkout of the repo, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
 
 1. **Code.**  Each checkout's ``psa_dp.cu`` is compiled to a cubin with the
    port's flags and ``-Xptxas -v``.  For K1 (the score-only kernel, or its
-   instantiation with every bool template argument false) it prints
+   instantiation with every bool template argument false: the one with
+   its frontier in shared memory, which 128 x 10,240 bp runs) it prints
    ptxas's resource lines and its SASS (``cuobjdump -sass``), the
    instructions compared with the constant-bank offsets of the kernel's
    parameters masked, since a new parameter moves them.
@@ -20,7 +21,12 @@ parent commit unpacked with ``git archive`` into a git-ignored directory.
    times, with CUDA events, the median of ``--reps`` after a warm-up:
 
    * ``k1``: ``psa_diff.dp_packed`` score-only (one K1 launch) on 128
-     pairs of 10,240 bp made from ``--seed`` (the smoke's K1 shape);
+     pairs of 10,240 bp made from ``--seed`` (the smoke's K1 shape), on
+     the first of them alone and, one launch with no warm-up, on reads 0
+     and 1 of the seed-13 200 kbp set cut to 100,000 bp (a parent's one
+     block a pair takes seconds there);
+   * ``ring``: ``psa_ring.ring_kernel`` on that set's 200 kbp pair (read
+     1 against read 0, as the smoke's phase 19) at D = 132, T = 256;
    * ``traced``: ``psa_diff.dp_packed(traced=True)`` (K2) on the 10 kbp
      example (``tests/golden/example_big``), on 32 x 10 kbp (slot 0 the
      example, the rest from ``--seed``) and, one launch with no warm-up,
@@ -139,6 +145,23 @@ if kernel == "k1":
     a, b, lens = psa_diff.pack_pairs(pairs, dev)
     ms, out = timed(lambda: psa_diff.dp_packed(a, b, lens, p), reps)
     res["128 x 10240 score-only"] = record(ms, out, "psa_dp_score")
+    reads = long_reads()
+    for label, group, n in (
+            ("1 x 10240 score-only", pairs[:1], reps),
+            ("1 x 100 kbp score-only", [tuple(np.frombuffer(
+                r[:100000], np.uint8) for r in reads[:2])], 1)):
+        a, b, lens = psa_diff.pack_pairs(group, dev)
+        ms, out = timed(lambda: psa_diff.dp_packed(a, b, lens, p), n,
+                        warm=n > 1)
+        res[label] = record(ms, out, "psa_dp_score")
+elif kernel == "ring":
+    from tsta_tpu_torch.ops import psa_ring
+    reads = long_reads()
+    a, b, n_real, m_real = psa_ring.pad_pair(reads[1], reads[0], 132, 256)
+    a, b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    ms, out = timed(lambda: psa_ring.ring_kernel(a, b, n_real, m_real, p,
+                                                 132, 256), reps)
+    res["200 kbp ring D = 132, T = 256"] = record(ms, out, "psa_ring")
 elif kernel == "traced":
     ex = example()
     reads = long_reads()
@@ -175,10 +198,11 @@ _CBANK = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
 
 def is_k1(name: str) -> bool:
     """Whether a mangled ``psa_dp_kernel`` is K1's: the plain function
-    (``psa_dp.cu`` score-only alone), or an instantiation with every bool
-    template argument false (``<false>`` beside the traced ``<true>``, or
-    ``<256, false, false>`` in a checkout that still has the row-chunk
-    mode)."""
+    (``psa_dp.cu``'s one block a pair), or an instantiation with every
+    bool template argument false (the sharded body's shared-memory
+    frontier ``<false>`` beside its global one; ``<false>`` beside the
+    traced ``<true>``, or ``<256, false, false>`` in a checkout that still
+    has the row-chunk mode)."""
     if re.search(r"13psa_dp_kernelEP", name):
         return True
     m = re.search(r"psa_dp_kernelI((?:L[a-z]-?\d+E)+)E", name)
@@ -254,7 +278,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
-    ap.add_argument("--kernel", choices=("k1", "traced", "chunk"),
+    ap.add_argument("--kernel", choices=("k1", "ring", "traced", "chunk"),
                     default="k1", help="which DP to time (default k1)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
