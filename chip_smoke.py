@@ -39,7 +39,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
    and 128 x 10,240 bp (``psa_diff.score_plan``, equal to the kernel's
    layout) and its sweep, the least W 2, 4 or 8 and 1 or 2 blocks an SM,
    and at one pair T = 16, 32 and 64, every output equal to the plan's
-   run;
+   run; the walks' records carry their plan (Q2-8 its phase length S,
+   ``_kernels.WALK_S``; K3 its S and threads a block,
+   ``_kernels.psa_walk_layout``) and their chain bound, and K3 at 32 x 10
+   kbp its S sweep (32, 64, 128), every word and count equal to the plain
+   walk; (b) K3 on a traced batch of more pairs than SMs:
+   ``align_batch_traced_device`` on phase 16 (c)'s 4,096 pairs of
+   150-2,000 bp, one traced DP and one K3 launch a group, no plain call,
+   every score and corner equal to K1's, the largest groups at a smaller
+   S than one pair's; each group's walk timed (CUDA events) and equal to
+   the plain walk in every word and count;
 7. POA kernels: the round DP and the walk against their plain versions
    on the card on seeded grown graphs (multi-pred nodes), every real
    word, score and aligned row equal; the DP also at forced D = 2, 3 and
@@ -104,10 +113,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
     ``maxsorce`` and the corner equal to K1's (phase 14) and to round 1's
     score, the rows re-scoring to it and equal to the reads without their
     gaps: wall, GCUPS, forward and backward split, remats, each launch's
-    ms and peak device memory; (d) after it, (c)'s chunk 0 at (c)'s shape
-    (65,536 rows x the full width), its DP from the entry frontier and
-    its walk from the state (c)'s walk entered it with, held to the plain
-    versions in every output, which give the kernels record's plain ms;
+    ms and peak device memory, and the walk's S; (d) after it, (c)'s chunk
+    0 at (c)'s shape (65,536 rows x the full width), its DP from the entry
+    frontier and its walk from the state (c)'s walk entered it with, held
+    to the plain versions in every output, which give the kernels record's
+    plain ms, and that walk's S sweep (32, 64, 128), every output equal;
     the chunk DP's plan (D shards of C columns, W per thread, T rows per
     packet: ``psa_chunked.chunk_plan``, equal to the kernel's), its
     median over PR 10's 108.78 ms, and the T sweep, the same chunk at T =
@@ -121,9 +131,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
     before each path and read after it: (a) ``tsta-torch psa`` on the 10
     kbp example, traced and ``--notrace``, equal in bytes to ``--kernel
     plain`` on the card, the rows re-scoring to the corner, through the
-    traced DP (Q2-13), the walk (Q2-16) and, ``--notrace``, K1, then the
-    DP and the walk against their plain versions at that shape (every
-    plane byte, the moves), with the DP's plan and sweep as in phase 6;
+    traced DP (Q2-13), the walk (Q2-16, its S printed) and, ``--notrace``,
+    K1, then the DP and the walk against their plain versions at that
+    shape (every plane byte, the moves), with the DP's plan and sweep as in
+    phase 6;
     (b)
     ``psa_pallas.psa_align_batch`` on phase 5's 128 x 10,240 bp pairs
     (Q2-14, K1) against the plain version; (c) 4,096 seeded pairs of
@@ -189,12 +200,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
     (``psa_align_traced_chunked`` at 8,192 rows a chunk); then ``tsta-torch
     psa --notrace --json`` on the pair: one K1 launch over its plan's
     shards and nothing else, wall, maxsorce and corner equal to the
-    traced route's and to the plain version's on the card.
+    traced route's and to the plain version's on the card; then the pair's
+    plane again and K3's own launch on it (CUDA events, median of 3), its
+    words and count held to ``traceback.walk_staged_plain`` on that plane
+    (the plain walk on the ring's schedule, which copies only its windows
+    to the host), the time the kernels record's ``ms_100k``.
 
 A ``done`` line gives the script's wall.  The last three lines are the
 kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
-what bounds it; K1 twice, at 128 x 10,240 bp and at one pair, the
+what bounds it, and for the walks their chain bound: the longest walk's
+steps at one dependent shared-memory load, ``CHAIN_CYCLES`` at the
+boost clock, each; K1 twice, at 128 x 10,240 bp and at one pair, the
 ``--notrace`` example), the ``nvidia-smi`` name and power limit, and ``{"ok":
 true, "device": {...}}``.  Exits non-zero, printing no result, without
 CUDA or outside a checkout of the repo.
@@ -237,6 +254,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # updates) and per cell (diagonal, C, F, H, running max, strip max),
 # plus the word and its flags
 OPS_PSA_CELL, OPS_PSA_CODE, OPS_WALK_STEP = 12, 6, 8
+# a walk is one dependent chain: its least time is its longest walk's
+# steps, each at least one dependent shared-memory load (~30 cycles) at
+# the H100's boost clock; the kernels record keeps the bytes/operations
+# bound beside it.  The phase lengths of the walks' S sweep.
+CHAIN_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
+WALK_S_SWEEP = (32, 64, 128)
 # the difference method computes K1's function: OPS_PSA_CELL per cell, at
 # two cells per s16x2 instruction
 CELLS_PER_S16X2 = 2
@@ -364,6 +387,12 @@ def bound(nbytes: float, ops: float) -> dict:
             "bytes": int(nbytes), "ops": int(ops)}
 
 
+def chain_bound(steps: int) -> dict:
+    """The chain bound of a walk whose longest chain has ``steps`` steps."""
+    return {"chain_bound_ms": steps * CHAIN_CYCLES / SM_CLOCK_HZ * 1e3,
+            "chain_steps": steps}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -371,15 +400,18 @@ def nbytes(*tensors) -> int:
 def cuda_ms(fn, reps: int, warm: bool = True):
     """Median milliseconds of ``fn`` over ``reps`` runs (after one warm-up
     when ``warm``), timed with CUDA events on the current stream, and the
-    last run's result."""
+    last run's result.  Each run's result is released before the next
+    starts, so the caching allocator hands the next run the same blocks, as
+    on the main path, and no run waits on a fresh device allocation."""
     import torch
     if warm:
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, out = [], None
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        out = None
         start.record()
         out = fn()
         end.record()
@@ -658,8 +690,13 @@ def main() -> int:
         wms, (kw, kcnt) = cuda_ms(lambda: tb.walk_packed(plane, nm), 2)
         wpms, (pw, pcnt) = cuda_ms(lambda: tb.walk_packed_plain(plane, nm), 1,
                                    False)
+        walk_sweep, walk_err = {}, 0
         if group is tpairs:   # phase 18 holds the two-pair walk to it
             walk_plain = (pw, pcnt, wpms)
+            for S in WALK_S_SWEEP:   # K3's phase length, every output equal
+                walk_sweep[S], (sw, sc) = cuda_ms(
+                    lambda: tb.walk_packed(plane, nm, S=S), 3)
+                walk_err = max(walk_err, max_err(sw, pw), max_err(sc, pcnt))
         plan, sweep = traced_sweep(a, b, nm, p, (ks, kc, plane))
         times["psa_dp_traced " + label] = {
             "shape": label + " traced", "ms": ms, "plain_ms": pms,
@@ -671,9 +708,14 @@ def main() -> int:
         steps = int(kcnt.sum())   # one plane byte read per move
         times["psa_walk " + label] = {
             "shape": label, "ms": wms, "plain_ms": wpms,
-            "max_abs_err": max(max_err(kw, pw), max_err(kcnt, pcnt)),
+            "max_abs_err": max(max_err(kw, pw), max_err(kcnt, pcnt),
+                               walk_err),
+            "plan": k3_plan(len(group)), "s_sweep_ms": walk_sweep,
+            **chain_bound(int(kcnt.max())),
             **bound(steps + nbytes(nm, kw, kcnt), OPS_WALK_STEP * steps)}
         del a, b, nm, plane, ks, kc, ps, pc, kw, kcnt, pw, pcnt
+    times["psa_walk traced batch"] = traced_batch_walks(dev, smi_line,
+                                                        params, p)
     emit({"phase": "timings", "times": times, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
     emit({"phase": "psa_traced_plan", "smi": smi_line, **{
@@ -704,7 +746,7 @@ def main() -> int:
         dev, smi_line, k1, edit_times["k1_200k"], psa_times["traced_200k"],
         edit_times["traced_200k"])
     launches.update(ring_launches)
-    traced_100k_phase(dev, smi_line)
+    times["psa_walk 32 x 10 kbp"].update(traced_100k_phase(dev, smi_line))
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "smi": smi_line})
@@ -764,7 +806,10 @@ def main() -> int:
                        **{k: t[k] for k in ("k1_ms", "k3_ms", "ms_200k",
                                             "bound_ms_200k", "gcups_200k",
                                             "k1_s_200k", "plan", "forced",
-                                            "sweep") if k in t}}
+                                            "sweep", "S", "s_sweep_ms",
+                                            "chain_bound_ms", "chain_steps",
+                                            "ms_100k", "chain_bound_ms_100k")
+                          if k in t}}
                       for n, s, r, t in entries]})
     print(smi_line)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -955,7 +1000,7 @@ def poa_compare(r, params, reps: int, plain_warm: bool, forced=()):
                         for D, T, G in forced],
              **bound(nbytes(*tables, kw, ks), dp_ops)},
             {"shape": r["shape"], "ms": wms, "plain_ms": wpms,
-             "max_abs_err": max_err(kal, pal),
+             "max_abs_err": max_err(kal, pal), **chain_bound(n_real),
              **bound(walk_bytes, OPS_WALK_STEP * n_real)})
 
 
@@ -1469,7 +1514,7 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
         "shape": times["poa_dp_window"]["shape"] + ", %d columns walked"
                  % consumed,
         "ms": wms, "plain_ms": wpms, "max_abs_err": werr,
-        "consumed": consumed,
+        "consumed": consumed, **chain_bound(consumed),
         # per consumed column a word and a pred read and an align write
         **bound(consumed * 10 + 12, OPS_WALK_STEP * consumed)}
     return times, forward_s, forward_score, walks["kernel"][0].tolist()
@@ -1694,7 +1739,7 @@ def psa_chunked_phases(dev, smi_line, k1):
           "peak_device_gb": peak, "launches": {
               k: launches[k] for k in ("psa_dp_chunk", "psa_walk_bounded",
                                        "psa_dp_traced", "psa_walk")},
-          "k1": k1, "rescored": rescored,
+          "k1": k1, "rescored": rescored, "walk_S": _kernels.WALK_S,
           "rows_degapped_equal_reads": degapped,
           "lengths": [len(reads[0]), len(reads[1])], **run, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
@@ -1775,13 +1820,21 @@ def psa_chunked_phases(dev, smi_line, k1):
     err_walk = max(max_err(torch.tensor(kst), torch.tensor(pst)),
                    max_err(moves_k[seg].cpu(), moves_p[seg]))
     steps = kst[2] - state[2]
+    walk_sweep = {}   # Q2-8's phase length, every output equal
+    for S in WALK_S_SWEEP:
+        moves_k.zero_()
+        walk_sweep[S], sst = cuda_ms(
+            lambda: tb.walk_bounded(*wargs, S=S).tolist(), 3)
+        err_walk = max(err_walk, max_err(torch.tensor(sst), torch.tensor(pst)),
+                       max_err(moves_k[seg].cpu(), moves_p[seg]))
     del wargs, plane, moves_k, moves_p, pair
     emit({"phase": "psa_chunked_200k_chunk0", "shape": [mc, n_pad],
           "max_abs_err": {"psa_dp_chunk": err_dp,
                           "psa_walk_bounded": err_walk},
           "chunk_dp_ms": dk_ms, "chunk_dp_plain_ms": dp_plain_ms,
           "walk_from": state, "walk_exit": kst, "walk_steps": steps,
-          "walk_ms": wk_ms, "walk_plain_host_ms": walk_plain_ms})
+          "walk_ms": wk_ms, "walk_plain_host_ms": walk_plain_ms,
+          "walk_S": _kernels.WALK_S, "walk_s_sweep_ms": walk_sweep})
     if (err_dp or err_walk or state[0] != mc - 1 or kst[:2] != [-1, -1]
             or steps != run["walk_steps"][-1]):
         raise AssertionError("200 kbp chunk 0: kernel differs from its "
@@ -1808,10 +1861,89 @@ def psa_chunked_phases(dev, smi_line, k1):
                      % (steps, mc, n_pad),
             "ms": run["walk_ms"][-1], "plain_ms": walk_plain_ms,
             "max_abs_err": max(errs["psa_walk_bounded"], err_walk),
+            "S": _kernels.WALK_S, "s_sweep_ms": walk_sweep,
+            **chain_bound(steps),
             # per step one plane byte read and one move byte written
             **bound(2 * steps + 16, OPS_WALK_STEP * steps)}}
     return {k: launches[k] for k in ("psa_dp_chunk", "psa_walk_bounded")}, \
         times
+
+
+def k3_plan(P: int) -> list:
+    """K3's plan (S, threads) for a launch of P pairs on card 0."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return list(_kernels.psa_walk_layout(P, sms))
+
+
+def traced_batch_walks(dev, smi_line, params, p) -> dict:
+    """Phase 6 (b): K3 on a traced batch of more pairs than SMs, where its
+    plan takes a smaller S.
+    ``align_batch_traced_device`` on phase 16 (c)'s 4,096 pairs of
+    150-2,000 bp under the default scoring, the launch counters reset
+    before and read after: one traced DP and one K3 launch a group of the
+    route (``psa_diff._traced_groups``), no plain call, every score and
+    corner equal to K1's on the same pairs.  Then each group's plane walked
+    by K3 at its plan and by the plain walk, every word and count equal;
+    K3's ms are its launches' sum over the groups (CUDA events, after its
+    DP, as on the route)."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch.device import device_budget
+    from tsta_tpu_torch.ops import psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+    from tsta_tpu_torch.parallel import batch as pbatch
+    pairs = pbatch._prep(short_pairs(np.random.default_rng(SEED + 16), 4096),
+                         True)
+    groups, chunked = psa_diff._traced_groups(
+        *psa_diff._lengths(pairs), device_budget(dev))
+    p0 = start()
+    t0 = time.perf_counter()
+    res = pbatch.align_batch_traced_device(pairs, params, swap=False,
+                                           device=dev)
+    wall = time.perf_counter() - t0
+    lr, plain = stop(p0)
+    a, b, lens = psa_diff.pack_pairs(pairs, dev)
+    ks, kc = (x.cpu().tolist() for x in psa_diff.dp_packed(a, b, lens, p))
+    scores_equal = [(r[0], r[1]) for r in res] == list(zip(ks, kc))
+    del a, b, lens
+    ms = pms = 0.0
+    err = steps = longest = moved = 0
+    plans = []
+    for g in groups:
+        a, b, nm = psa_diff.pack_pairs([pairs[i] for i in g], dev, traced=True)
+        plane = psa_diff.dp_packed(a, b, nm, p, True)[2]
+        del a, b
+        gms, (kw, kcnt) = cuda_ms(lambda: tb.walk_packed(plane, nm), 3)
+        gpms, (pw, pcnt) = cuda_ms(lambda: tb.walk_packed_plain(plane, nm),
+                                   1, False)
+        ms, pms = ms + gms, pms + gpms
+        err = max(err, max_err(kw, pw), max_err(kcnt, pcnt))
+        steps += int(kcnt.sum())
+        moved += int(kcnt.sum()) + nbytes(nm, kw, kcnt)
+        longest = max(longest, int(kcnt.max()))
+        plans.append([len(g), *plane.shape[1:], *k3_plan(len(g))])
+        del plane, nm, kw, kcnt, pw, pcnt
+    rec = {"shape": "%d pairs of 150-2,000 bp traced, %d groups" % (
+               len(pairs), len(groups)),
+           "ms": ms, "plain_ms": pms, "max_abs_err": err,
+           "groups": plans, "steps": steps, "route_wall_s": wall,
+           **chain_bound(longest),
+           **bound(moved, OPS_WALK_STEP * steps)}
+    emit({"phase": "traced_batch_walks", "launches": lr,
+          "plain_calls": plain, "scores_equal_k1": scores_equal,
+          "times": rec, "smi": smi_line})
+    if (chunked or plain or not scores_equal
+            or lr["psa_walk"] != len(groups)
+            or lr["psa_dp_traced"] != len(groups)
+            or min(g[-2] for g in plans) == k3_plan(1)[0]):
+        raise AssertionError("traced batch of short pairs: wrong result, "
+                             "route or plan: %s %s plain %d, scores equal "
+                             "%s" % (lr, plans, plain, scores_equal))
+    return rec
 
 
 def short_pairs(rng, count):
@@ -1900,7 +2032,8 @@ def edit_phases(dev, smi_line, batch_pairs):
           "equal_to_plain_on_card": text == text_plain,
           "launches": la, "plain_calls": plain_a,
           "traced_wall_s": t1 - t0, "notrace_wall_s": t2 - t1,
-          "plain_wall_s": t3 - t2, "example": [len(ea), len(eb)]})
+          "plain_wall_s": t3 - t2, "example": [len(ea), len(eb)],
+          "walk_plan": k3_plan(1)})
     if not ok_a or plain_a or la["psa_dp_chunk"] or min(
             la["psa_dp_traced"], la["psa_walk"], la["psa_dp_score"]) < 1:
         raise AssertionError("edit scoring, 10 kbp example: wrong result or "
@@ -1935,6 +2068,7 @@ def edit_phases(dev, smi_line, batch_pairs):
         "shape": shape + ", %d steps (K3 at P = 1)" % steps, "ms": wms,
         "plain_ms": wpms,
         "max_abs_err": max(max_err(kw, pw), max_err(kcnt, pcnt)),
+        "plan": k3_plan(1), **chain_bound(steps),
         **bound(steps + nbytes(nm, kw, kcnt), OPS_WALK_STEP * steps)}
     del a, b, nm, plane, ks, kc, ps, pc, kw, kcnt, pw, pcnt
 
@@ -2073,7 +2207,7 @@ def traced_100k_phase(dev, smi_line):
 
     from tsta_tpu_torch import AlignParams, cli
     from tsta_tpu_torch.io import encode_dna
-    from tsta_tpu_torch.ops import psa_chunked, psa_diff
+    from tsta_tpu_torch.ops import _kernels, psa_chunked, psa_diff
     from tsta_tpu_torch.ops import traceback as tb
     params = AlignParams()
     p = (params.match, params.mismatch, params.gap_extend, params.gap_open)
@@ -2123,7 +2257,27 @@ def traced_100k_phase(dev, smi_line):
     notrace["plan"] = dict(zip("DCWT", psa_diff.score_plan(
         1, -(-len(r0) // psa_diff.LANES) * psa_diff.LANES, sms)))
     notrace["gcups"] = cells / notrace["wall_s"] / 1e9
-    emit({"phase": "traced_100k", "rc": rc, "maxsorce": res["score"],
+    # K3's own launch on this pair's plane (CUDA events), held to the plain
+    # walk on the ring's schedule, which reads only its windows
+    a, b, nm = psa_diff.pack_pairs([(ea, eb)], dev, traced=True)
+    plane = psa_diff.dp_packed(a, b, nm, p, True)[2]
+    del a, b
+    k3_ms, (kw, kc) = cuda_ms(lambda: tb.walk_packed(plane, nm), 3)
+    n, m = nm[0].tolist()
+    moves = torch.zeros(plane.shape[1] + plane.shape[2], dtype=torch.int8)
+    t0 = time.perf_counter()
+    st = tb.walk_staged_plain(plane[0], torch.zeros(
+        plane.shape[2], dtype=torch.uint8, device=dev), 0, m - 1, n - 1, 0,
+        0, moves, k3_plan(1)[0]).tolist()
+    staged_s = time.perf_counter() - t0
+    count = int(kc[0])
+    k3_err = abs(count - st[2]) or max_err(torch.from_numpy(tb.unpack_moves(
+        kw[0].cpu().numpy(), count)), moves[:count])
+    del plane, kw, kc
+    k3 = {"ms": k3_ms, "steps": count, "max_abs_err": k3_err,
+          "staged_plain_host_s": staged_s, "plan": k3_plan(1),
+          **chain_bound(count)}
+    emit({"phase": "traced_100k", "k3": k3, "rc": rc, "maxsorce": res["score"],
           "score": res["score"], "corner": res["corner"], "wall_s": wall,
           "gcups": cells / wall / 1e9, "cells": cells,
           "lengths": [len(r0), len(r1)], "peak_device_gb": peak,
@@ -2156,6 +2310,10 @@ def traced_100k_phase(dev, smi_line):
         raise AssertionError("traced 100 kbp pair did not run unchunked on "
                              "the traced DP and K3: %s, plain %d"
                              % (launches, plain))
+    if k3_err or st[:2] != [-1, -1]:
+        raise AssertionError("100 kbp pair: K3 differs from the plain walk "
+                             "on the ring's schedule: %s" % k3)
+    return {"ms_100k": k3_ms, "chain_bound_ms_100k": k3["chain_bound_ms"]}
 
 
 def start():
@@ -2485,6 +2643,7 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
         "k3_max_abs_err": max(errs((w2, c2), (kw, kc)),
                               errs((kw, kc), (pw, pc))),
         "odd_max_abs_err": errs((ow, oc), (kw[:31], kc[:31])),
+        **chain_bound(int(c2.max())),
         **bound(steps + nbytes(nm, w2, c2), OPS_WALK_STEP * steps)}
     emit({"phase": "pair2_walk", "times": times["psa_walk_pair2"],
           "launches": {k: lw[k] for k in ("psa_walk_pair2", "psa_walk")},

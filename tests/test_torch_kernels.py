@@ -1,6 +1,7 @@
 """The CUDA kernels of tsta_tpu_torch (PSA DP, the row-chunk DP, the
 short-pair DP, the difference-method (int16) DP, the striped-layout DP,
-PSA walk, two-pair walk and bounded walk, the ring wavefront, POA round
+PSA walk, two-pair walk and bounded walk (the walks on the window ring
+at forced phase lengths too), the ring wavefront, POA round
 DP in its single-call, forward-chunk and window-remat uses, POA walk and
 bounded walk) against their plain PyTorch versions on the card, with
 exact integer equality, and the kernel routes of the MSA engine, chunked
@@ -1545,3 +1546,199 @@ def test_ring_past_the_resident_limit_raises(cuda):
         _kernels.psa_ring(a_t, b_t, 2, 32, 100, 20, P0, comm[:1], out)
     with pytest.raises(ValueError):   # a real length past the padding
         _kernels.psa_ring(a_t, b_t, 2, 32, 300, 20, P0, comm, out)
+
+
+# the walks' forced phase lengths: the least, two below the plan's, and
+# one whose windows need more than 48 KB of shared memory; K3's block
+# sizes (the walker's warp and one, three or seven loader warps)
+WALK_S_CASES = [8, 32, 64, 128]
+WALK_THREAD_CASES = (64, 128, 256)
+
+
+def _code_plane(kind, shape, seed):
+    """A uint8 code plane whose walk runs pure left, pure up, diagonally,
+    or over random codes (every back, f and e code: forced runs)."""
+    if kind == "random":
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(0, 27, shape).astype(np.uint8))
+    code = {"left": 3, "up": 19, "diagonal": 9}[kind]
+    return torch.full(shape, code, dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", WALK_S_CASES)
+def test_walk_kernel_at_forced_S_matches_plain(cuda, S):
+    """K3 on the window ring at a forced phase length and each block size:
+    traced planes of uneven pairs (a few dozen bp beside 1 kbp, so each
+    block keeps its own phases), synthetic planes (pure-left, pure-up,
+    diagonal and random runs; a plane of 16 columns, narrower than any
+    window) equal the plain walk in every word and count, one launch a
+    call."""
+    cases = [_traced_plane(cuda, [(1000, 990), (600, 1024), (1024, 30),
+                                  (7, 700), (40, 36), (1, 1)], 31)]
+    for k, kind in enumerate(("left", "up", "diagonal", "random")):
+        for P, m_pad, n_pad in ((3, 300, 256), (2, 40, 1040), (2, 9, 16)):
+            plane = _code_plane(kind, (P, m_pad, n_pad), 7 * k + P)
+            nm = torch.tensor([[n_pad - p * (n_pad // 3), m_pad - p]
+                               for p in range(P)], dtype=torch.int32)
+            cases.append((plane.to(cuda), nm.to(cuda)))
+    for plane, nm in cases:
+        pw, pc = tb.walk_packed_plain(plane.cpu(), nm.cpu())
+        for threads in WALK_THREAD_CASES:
+            n0 = dict(_kernels.launches)
+            gw, gc = tb.walk_packed(plane, nm, S=S, threads=threads)
+            torch.cuda.synchronize()
+            assert _kernels.launches["psa_walk"] == n0["psa_walk"] + 1
+            assert sum(_kernels.launches.values()) == sum(n0.values()) + 1
+            assert torch.equal(gc.cpu(), pc) and torch.equal(gw.cpu(), pw)
+
+
+@pytest.mark.cuda
+def test_walk_kernel_many_blocks_an_sm_match_plain(cuda):
+    """2,048 short pairs of 1 to 60 bp, walks of a few phases whose last
+    is often one step, with as many K3 blocks an SM as the card holds (S =
+    8 and 16 at 64 threads, and the plan, which takes a smaller S than at
+    one pair): in each of 20 launches into words filled with -1 first,
+    every word (the tail words the block zeroes after the walk among them)
+    and count equals the plain walk's.  A block whose threads left the
+    ring at different phases would zero from a stale count or not at
+    all."""
+    rng = np.random.default_rng(41)
+    P, m_pad, n_pad = 2048, 64, 64
+    plane = torch.from_numpy(rng.integers(0, 27, (P, m_pad, n_pad))
+                             .astype(np.uint8))
+    nm = torch.from_numpy(rng.integers(1, 61, (P, 2)).astype(np.int32))
+    pw, pc = tb.walk_packed_plain(plane, nm)
+    plane, nm = plane.to(cuda), nm.to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert _kernels.psa_walk_layout(P, sms)[0] < \
+        _kernels.psa_walk_layout(1, sms)[0]
+    for shape in ((8, 64), (16, 64), (None, None)):
+        for _ in range(20):
+            words = torch.full(pw.shape, -1, dtype=torch.int32, device=cuda)
+            counts = torch.full((P,), -1, dtype=torch.int32, device=cuda)
+            _kernels.psa_walk(plane, nm, words, counts, S=shape[0],
+                              threads=shape[1])
+            assert torch.equal(counts.cpu(), pc), shape
+            assert torch.equal(words.cpu(), pw), shape
+
+
+def _stretch_pair(seed, n, m):
+    """Phase 15 (b)'s shape: ``n`` random columns against a mutated
+    ``m`` bp stretch from their middle, so each chunk's walk runs mostly
+    left along a few rows."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(65, 69, n).astype(np.uint8)
+    b = a[n // 2:n // 2 + m].copy()
+    hit = rng.integers(0, m, m // 12)
+    b[hit] = rng.integers(65, 69, hit.size)
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,mc", [(100, 700, 256), (1500, 1300, 256),
+                                    (9000, 600, 256),
+                                    (200_000, 2_000, 512)])
+def test_bounded_walk_at_forced_S_matches_plain(cuda, n, m, mc):
+    """Q2-8 on the window ring at each forced phase length, chunk by chunk
+    from the same entries: every move and exit state equal to the plain
+    bounded walk's, one launch a walk.  The last shape is phase 15 (b)'s
+    2,048 x 200,064 chunks of 512 rows, with walks of ~100k steps mostly
+    left; the others a last chunk of a few rows and chunks narrower than
+    a window."""
+    from tsta_tpu_torch.ops import psa_chunked
+    a, b = _stretch_pair(n, n, m) if n > 10_000 else _long_pair(n + m, n, m)
+    pair = psa_chunked.ChunkedPair(a, b, P0, mc, cuda)
+    snaps, last_rows, _, _, _ = pair.forward(psa_chunked.chunk_dp)
+    planes = [psa_chunked.chunk_dp(*pair.chunk_call(c, *snaps[c]))[2]
+              for c in range(pair.nchunks)]
+    L = pair.m_pad + pair.n_pad
+    want = torch.zeros(L, dtype=torch.int8)
+    moves = {S: torch.zeros(L, dtype=torch.int8, device=cuda)
+             for S in WALK_S_CASES}
+    state = (len(b) - 1, len(a) - 1, 0, 0)
+    while True:
+        c = state[0] // pair.mc
+        args = pair.walk_call(c, planes[c], last_rows, *state, want)
+        plain = tb.walk_bounded_plain(*args[:-1], want).tolist()
+        for S in WALK_S_CASES:
+            n0 = dict(_kernels.launches)
+            got = tb.walk_bounded(*args[:-1], moves[S], S=S)
+            torch.cuda.synchronize()
+            assert got.tolist() == plain
+            assert (_kernels.launches["psa_walk_bounded"]
+                    == n0["psa_walk_bounded"] + 1)
+            assert sum(_kernels.launches.values()) == sum(n0.values()) + 1
+        state = tuple(plain)
+        if state[0] < 0:
+            break
+    assert state[:2] == (-1, -1)
+    for S in WALK_S_CASES:
+        assert torch.equal(moves[S].cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["left", "up", "diagonal", "random"])
+def test_bounded_walk_from_any_entry_matches_plain(cuda, kind):
+    """Entries at a chunk's first and last rows, at base 0 and above it,
+    chunks of one row and chunks narrower than a window, at each forced
+    S; and a walk of 0 steps (an entry already past the matrix)."""
+    rng = np.random.default_rng(len(kind))
+    plane = _code_plane(kind, (64, 96), 5)
+    for _ in range(12):
+        base = int(rng.choice([0, 5, 17, 40]))
+        rows = int(rng.choice([1, 3, 64 - base]))
+        i = base + int(rng.choice([0, rows - 1]))
+        j = int(rng.choice([0, 9, 95]))
+        forced = int(rng.choice([0, 1, 3]))
+        chunk = plane[base:base + rows].contiguous()
+        prev = plane[base - 1] if base else torch.zeros(96, dtype=torch.uint8)
+        want = torch.zeros(300, dtype=torch.int8)
+        st = tb.walk_bounded_plain(chunk, prev, base, i, j, 3, forced,
+                                   want).tolist()
+        for S in WALK_S_CASES:
+            got = torch.zeros(300, dtype=torch.int8, device=cuda)
+            out = tb.walk_bounded(chunk.to(cuda), prev.to(cuda), base, i, j,
+                                  3, forced, got, S=S)
+            assert out.tolist() == st and torch.equal(got.cpu(), want)
+    got = torch.zeros(8, dtype=torch.int8, device=cuda)
+    out = tb.walk_bounded(plane[:8].to(cuda), torch.zeros(
+        96, dtype=torch.uint8, device=cuda), 0, -1, -1, 2, 0, got)
+    assert out.tolist() == [-1, -1, 2, 0] and not got.any()
+
+
+@pytest.mark.cuda
+def test_walk_wrappers_refuse_a_bad_phase_length(cuda):
+    """S not a multiple of 8, or whose two windows pass a block's shared
+    memory, a block size outside 64-256 or not whole warps, and a plane
+    its 16-byte copies cannot stage (n_pad not a multiple of 16, a plane
+    or prev_row not 16-byte aligned) raise before any launch; the bounded
+    walk's S is ``WALK_S``."""
+    assert _kernels.walk_s() == _kernels.WALK_S
+    plane, nm = _traced_plane(cuda, [(300, 200), (100, 90)], 24)
+    moves = torch.zeros(900, dtype=torch.int8, device=cuda)
+    n0 = dict(_kernels.launches)
+    for S in (0, 12, 4, 200):
+        with pytest.raises(ValueError):
+            tb.walk_packed(plane, nm, S=S)
+        with pytest.raises(ValueError):
+            tb.walk_bounded(plane[0], plane[0, 0], 0, 10, 10, 0, 0, moves,
+                            S=S)
+    for threads in (0, 32, 48, 288, 512):
+        with pytest.raises(ValueError):
+            tb.walk_packed(plane, nm, threads=threads)
+    odd = torch.zeros((2, 9, 23), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        tb.walk_packed(odd, torch.tensor([[20, 9], [5, 3]], dtype=torch.int32,
+                                         device=cuda))
+    with pytest.raises(ValueError):
+        tb.walk_bounded(odd[0], odd[0, 0], 0, 5, 5, 0, 0, moves)
+    flat = torch.zeros(1 + 2 * 9 * 32, dtype=torch.uint8, device=cuda)
+    shifted = flat[1:].view(2, 9, 32)
+    with pytest.raises(ValueError):
+        tb.walk_packed(shifted, torch.tensor([[20, 9], [5, 3]],
+                                             dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        tb.walk_bounded(plane[0], flat[1:1 + plane.shape[2]], 0, 10, 10, 0,
+                        0, moves)
+    assert _kernels.launches == n0

@@ -5,7 +5,13 @@ against ``traceback._decode_moves_bounded_banded`` (the TPU kernel, in
 interpret mode, on the chunk's native plane) and the XLA walk
 ``_decode_moves_bounded``, and the whole path against
 ``psa_pallas.psa_align_traced_chunked`` and the port's unchunked traced
-path.  Exact integer equality throughout."""
+path; the walk kernels' window rule (``traceback.walk_window``) at every
+edge, and the bounded walk on the ring's schedule
+(``traceback.walk_staged_plain``) against the plain bounded walk on the
+JAX chunk planes and on synthetic chunks.  Exact integer equality
+throughout."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +23,8 @@ from tsta_tpu.ops import traceback as jtb
 from tsta_tpu_torch import convert
 from tsta_tpu_torch.ops import psa_chunked, psa_diff, psa_pallas
 from tsta_tpu_torch.ops import traceback as tb
+
+from test_torch_traceback import S_CASES, synthetic_plane
 
 # tests/test_psa_pallas.py's parameter sets; its chunked cases draw
 # seeds 100-102 with PARAMS[seed % 3]
@@ -254,3 +262,152 @@ def test_cli_routes_an_over_budget_pair_to_chunks(case, monkeypatch, capsys,
                      + flags) == 0
     assert (tmp_path / "alns" / "p0.txt").read_bytes() == ref
     assert psa_chunked.last_clock.chunks >= 2
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chunk_planes(case):
+    a, b, p = CASES[case]()
+    pair = psa_chunked.ChunkedPair(a, b, p, 256, CPU)
+    planes = [convert.chunk_plane_from_jax(jc[0])
+              for jc in _jax_chunks(pair, p)]
+    return pair, planes, [pl[-1].clone() for pl in planes]
+
+
+@pytest.mark.parametrize("S", S_CASES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_staged_walk_matches_bounded_walks(case, S):
+    """Chunk by chunk on the JAX chunk kernel's planes (which
+    ``test_bounded_walk_matches_jax_walks`` holds to JAX's walks): the
+    bounded walk on the ring's schedule equals the plain bounded walk in
+    every move and exit state, reading only its windows."""
+    pair, planes, last_rows = _jax_chunk_planes(case)
+    L = pair.m_pad + pair.n_pad
+    got, want = (torch.zeros(L, dtype=torch.int8) for _ in range(2))
+    state = (pair.m_real - 1, pair.n_real - 1, 0, 0)
+    while True:
+        c = state[0] // pair.mc
+        args = pair.walk_call(c, planes[c], last_rows, *state, got)
+        st = tb.walk_staged_plain(*args, S).tolist()
+        assert st == tb.walk_bounded_plain(*args[:-1], want).tolist()
+        state = tuple(st)
+        if state[0] < 0:
+            break
+    assert state[:2] == (-1, -1) and torch.equal(got, want)
+
+
+def _chunked_walk(plane, mc, m, n, S):
+    """Walk a whole synthetic plane cut into chunks of ``mc`` rows (the
+    last one shorter), both ways, chunk by chunk; returns the entries."""
+    m_pad, n_pad = plane.shape
+    got = torch.zeros(m_pad + n_pad, dtype=torch.int8)
+    want = torch.zeros_like(got)
+    state, entries = (m - 1, n - 1, 0, 0), []
+    while True:
+        c = state[0] // mc
+        base = c * mc
+        prev = (plane[base - 1] if c else torch.zeros(n_pad,
+                                                       dtype=torch.uint8))
+        chunk = plane[base:base + mc]
+        entries.append(state[0] - base)
+        st = tb.walk_staged_plain(chunk, prev, base, *state, got, S).tolist()
+        assert st == tb.walk_bounded_plain(chunk, prev, base, *state,
+                                           want).tolist()
+        assert st[0] < base
+        state = tuple(st)
+        if state[0] < 0:
+            break
+    assert state[:2] == (-1, -1) and torch.equal(got, want)
+    return entries
+
+
+@pytest.mark.parametrize("S", S_CASES)
+@pytest.mark.parametrize("kind", ["left", "up", "diagonal", "random"])
+def test_staged_walk_in_chunks_on_synthetic_planes(kind, S):
+    """Pure-left, pure-up, diagonal and random-code planes cut into chunks
+    of 7 and 16 rows (a last chunk of a few rows, chunks narrower than a
+    window, a chunk entered at its first row), and one long left run in
+    a wide chunk: the ring's schedule equals the plain bounded walk."""
+    for mc, (m_pad, n_pad, m, n) in ((7, (45, 64, 45, 61)),
+                                     (16, (40, 200, 37, 190)),
+                                     (3, (10, 700, 10, 699))):
+        plane = synthetic_plane(kind, m_pad, n_pad, mc + S)
+        entries = _chunked_walk(plane, mc, m, n, S)
+        if kind == "up":   # each chunk entered at its last row
+            assert entries[1:] == [mc - 1] * (len(entries) - 1)
+    plane = synthetic_plane(kind, 5, 8, S)
+    assert _chunked_walk(plane, 1, 5, 8, S) == [0] * 5   # first-row entries
+
+
+@pytest.mark.parametrize("S", S_CASES)
+def test_staged_walk_from_any_entry_of_a_chunk(S):
+    """Random entries (row, column, carried forced move) into random-code
+    chunks, the chunk's first row and base 0 among them, and an entry
+    already outside the chunk's walk (0 steps at base > 0)."""
+    rng = np.random.default_rng(S)
+    plane = synthetic_plane("random", 64, 96, S)
+    for _ in range(24):
+        base = int(rng.choice([0, 5, 17, 40]))
+        rows = int(rng.integers(1, 64 - base + 1))
+        i = base + int(rng.choice([0, rows - 1, rng.integers(0, rows)]))
+        j = int(rng.choice([-1, 0, 95, rng.integers(0, 96)]))
+        forced = int(rng.choice([0, 1, 3])) if j >= 0 else 0
+        chunk, prev = plane[base:base + rows], (
+            plane[base - 1] if base else torch.zeros(96, dtype=torch.uint8))
+        got, want = torch.zeros(300, dtype=torch.int8), torch.zeros(
+            300, dtype=torch.int8)
+        st = tb.walk_staged_plain(chunk, prev, base, i, j, 3, forced, got, S)
+        assert st.tolist() == tb.walk_bounded_plain(
+            chunk, prev, base, i, j, 3, forced, want).tolist()
+        assert torch.equal(got, want)
+    moves = torch.zeros(8, dtype=torch.int8)
+    st = tb.walk_staged_plain(plane[8:16], plane[7], 8, 7, 4, 2, 0, moves, S)
+    assert st.tolist() == [7, 4, 2, 0] and not moves.any()
+
+
+@pytest.mark.parametrize("i0,j0,S,row_lo,rows,n_pad", [
+    (0, 0, 8, 0, 64, 128),            # the matrix's first cell
+    (63, 127, 8, 0, 64, 128),         # the bottom-right corner
+    (5, 200, 64, 0, 6, 256),          # a plane shorter than a window
+    (40, 40, 64, 0, 48, 48),          # narrower than a window, both ways
+    (70, 100, 4, 64, 8, 128),         # a chunk's rows only
+    (64, 9, 32, 64, 512, 128),        # entry at the chunk's first row
+    (71, 3, 2, 64, 8, 16),            # the chunk's last row, column 3
+    (2000, 199_999, 64, 1536, 512, 200_064),   # phase 15 (b)'s chunks
+    (-1, 5, 8, 0, 64, 128),           # outside the matrix: empty
+    (10, -1, 8, 0, 64, 128),
+])
+def test_walk_window_is_clipped(i0, j0, S, row_lo, rows, n_pad):
+    """The window never asks for a row outside [row_lo, row_lo + rows) or
+    a column outside [0, n_pad), its columns start on a 16-byte boundary
+    and span at most 2S + 16, and it holds every cell of the plane that
+    the 2S steps after the anchor can read (rows i0 - 2S..i0, columns j0 -
+    2S..j0), unless the anchor is outside the matrix."""
+    r0, r1, c0, c1 = tb.walk_window(i0, j0, S, row_lo, rows, n_pad)
+    assert row_lo <= r0 <= r1 <= row_lo + rows
+    assert 0 <= c0 <= c1 <= n_pad and c0 % 16 == 0 and c1 - c0 <= 2 * S + 16
+    assert r1 - r0 <= 2 * S + 1
+    if i0 < 0 or j0 < 0:
+        assert r1 == r0
+        return
+    assert r0 == max(i0 - 2 * S, row_lo) and r1 == min(i0 + 1, row_lo + rows)
+    assert c0 <= max(j0 - 2 * S, 0) and c1 >= min(j0 + 1, n_pad)
+
+
+def test_walk_window_covers_every_reachable_read():
+    """Over a sweep of anchors, phase lengths and planes: every cell the
+    2S steps after the anchor may read lies in the window or, in a chunk,
+    is row row_lo - 1 (the staged ``prev_row``) or outside the plane."""
+    rng = np.random.default_rng(11)
+    for _ in range(400):
+        S = int(rng.choice([2, 4, 8, 32, 64, 128]))
+        n_pad = int(rng.integers(1, 300))
+        row_lo = int(rng.choice([0, rng.integers(0, 500)]))
+        rows = int(rng.integers(1, 300))
+        i0 = int(rng.integers(row_lo, row_lo + rows))
+        j0 = int(rng.integers(0, n_pad))
+        r0, r1, c0, c1 = tb.walk_window(i0, j0, S, row_lo, rows, n_pad)
+        assert row_lo <= r0 <= r1 <= row_lo + rows and c0 % 16 == 0
+        for r in (i0 - 2 * S, i0 - S, i0):
+            for c in (j0 - 2 * S, j0 - S, j0):
+                if row_lo <= r < row_lo + rows and 0 <= c < n_pad:
+                    assert r0 <= r < r1 and c0 <= c < c1

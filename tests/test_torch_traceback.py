@@ -2,8 +2,12 @@
 package's: the plain lockstep walk on the JAX kernel's plane (through
 convert.plane_from_jax) against the JAX banded Pallas walk (interpret
 mode) and the JAX lockstep walk, the move rules, and the host helpers,
-with zero tolerance."""
+with zero tolerance; and the walk kernels' window schedule
+(``walk_staged_plain``) against the plain walk on those planes and on
+synthetic ones (pure-left, pure-up, diagonal, random codes, planes
+narrower than a window)."""
 
+import functools
 import itertools
 
 import jax.numpy as jnp
@@ -177,3 +181,123 @@ def test_host_helpers_match_jax():
         ttb.decode_pair(np.zeros((3, 3), np.int8), np.zeros((3, 3)),
                         np.zeros((3, 3)), np.zeros(2, np.uint8),
                         np.zeros(3, np.uint8))
+
+
+# phase lengths of the staged walk: many phases on these small planes, and
+# one window wider than most of them
+S_CASES = [2, 4, 8, 64]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_walk_case(name):
+    pairs = _walk_cases()[name]
+    plane, nm, Rp = _jax_group(pairs)
+    jm, jc = jtb._decode_moves_packed(plane, jnp.asarray(nm), Rp)
+    return (convert.plane_from_jax(plane, len(pairs)), nm, np.asarray(jm),
+            np.asarray(jc))
+
+
+def _staged_packed(plane, nm, S):
+    """``walk_staged_plain`` at base 0 over each pair's whole plane from
+    (m-1, n-1), packed as the walk kernel packs: (words, counts)."""
+    P, m_pad, n_pad = plane.shape
+    moves = torch.zeros((P, m_pad + n_pad), dtype=torch.int8)
+    zero = torch.zeros(n_pad, dtype=torch.uint8)
+    counts = []
+    for k in range(P):
+        n, m = (int(x) for x in nm[k])
+        st = ttb.walk_staged_plain(plane[k], zero, 0, m - 1, n - 1, 0, 0,
+                                   moves[k], S).tolist()
+        assert st[:2] == [-1, -1] and st[3] == 0
+        counts.append(st[2])
+    return ttb.pack_moves_words(moves), torch.tensor(counts, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("S", S_CASES)
+@pytest.mark.parametrize("name", ["gap_runs", "word_flush", "uneven"])
+def test_staged_walk_on_jax_plane_matches_plain_and_jax_walks(name, S):
+    """The window ring's schedule on the JAX kernel's plane: every word
+    and count equal to the plain lockstep walk's, and the moves to the
+    JAX lockstep walk's, with no read outside a window."""
+    plane, nm, jm, jc = _jax_walk_case(name)
+    words, counts = _staged_packed(plane, nm, S)
+    pw, pc = ttb.walk_packed_plain(plane, torch.from_numpy(nm))
+    assert torch.equal(counts, pc) and torch.equal(words, pw)
+    assert np.array_equal(counts.numpy(), jc)
+    for k in range(len(nm)):
+        assert np.array_equal(ttb.unpack_moves(words[k], counts[k]),
+                              jm[k, :jc[k]])
+
+
+def synthetic_plane(kind, rows, n_pad, seed):
+    """A (rows, n_pad) uint8 code plane whose walk runs pure left (back 0,
+    f open), pure up (back 2, e open), diagonally, or over random codes
+    (every back, f and e code, so forced gap runs through ties)."""
+    code = {"left": 0 * 9 + 1 * 3, "up": 2 * 9 + 1, "diagonal": 1 * 9}
+    if kind == "random":
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(0, 27, (rows, n_pad))
+                                .astype(np.uint8))
+    return torch.full((rows, n_pad), code[kind], dtype=torch.uint8)
+
+
+# (m_pad, n_pad, m, n): square, wide, tall, and narrower than one window
+# at S = 64 in both directions (odd widths too)
+SYNTH_SHAPES = [(48, 64, 48, 60), (12, 200, 9, 197), (160, 16, 150, 13),
+                (5, 7, 5, 7)]
+
+
+@pytest.mark.parametrize("S", S_CASES)
+@pytest.mark.parametrize("kind", ["left", "up", "diagonal", "random"])
+def test_staged_walk_matches_plain_walk_on_synthetic_planes(kind, S):
+    """A whole-plane walk (base 0, to i < 0 and j < 0) on the ring's
+    schedule equals the plain walk: every move and the exit state, on
+    planes wider, taller and narrower than a window."""
+    for k, (m_pad, n_pad, m, n) in enumerate(SYNTH_SHAPES):
+        plane = synthetic_plane(kind, m_pad, n_pad, 31 * k + S)
+        zero = torch.zeros(n_pad, dtype=torch.uint8)
+        got = torch.zeros(m_pad + n_pad, dtype=torch.int8)
+        want = torch.zeros_like(got)
+        st = ttb.walk_staged_plain(plane, zero, 0, m - 1, n - 1, 0, 0, got,
+                                   S)
+        assert st.tolist() == ttb.walk_bounded_plain(
+            plane, zero, 0, m - 1, n - 1, 0, 0, want).tolist()
+        assert st.tolist()[:2] == [-1, -1] and torch.equal(got, want)
+        w, c = ttb.walk_packed_plain(plane[None].contiguous(), torch.tensor(
+            [[n, m]], dtype=torch.int32))
+        assert int(c[0]) == st[2] and torch.equal(
+            w[0], ttb.pack_moves_words(got[None])[0])
+        if kind == "left":
+            assert not got[:n].any()
+        elif kind == "up":
+            assert (got[:m] == 2).all()
+        elif kind == "diagonal":
+            assert (got[:min(m, n)] == 1).all()
+
+
+def test_walk_wrappers_refuse_a_phase_length_on_cpu():
+    plane = synthetic_plane("random", 8, 16, 0)
+    nm = torch.tensor([[16, 8]], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ttb.walk_packed(plane[None].contiguous(), nm, S=8)
+    with pytest.raises(ValueError):
+        ttb.walk_packed(plane[None].contiguous(), nm, threads=64)
+    moves = torch.zeros(24, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        ttb.walk_bounded(plane, plane[0], 0, 7, 15, 0, 0, moves, S=8)
+
+
+def test_psa_walk_ab_child_parses_and_times_each_walk():
+    """The walk A/B tool's timed process (run in either checkout on the
+    card) is valid Python on ``psa_dp_ab``'s helpers and times K3 through
+    ``walk_packed`` (also on the route's groups of a traced batch) and
+    Q2-8 through ``walk_bounded``; ``--sweep`` takes S:threads shapes."""
+    import ast
+    from tsta_tpu_torch.tools import psa_dp_ab, psa_walk_ab
+    assert psa_walk_ab.CHILD.startswith(psa_dp_ab.CHILD_HELPERS)
+    tree = ast.parse(psa_walk_ab.CHILD)
+    calls = {n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert {"walk_packed", "walk_bounded", "_traced_groups", "dp_packed",
+            "chunk_dp", "ChunkedPair"} <= calls
+    with pytest.raises(SystemExit):
+        psa_walk_ab.main(["--help"])

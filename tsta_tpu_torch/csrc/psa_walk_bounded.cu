@@ -1,5 +1,5 @@
 // PSA traceback walk inside one row-chunk of a single pair's code plane,
-// one thread.
+// one block.
 //
 // Replaces the TPU kernel tsta_tpu/ops/traceback.py:_walk_kernel_bounded
 // (Q2-8, launched through _bounded_banded_ops, :958).  The chunked traced
@@ -17,64 +17,77 @@
 //
 // The TPU walk stages a band of the plane in SMEM by DMA and logs its
 // moves in a CAP-bounded SMEM buffer that the host loop scatters and
-// re-enters; here the thread reads the plane through L1/L2 and writes
-// each move to device memory, so there is no band, no log and no early
-// exit.
+// re-enters.  Here the block stages windows of the chunk in shared memory
+// ahead of the walk (psa_walk_stage.cuh's ring; prev_row's slot for the
+// row above the chunk), and the walker writes each move to device memory,
+// off the chain, so there is no log and no early exit.
 //
-// What bounds it on the H100: one dependent load per step (the three
-// codes of a step are read together), mostly an L2 hit (a diagonal step
-// moves to the row above, which the previous step's up read touched),
-// times the steps in the chunk.
+// What bounds it on the H100: the chain, one dependent step after another.
+// Read from device memory, a diagonal step's `up` read missed L2 on a
+// chunk of 13.1 GB (65,536 x 200,064), ~0.40 us a step; from the staged
+// window a step is one shared-memory load (~30 cycles) and a few integer
+// operations.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "psa_walk_step.cuh"
+#include "psa_walk_stage.cuh"
 
 namespace {
 
-__global__ void psa_walk_bounded_kernel(const uint8_t* __restrict__ plane,
-                                        const uint8_t* __restrict__ prev_row,
-                                        int n_pad, int base, int i, int j,
-                                        int t, int forced,
-                                        int8_t* __restrict__ moves,
-                                        int32_t* __restrict__ out) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  while ((i >= 0 || j >= 0) && (i >= base || (base == 0 && j >= 0))) {
-    int move, next = 0;
-    if (i >= 0 && j >= 0) {
-      const uint8_t* cell = plane + (size_t)(i - base) * n_pad + j;
-      const int left = j > 0 ? cell[-1] : 0;
-      const int up = i > base ? cell[-n_pad] : (i > 0 ? prev_row[j] : 0);
-      move = tsta::psa_walk_step(cell[0], left, up, i, j, forced, next);
-    } else {
-      move = j >= 0 ? 0 : 2;
-    }
-    moves[t++] = static_cast<int8_t>(move);
-    i -= move != 0;
-    j -= move != 2;
-    forced = next;
+struct ByteMoves {
+  int8_t* moves;
+  __device__ __forceinline__ void put(int t, int move) {
+    moves[t] = static_cast<int8_t>(move);
   }
-  out[0] = i;
-  out[1] = j;
-  out[2] = t;
-  out[3] = forced;
+};
+
+__global__ void __launch_bounds__(tsta::kWalkMaxThreads)
+    psa_walk_bounded_kernel(const uint8_t* __restrict__ plane,
+                            const uint8_t* __restrict__ prev_row, int rows,
+                            int n_pad, int base, int i, int j, int t,
+                            int forced, int8_t* __restrict__ moves,
+                            int32_t* __restrict__ out, int S) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  tsta::RingWalker<ByteMoves> wk;
+  wk.i = i;
+  wk.j = j;
+  wk.t = t;
+  wk.forced = forced;
+  wk.base = base;
+  wk.out.moves = moves;
+  tsta::walk_ring(wk, plane, prev_row, base, rows, n_pad, S, smem);
+  if (threadIdx.x == 0) {
+    out[0] = wk.i;
+    out[1] = wk.j;
+    out[2] = wk.t;
+    out[3] = wk.forced;
+  }
 }
 
 }  // namespace
 
 // plane: (rows, n_pad) uint8 codes of the pair's rows [base, base + rows);
-// prev_row: (n_pad,) uint8 codes of row base - 1 (zeros at base 0); the
+// n_pad a multiple of 16 and both 16-byte aligned; prev_row: (n_pad,)
+// uint8 codes of row base - 1 (zeros at base 0); the
 // walk enters at (i, j) with t moves already made and ``forced`` carried;
 // moves: the pair's int8 move buffer; out: (4,) int32 exit (i, j, t,
-// forced).  Returns cudaGetLastError() after the launch.
+// forced); S: steps a phase, a multiple of 8.  Returns the CUDA error of
+// the checks, the shared-memory attribute or the launch
+// (cudaGetLastError()).
 extern "C" int tsta_psa_walk_bounded(const void* plane, const void* prev_row,
-                                     int n_pad, int base, int i, int j,
-                                     int t, int forced, void* moves,
-                                     void* out, void* stream) {
-  psa_walk_bounded_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+                                     int rows, int n_pad, int base, int i,
+                                     int j, int t, int forced, void* moves,
+                                     void* out, int S, void* stream) {
+  const int rc = tsta::walk_ring_prepare(psa_walk_bounded_kernel, S,
+                                         tsta::kWalkMaxThreads, n_pad, plane,
+                                         prev_row);
+  if (rc) return rc;
+  psa_walk_bounded_kernel<<<1, tsta::kWalkMaxThreads,
+                            tsta::walk_ring_bytes(S),
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(plane),
-      static_cast<const uint8_t*>(prev_row), n_pad, base, i, j, t, forced,
-      static_cast<int8_t*>(moves), static_cast<int32_t*>(out));
+      static_cast<const uint8_t*>(prev_row), rows, n_pad, base, i, j, t,
+      forced, static_cast<int8_t*>(moves), static_cast<int32_t*>(out), S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,6 +57,12 @@ KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
            "poa_dp_window", "poa_walk_bounded", "psa_ring")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
+# the bounded walk's phase length (steps a staged window serves;
+# psa_walk_stage.cuh; K3 plans its own, psa_walk_layout), the threads a
+# walk block may take, and the dynamic shared memory a block may take on
+# the H100
+WALK_S, MAX_DYNAMIC_SMEM = 64, 232_448
+WALK_MIN_THREADS, WALK_MAX_THREADS = 64, 256
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 # poa_dp.cu's plan (tsta_poa_dp_layout): threads of a shard's block, the
 # fewest and most columns a thread, the most shards before S grows, nodes
@@ -183,12 +189,17 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_striped.restype = ci
             lib.tsta_psa_dp_striped.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 4
             lib.tsta_psa_walk_bounded.restype = ci
-            lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 6 + [
-                vp, vp, vp]
+            lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 7 + [
+                vp, vp, ci, vp]
             lib.tsta_psa_walk.restype = ci
-            lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, vp]
+            lib.tsta_psa_walk.argtypes = [vp, vp, ci, ci, ci, vp, ci, vp, ci,
+                                          ci, vp]
+            lib.tsta_psa_walk_layout.restype = None
+            lib.tsta_psa_walk_layout.argtypes = [ci, ci] + [
+                ctypes.POINTER(ci)] * 2
             lib.tsta_psa_walk_pair2.restype = ci
-            lib.tsta_psa_walk_pair2.argtypes = lib.tsta_psa_walk.argtypes
+            lib.tsta_psa_walk_pair2.argtypes = [vp, vp, ci, ci, ci, vp, ci,
+                                                vp, vp]
             lib.tsta_poa_dp.restype = ci
             lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 4 + [
                 ci] * 5 + [vp] * 3
@@ -455,12 +466,59 @@ def _check_walk(plane, nm, words, counts, what: str):
             words.data_ptr(), n_words, counts.data_ptr(), _stream(dev))
 
 
-def psa_walk(plane, nm, words, counts) -> None:
-    """Launch the walk kernel (one thread per pair) over a (P, m_pad,
-    n_pad) uint8 code plane; ``nm``: (P, 2) int32 real (n, m);
-    ``words``: (P, n_words) int32 and ``counts``: (P,) int32 outputs."""
+def _check_copies(n_pad: int, what: str, *tensors) -> None:
+    """A walk on the window ring stages its plane in 16-byte copies: n_pad
+    a multiple of 16 and 16-byte aligned tensors (every route's n_pad is
+    a multiple of 128), else ValueError."""
+    if n_pad % 16 or any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("%s stages the plane in 16-byte copies: n_pad %d "
+                         "must be a multiple of 16 and the planes 16-byte "
+                         "aligned" % (what, n_pad))
+
+
+def walk_s(S: int | None = None) -> int:
+    """A walk's phase length: ``S`` (forced by a test or a sweep) or
+    :data:`WALK_S`; a multiple of 8 whose two windows fit a block's
+    shared memory (``csrc/psa_walk_stage.cuh``), else ValueError."""
+    S = WALK_S if S is None else int(S)
+    # two windows of (2S + 1) x (2S + 16) bytes: the header's walk_ring_bytes
+    if S < 8 or S % 8 or 2 * (2 * S + 1) * (2 * S + 16) > MAX_DYNAMIC_SMEM:
+        raise ValueError("walk phase length S must be a multiple of 8 whose "
+                         "two windows fit %d bytes, got %d"
+                         % (MAX_DYNAMIC_SMEM, S))
+    return S
+
+
+def psa_walk_layout(P: int, sms: int) -> tuple:
+    """(S, threads): K3's plan for P pairs on a card of ``sms`` SMs, read
+    from the built library: 128 threads, S = 64 up to one pair an SM,
+    else 32."""
+    out = [ctypes.c_int() for _ in range(2)]
+    _lib().tsta_psa_walk_layout(P, sms, *map(ctypes.byref, out))
+    return tuple(v.value for v in out)
+
+
+def psa_walk(plane, nm, words, counts, *, S=None, threads=None) -> None:
+    """Launch the walk kernel (one block per pair on the window ring, S
+    steps a phase, ``threads`` a block: :func:`psa_walk_layout`'s plan
+    unless forced) over a (P, m_pad, n_pad) uint8 code plane; ``nm``: (P,
+    2) int32 real (n, m); ``words``: (P, n_words) int32 and ``counts``:
+    (P,) int32 outputs."""
     args = _check_walk(plane, nm, words, counts, "psa_walk")
-    _raise_on(_lib().tsta_psa_walk(*args), "psa_walk")
+    _check_copies(plane.shape[2], "psa_walk", plane)
+    if S is None or threads is None:
+        sms = torch.cuda.get_device_properties(plane.device) \
+            .multi_processor_count
+        plan_s, plan_threads = psa_walk_layout(plane.shape[0], sms)
+        S = plan_s if S is None else S
+        threads = plan_threads if threads is None else threads
+    S, threads = walk_s(S), int(threads)
+    if threads % 32 or not WALK_MIN_THREADS <= threads <= WALK_MAX_THREADS:
+        raise ValueError("psa_walk: threads must be a multiple of 32 in "
+                         "[%d, %d], got %d"
+                         % (WALK_MIN_THREADS, WALK_MAX_THREADS, threads))
+    _raise_on(_lib().tsta_psa_walk(*args[:-1], S, threads, args[-1]),
+              "psa_walk")
     launches["psa_walk"] += 1
 
 
@@ -628,8 +686,9 @@ def psa_dp_chunk(a, b, lens, row_base, params, h_in, e_in, h_out, e_out,
 
 
 def psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,
-                     out) -> None:
-    """Launch the PSA walk (one thread) inside one row-chunk: ``plane``
+                     out, *, S=None) -> None:
+    """Launch the PSA walk (one block on the window ring, S steps a
+    phase: :func:`walk_s`) inside one row-chunk: ``plane``
     ((rows, n_pad) uint8) holds rows [base, base + rows) of the pair,
     ``prev_row`` ((n_pad,) uint8) the codes of row base - 1.  Walks from
     (i, j) with ``t`` moves made and ``forced`` carried until the walk
@@ -652,9 +711,11 @@ def psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,
                          "outside the chunk of rows [%d, %d) x %d columns, "
                          "or %d moves too few"
                          % (i, j, t, forced, base, base + rows, n_pad, L))
+    S = walk_s(S)
+    _check_copies(n_pad, "psa_walk_bounded", plane, prev_row)
     rc = _lib().tsta_psa_walk_bounded(
-        plane.data_ptr(), prev_row.data_ptr(), n_pad, base, i, j, t, forced,
-        moves.data_ptr(), out.data_ptr(), _stream(dev))
+        plane.data_ptr(), prev_row.data_ptr(), rows, n_pad, base, i, j, t,
+        forced, moves.data_ptr(), out.data_ptr(), S, _stream(dev))
     _raise_on(rc, "psa_walk_bounded")
     launches["psa_walk_bounded"] += 1
 

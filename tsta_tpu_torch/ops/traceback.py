@@ -19,8 +19,11 @@ cell, and returns the moves packed 16 per int32 word (2 bits each,
 LSB first) plus a count per pair, the wire format of the JAX package's
 banded walk.  At P = 1 it is also the walk of a single round-1 pair
 (``ops/psa_pallas.py``), the counterpart of ``_decode_moves_banded`` and
-of its XLA fall-back ``_decode_moves``: it reads the plane from global
-memory, so it has neither the band's gate nor a fall-back.  With
+of its XLA fall-back ``_decode_moves``.  As the TPU walks stage a band of
+the plane in SMEM, the kernels stage a window of it in shared memory
+ahead of the walk (:func:`walk_window`, whose schedule
+:func:`walk_staged_plain` replays), but any plane fits the window ring,
+so there is neither the band's gate nor a fall-back.  With
 ``pair2=True`` and an even P it walks two pairs per thread
 (``csrc/psa_walk_pair2.cu``), JAX's ``pair2`` walk: the same moves.
 """
@@ -299,19 +302,118 @@ def walk_bounded_plain(plane: torch.Tensor, prev_row: torch.Tensor,
                         device=moves.device)
 
 
+def walk_window(i0: int, j0: int, S: int, row_lo: int, rows: int,
+                n_pad: int) -> tuple:
+    """The plane a walk's window stages, anchored at (i0, j0): rows [r0,
+    r1) and columns [c0, c1), clipped to the plane's rows [row_lo, row_lo
+    + rows) (the chunk's, for the bounded walk) and to [0, n_pad).
+
+    The 2S steps after (i0, j0) read only rows [i0 - 2S, i0] and columns
+    [j0 - 2S, j0], since each step lowers i, j or both by one; the window
+    is those rows, slot 0 being row i0 - 2S, by 2S + 16 columns from c0,
+    j0 - 2S aligned down to 16 (16-byte copies).  Empty (r1 == r0) when
+    the anchor is outside the matrix, where a walk reads nothing.  The
+    rule of ``csrc/psa_walk_stage.cuh``'s ``walk_window``."""
+    r0 = max(i0 - 2 * S, row_lo)
+    r1 = max(r0, min(i0 + 1, row_lo + rows)) if j0 >= 0 else r0
+    c0 = max(j0 - 2 * S, 0) // 16 * 16
+    return r0, r1, c0, min(c0 + 2 * S + 16, n_pad)
+
+
+@torch.no_grad()
+def walk_staged_plain(plane: torch.Tensor, prev_row: torch.Tensor,
+                      base: int, i: int, j: int, t: int, forced: int,
+                      moves: torch.Tensor, S: int) -> torch.Tensor:
+    """:func:`walk_bounded_plain`'s walk, replayed on the schedule of the
+    walk kernels' window ring (``csrc/psa_walk_stage.cuh``): phases of at
+    most S steps in the matrix, phase k reading only the window anchored
+    at where phase k - 1 began (phase 0's at the entry), staged with
+    :func:`walk_window`; the row above a chunk (row ``base`` - 1) comes
+    from ``prev_row`` into its slot.  Once outside the matrix the walk
+    reads nothing and runs to its end.  Raises AssertionError on a read
+    outside the window; at base 0 over a whole plane it is the walk of
+    :func:`walk_packed_plain`.  Same arguments and result as
+    :func:`walk_bounded_plain`, plus ``S``.  Reads only the windows, so
+    a plane on the card is never copied whole."""
+    if plane.device.type == "cuda":
+        psa_scan.plain_calls += 1
+    rows, n_pad = plane.shape
+    step_move, step_next = _step_table()
+    width = 2 * S + 16
+
+    def stage(i0, j0):
+        r0, r1, c0, c1 = walk_window(i0, j0, S, base, rows, n_pad)
+        win = np.full((2 * S + 1, width), -1, np.int16)   # -1: not staged
+        ra = i0 - 2 * S
+        if r1 > r0:
+            win[r0 - ra:r1 - ra, :c1 - c0] = plane[
+                r0 - base:r1 - base, c0:c1].cpu().numpy()
+            if base > 0 and r0 == base and ra <= base - 1:
+                win[base - 1 - ra, :c1 - c0] = prev_row[c0:c1].cpu().numpy()
+        return win, ra, c0
+
+    def read(window, r, c):
+        win, ra, c0 = window
+        assert 0 <= r - ra < win.shape[0] and 0 <= c - c0 < width and \
+            win[r - ra, c - c0] >= 0, \
+            "read of (%d, %d) outside the window at row %d, column %d" % (
+                r, c, ra, c0)
+        return int(win[r - ra, c - c0])
+
+    def cont(i, j):
+        return (i >= 0 or j >= 0) and (i >= base or (base == 0 and j >= 0))
+
+    out = []
+    cur = stage(i, j)
+    done = False
+    while not done:
+        nxt = stage(i, j)   # the loaders' window for the next phase
+        for _ in range(S):
+            if not cont(i, j):
+                done = True
+                break
+            if i < 0 or j < 0:   # outside the matrix: no reads, to the end
+                while cont(i, j):
+                    move = 0 if j >= 0 else 2
+                    out.append(move)
+                    i -= move != 0
+                    j -= move != 2
+                forced, done = 0, True
+                break
+            code = read(cur, i, j)
+            fprev = read(cur, i, j - 1) // 3 % 3 if j > 0 else 0
+            eprev = read(cur, i - 1, j) % 3 if i > 0 else 0
+            key = (1, int(i > 0), min(j, 1) + 1, forced, code, fprev, eprev)
+            move, forced = int(step_move[key]), int(step_next[key])
+            out.append(move)
+            i -= move != 0
+            j -= move != 2
+        else:
+            done = not cont(i, j)
+        cur = nxt
+    if out:
+        moves[t:t + len(out)] = torch.tensor(out, dtype=torch.int8)
+    return torch.tensor([i, j, t + len(out), forced], dtype=torch.int32,
+                        device=moves.device)
+
+
 def walk_bounded(plane: torch.Tensor, prev_row: torch.Tensor, base: int,
                  i: int, j: int, t: int, forced: int,
-                 moves: torch.Tensor) -> torch.Tensor:
+                 moves: torch.Tensor, S: int | None = None) -> torch.Tensor:
     """:func:`walk_bounded_plain`'s function: a CPU plane takes it; a
-    CUDA plane launches ``csrc/psa_walk_bounded.cu`` (one thread) or
-    raises.  Returns the (4,) int32 exit state on the device, the host's
-    one 16-byte read per chunk."""
+    CUDA plane launches ``csrc/psa_walk_bounded.cu`` (one block on the
+    window ring, ``S`` steps a phase: ``_kernels.WALK_S`` unless forced)
+    or raises.  Returns the (4,) int32 exit state on the device, the
+    host's one 16-byte read per chunk."""
     if plane.device.type == "cpu":
+        if S is not None:
+            raise ValueError("S is the kernel's phase length; a CPU plane "
+                             "takes the plain walk")
         return walk_bounded_plain(plane, prev_row, base, i, j, t, forced,
                                   moves)
     out = torch.empty((4,), dtype=torch.int32, device=plane.device)
     _kernels.psa_walk_bounded(plane, prev_row, base, i, j, t, forced, moves,
-                              out)
+                              out, S=S)
     return out
 
 
@@ -321,10 +423,13 @@ def uses_pair2(P: int, pair2: bool) -> bool:
     return bool(pair2) and P >= 2 and P % 2 == 0
 
 
-def walk_packed(plane: torch.Tensor, nm: torch.Tensor, pair2: bool = False):
+def walk_packed(plane: torch.Tensor, nm: torch.Tensor, pair2: bool = False,
+                S: int | None = None, threads: int | None = None):
     """Walk every pair of a code plane; same contract as
     :func:`walk_packed_plain`.  A CPU plane takes the plain version; a
-    CUDA plane launches ``csrc/psa_walk.cu`` (one thread per pair), or
+    CUDA plane launches ``csrc/psa_walk.cu`` (one block per pair on the
+    window ring, ``S`` steps a phase and ``threads`` a block:
+    ``_kernels.psa_walk_layout``'s plan for P pairs unless forced), or
     with ``pair2`` under :func:`uses_pair2`'s gate ``csrc/psa_walk_pair2.cu``
     (one thread per two pairs; the counterpart of JAX's
     ``_decode_moves_banded_packed(pair2=True)``), and raises if the kernel
@@ -332,13 +437,20 @@ def walk_packed(plane: torch.Tensor, nm: torch.Tensor, pair2: bool = False):
     version already walks every pair in one lockstep loop."""
     P, m_pad, n_pad = _check_walk_args(plane, nm)
     if plane.device.type == "cpu":
+        if S is not None or threads is not None:
+            raise ValueError("S and threads are the kernel's; a CPU plane "
+                             "takes the plain walk")
         return walk_packed_plain(plane, nm)
     if plane.device.type != "cuda":
         raise ValueError("walk_packed: unsupported device %s" % plane.device)
     n_words = packed_words_len(m_pad + n_pad)
     words = torch.empty((P, n_words), dtype=torch.int32, device=plane.device)
     counts = torch.empty((P,), dtype=torch.int32, device=plane.device)
-    launch = _kernels.psa_walk_pair2 if uses_pair2(P, pair2) else \
-        _kernels.psa_walk
-    launch(plane, nm, words, counts)
+    if uses_pair2(P, pair2):
+        if S is not None or threads is not None:
+            raise ValueError("the two-pair walk has no phase length or "
+                             "block shape")
+        _kernels.psa_walk_pair2(plane, nm, words, counts)
+    else:
+        _kernels.psa_walk(plane, nm, words, counts, S=S, threads=threads)
     return words, counts

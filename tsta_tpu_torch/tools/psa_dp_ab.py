@@ -61,17 +61,16 @@ from tsta_tpu_torch.ops import _kernels
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-# the timed process, run in either checkout: only what both have
-CHILD = r"""
+# what a timed process (of this tool or ``psa_walk_ab``) starts with, run
+# in either checkout: only what both have.  The caller sets ``rng``.
+CHILD_HELPERS = r"""
 import hashlib, json, os, statistics, sys
 import numpy as np, torch
 from tsta_tpu_torch import AlignParams
 from tsta_tpu_torch.ops import _kernels, psa_diff
-kernel, seed, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 dev = torch.device("cuda")
 P = AlignParams()
 p = (P.match, P.mismatch, P.gap_extend, P.gap_open)
-rng = np.random.default_rng(seed)
 acgt = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -118,11 +117,15 @@ def checksum(t):
     return hashlib.sha256(json.dumps(out).encode()).hexdigest()
 
 
-def timed(fn, reps, warm=True):
+def timed(fn, reps, warm=True, flush=None):
+    # CUDA events, the median of reps after a warm-up; with ``flush``, a
+    # write of that tensor before each run (L2 cold)
     out = fn() if warm else None
     torch.cuda.synchronize()
     ms = []
     for _ in range(reps):
+        if flush is not None:
+            flush.fill_(1)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
         out = fn()
@@ -130,6 +133,12 @@ def timed(fn, reps, warm=True):
         torch.cuda.synchronize()
         ms.append(ev[0].elapsed_time(ev[1]))
     return ms, out
+"""
+
+# the timed process of this tool
+CHILD = CHILD_HELPERS + r"""
+kernel, seed, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+rng = np.random.default_rng(seed)
 
 
 def record(ms, outs, counter):
@@ -260,11 +269,13 @@ def k1_code(root: str, work: str, tag: str) -> dict:
             "sass": sass_functions(dump)[names[0]]}
 
 
-def timed_run(root: str, kernel: str, seed: int, reps: int) -> dict:
+def child_run(root: str, child: str, argv: list) -> dict:
+    """Run a timed process ``child`` in the checkout at ``root`` (its root
+    the working directory and ``PYTHONPATH``) and return its last line."""
     env = dict(os.environ, PYTHONPATH=root)
-    r = subprocess.run([sys.executable, "-c", CHILD, kernel, str(seed),
-                        str(reps)], cwd=root, env=env, capture_output=True,
-                       text=True, timeout=1800)
+    r = subprocess.run([sys.executable, "-c", child] + [str(a) for a in argv],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=1800)
     if r.returncode:
         raise RuntimeError("timed run in %s failed:\n%s" % (root, r.stderr))
     return json.loads(r.stdout.strip().splitlines()[-1])
@@ -272,6 +283,38 @@ def timed_run(root: str, kernel: str, seed: int, reps: int) -> dict:
 
 def emit(rec: dict) -> None:
     print(json.dumps(rec), flush=True)
+
+
+def alternate(trees: dict, run, rounds: int) -> dict:
+    """``rounds`` rounds of other, this, this, other, so neither side
+    always goes first: ``run(root, first_this)`` times one checkout
+    (``first_this``: the round's first run of this one) and returns its
+    record, which is printed; returns each side's records' ``shapes``."""
+    runs = {"other": [], "this": []}
+    for rnd in range(rounds):
+        for n, k in enumerate(("other", "this", "this", "other")):
+            res = run(trees[k], n == 1)
+            runs[k].append(res["shapes"])
+            emit({"round": rnd, "tree": k, **res})
+    return runs
+
+
+def summarize(runs: dict) -> dict:
+    """For each shape each side's median of its runs' medians, this over
+    other, whether every run's outputs agree, and the runs themselves (and
+    the shape's ``steps`` where its record has them)."""
+    summary = {}
+    for shape, first in runs["this"][0].items():
+        med = {k: statistics.median(r[shape]["median_ms"] for r in v)
+               for k, v in runs.items()}
+        summary[shape] = {
+            "median_ms": med, "this_over_other": med["this"] / med["other"],
+            "outputs_equal": len({r[shape]["outputs"] for v in runs.values()
+                                  for r in v}) == 1,
+            **({"steps": first["steps"]} if "steps" in first else {}),
+            "runs": {k: [r[shape]["median_ms"] for r in v]
+                     for k, v in runs.items()}}
+    return summary
 
 
 def main(argv=None) -> int:
@@ -299,23 +342,9 @@ def main(argv=None) -> int:
           "sass_equal_masked": so == st, "sass_diff_lines": diff[:200],
           "sass_diff_count": len(diff)})
 
-    runs = {"other": [], "this": []}
-    for rnd in range(args.rounds):
-        for k in ("other", "this", "this", "other"):
-            res = timed_run(trees[k], args.kernel, args.seed, args.reps)
-            runs[k].append(res["shapes"])
-            emit({"round": rnd, "tree": k, **res})
-    summary = {}
-    for shape in runs["this"][0]:
-        med = {k: statistics.median(r[shape]["median_ms"] for r in v)
-               for k, v in runs.items()}
-        summary[shape] = {
-            "median_ms": med, "this_over_other": med["this"] / med["other"],
-            "outputs_equal": len({r[shape]["outputs"] for v in runs.values()
-                                  for r in v}) == 1,
-            "runs": {k: [r[shape]["median_ms"] for r in v]
-                     for k, v in runs.items()}}
-    emit({"kernel": args.kernel, "summary": summary})
+    runs = alternate(trees, lambda root, _: child_run(
+        root, CHILD, [args.kernel, args.seed, args.reps]), args.rounds)
+    emit({"kernel": args.kernel, "summary": summarize(runs)})
     return 0
 
 
