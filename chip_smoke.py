@@ -50,8 +50,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    S than one pair's; each group's walk timed (CUDA events) and equal to
    the plain walk in every word and count;
 7. POA kernels: the round DP and the walk against their plain versions
-   on the card on seeded grown graphs (multi-pred nodes), every real
-   word, score and aligned row equal; the DP also at forced D = 2, 3 and
+   on the card on seeded grown graphs (multi-pred nodes) and on a graph
+   whose last read takes an edge that skips ~300 rows (``deletion_reads``;
+   its walk must miss its window), every real word, score and aligned row
+   equal; the walk also at forced plans (S, R, threads), R = 0 among them
+   (every move reads device memory), its counters (moves, pred moves,
+   misses, phases) equal to ``msa_poa.poa_walk_staged_plain``'s replay of
+   each plan; the DP also at forced D = 2, 3 and
    5 shards (T = 16, 1, 32), which its plan gives one shard at these
    2,048 columns, and at 5 shards on 2 blocks and 3 on 1, each block
    walking its shards in turn; then a round of a 1.1 Mbp read (1,105,920
@@ -76,7 +81,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     round-2 shape and the example's last round (CUDA events), every
     output of the timed runs equal; the kernels record's errors are these,
     with the DP's plan (D shards of C columns, S a thread, T nodes a
-    packet: ``msa_poa.poa_plan``); then the plan's S x T sweep at the 50
+    packet: ``msa_poa.poa_plan``) and the walk's (S moves a phase, R rows
+    a window, threads: ``msa_poa.poa_walk_plan``), its counters and its
+    chain bound from them; then the plan's S x T sweep at the 50
     kbp round 2 (S = 8, 16, 32; T = 16, 32, 64), every output equal to the
     plan's run;
 12. chunked kernels against their plain versions, with times (CUDA
@@ -211,9 +218,11 @@ kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
 what bounds it, and for the walks their chain bound: the longest walk's
 steps at one dependent shared-memory load, ``CHAIN_CYCLES`` at the
-boost clock, each; K1 twice, at 128 x 10,240 bp and at one pair, the
-``--notrace`` example), the ``nvidia-smi`` name and power limit, and ``{"ok":
-true, "device": {...}}``.  Exits non-zero, printing no result, without
+boost clock, each (a POA walk's chain is its moves plus its pred moves,
+two dependent loads a pred move, from its counters); K1 twice, at 128 x
+10,240 bp and at one pair, the ``--notrace`` example), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing no result, without
 CUDA or outside a checkout of the repo.
 """
 
@@ -284,6 +293,8 @@ POA_S_SWEEP, POA_T_SWEEP = (8, 16, 32), (16, 32, 64)
 # (None: one a shard), fewer walking several shards each
 POA_FORCED = ((2, 16, None), (3, 1, None), (5, 32, None), (5, 16, 2),
               (3, 1, 1))
+# phase 7's forced POA walk plans (S, R, threads), R = 0 every move a miss
+POA_WALK_FORCED = ((32, 0, 128), (8, 0, 64), (16, 64, 96), (64, 256, 256))
 # phase 7's wide round: a read past 132 shards of 8,192 columns
 POA_WIDE_READ = 1_100_000
 EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
@@ -391,6 +402,19 @@ def chain_bound(steps: int) -> dict:
     """The chain bound of a walk whose longest chain has ``steps`` steps."""
     return {"chain_bound_ms": steps * CHAIN_CYCLES / SM_CLOCK_HZ * 1e3,
             "chain_steps": steps}
+
+
+def poa_walk_record(counts, maxdist: int, max_in: int) -> dict:
+    """A POA walk's plan (S, R, threads), its counters (moves, pred
+    moves, misses, phases) and its chain bound: each move loads its word
+    and a pred move then the pred the word names, two dependent loads, so
+    the chain is moves + pred moves loads at ``CHAIN_CYCLES`` each."""
+    from tsta_tpu_torch.ops import msa_poa
+    steps, pred_moves, misses, phases = (int(x) for x in counts)
+    return {"plan": list(msa_poa.poa_walk_plan(maxdist, max_in)),
+            "counts": {"moves": steps, "pred_moves": pred_moves,
+                       "misses": misses, "phases": phases},
+            **chain_bound(steps + pred_moves)}
 
 
 def nbytes(*tensors) -> int:
@@ -807,7 +831,8 @@ def main() -> int:
                                             "bound_ms_200k", "gcups_200k",
                                             "k1_s_200k", "plan", "forced",
                                             "sweep", "S", "s_sweep_ms",
-                                            "chain_bound_ms", "chain_steps",
+                                            "counts", "chain_bound_ms",
+                                            "chain_steps",
                                             "ms_100k", "chain_bound_ms_100k")
                           if k in t}}
                       for n, s, r, t in entries]})
@@ -965,11 +990,17 @@ def next_round(seqs, rounds, params, dev, budget=None):
                      % (len(order), n, N, max_in, W)}
 
 
-def poa_compare(r, params, reps: int, plain_warm: bool, forced=()):
+def poa_compare(r, params, reps: int, plain_warm: bool, forced=(),
+                walk_forced=()):
     """Kernel and plain version of the POA DP and walk on one round's
-    inputs: times, the DP's plan (D, C, S, T) and the largest difference
-    of every output; ``forced`` (D, T, G) triples run the DP again at
-    those overrides, each held to the plain version too."""
+    inputs: times, the DP's plan (D, C, S, T), the walk's plan, counters
+    and chain bound, and the largest difference of every output;
+    ``forced`` (D, T, G) triples run the DP again at those overrides, and
+    ``walk_forced`` (S, R, threads) the walk, each held to the plain
+    version too, the walk's counters to ``poa_walk_staged_plain``'s replay
+    of that plan (a mismatch counts as a difference)."""
+    import torch
+
     from tsta_tpu_torch.ops import msa_native, msa_poa
     args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
     ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(*args), reps)
@@ -982,26 +1013,66 @@ def poa_compare(r, params, reps: int, plain_warm: bool, forced=()):
         dp_err = max(dp_err, max_err(fw[:nn], pw[:nn]), max_err(fs, ps))
         del fw, fs
     best = msa_poa.best_sink(ps, r["mask"])
-    wms, kal = cuda_ms(lambda: msa_poa.poa_walk(kw, r["preds"], best,
-                                                r["n_real"]), reps)
+    maxdist = msa_poa.max_pred_distance(r["preds"].cpu().numpy())
+    counts = torch.zeros((4,), dtype=torch.int32, device=kw.device)
+    wms, kal = cuda_ms(lambda: msa_poa.poa_walk(
+        kw, r["preds"], best, r["n_real"], maxdist=maxdist, counts=counts),
+        reps)
     wpms, pal = cuda_ms(lambda: msa_poa.walk_plain(pw, r["preds"], best,
                                                    r["n_real"]), 1,
                         plain_warm)
+    walk = poa_walk_record(counts.tolist(), maxdist, r["preds"].shape[1])
+    walk_err = max_err(kal, pal)
+    swept = []
+    for S, R, threads in walk_forced:
+        fc = torch.zeros((4,), dtype=torch.int32, device=kw.device)
+        fal = msa_poa.poa_walk(kw, r["preds"], best, r["n_real"], S=S, R=R,
+                               threads=threads, counts=fc)
+        _, _, rc = msa_poa.poa_walk_staged_plain(
+            kw, r["preds"], int(best), r["n_real"] - 1, 0, S, R)
+        swept.append({"plan": [S, R, threads], "counts": fc.tolist()})
+        walk_err = max(walk_err, max_err(fal, pal),
+                       int(fc.tolist() != rc.tolist()))
     tables = r["tables"]
-    n, n_real = tables[4].shape[0], r["n_real"]
+    n = tables[4].shape[0]
     preds_in = int(tables[1][:, :nn].sum())
     dp_ops = n * (OPS_POA_PRED * preds_in
                   + (OPS_POA_CELL + OPS_POA_WORD) * nn)
-    # the walk consumes n_real columns at least: a word and a pred each
-    walk_bytes = n_real * 6 + nbytes(kal, best)
+    c = walk["counts"]
+    # each move reads a word, each pred move a pred; an align write a
+    # consumed column
+    walk_bytes = (c["moves"] * 2 + c["pred_moves"] * 4 + r["n_real"] * 4
+                  + nbytes(best))
     return ({"shape": r["shape"], "ms": ms, "plain_ms": pms,
              "max_abs_err": dp_err, "plan": list(msa_poa.poa_plan(n)),
              "forced": [[*msa_poa.poa_plan(n, D, T), G or D]
                         for D, T, G in forced],
              **bound(nbytes(*tables, kw, ks), dp_ops)},
             {"shape": r["shape"], "ms": wms, "plain_ms": wpms,
-             "max_abs_err": max_err(kal, pal), **chain_bound(n_real),
-             **bound(walk_bytes, OPS_WALK_STEP * n_real)})
+             "max_abs_err": walk_err, "maxdist": maxdist, **walk,
+             "forced": swept,
+             **bound(walk_bytes, OPS_WALK_STEP * c["moves"])})
+
+
+def deletion_reads(length=2000, cut=300):
+    """Four seeded reads of ``length`` bp (``long_reads``' mutation at
+    12%), then two that lack ``cut`` bp of the middle: the first makes an
+    edge that skips the deleted rows, the second's walk takes it, a
+    pred jump past the walk's window."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(acgt, length)
+    reads = [base.tobytes()]
+    for _ in range(3):
+        s = base.copy()
+        s[rng.integers(0, length, length // 8)] = rng.choice(acgt,
+                                                             length // 8)
+        reads.append(np.delete(s, rng.integers(0, length, length // 64))
+                     .tobytes())
+    mid = length // 3
+    return reads + [reads[k][:mid + 5 * k] + reads[k][mid + 5 * k + cut:]
+                    for k in (1, 2)]
 
 
 def poa_wide_check(params, dev) -> dict:
@@ -1095,9 +1166,12 @@ def msa_phases(dev, smi_line):
     params = AlignParams()
     ex = example_msa_reads()
 
-    # 7. each POA kernel against its plain version on grown graphs
+    # 7. each POA kernel against its plain version on grown graphs, the
+    # walk also at forced plans (R = 0 among them) and on a round whose
+    # walk takes a pred jump past its window
     errs = {"poa_dp": 0, "poa_walk": 0}
-    shapes = []
+    shapes, walks = [], []
+    sets = []
     for seed in (1, 2):
         rng = np.random.default_rng(SEED + seed)
         acgt = np.frombuffer(b"ACGT", np.uint8)
@@ -1107,19 +1181,30 @@ def msa_phases(dev, smi_line):
             s = base.copy()
             s[rng.integers(0, 2000, 240)] = rng.choice(acgt, 240)
             reads.append(np.delete(s, rng.integers(0, 2000, 30)).tobytes())
-        for rounds in range(4):
+        sets.append(reads)
+    sets.append(deletion_reads())
+    for reads in sets:
+        for rounds in range(len(reads) - 1):
             r = next_round(reads, rounds, params, dev)
-            dp, walk = poa_compare(r, params, 1, False, POA_FORCED)
+            dp, walk = poa_compare(r, params, 1, False, POA_FORCED,
+                                   POA_WALK_FORCED)
             errs["poa_dp"] = max(errs["poa_dp"], dp["max_abs_err"])
             errs["poa_walk"] = max(errs["poa_walk"], walk["max_abs_err"])
             shapes.append(r["shape"])
+            walks.append({k: walk[k] for k in ("maxdist", "plan", "counts",
+                                               "forced")})
+    jump = walks[-1]
     wide = poa_wide_check(params, dev)
     errs["poa_dp"] = max(errs["poa_dp"], wide["max_abs_err"])
     emit({"phase": "poa_kernels", "max_abs_err": errs, "rounds": shapes,
-          "plan": dp["plan"], "forced": dp["forced"], "wide": wide})
+          "plan": dp["plan"], "forced": dp["forced"], "walks": walks,
+          "wide": wide})
     if any(errs.values()):
         raise AssertionError("POA kernel differs from its plain version: %s"
                              % errs)
+    if jump["maxdist"] < 300 or not jump["counts"]["misses"]:
+        raise AssertionError("the long-deletion round's walk took no jump "
+                             "past its window: %s" % jump)
 
     # 8. the MSA main path through the CLI
     with tempfile.TemporaryDirectory() as tmp:
@@ -1499,24 +1584,29 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
                 chunk_ops(args[:2], r.rows(c), r.CW, True))}
     preds = r.chunk_preds(c)
     walks = {}
+    counts = torch.zeros((4,), dtype=torch.int32, device=dev)
 
-    def walk(fn, key):
+    def walk(fn, key, **kw):
         align = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        walks[key] = (fn(words, preds, row, j, 0, c * NC, w * r.CW, align),
-                      align)
+        walks[key] = (fn(words, preds, row, j, 0, c * NC, w * r.CW, align,
+                         **kw), align)
 
-    wms, _ = cuda_ms(lambda: walk(msa_poa.poa_walk_bounded, "kernel"), 3)
+    wms, _ = cuda_ms(lambda: walk(msa_poa.poa_walk_bounded, "kernel",
+                                  maxdist=r.maxdist, counts=counts), 3)
     wpms, _ = cuda_ms(lambda: walk(msa_poa.walk_bounded_plain, "plain"), 1,
                       False)
     consumed = j - int(walks["kernel"][0][1])
     werr = max(max_err(k, p) for k, p in zip(walks["kernel"], walks["plain"]))
+    rec = poa_walk_record(counts.tolist(), r.maxdist, preds.shape[1])
+    mv = rec["counts"]
     times["poa_walk_bounded"] = {
         "shape": times["poa_dp_window"]["shape"] + ", %d columns walked"
                  % consumed,
         "ms": wms, "plain_ms": wpms, "max_abs_err": werr,
-        "consumed": consumed, **chain_bound(consumed),
-        # per consumed column a word and a pred read and an align write
-        **bound(consumed * 10 + 12, OPS_WALK_STEP * consumed)}
+        "consumed": consumed, "maxdist": r.maxdist, **rec,
+        # a word a move, a pred a pred move, an align write a column
+        **bound(mv["moves"] * 2 + mv["pred_moves"] * 4 + consumed * 4 + 12,
+                OPS_WALK_STEP * mv["moves"])}
     return times, forward_s, forward_score, walks["kernel"][0].tolist()
 
 

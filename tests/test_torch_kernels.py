@@ -250,6 +250,49 @@ def _round_inputs(g, seq, params, dev):
     return t, n_real, len(order), W, order, preds
 
 
+# the POA walks' forced plans (S, R, threads): R = 0 misses every move
+POA_WALK_FORCED = ((8, 0, 64), (8, 16, 256), (16, 64, 96), (32, 128, 128),
+                   (64, 256, 256), (128, 128, 128), (32, 0, 128))
+
+
+def _deletion_reads():
+    """Four ~700 bp reads, then two that lack ~300 bp of the middle: the
+    first makes an edge that skips the deleted rows, the second's walk
+    takes it (tests/test_torch_poa_walk.py's graph)."""
+    reads = _reads(3, 4, 700)
+    cut = [bytearray(reads[1]), bytearray(reads[2])]
+    del cut[0][200:500]
+    del cut[1][205:505]
+    return reads + [bytes(c) for c in cut]
+
+
+def _walk_plans_match_replay(cuda, words, preds, best, n_real, want,
+                             maxdist):
+    """``poa_walk.cu`` at its plan and each forced (S, R, threads) on the
+    card: the align map equals ``want`` and the counters (moves, pred
+    moves, misses, phases) equal ``poa_walk_staged_plain``'s replay of
+    the same plan on the CPU plane ``words``.  Returns the plan's
+    counters."""
+    from tsta_tpu_torch.ops import msa_poa
+    wd, pd, bd = words.to(cuda), preds.to(cuda), best.to(cuda)
+    plan = None
+    for S, R, threads in ((None, None, None),) + POA_WALK_FORCED:
+        counts = torch.zeros((4,), dtype=torch.int32, device=cuda)
+        got = msa_poa.poa_walk(wd, pd, bd, n_real, maxdist=maxdist, S=S,
+                               R=R, threads=threads, counts=counts)
+        S, R, _ = msa_poa.poa_walk_plan(maxdist, preds.shape[1], S=S, R=R,
+                                        threads=threads)
+        align, out, rc = msa_poa.poa_walk_staged_plain(
+            words, preds, int(best), n_real - 1, 0, S, R)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want) and torch.equal(align, want)
+        assert counts.tolist() == rc.tolist(), (S, R, threads)
+        if R == 0:
+            assert counts[2] == counts[0] > 0
+        plan = plan or counts.tolist()
+    return plan
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,length", [(0, 300), (1, 1500)])
 def test_poa_dp_and_walk_kernels_match_plain(cuda, seed, length):
@@ -281,10 +324,81 @@ def test_poa_dp_and_walk_kernels_match_plain(cuda, seed, length):
         assert _kernels.launches["poa_walk"] == n0["poa_walk"] + 1
         pal = msa_poa.walk_plain(pw, pd, best, n_real)
         assert torch.equal(kal.cpu(), pal)
+        _walk_plans_match_replay(cuda, pw, pd, best, n_real, pal,
+                                 msa_poa.max_pred_distance(preds))
         host = msa_poa.pack_round(ps, pal, best).numpy()
         msa_native._finish_round(g, reads[sno], sno, order, host, [], [],
                                  [])
     assert multi > 0
+
+
+@pytest.mark.cuda
+def test_poa_walk_kernel_takes_the_long_jump(cuda):
+    """A graph whose last read takes an edge that skips ~300 rows: each
+    round's walk on the card at its plan and at every forced plan equals
+    the plain walk, with the replay's counters, and the last round misses
+    at its plan (the jump is past its window), the earlier rounds do
+    not; the progressive run through the kernels equals the CPU's."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    reads = _deletion_reads()
+    g = PoaGraph.from_sequence(reads[0], len(reads))
+    misses = []
+    for sno in range(1, len(reads)):
+        tk, n_real, n_nodes, W, order, preds = _round_inputs(
+            g, reads[sno], AP, cpu)
+        pw, ps = msa_poa.poa_dp(*tk, n_real, n_nodes, AP, W)
+        best = msa_poa.best_sink(ps, torch.from_numpy(
+            msa_poa.sink_mask(g, order, tk[0].shape[1])))
+        pd = torch.from_numpy(preds)
+        pal = msa_poa.walk_plain(pw, pd, best, n_real)
+        plan = _walk_plans_match_replay(cuda, pw, pd, best, n_real, pal,
+                                        msa_poa.max_pred_distance(preds))
+        misses.append(plan[2])
+        msa_native._finish_round(g, reads[sno], sno, order,
+                                 msa_poa.pack_round(ps, pal, best).numpy(),
+                                 [], [], [])
+    assert misses[-1] > 0 and not any(misses[:3])
+    want = msa_native.align_seqs(reads, AP, device="cpu")
+    n0 = _kernels.launches["poa_walk"]
+    assert msa_native.align_seqs(reads, AP, kernel="cuda",
+                                 device=cuda) == want
+    assert _kernels.launches["poa_walk"] == n0 + len(reads) - 1
+
+
+@pytest.mark.cuda
+def test_poa_walks_refuse_shapes_the_copies_cannot_take(cuda):
+    """The window ring's 16-byte copies: a plane width not a multiple of
+    8, a pred table not a multiple of 4 ints, an unaligned plane and a
+    plan that does not fit raise ValueError before any launch."""
+    i32 = torch.int32
+    best = torch.zeros((1,), dtype=i32, device=cuda)
+    preds = torch.zeros((128, 4), dtype=i32, device=cuda)
+    n0 = dict(_kernels.launches)
+    for words, pr in ((torch.zeros((128, 132), dtype=torch.int16,
+                                   device=cuda), preds),
+                      (torch.zeros((128 * 128 + 1,), dtype=torch.int16,
+                                   device=cuda)[1:].view(128, 128), preds),
+                      (torch.zeros((3, 128), dtype=torch.int16,
+                                   device=cuda), preds[:3, :1].contiguous())):
+        n = words.shape[1]
+        with pytest.raises(ValueError, match="16-byte"):
+            _kernels.poa_walk(words, pr, best, 5,
+                              torch.full((n,), -1, dtype=i32, device=cuda))
+        with pytest.raises(ValueError, match="16-byte"):
+            _kernels.poa_walk_bounded(
+                words, pr, 0, 5, 0, 0, 0,
+                torch.full((n,), -1, dtype=i32, device=cuda),
+                torch.zeros((3,), dtype=i32, device=cuda))
+    words = torch.zeros((128, 128), dtype=torch.int16, device=cuda)
+    for kw in ({"S": 12}, {"R": 10_000}, {"threads": 320}):
+        with pytest.raises(ValueError):
+            _kernels.poa_walk(words, preds, best, 5,
+                              torch.full((128,), -1, dtype=i32, device=cuda),
+                              **kw)
+    assert dict(_kernels.launches) == n0
 
 
 @pytest.mark.cuda
@@ -434,6 +548,7 @@ def test_poa_chunk_window_and_bounded_walk_kernels_match_plain(cuda):
                                          t["a"][col0:col0 + CW], n_real,
                                          rows(c), AP, W, ring=ring,
                                          chunk_base=c * NC, col0=col0)
+            align_in = aligns[d].clone()
             out[d] = msa_poa.poa_walk_bounded(words[d], t["preds"][sl], row,
                                               j, state, c * NC, col0,
                                               aligns[d])
@@ -441,12 +556,27 @@ def test_poa_chunk_window_and_bounded_walk_kernels_match_plain(cuda):
         assert torch.equal(words["cuda"].cpu(), words["cpu"])
         assert out["cuda"].tolist() == out["cpu"].tolist()
         assert torch.equal(aligns["cuda"].cpu(), aligns["cpu"])
+        # each forced plan from the same entry, with the replay's counters
+        for S, R, threads in POA_WALK_FORCED:
+            counts = torch.zeros((4,), dtype=torch.int32, device=cuda)
+            al = align_in.clone()
+            got = msa_poa.poa_walk_bounded(
+                words["cuda"], tabs["cuda"]["preds"][sl], row, j, state,
+                c * NC, col0, al, S=S, R=R, threads=threads, counts=counts)
+            wa, wo, wc = msa_poa.poa_walk_staged_plain(
+                words["cpu"], tabs["cpu"]["preds"][sl], row, j, state, S, R,
+                base=c * NC, col0=col0, align=align_in.cpu().clone())
+            torch.cuda.synchronize()
+            assert got.tolist() == wo.tolist() == out["cpu"].tolist()
+            assert torch.equal(al.cpu(), wa) and torch.equal(wa,
+                                                             aligns["cpu"])
+            assert counts.tolist() == wc.tolist(), (S, R, threads)
         row, j, state = out["cpu"].tolist()
         cells += 1
     assert cells >= 4 and (aligns["cpu"] >= 0).sum() > 1900
     assert _kernels.launches["poa_dp_window"] == n0["poa_dp_window"] + cells
     assert (_kernels.launches["poa_walk_bounded"]
-            == n0["poa_walk_bounded"] + cells)
+            == n0["poa_walk_bounded"] + cells * (1 + len(POA_WALK_FORCED)))
 
 
 @pytest.mark.cuda
@@ -566,6 +696,60 @@ def _relaid(ring, n, D_from, D_to):
     out[:, :, msa_poa.ring_positions(n, dev, D_to)] = \
         ring[:, :, msa_poa.ring_positions(n, dev, D_from)]
     return out
+
+
+@pytest.mark.cuda
+def test_poa_bounded_walks_back_to_back(cuda, grown_2k):
+    """2,000 bounded walks launched back to back on one stream, each into
+    its own align row filled with -1: 250 seeded entries (row, column and
+    state) in the cells of ``grown_2k``'s chunked round, each at 8 plans
+    (the round's and ``POA_WALK_FORCED``'s).  Every exit state and align
+    row equals the plain walk from that entry, and each entry's moves and
+    pred moves are the same at every plan: a block whose threads left the
+    ring at different phases would show here (``compute-sanitizer`` does
+    not run on the card's machine)."""
+    from tsta_tpu_torch.ops import msa_poa
+    r, n, remats = grown_2k["r"], grown_2k["n"], grown_2k["remats"]
+    rng = np.random.default_rng(20261017)
+    plans = ((None, None, None),) + POA_WALK_FORCED
+    entries = []
+    for _ in range(250):
+        c = int(rng.integers(0, -(-r.n_nodes // r.NC)))
+        w = int(rng.integers(0, 2))
+        rows = r.rows(c)
+        row = c * r.NC + int(rng.integers(max(rows - 300, 0), rows))
+        j = w * r.CW + int(rng.integers(r.CW // 2, r.CW))
+        entries.append((c, w, row, j, int(rng.integers(0, 3))))
+    dev_words = {k: v[1].to(cuda) for k, v in remats.items()}
+    dev_preds = {c: r.chunk_preds(c).to(cuda) for c in range(r.nchunks)}
+    launches = len(entries) * len(plans)
+    aligns = torch.full((launches, n), -1, dtype=torch.int32, device=cuda)
+    outs = torch.zeros((launches, 3), dtype=torch.int32, device=cuda)
+    counts = torch.zeros((launches, 4), dtype=torch.int32, device=cuda)
+    n0 = _kernels.launches["poa_walk_bounded"]
+    k = 0
+    for c, w, row, j, state in entries:
+        for S, R, threads in plans:
+            _kernels.poa_walk_bounded(
+                dev_words[c, w], dev_preds[c], row, j, state, c * r.NC,
+                w * r.CW, aligns[k], outs[k], maxdist=r.maxdist, S=S, R=R,
+                threads=threads, counts=counts[k])
+            k += 1
+    torch.cuda.synchronize()
+    assert _kernels.launches["poa_walk_bounded"] == n0 + launches == n0 + 2000
+    aligns, outs, counts = aligns.cpu(), outs.cpu(), counts.cpu()
+    moved = 0
+    for e, (c, w, row, j, state) in enumerate(entries):
+        want = torch.full((n,), -1, dtype=torch.int32)
+        st = msa_poa.walk_bounded_plain(remats[c, w][1], r.chunk_preds(c),
+                                        row, j, state, c * r.NC, w * r.CW,
+                                        want)
+        sl = slice(e * len(plans), (e + 1) * len(plans))
+        assert (outs[sl] == st).all(), (c, w, row, j, state)
+        assert (aligns[sl] == want).all(), (c, w, row, j, state)
+        assert (counts[sl, :2] == counts[sl.start, :2]).all()
+        moved += int(counts[sl.start, 0] > 0)
+    assert moved > 200
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-// POA traceback walk over the round DP's 16-bit word plane, one thread.
+// POA traceback walk over the round DP's 16-bit word plane, one block.
 //
 // Replaces the TPU kernel tsta_tpu/ops/msa_pallas.py:_poa_walk_kernel
 // (launched through _walk_banded); the 3-state machine of
@@ -12,62 +12,88 @@
 // until row < 0 (buffer row id 0 is the virtual row, so -1 ends the walk)
 // or j < 0.  Columns the walk never consumes keep the caller's -1.
 //
-// The TPU walk stages bands of the plane in SMEM because its scalar core
-// pays ~1 us per HBM gather.  Here the thread reads the plane and the pred
-// table through L1/L2, so there is no band and no shape gate.
+// The TPU walk keeps a band of ~48 rows x 1,024 columns of the plane in
+// VMEM with the pred table whole in SMEM, refetching the band when a step
+// lands outside it.  Here the block stages windows of the plane and the
+// preds of their rows in shared memory ahead of the walk
+// (poa_walk_stage.cuh's ring: thread 0 walks, the other warps copy), and
+// a move outside the window reads device memory and counts a miss.
 //
-// What bounds it on the H100: one dependent load per step, mostly an L2 or
-// device-memory miss (a diagonal step moves to another row of the plane,
-// n*2 bytes away), times ~n_real steps.  Later work: prefetch the rows the
-// walk is about to enter.
+// What bounds it on the H100: the chain, two dependent loads a move (the
+// word, then the pred it names).  From device memory the word missed L2
+// after each diagonal (the 50 kbp round's plane is 5.1 GB), ~255 ns a
+// move; from the staged window both are shared-memory loads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "poa_walk_stage.cuh"
+
 namespace {
 
-__global__ void poa_walk_kernel(const uint16_t* __restrict__ words,
-                                const int32_t* __restrict__ preds,
-                                const int32_t* __restrict__ best, int n,
-                                int n_real, int max_in,
-                                int32_t* __restrict__ align) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  int row = best[0];
-  int j = n_real - 1;
-  int state = 0;  // 0 H, 1 E, 2 F
-  while (j >= 0 && row >= 0) {
-    const int w = words[(size_t)row * n + j];
-    if (state == 0) {
-      const int htype = (w >> 2) & 3;
-      if (htype == 0) {
-        align[j] = row;
-        row = preds[(size_t)row * max_in + ((w >> 4) & 63)] - 1;
-        --j;
-      } else {
-        state = htype;
-      }
-    } else if (state == 1) {
-      row = preds[(size_t)row * max_in + ((w >> 10) & 63)] - 1;
-      state = (w >> 1) & 1;
-    } else {
-      align[j] = -1;
-      --j;
-      state = (w & 1) ? 2 : 0;
-    }
-  }
+template <int V>
+__global__ void __launch_bounds__(tsta::kPoaWalkMaxThreads)
+    poa_walk_kernel(const uint16_t* __restrict__ words,
+                    const int32_t* __restrict__ preds,
+                    const int32_t* __restrict__ best, int N, int n,
+                    int n_real, int max_in, int32_t* __restrict__ align,
+                    int32_t* __restrict__ counts, int S, int R) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  tsta::PoaWalker<V> wk;
+  wk.row = best[0];
+  wk.j = n_real - 1;
+  wk.state = wk.steps = wk.pred_moves = wk.misses = 0;
+  wk.base = wk.col0 = 0;
+  wk.rows = N;
+  wk.cols = n;
+  wk.max_in = max_in;
+  wk.words = words;
+  wk.preds = preds;
+  wk.align = align;
+  tsta::poa_walk_ring(wk, S, R, smem, counts);
+}
+
+template <int V>
+int launch(const void* words, const void* preds, const void* best, int N,
+           int n, int n_real, int max_in, void* align, void* counts, int S,
+           int R, int threads, cudaStream_t stream) {
+  const int rc = tsta::poa_walk_prepare(poa_walk_kernel<V>, S, R, threads,
+                                        N, n, max_in, words, preds);
+  if (rc) return rc;
+  poa_walk_kernel<V><<<1, threads, 2 * tsta::poa_walk_buf_bytes(S, R, max_in),
+                       stream>>>(
+      static_cast<const uint16_t*>(words), static_cast<const int32_t*>(preds),
+      static_cast<const int32_t*>(best), N, n, n_real, max_in,
+      static_cast<int32_t*>(align), static_cast<int32_t*>(counts), S, R);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// words: (N, n) uint16; preds: (N, max_in) int32 buffer row ids; best:
-// (1,) int32 start row; align: (n,) int32, filled with -1 by the caller.
-// Returns cudaGetLastError() after the launch.
+// words: (N, n) uint16, n a multiple of 8; preds: (N, max_in) int32
+// buffer row ids, N * max_in a multiple of 4, both 16-byte aligned; best:
+// (1,) int32 start row; align: (n,) int32, filled with -1 by the caller;
+// counts: (4,) int32 (moves, pred moves, misses, phases); S moves a
+// phase (a multiple of 8), R rows a window, ``threads`` a block (a
+// multiple of 32 in [64, 256]).  A build per max_in up to 8 (its preds
+// loaded with the word), one for wider tables.  Returns the CUDA error of
+// the checks, the shared-memory attribute or the launch
+// (cudaGetLastError()).
 extern "C" int tsta_poa_walk(const void* words, const void* preds,
-                             const void* best, int n, int n_real, int max_in,
-                             void* align, void* stream) {
-  poa_walk_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(words), static_cast<const int32_t*>(preds),
-      static_cast<const int32_t*>(best), n, n_real, max_in,
-      static_cast<int32_t*>(align));
-  return static_cast<int>(cudaGetLastError());
+                             const void* best, int N, int n, int n_real,
+                             int max_in, void* align, void* counts, int S,
+                             int R, int threads, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (max_in) {
+    case 1: return launch<1>(words, preds, best, N, n, n_real, max_in, align,
+                             counts, S, R, threads, st);
+    case 2: return launch<2>(words, preds, best, N, n, n_real, max_in, align,
+                             counts, S, R, threads, st);
+    case 4: return launch<4>(words, preds, best, N, n, n_real, max_in, align,
+                             counts, S, R, threads, st);
+    case 8: return launch<8>(words, preds, best, N, n, n_real, max_in, align,
+                             counts, S, R, threads, st);
+    default: return launch<0>(words, preds, best, N, n, n_real, max_in,
+                              align, counts, S, R, threads, st);
+  }
 }

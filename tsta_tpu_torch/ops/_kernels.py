@@ -64,6 +64,9 @@ SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
 WALK_S, MAX_DYNAMIC_SMEM = 64, 232_448
 WALK_MIN_THREADS, WALK_MAX_THREADS = 64, 256
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
+# the POA walks' plan (poa_walk_plan, csrc/poa_walk_stage.cuh): moves a
+# phase, the most rows a window takes per move of a phase, threads a block
+POA_WALK_S, POA_WALK_ROWS_PER_S, POA_WALK_THREADS = 64, 5, 128
 # poa_dp.cu's plan (tsta_poa_dp_layout): threads of a shard's block, the
 # fewest and most columns a thread, the most shards before S grows, nodes
 # a packet
@@ -208,10 +211,11 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_poa_dp_max_blocks.restype = ci
             lib.tsta_poa_dp_max_blocks.argtypes = [ci, ci]
             lib.tsta_poa_walk.restype = ci
-            lib.tsta_poa_walk.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp]
+            lib.tsta_poa_walk.argtypes = [vp, vp, vp] + [ci] * 4 + [
+                vp, vp] + [ci] * 3 + [vp]
             lib.tsta_poa_walk_bounded.restype = ci
             lib.tsta_poa_walk_bounded.argtypes = [vp, vp] + [ci] * 8 + [
-                vp, vp, vp]
+                vp, vp, vp] + [ci] * 3 + [vp]
             _LIB = lib
         return _LIB
 
@@ -881,10 +885,77 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     return D, C, S, T, G
 
 
-def poa_walk(words, preds, best, n_real, align) -> None:
-    """Launch the POA walk (one thread) over an (N, n) int16 word plane;
-    ``preds``: (N, max_in) int32; ``best``: (1,) int32 start row;
-    ``align``: (n,) int32 output, pre-filled with -1 by the caller."""
+def poa_walk_bytes(S: int, R: int, max_in: int) -> int:
+    """Dynamic shared memory of a POA walk block: two window buffers of R
+    rows (at least one) of 2S + 8 words and R * max_in + 8 preds
+    (``poa_walk_stage.cuh``'s ``poa_walk_buf_bytes``)."""
+    return 2 * (max(R, 1) * (2 * S + 8) * 2 + (R * max_in + 8) * 4)
+
+
+def poa_walk_plan(maxdist: int | None, max_in: int, *, S=None, R=None,
+                  threads=None) -> tuple:
+    """(S, R, threads): the POA walks' window ring for a round whose
+    largest pred distance is ``maxdist`` rows (None: unknown) and whose
+    pred table is ``max_in`` wide.  S moves a phase (:data:`POA_WALK_S`);
+    R rows a window: 2S * maxdist covers every move of the next phase, so
+    no move misses, capped at :data:`POA_WALK_ROWS_PER_S` * S (most moves
+    go up one or two rows, so a larger window mostly stages rows no move
+    reads) and at what two buffers leave of a block's shared memory;
+    threads a block (:data:`POA_WALK_THREADS`).  ``S``, ``R`` and
+    ``threads`` force their value (tests, sweeps; R = 0 makes every move
+    read device memory).  Raises ValueError for S not a multiple of 8 of
+    at least 8, a forced R that does not fit, or threads not a multiple of
+    32 in [64, 256]."""
+    S = POA_WALK_S if S is None else int(S)
+    threads = POA_WALK_THREADS if threads is None else int(threads)
+    if S < 8 or S % 8:
+        raise ValueError("POA walk phase length S must be a multiple of 8, "
+                         "got %d" % S)
+    if threads % 32 or not WALK_MIN_THREADS <= threads <= WALK_MAX_THREADS:
+        raise ValueError("POA walk: threads must be a multiple of 32 in "
+                         "[%d, %d], got %d"
+                         % (WALK_MIN_THREADS, WALK_MAX_THREADS, threads))
+    row = poa_walk_bytes(S, 2, max_in) - poa_walk_bytes(S, 1, max_in)
+    cap = (MAX_DYNAMIC_SMEM - poa_walk_bytes(S, 1, max_in)) // row + 1
+    if R is None:
+        R = min(POA_WALK_ROWS_PER_S * S, cap)
+        if maxdist is not None:
+            R = min(R, 2 * S * max(int(maxdist), 1))
+    elif not 0 <= int(R) <= cap:
+        raise ValueError("POA walk: R %d rows outside [0, %d] (two windows "
+                         "of %d words a row and %d preds fit %d bytes)"
+                         % (int(R), cap, 2 * S + 8, max_in,
+                            MAX_DYNAMIC_SMEM))
+    return S, int(R), threads
+
+
+def _check_poa_copies(cols: int, words, preds, what: str) -> None:
+    """The window ring stages in 16-byte copies: the plane's width a
+    multiple of 8 words, the pred table a multiple of 4 ints, both
+    16-byte aligned, else ValueError."""
+    if cols % 8 or preds.numel() % 4 or words.data_ptr() % 16 \
+            or preds.data_ptr() % 16:
+        raise ValueError("%s stages the plane in 16-byte copies: %d columns "
+                         "must be a multiple of 8, the pred table's %d ints "
+                         "a multiple of 4, and both 16-byte aligned"
+                         % (what, cols, preds.numel()))
+
+
+def _poa_counts(counts, dev):
+    if counts is None:
+        return torch.empty((4,), dtype=torch.int32, device=dev)
+    _check(counts, "counts", torch.int32, (4,), dev)
+    return counts
+
+
+def poa_walk(words, preds, best, n_real, align, *, maxdist=None, S=None,
+             R=None, threads=None, counts=None):
+    """Launch the POA walk (one block on the window ring,
+    :func:`poa_walk_plan`'s S, R and threads for ``maxdist`` unless
+    forced) over an (N, n) int16 word plane; ``preds``: (N, max_in)
+    int32; ``best``: (1,) int32 start row; ``align``: (n,) int32 output,
+    pre-filled with -1 by the caller.  Returns ``counts`` ((4,) int32,
+    allocated when None): moves, pred moves, misses, phases."""
     dev = words.device
     if dev.type != "cuda":
         raise ValueError("poa_walk kernel needs CUDA tensors, got %s" % dev)
@@ -897,21 +968,30 @@ def poa_walk(words, preds, best, n_real, align) -> None:
     if max_in > POA_MAX_IN or not 1 <= n_real <= n:
         raise ValueError("poa_walk: max_in %d, n_real %d, n %d"
                          % (max_in, n_real, n))
+    _check_poa_copies(n, words, preds, "poa_walk")
+    S, R, threads = poa_walk_plan(maxdist, max_in, S=S, R=R,
+                                  threads=threads)
+    counts = _poa_counts(counts, dev)
     rc = _lib().tsta_poa_walk(words.data_ptr(), preds.data_ptr(),
-                              best.data_ptr(), n, n_real, max_in,
-                              align.data_ptr(), _stream(dev))
+                              best.data_ptr(), N, n, n_real, max_in,
+                              align.data_ptr(), counts.data_ptr(), S, R,
+                              threads, _stream(dev))
     _raise_on(rc, "poa_walk")
     launches["poa_walk"] += 1
+    return counts
 
 
-def poa_walk_bounded(words, preds, row, j, state, base, col0, align,
-                     out) -> None:
-    """Launch the POA walk (one thread) inside one cell of a chunked
-    round: ``words`` ((nc, cw) int16) holds rows [base, base + nc) and
-    columns [col0, col0 + cw) of the round's plane, ``preds`` ((nc,
-    max_in) int32) the cell's rows of the pred table.  Walks from (row,
-    j, state) until it leaves the cell, writing ``align`` ((n,) int32) at
-    the consumed columns, and ``out`` ((3,) int32) = (row, j, state)."""
+def poa_walk_bounded(words, preds, row, j, state, base, col0, align, out,
+                     *, maxdist=None, S=None, R=None, threads=None,
+                     counts=None):
+    """Launch the POA walk (one block on the window ring, the plan as
+    :func:`poa_walk`'s) inside one cell of a chunked round: ``words``
+    ((nc, cw) int16) holds rows [base, base + nc) and columns [col0, col0
+    + cw) of the round's plane, ``preds`` ((nc, max_in) int32) the cell's
+    rows of the pred table.  Walks from (row, j, state) until it leaves
+    the cell, writing ``align`` ((n,) int32) at the consumed columns, and
+    ``out`` ((3,) int32) = (row, j, state).  Returns ``counts`` as
+    :func:`poa_walk`."""
     dev = words.device
     if dev.type != "cuda":
         raise ValueError("poa_walk_bounded kernel needs CUDA tensors, got "
@@ -928,11 +1008,17 @@ def poa_walk_bounded(words, preds, row, j, state, base, col0, align,
         raise ValueError("poa_walk_bounded: max_in %d, cell (%d, %d) of "
                          "(%d, %d), n %d, state %d"
                          % (max_in, base, col0, nc, cw, n, state))
+    _check_poa_copies(cw, words, preds, "poa_walk_bounded")
+    S, R, threads = poa_walk_plan(maxdist, max_in, S=S, R=R,
+                                  threads=threads)
+    counts = _poa_counts(counts, dev)
     rc = _lib().tsta_poa_walk_bounded(
         words.data_ptr(), preds.data_ptr(), nc, cw, max_in, row, j, state,
-        base, col0, align.data_ptr(), out.data_ptr(), _stream(dev))
+        base, col0, align.data_ptr(), out.data_ptr(), counts.data_ptr(), S,
+        R, threads, _stream(dev))
     _raise_on(rc, "poa_walk_bounded")
     launches["poa_walk_bounded"] += 1
+    return counts
 
 
 def psa_ring_max_blocks(C: int, T: int, dev) -> int:

@@ -20,7 +20,8 @@ passes:
    CW columns (``poa_dp.cu``'s window remat), from the chunk's entry
    ring cut to the window (:func:`ring_window`) and the window's left
    boundary from the checkpoints (:func:`win_fills`).  The walk
-   (``poa_walk_bounded.cu``) runs in that cell's words until it leaves
+   (``poa_walk_bounded.cu``, on the window ring of
+   :func:`msa_poa.poa_walk_plan`) runs in that cell's words until it leaves
    the cell and writes the round's align entries on the device; the host
    reads back (row, j, state), 12 bytes, and picks the next cell.
 
@@ -112,6 +113,8 @@ class ChunkedRound:
         self.fills = put(np.pad(fills, ((0, 0), (0, pad)),
                                 constant_values=NEG))
         self.preds = put(np.pad(preds, ((0, pad), (0, 0))))
+        # the walk's plan: the most rows a move climbs
+        self.maxdist = msa_poa.max_pred_distance(preds)
         self.mask = put(msa_poa.sink_mask(g, order, N + pad))
         self.a = put(a)
 
@@ -189,8 +192,11 @@ def round_chunked(g, prep, a, n_real: int, NC: int, NWIN: int, params, dev,
     from tsta_tpu_torch.ops.msa_native import round_dp_plain
     r = ChunkedRound(g, prep, a, n_real, NC, NWIN, params, dev)
     dp = msa_poa.poa_dp if use_kernel else round_dp_plain
-    walk = (msa_poa.poa_walk_bounded if use_kernel
-            else msa_poa.walk_bounded_plain)
+    if use_kernel:
+        def walk(*a):
+            return msa_poa.poa_walk_bounded(*a, maxdist=r.maxdist)
+    else:
+        walk = msa_poa.walk_bounded_plain
     if clock:
         clock.mark("dp0")
     snaps, scores, ckpt = r.forward(dp)

@@ -13,7 +13,9 @@ current stream:
    plane and the per-node sink scores;
 3. the best sink, a first-max argmax over the sink rows;
 4. the walk (:func:`poa_walk`, ``csrc/poa_walk.cu``) from the best sink
-   to the per-column aligned rows;
+   to the per-column aligned rows, on a window ring of the plane and the
+   preds in shared memory (:func:`poa_walk_plan`, replayed on the CPU by
+   :func:`poa_walk_staged_plain`);
 5. ``[best, score, align...]`` packed into one int32 tensor, so the host
    pays one device-to-host transfer per round.
 
@@ -39,7 +41,7 @@ import torch
 from tsta_tpu_torch.ops import _kernels
 # poa_dp.cu's plan and ring width, from n alone (re-exported)
 from tsta_tpu_torch.ops._kernels import (SHARD_MAX, SHARD_THREADS,  # noqa
-                                         poa_plan, ring_width)
+                                         poa_plan, poa_walk_plan, ring_width)
 from tsta_tpu_torch.native.build import load_poa
 from tsta_tpu_torch.ops.psa_scan import NEG, as_params, bucket
 from tsta_tpu_torch.utils import profiling
@@ -113,7 +115,7 @@ def prepare(g, params, cap: bool = True):
     pmask[np.where(lens == 0)[0], 0] = 1   # sources read the virtual row 0
     bases = np.zeros((N, 1), np.int32)
     bases[:N_real, 0] = g._bases[order_arr].astype(np.int32)
-    maxdist = int(max(1, (rowi - pos[flat]).max())) if n_edges else 1
+    maxdist = max_pred_distance(preds)
     hm1 = np.full((N + 1,), NEG, np.int64)
     _hm1(N_real, max_in, preds, lens, e_, o_, hm1)
     hm1 = hm1.astype(np.int32)
@@ -294,15 +296,24 @@ def walk_plain(words, preds, best, n_real: int) -> torch.Tensor:
     return torch.from_numpy(align).to(words.device)
 
 
-def poa_walk(words, preds, best, n_real: int) -> torch.Tensor:
+def poa_walk(words, preds, best, n_real: int, *, maxdist=None, S=None,
+             R=None, threads=None, counts=None) -> torch.Tensor:
     """Walk a round's word plane from row ``best`` ((1,) int32); returns
     the (n,) int32 aligned rows.  CPU tensors take :func:`walk_plain`;
-    CUDA tensors launch ``csrc/poa_walk.cu`` or raise."""
+    CUDA tensors launch ``csrc/poa_walk.cu`` (:func:`poa_walk_plan` for
+    the round's ``maxdist``; ``S``, ``R`` and ``threads`` force it, and
+    ``counts``, a (4,) int32 tensor, takes the moves, pred moves, misses
+    and phases) or raise."""
     if words.device.type == "cpu":
+        if S is not None or R is not None or threads is not None \
+                or counts is not None:
+            raise ValueError("S, R, threads and counts are the kernel's; a "
+                             "CPU plane takes the plain walk")
         return walk_plain(words, preds, best, n_real)
     align = torch.full((words.shape[1],), -1, dtype=torch.int32,
                        device=words.device)
-    _kernels.poa_walk(words, preds, best, n_real, align)
+    _kernels.poa_walk(words, preds, best, n_real, align, maxdist=maxdist,
+                      S=S, R=R, threads=threads, counts=counts)
     return align
 
 
@@ -353,18 +364,164 @@ def walk_bounded_plain(words, preds, row: int, j: int, state: int,
 
 
 def poa_walk_bounded(words, preds, row: int, j: int, state: int, base: int,
-                     col0: int, align) -> torch.Tensor:
+                     col0: int, align, *, maxdist=None, S=None, R=None,
+                     threads=None, counts=None) -> torch.Tensor:
     """:func:`walk_bounded_plain`'s function: CPU tensors take it; CUDA
-    tensors launch ``csrc/poa_walk_bounded.cu`` or raise.  Returns the
-    (3,) int32 (row, j, state) on the device, the host's one 12-byte read
-    per cell."""
+    tensors launch ``csrc/poa_walk_bounded.cu`` (the plan and overrides
+    of :func:`poa_walk`) or raise.  Returns the (3,) int32 (row, j,
+    state) on the device, the host's one 12-byte read per cell."""
     if words.device.type == "cpu":
+        if S is not None or R is not None or threads is not None \
+                or counts is not None:
+            raise ValueError("S, R, threads and counts are the kernel's; a "
+                             "CPU plane takes the plain walk")
         return walk_bounded_plain(words, preds, row, j, state, base, col0,
                                   align)
     out = torch.empty((3,), dtype=torch.int32, device=words.device)
     _kernels.poa_walk_bounded(words, preds, row, j, state, base, col0,
-                              align, out)
+                              align, out, maxdist=maxdist, S=S, R=R,
+                              threads=threads, counts=counts)
     return out
+
+
+def max_pred_distance(preds) -> int:
+    """The largest number of rows an edge skips, at least 1: row r's pred
+    ``preds[r, k] - 1`` (0 = none or the virtual row) is at most this many
+    rows above it (``prepare``'s ``maxdist``), so a walk's move climbs at
+    most this far.  ``preds``: the (N, max_in) host table."""
+    pr = np.asarray(preds)
+    rows = np.arange(pr.shape[0])[:, None]
+    d = np.where(pr > 0, rows - (pr.astype(np.int64) - 1), 0)
+    return max(1, int(d.max())) if d.size else 1
+
+
+def poa_walk_window(r0: int, j0: int, S: int, R: int, rows: int,
+                    cols: int) -> tuple:
+    """The part of a plane the POA walks' window anchored at (r0, j0)
+    stages: rows [lo, hi) and columns [c0, c1) of the plane's own
+    coordinates (a cell's: row - base, j - col0), clipped to its rows
+    [0, rows) and columns [0, cols).
+
+    The window is the R rows [r0 - R + 1, r0] (slot 0 = row r0 - R + 1)
+    by 2S + 8 columns from c0 = j0 - 2S aligned down to 8 words (16-byte
+    copies), with the pred-table rows of those rows; empty (hi == lo) for
+    an anchor outside the plane or R = 0.  The rule of
+    ``csrc/poa_walk_stage.cuh``'s ``poa_walk_window``."""
+    c0 = max(j0 - 2 * S, 0) // 8 * 8
+    c1 = min(c0 + 2 * S + 8, cols)
+    if not (0 <= r0 < rows and 0 <= j0 < cols):
+        return 0, 0, c0, c1
+    return max(r0 - R + 1, 0), r0 + 1, c0, c1
+
+
+@torch.no_grad()
+def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
+                          S: int, R: int, base: int = 0, col0: int = 0,
+                          align=None):
+    """The POA walk replayed on the schedule of the walk kernels' window
+    ring (``csrc/poa_walk_stage.cuh``), from a whole plane (``base`` =
+    ``col0`` = 0, from (best, n_real - 1, 0)) or from one cell of a
+    chunked round (:func:`walk_bounded_plain`'s arguments).
+
+    Phases of at most S moves (a diagonal, an E move up the graph or an F
+    move left, an H cell's switch to E or F taking its move on the same
+    word); phase k reads the window anchored where phase k - 1 began
+    (phase 0's at the entry), which the loaders stage with
+    :func:`poa_walk_window` into the slots of the anchor they are given.
+    A move inside the walker's window reads its word and pred from the
+    slot of the walker's anchor and asserts (AssertionError) that the slot
+    holds that cell; a move outside reads the plane and counts a miss.
+    ``words``: int16 (6-bit pred fields), on the CPU or the card (then
+    only the windows and the missed words are copied to the host).
+    Returns ``(align, exit, counts)``: ``align`` ((n,) int32, a new one
+    filled with -1 when None) updated at the consumed columns, the (3,)
+    int32 exit (row, j, state) and the (4,) int32 counts (moves, pred
+    moves, misses, phases), the kernels' own."""
+    if words.dtype != torch.int16:
+        raise ValueError("the walk kernels read int16 words, got %s"
+                         % words.dtype)
+    rows, cols = words.shape
+    if align is None:
+        align = torch.full((col0 + cols,), -1, dtype=torch.int32,
+                           device=words.device)
+    host = words.numpy() if words.device.type == "cpu" else None
+    pr = preds.cpu().numpy()
+    Wc = 2 * S + 8
+
+    def plane(r0, r1, c0, c1):
+        if host is not None:
+            return host[r0:r1, c0:c1]
+        return words[r0:r1, c0:c1].cpu().numpy()
+
+    def stage(r0, j0):   # the loaders: the window anchored at (r0, j0)
+        lo, hi, c0, c1 = poa_walk_window(r0, j0, S, R, rows, cols)
+        rb = r0 - R + 1
+        lo, hi = max(lo, rb), min(hi, rb + max(R, 0))   # the buffer's slots
+        c1 = min(c1, c0 + Wc)
+        win = np.zeros((max(R, 0), Wc), np.int32)
+        held = np.full((max(R, 0), Wc), -1, np.int64)   # the cell a slot holds
+        prow = np.full((max(R, 0),), -1, np.int64)      # the pred row
+        if hi > lo and c1 > c0:
+            win[lo - rb:hi - rb, :c1 - c0] = plane(lo, hi, c0, c1).view(
+                np.uint16)
+            held[lo - rb:hi - rb, :c1 - c0] = (
+                np.arange(lo, hi)[:, None] * cols + np.arange(c0, c1))
+            prow[lo - rb:hi - rb] = np.arange(lo, hi)
+        return win, held, prow
+
+    def inside(r, c):
+        return 0 <= r < rows and 0 <= c < cols
+
+    r, c = row - base, j - col0
+    steps = pred_moves = misses = phases = 0
+    cols_out, rows_out = [], []
+    cur, anchor = stage(r, c), (r, c)
+    done = False
+    while not done:
+        nxt, start = stage(r, c), (r, c)   # window k + 1, at phase k's start
+        win, held, prow = cur
+        rb, c0 = anchor[0] - R + 1, max(anchor[1] - 2 * S, 0) // 8 * 8
+        for _ in range(S):
+            if not inside(r, c):
+                done = True
+                break
+            hit = 0 <= r - rb < R and 0 <= c - c0 < Wc
+            if hit:
+                assert held[r - rb, c - c0] == r * cols + c, (
+                    "read of (%d, %d) not staged in the window of rows from "
+                    "%d, columns from %d" % (r, c, rb, c0))
+                w = int(win[r - rb, c - c0])
+            else:
+                w = int(plane(r, r + 1, c, c + 1)[0, 0]) & 0xFFFF
+                misses += 1
+            st = (w >> 2) & 3 if state == 0 else state
+            if st < 2:   # a diagonal or an E move reads a pred
+                assert not hit or prow[r - rb] == r, \
+                    "pred of row %d not staged" % r
+                p = int(pr[r, (w >> (4 if st == 0 else 10)) & 63])
+                pred_moves += 1
+            if st != 1:
+                cols_out.append(c + col0)
+                rows_out.append(r + base if st == 0 else -1)
+            state = 0 if st == 0 else ((w >> 1) & 1 if st == 1
+                                       else (w & 1) << 1)
+            if st < 2:
+                r = p - 1 - base
+            if st != 1:
+                c -= 1
+            steps += 1
+        else:
+            done = not inside(r, c)
+        phases += 1
+        cur, anchor = nxt, start
+    if cols_out:
+        align[torch.tensor(cols_out, device=align.device)] = torch.tensor(
+            rows_out, dtype=torch.int32, device=align.device)
+    return (align,
+            torch.tensor([r + base, c + col0, state], dtype=torch.int32,
+                         device=align.device),
+            torch.tensor([steps, pred_moves, misses, phases],
+                         dtype=torch.int32, device=align.device))
 
 
 def sink_mask(g, order, N: int) -> np.ndarray:
@@ -487,8 +644,11 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
         if clock:
             clock.mark("dp1")
         best = best_sink(scores, mask)
-        walk = poa_walk if use_kernel else walk_plain
-        align = walk(words, preds_d, best, n_real)
+        if use_kernel:
+            align = poa_walk(words, preds_d, best, n_real,
+                             maxdist=max_pred_distance(preds))
+        else:
+            align = walk_plain(words, preds_d, best, n_real)
         packed = pack_round(scores, align, best)
     if clock:
         clock.mark("walk1")
