@@ -145,8 +145,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
     (b)
     ``psa_pallas.psa_align_batch`` on phase 5's 128 x 10,240 bp pairs
     (Q2-14, K1) against the plain version; (c) 4,096 seeded pairs of
-    150-2,000 bp with ~10% edits through it (Q2-15, the short-pair kernel)
-    against the plain version, with K1's time on the same batch; (d)
+    150-2,000 bp with ~10% edits through it (Q2-15, the short-pair kernel,
+    one launch) against the plain version and K1, with K1's time on the
+    same batch, the bound, the end-to-end GCUPS of the route's first call
+    and of three later ones (equal outputs) and the kernel's plan (its
+    strip widths with their pair counts, launches, blocks, warps an SM);
+    (d)
     ``tsta-torch psa`` on reads 0 and 1 of the 200 kbp set at the card's
     budget, in 3 chunks, its maxsorce and corner equal to a K1 pass over
     the pair and its rows re-scoring to the corner: wall, forward and
@@ -272,6 +276,10 @@ WALK_S_SWEEP = (32, 64, 128)
 # the difference method computes K1's function: OPS_PSA_CELL per cell, at
 # two cells per s16x2 instruction
 CELLS_PER_S16X2 = 2
+# a DPX instruction (VIADDMNMX, max(a + b, c)) issues two of a cell's
+# OPS_PSA_CELL operations as one on the INT32 pipe; the short-pair DP runs
+# its recurrence on them, so its least time counts two operations each
+OPS_PER_DPX = 2
 D57 = [(57, -1, -1, 0), (2, -57, -2, -4)]   # the int16 gate's edge sets
 OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
 CHUNK_T_SWEEP = (16, 32, 64, 128, 256)   # packet heights of the chunk DP's sweep
@@ -828,6 +836,7 @@ def main() -> int:
                        "bound_by": t["bound_by"], "library_ms": None,
                        "shape": t["shape"],
                        **{k: t[k] for k in ("k1_ms", "k3_ms", "ms_200k",
+                                            "bound_ms_scalar",
                                             "bound_ms_200k", "gcups_200k",
                                             "k1_s_200k", "plan", "forced",
                                             "sweep", "S", "s_sweep_ms",
@@ -2201,6 +2210,15 @@ def edit_phases(dev, smi_line, batch_pairs):
     scores, corners = psa_pallas.psa_align_batch(pairs, EDIT, device=dev)
     lc, plain_c = stop(p0)
     wall_c = time.perf_counter() - t0
+    # the route's first call in this process pays its first launches; a
+    # caller's later calls do not
+    walls_c = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = psa_pallas.psa_align_batch(pairs, EDIT, device=dev)
+        walls_c.append(time.perf_counter() - t0)
+    again_ok = all(np.array_equal(x, y) for x, y in zip(again,
+                                                        (scores, corners)))
     a, b, lens = psa_diff.pack_pairs(pairs, dev)
     ms, got = cuda_ms(lambda: psa_pallas.dp_short(a, b, lens, EDIT), 3)
     k1_ms, k1 = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, EDIT), 3)
@@ -2211,18 +2229,31 @@ def edit_phases(dev, smi_line, batch_pairs):
                 *(max_err(r, w.cpu()) for r, w in zip(routed, want[:2])))
     err_k1 = max(max_err(g, w) for g, w in zip(k1, want[:2]))
     cells = sum(len(x) * len(y) for x, y in pairs)
+    # the plan: one launch of persistent warps, each pair at its strip width
+    blocks, per_sm, most = _kernels.psa_dp_short_layout(len(pairs), dev)
+    plan_c = {"widths": psa_pallas.short_plan(lens), "launches": 1,
+              "blocks": blocks, "warps_per_sm": 4 * per_sm,
+              "resident_warps_per_sm": 4 * most}
     times["psa_dp_short"] = {
         "shape": "%d pairs of 150-2,000 bp (%d cells), score-only, edit "
                  "scoring" % (len(pairs), cells),
         "ms": ms, "plain_ms": pms, "k1_ms": k1_ms, "max_abs_err": err_c,
-        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells)}
+        "plan": plan_c,
+        "bound_ms_scalar": OPS_PSA_CELL * cells / INT32_OPS_PER_S * 1e3,
+        **bound(nbytes(a, b, lens, *got),
+                OPS_PSA_CELL * cells / OPS_PER_DPX)}
     emit({"phase": "edit_short", "route": route_c, "launches": lc,
           "plain_calls": plain_c, "e2e_s": wall_c,
           "e2e_gcups": cells / wall_c / 1e9, "k1_max_abs_err": err_k1,
+          "e2e_s_later": walls_c,
+          "e2e_gcups_later": cells / statistics.median(walls_c) / 1e9,
           "gcups": cells / ms / 1e6, "k1_gcups": cells / k1_ms / 1e6,
+          "ms_over_k1": ms / k1_ms,
+          "ms_over_bound": ms / times["psa_dp_short"]["bound_ms"],
           "times": times["psa_dp_short"], "smi": smi_line})
-    if (route_c != "short" or err_c or err_k1 or plain_c
-            or lc["psa_dp_short"] != 1 or lc["psa_dp_score"]):
+    if (route_c != "short" or err_c or err_k1 or plain_c or not again_ok
+            or lc["psa_dp_short"] != plan_c["launches"]
+            or lc["psa_dp_score"]):
         raise AssertionError("edit scoring, short pairs: wrong result or "
                              "route: %s %s errors %d %d"
                              % (route_c, lc, err_c, err_k1))

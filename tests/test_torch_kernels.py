@@ -20,6 +20,7 @@ import torch
 
 from tsta_tpu_torch.ops import _kernels, psa_diff, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
+from tsta_tpu_torch.ops.psa_pallas import SHORT_WIDTHS
 
 P0 = (2, -5, -2, -4)
 
@@ -1275,24 +1276,92 @@ def test_psa_dp_traced_past_the_resident_limit(cuda):
 ROUND1 = [(0, -1, -1, 0), (0, -1, -1, -1), (-2, -1, -1, 0), P0]
 
 
+def _short_edges(W):
+    """Pairs of one tile less a column, a tile, a tile and a column, and
+    two tiles and a column at strips of W (up to 2,048 columns), each at
+    1, 7 (fewer rows than lanes), 31, 33 and 300 rows; and 1 x 1."""
+    t = 32 * W
+    return [(n, m) for n in (t - 1, t, t + 1, 2 * t + 1) if n <= 2048
+            for m in (1, 7, 31, 33, 300)] + [(1, 1), (5, 40)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [None] + list(SHORT_WIDTHS))
 @pytest.mark.parametrize("params", ROUND1)
-def test_dp_short_kernel_matches_plain(cuda, params):
-    """The short-pair kernel (one warp per pair) against its plain version
-    on pairs of 1-2,048 columns, each over its real extent."""
+def test_dp_short_kernel_matches_plain(cuda, params, W):
+    """The short-pair kernel (a lane wavefront, one warp a pair) against
+    its plain version, each pair over its real extent, in one launch: at
+    the plan's widths on pairs of 1-2,048 columns, and at each built strip
+    width W, forced, on its edges (``_short_edges``)."""
     from tsta_tpu_torch.ops import psa_pallas
     rng = np.random.default_rng(5)
-    lengths = [(1, 1), (1, 9), (9, 1), (31, 33), (2048, 2000), (2048, 7)]
-    lengths += [(int(rng.integers(2, 2049)), int(rng.integers(2, 2100)))
-                for _ in range(13)]
+    if W is None:
+        lengths = [(1, 1), (1, 9), (9, 1), (31, 33), (2048, 2000),
+                   (2048, 7)]
+        lengths += [(int(rng.integers(2, 2049)), int(rng.integers(2, 2100)))
+                    for _ in range(13)]
+    else:
+        lengths = _short_edges(W)
     a, b, lens = _batch(6, lengths, 256, 128, similar=True)
     want = psa_pallas.dp_short(a, b, lens, params)
     n0 = _kernels.launches["psa_dp_short"]
-    got = psa_pallas.dp_short(a.to(cuda), b.to(cuda), lens.to(cuda), params)
+    if W is None:
+        got = psa_pallas.dp_short(a.to(cuda), b.to(cuda), lens.to(cuda),
+                                  params)
+    else:
+        got = tuple(torch.empty(len(lens), dtype=torch.int32, device=cuda)
+                    for _ in range(2))
+        _kernels.psa_dp_short(a.to(cuda), b.to(cuda), lens.to(cuda), params,
+                              *got, W=W)
     torch.cuda.synchronize()
     assert _kernels.launches["psa_dp_short"] == n0 + 1
     for w, g in zip(want, got):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_dp_short_width_is_the_replays(cuda):
+    """The library's plan (``tsta_psa_dp_short_width``) picks the strip
+    width of ``psa_pallas.short_width``, its twin."""
+    from tsta_tpu_torch.ops import psa_pallas
+    shapes = [(n, m) for n in (1, 31, 64, 150, 160, 257, 700, 1024, 1025,
+                               1100, 1500, 2000, 2048)
+              for m in (1, 7, 150, 1100, 2000, 9000)]
+    assert [_kernels.psa_dp_short_width(n, m) for n, m in shapes] \
+        == [psa_pallas.short_width(n, m) for n, m in shapes]
+
+
+@pytest.mark.cuda
+def test_dp_short_kernel_4096_pairs_equal_k1(cuda):
+    """The smoke's batch shape: 4,096 pairs of 150-2,000 bp, more than the
+    card holds warps at once, in one launch at the plan's blocks an SM and
+    at 1 and 3, every score and corner equal to K1's (``psa_dp.cu``) on the
+    same pairs."""
+    from tsta_tpu_torch.ops import psa_pallas
+    rng = np.random.default_rng(16)
+    lengths = []
+    for _ in range(4096):
+        n = int(rng.integers(150, 2001))
+        lengths.append((n, max(1, n + int(rng.integers(-40, 41)))))
+    a, b, lens = (t.to(cuda) for t in _batch(17, lengths, 256, 128,
+                                             similar=True))
+    for params in (ROUND1[0], P0):
+        k1 = psa_diff.run_dp(a, b, lens, params)
+        for per_sm in (None, 1, 3):
+            got = tuple(torch.empty(4096, dtype=torch.int32, device=cuda)
+                        for _ in range(2))
+            n0 = _kernels.launches["psa_dp_short"]
+            blocks, used, most = _kernels.psa_dp_short(a, b, lens, params,
+                                                       *got, per_sm=per_sm)
+            torch.cuda.synchronize()
+            assert _kernels.launches["psa_dp_short"] == n0 + 1
+            assert 1 <= used <= most and blocks <= 1024
+            assert per_sm is None or used == min(per_sm, most)
+            for w, g in zip(k1, got):
+                assert torch.equal(g, w)
+        routed = psa_pallas.dp_short(a, b, lens, params)
+        for w, g in zip(k1, routed):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -1387,6 +1456,11 @@ def test_dp_short_wrapper_refuses_bad_tensors(cuda):
     wide = torch.zeros((2, 2176), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):   # wider than the kernel's limit
         _kernels.psa_dp_short(wide, b, lens, P0, one, one.clone())
+    n0 = _kernels.launches["psa_dp_short"]
+    for kw in (dict(W=9), dict(W=1), dict(per_sm=0)):
+        with pytest.raises(ValueError):   # no such build, no block an SM
+            _kernels.psa_dp_short(a, b, lens, P0, one, one.clone(), **kw)
+    assert _kernels.launches["psa_dp_short"] == n0
 
 
 _PTXAS = """\

@@ -42,8 +42,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # co-resident blocks; K2 (psa_dp_traced) the traced DP of a batch of pairs
 # and psa_dp_chunk a row-chunk of one long traced pair (Q2-7), both
 # launches of the one traced body that does the same; psa_dp_short is
-# the score-only DP of short pairs, one warp each; psa_dp_diff is the
-# score-only DP by the difference method (int16 offsets, Q2-9) and
+# the score-only DP of short pairs, a lane wavefront, one warp a pair;
+# psa_dp_diff is the score-only DP by the difference method (int16
+# offsets, Q2-9) and
 # psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
 # psa_walk_pair2 the walk of two pairs per thread (Q2-12) and
 # psa_walk_bounded the walk inside one such chunk; poa_dp and
@@ -56,7 +57,7 @@ KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
            "poa_dp_window", "poa_walk_bounded", "psa_ring")
-SHORT_MAX_N = 2048   # psa_dp_short's widest pair: 64 KB of shared memory
+SHORT_MAX_N = 2048   # psa_dp_short's widest pair: JAX's PACK_RMAX x 128
 # the bounded walk's phase length (steps a staged window serves;
 # psa_walk_stage.cuh; K3 plans its own, psa_walk_layout), the threads a
 # walk block may take, and the dynamic shared memory a block may take on
@@ -180,7 +181,14 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_traced_layout.argtypes = [ci, ci, ci] + [
                 ctypes.POINTER(ci)] * 4
             lib.tsta_psa_dp_short.restype = ci
-            lib.tsta_psa_dp_short.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3
+            lib.tsta_psa_dp_short.argtypes = [vp] * 4 + [ci] * 9 + [vp] * 4
+            lib.tsta_psa_dp_short_width.restype = ci
+            lib.tsta_psa_dp_short_width.argtypes = [ci] * 2
+            lib.tsta_psa_dp_short_width_built.restype = ci
+            lib.tsta_psa_dp_short_width_built.argtypes = [ci]
+            lib.tsta_psa_dp_short_layout.restype = ci
+            lib.tsta_psa_dp_short_layout.argtypes = [ci, ci,
+                                                     ctypes.POINTER(ci)]
             lib.tsta_psa_dp_diff.restype = ci
             lib.tsta_psa_dp_diff.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3 + [
                 ci, vp]
@@ -351,11 +359,39 @@ def psa_dp(a, b, lens, params, score, corner, *, D=None, T=None) -> tuple:
     return D, C, T
 
 
-def psa_dp_short(a, b, lens, params, score, corner) -> None:
-    """Launch the short-pair DP (one warp per pair, four pairs per block)
-    over B pairs, each over its real extent: ``a``: (B, n_stride) uint8,
-    n_stride <= :data:`SHORT_MAX_N`, ``b``: (B, m_stride) uint8, ``lens``:
-    (B, 2) int32 real (n, m); ``score``/``corner``: (B,) int32 outputs."""
+def psa_dp_short_width(n: int, m: int) -> int:
+    """The strip width ``psa_dp_short.cu``'s plan gives an n x m pair, read
+    from the built library (``psa_pallas.short_width`` is its twin)."""
+    return _lib().tsta_psa_dp_short_width(n, m)
+
+
+def psa_dp_short_layout(B: int, dev, per_sm=None) -> tuple:
+    """(blocks, blocks an SM, the most an SM holds): the persistent blocks
+    of four warps a ``psa_dp_short`` launch over B pairs takes on the card
+    ``dev``, at the plan's blocks an SM or ``per_sm`` (capped at what an SM
+    holds)."""
+    resident = ctypes.c_int()
+    with torch.cuda.device(dev):
+        blocks = _lib().tsta_psa_dp_short_layout(B, per_sm or 0,
+                                                 ctypes.byref(resident))
+    if blocks < 0:
+        _raise_on(-blocks, "psa_dp_short occupancy query")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return blocks, min(-(-blocks // sms), resident.value), resident.value
+
+
+def psa_dp_short(a, b, lens, params, score, corner, *, W=None,
+                 per_sm=None) -> tuple:
+    """Launch the short-pair DP (a lane wavefront, one warp a pair) over B
+    pairs, each over its real extent: ``a``: (B, n_stride) uint8, n_stride
+    <= :data:`SHORT_MAX_N`, ``b``: (B, m_stride) uint8, ``lens``: (B, 2)
+    int32 real (n, m); ``score``/``corner``: (B,) int32 outputs.  The warps
+    are persistent and take the pairs longest first (one argsort of n*m on
+    the card); each pair runs at its plan's strip width
+    (:func:`psa_dp_short_width`), or every pair at ``W``, for tests; on
+    the plan's blocks an SM, or ``per_sm``, for sweeps.  One launch;
+    returns :func:`psa_dp_short_layout`'s (blocks, blocks an SM, the most
+    an SM holds)."""
     dev = a.device
     if dev.type != "cuda":
         raise ValueError("psa_dp_short kernel needs CUDA tensors, got %s"
@@ -370,13 +406,26 @@ def psa_dp_short(a, b, lens, params, score, corner) -> None:
     if not 1 <= n_stride <= SHORT_MAX_N:
         raise ValueError("psa_dp_short takes at most %d columns, got %d"
                          % (SHORT_MAX_N, n_stride))
+    lib = _lib()
+    if W is not None and not lib.tsta_psa_dp_short_width_built(W):
+        raise ValueError("psa_dp_short: no build of strip width %s" % W)
+    if per_sm is not None and per_sm < 1:
+        raise ValueError("psa_dp_short: %d blocks an SM" % per_sm)
+    layout = psa_dp_short_layout(B, dev, per_sm)
+    order = torch.argsort(lens[:, 0].to(torch.int64) * lens[:, 1],
+                          descending=True)
+    scratch = torch.empty((2 + 2 * layout[0] * 4 * m_stride,),
+                          dtype=torch.int32, device=dev)
     m_, x_, e_, o_ = params
-    rc = _lib().tsta_psa_dp_short(a.data_ptr(), b.data_ptr(), lens.data_ptr(),
-                                  B, n_stride, m_stride, m_, x_, e_, o_,
-                                  score.data_ptr(), corner.data_ptr(),
-                                  _stream(dev))
+    with torch.cuda.device(dev):
+        rc = lib.tsta_psa_dp_short(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), order.data_ptr(), B,
+            n_stride, m_stride, m_, x_, e_, o_, W or 0, layout[0],
+            score.data_ptr(), corner.data_ptr(), scratch.data_ptr(),
+            _stream(dev))
     _raise_on(rc, "psa_dp_short")
     launches["psa_dp_short"] += 1
+    return layout
 
 
 def psa_dp_diff(a, b, lens, params, score, corner) -> None:

@@ -4,7 +4,7 @@ by side, then the chosen kernel's times, alternating, outputs compared.
 Run from the root of a checkout, on a machine with a card and ``nvcc``::
 
     python -m tsta_tpu_torch.tools.psa_dp_ab --other DIR \
-        [--kernel k1|ring|traced|chunk] [--rounds 2]
+        [--kernel k1|ring|traced|chunk|short] [--rounds 2]
 
 ``DIR`` is the root of another checkout of the repo, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
@@ -15,7 +15,9 @@ parent commit unpacked with ``git archive`` into a git-ignored directory.
    its frontier in shared memory, which 128 x 10,240 bp runs) it prints
    ptxas's resource lines and its SASS (``cuobjdump -sass``), the
    instructions compared with the constant-bank offsets of the kernel's
-   parameters masked, since a new parameter moves them.
+   parameters masked, since a new parameter moves them.  With ``--kernel
+   short`` it also prints ptxas's lines (registers, spills) for every
+   entry of each checkout's ``psa_dp_short.cu``.
 2. **Time.**  Each run is a fresh process started in one checkout's root
    with that root on ``PYTHONPATH``: it builds that checkout's kernels and
    times, with CUDA events, the median of ``--reps`` after a warm-up:
@@ -32,7 +34,15 @@ parent commit unpacked with ``git archive`` into a git-ignored directory.
      example, the rest from ``--seed``) and, one launch with no warm-up,
      on reads 0 and 1 of the seed-13 200 kbp set cut to 100,000 bp;
    * ``chunk``: ``psa_chunked.chunk_dp`` (Q2-7) on chunk 0 of reads 0 and
-     1 of that set at 65,536 rows per chunk (65,536 x 200,064).
+     1 of that set at 65,536 rows per chunk (65,536 x 200,064);
+   * ``short``: the route (``psa_pallas.psa_align_batch``, host clock)
+     on the smoke's phase 16 (c) batch, 4,096 pairs of 150-2,000 bp under
+     edit scoring, its first call in the process and ``--reps`` later
+     ones; then ``psa_pallas.dp_short`` (Q2-15) on them, warm and
+     cold (the 50 MB L2 flushed by a 256 MB write before each run), and K1
+     (``psa_diff.run_dp``) on the same pairs; where the checkout's
+     ``_kernels.psa_dp_short`` takes ``per_sm``, also at 1, 2 and 3 blocks
+     an SM.
 
    Each round runs other, this, this, other, so neither side always goes
    first.
@@ -187,6 +197,43 @@ elif kernel == "traced":
         res[label]["shape"] = [len(group), b.shape[1], a.shape[1]]
         del a, b, nm, out
         torch.cuda.empty_cache()
+elif kernel == "short":
+    import time
+
+    import chip_smoke as cs
+    from tsta_tpu_torch.ops import psa_pallas
+    pairs = cs.short_pairs(np.random.default_rng(cs.SEED + 16), 4096)
+    edit = cs.EDIT
+    # the route end to end (host clock): its first call in this process,
+    # then later ones
+    walls = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        out = psa_pallas.psa_align_batch(pairs, edit, device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = [torch.from_numpy(x).to(dev) for x in out]
+    res["route first call"] = record(walls[:1], out, "psa_dp_short")
+    res["route later calls"] = record(walls[1:], out, "psa_dp_short")
+    a, b, lens = psa_diff.pack_pairs(pairs, dev)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    runs = [("", lambda: psa_pallas.dp_short(a, b, lens, edit),
+             "psa_dp_short"),
+            ("K1 ", lambda: psa_diff.run_dp(a, b, lens, edit),
+             "psa_dp_score")]
+    if hasattr(_kernels, "psa_dp_short_layout"):
+        def at(per_sm):
+            def run():
+                out = tuple(torch.empty(len(pairs), dtype=torch.int32,
+                                        device=dev) for _ in range(2))
+                _kernels.psa_dp_short(a, b, lens, edit, *out, per_sm=per_sm)
+                return out
+            return run
+        runs += [("%d an SM " % k, at(k), "psa_dp_short") for k in (1, 2, 3)]
+    for tag, fn, counter in runs:
+        for cold in (False, True):
+            label = "%s4096 short pairs %s" % (tag, "cold" if cold else "warm")
+            ms, out = timed(fn, reps, flush=flush if cold else None)
+            res[label] = record(ms, out, counter)
 else:
     from tsta_tpu_torch.ops import psa_chunked
     reads = long_reads()
@@ -269,6 +316,19 @@ def k1_code(root: str, work: str, tag: str) -> dict:
             "sass": sass_functions(dump)[names[0]]}
 
 
+def ptxas_report(root: str, work: str, tag: str, source: str) -> dict:
+    """ptxas's lines (registers, spills, shared memory) for every entry of
+    ``root``'s ``csrc/<source>``, compiled with the port's flags."""
+    src = os.path.join(root, "tsta_tpu_torch", "csrc", source)
+    r = subprocess.run([_kernels.nvcc_path()] + _kernels.ARCH_FLAGS
+                       + ["-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", src,
+                          "-o", os.path.join(work, tag + ".short.cubin")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError("nvcc failed on %s:\n%s" % (src, r.stderr))
+    return ptxas_entries(r.stdout + r.stderr)
+
+
 def child_run(root: str, child: str, argv: list) -> dict:
     """Run a timed process ``child`` in the checkout at ``root`` (its root
     the working directory and ``PYTHONPATH``) and return its last line."""
@@ -305,15 +365,20 @@ def summarize(runs: dict) -> dict:
     the shape's ``steps`` where its record has them)."""
     summary = {}
     for shape, first in runs["this"][0].items():
-        med = {k: statistics.median(r[shape]["median_ms"] for r in v)
-               for k, v in runs.items()}
+        # a shape only this checkout times (a new build) has no ratio
+        have = {k: [r[shape] for r in v if shape in r]
+                for k, v in runs.items()}
+        have = {k: v for k, v in have.items() if v}
+        med = {k: statistics.median(r["median_ms"] for r in v)
+               for k, v in have.items()}
         summary[shape] = {
-            "median_ms": med, "this_over_other": med["this"] / med["other"],
-            "outputs_equal": len({r[shape]["outputs"] for v in runs.values()
+            "median_ms": med,
+            "this_over_other": (med["this"] / med["other"] if "other" in med
+                                else None),
+            "outputs_equal": len({r["outputs"] for v in have.values()
                                   for r in v}) == 1,
             **({"steps": first["steps"]} if "steps" in first else {}),
-            "runs": {k: [r[shape]["median_ms"] for r in v]
-                     for k, v in runs.items()}}
+            "runs": {k: [r["median_ms"] for r in v] for k, v in have.items()}}
     return summary
 
 
@@ -321,7 +386,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
-    ap.add_argument("--kernel", choices=("k1", "ring", "traced", "chunk"),
+    ap.add_argument("--kernel", choices=("k1", "ring", "traced", "chunk",
+                                         "short"),
                     default="k1", help="which DP to time (default k1)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
@@ -331,6 +397,10 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as work:
         code = {k: k1_code(root, work, k) for k, root in trees.items()}
+        if args.kernel == "short":
+            emit({"ptxas psa_dp_short.cu": {
+                k: ptxas_report(root, work, k, "psa_dp_short.cu")
+                for k, root in trees.items()}})
     so, st = code["other"]["sass"], code["this"]["sass"]
     diff = [d for d in difflib.unified_diff(so, st, lineterm="", n=0)
             if d[:1] in "+-" and d[:3] not in ("+++", "---")]
