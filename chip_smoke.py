@@ -155,35 +155,47 @@ Phases (each prints one JSON line; any failure exits non-zero):
     budget, in 3 chunks, its maxsorce and corner equal to a K1 pass over
     the pair and its rows re-scoring to the corner: wall, forward and
     backward split, peak device memory;
-17. the difference method (``psa_dp_diff.cu``, int16 offsets), the launch
-    counters and the count of plain calls on the card reset before each
-    path: (a) phase 3's mixed batch and 40 kbp pair through it, every
-    score and corner equal to the plain version's and K1's; (b) the gate's
-    edge, D = 57: 8 identical 10,240 bp pairs under (57, -1, -1, 0) and
-    phase 3's batch under (2, -57, -2, -4), the same, and the kernel's
-    strip and segment widths equal to the plain version's; (c)
-    ``bench.stage_int16_probe``'s shape, 32 x 10,240 bp with slot 0 the
-    example, through ``psa_align_batch_diff`` int32 and int16 in turns (5
-    calls each after a warm-up, medians): ``psa_batch_int32_gcups``,
-    ``psa_batch_int16_gcups``, ``int16_speedup``, ``psa_batch_int16_exact``;
-    then the kernel, K1 and the plain version at phase 5's 128 x 10,240 bp
-    (CUDA events), every output equal; (d) ``TSTA_DIFF_INT16=1 tsta-torch
-    psa --notrace`` on the example, ``--json`` in a subprocess and plain
-    in this process: ``maxsorce=-5`` through the int16 kernel, K1 not
-    launched;
-18. the striped layout (``psa_dp_striped.cu``) and the two-pair walk
+17. the difference method (``psa_dp_diff.cu``: int16 offsets on K1's
+    schedule of P x D co-resident column shards), the launch counters and
+    the count of plain calls on the card reset before each path: (a)
+    phase 3's mixed batch and 40 kbp pair through it, every score and
+    corner equal to the plain version's and K1's, at the plan and at
+    forced D = 1, 2 and 8 (``layout_forced``); (b) the gate's edge, D =
+    57: 8 identical 10,240 bp pairs under (57, -1, -1, 0) and phase 3's
+    batch under (2, -57, -2, -4), the same, and the kernel's plan (D, C,
+    W, G, T, read from the library) equal to ``psa_diff.diff_plan`` at
+    over 4,000 (pairs, width, SMs); (c) ``bench.stage_int16_probe``'s
+    shape, 32 x 10,240 bp with slot 0 the example, through
+    ``psa_align_batch_diff`` int32 and int16 in turns (5 calls each after
+    a warm-up, medians): ``psa_batch_int32_gcups``,
+    ``psa_batch_int16_gcups``, ``int16_speedup``,
+    ``psa_batch_int16_exact``; then the kernel, K1 and the plain version
+    at phase 5's 128 x 10,240 bp (CUDA events), every output equal, the
+    kernel also at forced D = 1, 2 and 8 (one past the resident limit
+    must raise the kernel's own ``KernelError``), its plan and its sweep
+    there and at 32 x 10,240 (K1's shards at its least W 2, 4 or 8 and 1
+    or 2 blocks an SM, every output equal); (d) ``TSTA_DIFF_INT16=1
+    tsta-torch psa --notrace`` on the example, ``--json`` in a subprocess
+    and plain in this process: ``maxsorce=-5`` through one int16 launch
+    and nothing else; (e) the dtype-max probe (``dtype_max_probe.cu``, Q2-17d), every
+    form (int32, int16, uint16, int8, uint8 maxes, the s32 and s16x2 DPX
+    forms) equal to numpy, with its rates;
+18. the striped layout (``psa_dp_striped.cu``: K1's schedule on JAX's
+    striped tile, which it reads itself) and the two-pair walk
     (``psa_walk_pair2.cu``), the launch counters and the count of plain
     calls on the card reset before each path: (a) phase 3's mixed batch
     through ``psa_align_batch_diff(layout="striped")``, every score and
-    corner equal to K1's and the plain version's, and the 40 kbp pair, equal
-    to K1's; (b) the kernel, K1 and the plain version at phase 5's 128 x
-    10,240 bp (CUDA events), every output equal; (c) ``TSTA_PSA_LAYOUT=
-    striped tsta-torch batch --pairs ... --scores ...`` on those pairs in a
-    subprocess: the scores TSV equal to the default run's (in this
-    process, through K1), the striped kernel launched and K1 not; (d) phase
-    5's 32 x 10 kbp traced plane walked by K3 and the two-pair walk (CUDA
-    events), every word and count equal to phase 6's plain walk of that
-    plane, then its first 31 pairs, which take K3;
+    corner equal to K1's and the plain version's, and the 40 kbp pair,
+    equal to K1's, each also at forced D = 1, 2 and 8; (b) the kernel, K1
+    and the plain version at phase 5's 128 x 10,240 bp (CUDA events),
+    every output equal, forced D = 1, 2 and 8 and K1's plan sweep (the
+    least W 2, 4 or 8, 1 or 2 blocks an SM) on the tile; (c)
+    ``TSTA_PSA_LAYOUT=striped tsta-torch batch --pairs ... --scores ...``
+    on those pairs in a subprocess: the scores TSV equal to the default
+    run's (in this process, through K1), the striped kernel launched and
+    K1 not; (d) phase 5's 32 x 10 kbp traced plane walked by K3 and the
+    two-pair walk (CUDA events), every word and count equal to phase 6's
+    plain walk of that plane, then its first 31 pairs, which take K3;
 19. the ring wavefront (``psa_dp.cu`` at one pair, every padded cell:
     one long pair's columns sharded over co-resident blocks, one per
     ``seq`` shard of a virtual one-card mesh): (a) the kernel against its
@@ -276,11 +288,26 @@ WALK_S_SWEEP = (32, 64, 128)
 # the difference method computes K1's function: OPS_PSA_CELL per cell, at
 # two cells per s16x2 instruction
 CELLS_PER_S16X2 = 2
-# a DPX instruction (VIADDMNMX, max(a + b, c)) issues two of a cell's
-# OPS_PSA_CELL operations as one on the INT32 pipe; the short-pair DP runs
-# its recurrence on them, so its least time counts two operations each
+# a DPX instruction (VIADDMNMX, max(a + b, c); VIMNMX3, max(a, b, c))
+# issues two of a cell's OPS_PSA_CELL operations as one
 OPS_PER_DPX = 2
+# The score-only DP's bound by instruction class (K1, the ring, Q2-15,
+# Q2-11 and, at CELLS_PER_S16X2 cells an instruction, Q2-9): of
+# OPS_PSA_CELL operations a cell, three pairs are one DPX instruction each
+# (E's add and max; the F prefix's add and max; H's two maxes:
+# psa_dp_score.cuh), the other six one instruction each.  Every
+# instruction takes an issue slot, and an SM's four schedulers issue one
+# warp instruction (32 lanes) a clock each, whatever its class: a plain
+# int32 max issues ~117 lanes a clock an SM on the card (the dtype-max
+# probe), past the 64 of INT32_OPS_PER_S, so the operations at that rate
+# are not a floor.  DPX issues at ~57 lanes a clock (the probe), so
+# counts at INT32_OPS_PER_S.
+SCHED_LANES_PER_S = 132 * 128 * 1.98e9
+DPX_PSA_CELL = 3
+INSTR_PSA_CELL = OPS_PSA_CELL - DPX_PSA_CELL * (OPS_PER_DPX - 1)
 D57 = [(57, -1, -1, 0), (2, -57, -2, -4)]   # the int16 gate's edge sets
+# the opt-in layouts' forced shards (phases 17 and 18)
+LAYOUT_FORCED_D = (1, 2, 8)
 OPS_POA_PRED, OPS_POA_CELL, OPS_POA_WORD = 9, 12, 8
 CHUNK_T_SWEEP = (16, 32, 64, 128, 256)   # packet heights of the chunk DP's sweep
 # the chunk DP's 65,536 x 200,064 launch in PR 10 (NVIDIA H100 80GB HBM3,
@@ -404,6 +431,24 @@ def bound(nbytes: float, ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": int(nbytes), "ops": int(ops)}
+
+
+def score_bound(nbytes: float, cells: float, per_instr: int = 1) -> dict:
+    """The kernels record's bound fields for a score-only DP over
+    ``cells`` cells moving ``nbytes`` bytes, ``per_instr`` cells an
+    instruction: its INSTR_PSA_CELL instructions a cell at the issue rate
+    or its DPX_PSA_CELL DPX instructions at the DPX rate, whichever takes
+    longer, against the bytes.  ``bound_ms_scalar`` keeps the rule before
+    it, OPS_PSA_CELL operations a cell at INT32_OPS_PER_S."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(INSTR_PSA_CELL * cells / SCHED_LANES_PER_S,
+                DPX_PSA_CELL * cells / INT32_OPS_PER_S) / per_instr * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(OPS_PSA_CELL * cells),
+            "instructions": int(INSTR_PSA_CELL * cells / per_instr),
+            "bound_ms_scalar": max(t_bytes, OPS_PSA_CELL * cells / per_instr
+                                   / INT32_OPS_PER_S * 1e3)}
 
 
 def chain_bound(steps: int) -> dict:
@@ -680,7 +725,7 @@ def main() -> int:
         "gcups": cells_score / ms / 1e6, "plain_gcups": cells_score / pms / 1e6,
         "max_abs_err": max(score_err, *(max_err(g, w)
                                         for g, w in zip(got, want[:2]))),
-        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells_score)}
+        **score_bound(nbytes(a, b, lens, *got), cells_score)}
     del a, b, lens, got, want
     # K1 at one pair, the --notrace example: kernel and plain version
     a, b, lens = psa_diff.pack_pairs([ex], dev)
@@ -693,7 +738,7 @@ def main() -> int:
             len(ex[0]), len(ex[1])), "ms": ms, "plain_ms": pms,
         "gcups": cells_ex / ms / 1e6,
         "max_abs_err": max(max_err(g, w) for g, w in zip(got, want[:2])),
-        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells_ex)}
+        **score_bound(nbytes(a, b, lens, *got), cells_ex)}
     del a, b, lens, got, want
     # the score-only DP's plan and its sweep at 1, 32 and 128 pairs
     score_plans = {}
@@ -2190,7 +2235,7 @@ def edit_phases(dev, smi_line, batch_pairs):
         "shape": "%d x %d bp score-only, edit scoring" % (
             len(batch_pairs), len(batch_pairs[1][0])),
         "ms": ms, "plain_ms": pms, "max_abs_err": err_b,
-        **bound(nbytes(a, b, lens, *got), OPS_PSA_CELL * cells)}
+        **score_bound(nbytes(a, b, lens, *got), cells)}
     emit({"phase": "edit_batch", "route": route_b, "launches": lb,
           "plain_calls": plain_b, "e2e_s": wall_b,
           "e2e_gcups": cells / wall_b / 1e9, "slot0": [int(scores[0]),
@@ -2239,9 +2284,7 @@ def edit_phases(dev, smi_line, batch_pairs):
                  "scoring" % (len(pairs), cells),
         "ms": ms, "plain_ms": pms, "k1_ms": k1_ms, "max_abs_err": err_c,
         "plan": plan_c,
-        "bound_ms_scalar": OPS_PSA_CELL * cells / INT32_OPS_PER_S * 1e3,
-        **bound(nbytes(a, b, lens, *got),
-                OPS_PSA_CELL * cells / OPS_PER_DPX)}
+        **score_bound(nbytes(a, b, lens, *got), cells)}
     emit({"phase": "edit_short", "route": route_c, "launches": lc,
           "plain_calls": plain_c, "e2e_s": wall_c,
           "e2e_gcups": cells / wall_c / 1e9, "k1_max_abs_err": err_k1,
@@ -2458,36 +2501,98 @@ def stop(p0):
     return dict(_kernels.launches), psa_scan.plain_calls - p0
 
 
+def layout_forced(run, P, want, k1, limit):
+    """A score-only layout's kernel (``run(D)``: its (score, corner) at a
+    forced D) at each of ``LAYOUT_FORCED_D`` on P pairs, every output held
+    to ``want`` (the plain version's) and ``k1``.  ``limit(D)`` is the
+    kernel's resident limit at that D's shards, read from the card: a D >=
+    2 whose P * D blocks exceed it must raise the kernel's own
+    ``KernelError`` naming the limit (recorded as ``past_limit``), and
+    any other D must run, so a wrong occupancy query cannot pass a D
+    unrun.  Returns {D: error or the raise}."""
+    from tsta_tpu_torch.ops import _kernels
+    out = {}
+    for D in LAYOUT_FORCED_D:
+        most = limit(D) if D >= 2 else None
+        try:
+            got = run(D)
+        except _kernels.KernelError as e:
+            if most is None or P * D <= most or \
+                    "at most %d " % most not in str(e):
+                raise
+            out[D] = {"past_limit": str(e)[:160], "blocks": P * D,
+                      "limit": most}
+            continue
+        if most is not None and P * D > most:
+            raise AssertionError("%d blocks past the resident limit %d ran "
+                                 "at D = %d" % (P * D, most, D))
+        out[D] = max(max(max_err(g, w), max_err(g, k))
+                     for g, w, k in zip(got, want, k1))
+    return out
+
+
+def layout_sweep(run, plans, want):
+    """The same group at the D of each plan of ``plans`` ({label: (D, W)}),
+    ``run(D)`` timed (CUDA events, median of 3 after a warm-up), every
+    output held to ``want``."""
+    runs, err = {}, 0
+    for label, (D, W) in plans.items():
+        if D not in runs:
+            ms, got = cuda_ms(lambda: run(D), 3)
+            err = max(err, *(max_err(g, w) for g, w in zip(got, want)))
+            runs[D] = {"D": D, "W": W, "ms": ms}
+        runs[D].setdefault("plans", []).append(label)
+    return {"max_abs_err": err, "runs": list(runs.values())}
+
+
 def int16_phases(dev, smi_line, batches, batch_pairs):
     """Phase 17, the difference method: (a) ``batches`` (phase 3's mixed
-    batch and 40 kbp pair) through ``psa_dp_diff.cu`` against the plain
-    version and K1; (b) the D = 57 sets; (c) the int32/int16 probe on 32 x
-    10,240 bp and the kernel's times at ``batch_pairs`` (phase 5's 128 x
-    10,240 bp); (d) ``tsta-torch psa --notrace`` with ``TSTA_DIFF_INT16``.
-    Each path runs with the launch counters and the count of plain calls
-    on the card reset before it and read after it.  Returns the CLI path's
-    launches and the kernels record's timing."""
+    batch and 40 kbp pair) through ``psa_dp_diff.cu`` at its plan and at
+    forced D against the plain version and K1; (b) the D = 57 sets, and
+    the kernel's plan against ``psa_diff.diff_plan``; (c) the int32/int16
+    probe on 32 x 10,240 bp and the kernel's times, plan, forced D and
+    sweep at ``batch_pairs`` (phase 5's 128 x 10,240 bp); (d) ``tsta-torch
+    psa --notrace`` with ``TSTA_DIFF_INT16``; (e) the dtype-max probe
+    (Q2-17d) against numpy.  Each path runs with the launch counters and
+    the count of plain calls on the card reset before it and read after
+    it.  Returns the CLI path's launches and the kernels record's
+    timing."""
     import numpy as np
+    import torch
 
     from tsta_tpu_torch import cli
     from tsta_tpu_torch.ops import _kernels, psa_diff
+    from tsta_tpu_torch.tools import dtype_max_probe
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def diff_limit(n_pad):
+        """The int16 DP's resident limit at D shards of n_pad columns."""
+        return lambda D: _kernels.psa_dp_diff_max_blocks(
+            *psa_diff.diff_shards(n_pad, D)[1:], psa_diff.SCORE_T, dev)
 
     def check(label, pairs, params):
         a, b, lens = psa_diff.pack_pairs(pairs, dev)
+        plan = psa_diff.diff_plan(len(pairs), a.shape[1], sms)
         p0 = start()
         got = psa_diff.run_dp_int16(a, b, lens, params)
         ld, plain = stop(p0)
-        want = psa_diff.dp_int16_plain(a, b, lens, params)
+        want = psa_diff.dp_int16_plain(a, b, lens, params, plan[3])
         k1 = psa_diff.run_dp(a, b, lens, params)
         rec = {"case": label, "pairs": len(pairs), "params": list(params),
-               "n_max": int(lens[:, 0].max()), "plain_calls": plain,
-               "launches": ld["psa_dp_diff"],
+               "n_max": int(lens[:, 0].max()), "plan": plan,
+               "plain_calls": plain, "launches": ld["psa_dp_diff"],
                "k1_launches": ld["psa_dp_score"],
                "max_abs_err": max(max_err(g, w) for g, w in zip(got, want)),
                "k1_max_abs_err": max(max_err(g, k) for g, k in zip(got, k1)),
-               "slot0": [int(got[0][0]), int(got[1][0])]}
+               "slot0": [int(got[0][0]), int(got[1][0])],
+               "forced": layout_forced(lambda D: psa_diff.run_dp_int16(
+                   a, b, lens, params, D=D), len(pairs), want, k1,
+                   diff_limit(a.shape[1]))}
         if (rec["max_abs_err"] or rec["k1_max_abs_err"] or plain
-                or rec["launches"] != 1 or rec["k1_launches"]):
+                or rec["launches"] != 1 or rec["k1_launches"]
+                or any(v for v in rec["forced"].values()
+                       if not isinstance(v, dict))):
             raise AssertionError("int16 kernel, %s: %s" % (label, rec))
         return rec
 
@@ -2503,17 +2608,19 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
     if cases[2]["slot0"] != [57 * 10240] * 2:
         raise AssertionError("identical pairs under %s: %s"
                              % (D57[0], cases[2]["slot0"]))
-    # the plain version's segment widths are the kernel's, read from the
-    # library, at every width up to 4,096 and beyond, at 200 kbp
-    ns = list(range(1, 4097)) + list(range(4097, 262145, 61)) + [200064]
-    drift = [n for n in ns
-             if _kernels.psa_dp_diff_layout(n) != psa_diff.diff_layout(n)]
+    # the plain version's plan is the kernel's, read from the library, at
+    # every width to 4,096 in steps of 12 and beyond, to 200 kbp
+    plans = [(P, n, s) for s in sorted({1, 16, 132, sms})
+             for P in (1, 2, 3, 32, 128, 200, 5000)
+             for n in list(range(4, 4097, 12)) + [9088, 10112, 10240, 30720,
+                                                  40064, 100096, 200064]]
+    drift = [c for c in plans
+             if _kernels.psa_dp_diff_plan(*c) != psa_diff.diff_plan(*c)]
     emit({"phase": "int16_kernels", "cases": cases,
-          "layout_40kbp": psa_diff.diff_layout(40000),
-          "layouts_checked": len(ns), "layouts_differing": drift[:10]})
+          "plans_checked": len(plans), "plans_differing": drift[:10]})
     if drift:
-        raise AssertionError("diff_layout differs from psa_dp_diff.cu's "
-                             "layout() at n = %s" % drift[:10])
+        raise AssertionError("diff_plan differs from psa_dp_diff.cu's "
+                             "plan at %s" % drift[:10])
 
     # (c) bench.stage_int16_probe's shape and keys: int32 and int16 in turns
     s1, s2 = golden_example()
@@ -2545,28 +2652,51 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
 
     a, b, lens = psa_diff.pack_pairs(batch_pairs, dev)
     cells = sum(len(x) * len(y) for x, y in batch_pairs)
+    P, n_pad = a.shape
+    plan = psa_diff.diff_plan(P, n_pad, sms)
     ms, got = cuda_ms(lambda: psa_diff.run_dp_int16(a, b, lens, p), 3)
     k1_ms, k1 = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, p), 3)
-    pms, want = cuda_ms(lambda: psa_diff.dp_int16_plain(a, b, lens, p), 1,
-                        False)
+    pms, want = cuda_ms(lambda: psa_diff.dp_int16_plain(a, b, lens, p,
+                                                        plan[3]), 1, False)
     err = max(max_err(g, w) for g, w in zip(got, want))
     err_k1 = max(max_err(g, k) for g, k in zip(got, k1))
+    forced = layout_forced(lambda D: psa_diff.run_dp_int16(
+        a, b, lens, p, D=D), P, want, k1, diff_limit(n_pad))
+
+    def sweep_plans(n_pairs):
+        return {"min W %d, %d a SM" % (w, k): psa_diff.diff_plan(
+            n_pairs, n_pad, sms, w, k)[0:3:2]
+            for w in SCORE_MIN_W_SWEEP for k in SCORE_PER_SM_SWEEP}
+    sweep = {"128 x 10,240": layout_sweep(lambda D: psa_diff.run_dp_int16(
+        a, b, lens, p, D=D), sweep_plans(P), want)}
     times = {"psa_dp_diff": {
         "shape": "%d x %d bp score-only, int16 offsets" % (
             len(batch_pairs), len(batch_pairs[1][0])),
         "ms": ms, "plain_ms": pms, "k1_ms": k1_ms, "max_abs_err": err,
-        **bound(nbytes(a, b, lens, *got),
-                OPS_PSA_CELL * cells / CELLS_PER_S16X2)}}
+        "plan": dict(zip("DCWGT", plan)), "forced": forced, "sweep": sweep,
+        **score_bound(nbytes(a, b, lens, *got), cells, CELLS_PER_S16X2)}}
+    del a, b, lens, got, k1, want
+    a, b, lens = psa_diff.pack_pairs(pairs32, dev)
+    want32 = psa_diff.run_dp(a, b, lens, p)
+    sweep["32 x 10,240"] = layout_sweep(lambda D: psa_diff.run_dp_int16(
+        a, b, lens, p, D=D), sweep_plans(len(pairs32)), want32)
+    sweep["32 x 10,240"]["plan"] = psa_diff.diff_plan(len(pairs32), n_pad,
+                                                      sms)
+    sweep["32 x 10,240"]["k1_plan"] = psa_diff.score_plan(len(pairs32),
+                                                          n_pad, sms)
+    del a, b, lens, want32
     emit({"phase": "int16_probe", **probe, "k1_max_abs_err": err_k1,
           "gcups": cells / ms / 1e6, "k1_gcups": cells / k1_ms / 1e6,
           "times": times["psa_dp_diff"], "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
     if not (probe["psa_batch_int16_exact"] and probe["psa_batch_int32_exact"]
             and probe["equal"]) or err or err_k1 or plain_c \
-            or lc["psa_dp_diff"] != 6 or lc["psa_dp_score"] != 6:
+            or lc["psa_dp_diff"] != 6 or lc["psa_dp_score"] != 6 \
+            or any(v for v in forced.values() if not isinstance(v, dict)) \
+            or any(v["max_abs_err"] for v in sweep.values()):
         raise AssertionError("int16 probe: wrong result or route: %s, "
-                             "errors %d %d" % (probe, err, err_k1))
-    del a, b, lens, got, k1, want
+                             "errors %d %d, forced %s" % (probe, err, err_k1,
+                                                          forced))
 
     # (d) the CLI: --json in a subprocess, maxsorce in this process
     with tempfile.TemporaryDirectory() as tmp:
@@ -2603,13 +2733,34 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
                             for k in ("psa_dp_diff", "psa_dp_score")},
           "json_wall_s": js["wall_s"], "subprocess_wall_s": t_sub, "rc": rc,
           "stdout": stdout, "wall_s": wall, "launches": ld,
-          "plain_calls": plain_d})
+          "plain_calls": plain_d,
+          "plan": psa_diff.diff_plan(1, -(-len(s1) // 128) * 128, sms)})
     if (js["score"] != -5 or js["launches"]["psa_dp_diff"] < 1
             or js["launches"]["psa_dp_score"] or rc != 0
             or stdout != ["maxsorce=-5"] or plain_d
-            or ld["psa_dp_diff"] != 1 or ld["psa_dp_score"]):
+            or ld["psa_dp_diff"] != 1 or sum(ld.values()) != 1):
         raise AssertionError("TSTA_DIFF_INT16 CLI: wrong result or route: "
                              "%s %s %s" % (js, stdout, ld))
+
+    # (e) the dtype-max probe (Q2-17d): every form equal to numpy
+    res = dtype_max_probe.measure(dev=dev)
+    emit({"phase": "dtype_max_probe", "iters": 2000, "copies": 256,
+          "forms": {k: {f: v[f] for f in ("ms", "plain_ms",
+                                           "ns_per_tile_max",
+                                           "lanes_per_clock",
+                                           "speed_over_int32_form",
+                                           "bound_ms", "bound_by", "equal")}
+                    for k, v in res.items()},
+          "launches": dtype_max_probe.launches, "smi": smi_line})
+    if not all(v["equal"] for v in res.values()):
+        raise AssertionError("dtype_max_probe differs from numpy: %s"
+                             % {k: v["equal"] for k, v in res.items()})
+    # the issue rate is a floor no form can beat: one that did would show
+    # a wrong count of its instructions
+    if any(v["ms"] < v["bound_ms"] for v in res.values()):
+        raise AssertionError("dtype_max_probe beat its bound: %s"
+                             % {k: (v["ms"], v["bound_ms"])
+                                for k, v in res.items()})
     return {"psa_dp_diff": ld["psa_dp_diff"]}, times
 
 
@@ -2630,7 +2781,7 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
     import torch
 
     from tsta_tpu_torch import cli
-    from tsta_tpu_torch.ops import psa_diff
+    from tsta_tpu_torch.ops import _kernels, psa_diff
     from tsta_tpu_torch.ops import traceback as tb
 
     p = (2, -5, -2, -4)
@@ -2639,8 +2790,16 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
         return max(max_err(torch.as_tensor(g).cpu(), torch.as_tensor(w).cpu())
                    for g, w in zip(got, want))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def striped_limit(n_pad):
+        """The striped DP's resident limit at D shards of n_pad columns."""
+        return lambda D: _kernels.psa_dp_striped_max_blocks(
+            -(-n_pad // D), psa_diff.SCORE_T, dev)
+
     # (a) phase 3's pairs through the layout's route, against K1 and the
-    # plain version (the 40 kbp pair's 39,700 rows: K1 only)
+    # plain version (the 40 kbp pair's 39,700 rows: K1 only), then the
+    # kernel at forced D
     cases = []
     for label, pairs in (("phase 3 mixed", batches[0]),
                          ("40 kbp", batches[1])):
@@ -2649,40 +2808,60 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
                                             device=dev)
         ld, plain = stop(p0)
         a, b, lens = psa_diff.pack_pairs(pairs, dev)
+        k1 = psa_diff.run_dp(a, b, lens, p)
+        tile, tb_, tl = psa_diff.pack_pairs_striped(pairs, dev)
         rec = {"case": label, "pairs": len(pairs), "plain_calls": plain,
                "launches": ld["psa_dp_striped"],
                "k1_launches": ld["psa_dp_score"],
-               "k1_max_abs_err": errs(got, psa_diff.run_dp(a, b, lens, p)),
+               "k1_max_abs_err": errs(got, k1), "sp": tile.shape[1],
+               "plan": psa_diff.score_plan(len(pairs), tile.shape[1] * 128,
+                                           sms),
                "slot0": [int(got[0][0]), int(got[1][0])]}
+        want = k1
         if label != "40 kbp":
-            tile, tb_, tl = psa_diff.pack_pairs_striped(pairs, dev)
-            rec["sp"] = tile.shape[1]
-            rec["max_abs_err"] = errs(got, psa_diff.scan_rows_striped(
-                tile, tb_, tl, p))
+            want = psa_diff.scan_rows_striped(tile, tb_, tl, p)
+            rec["max_abs_err"] = errs(got, want)
+        rec["forced"] = layout_forced(lambda D: psa_diff.run_dp_striped(
+            tile, tb_, tl, p, D=D), len(pairs), want, k1,
+            striped_limit(tile.shape[1] * 128))
         cases.append(rec)
         if (rec["k1_max_abs_err"] or rec.get("max_abs_err") or plain
-                or rec["launches"] != 1 or rec["k1_launches"]):
+                or rec["launches"] != 1 or rec["k1_launches"]
+                or any(v for v in rec["forced"].values()
+                       if not isinstance(v, dict))):
             raise AssertionError("striped layout, %s: %s" % (label, rec))
 
-    # (b) the kernel, K1 and the plain version on the same pairs
+    # (b) the kernel, K1 and the plain version on the same pairs; forced D
+    # and the plan's sweep
     tile, tb_, tl = psa_diff.pack_pairs_striped(batch_pairs, dev)
     a, b, lens = psa_diff.pack_pairs(batch_pairs, dev)
     cells = sum(len(x) * len(y) for x, y in batch_pairs)
+    P, n_pad = len(batch_pairs), tile.shape[1] * 128
     ms, got = cuda_ms(lambda: psa_diff.run_dp_striped(tile, tb_, tl, p), 3)
     k1_ms, k1 = cuda_ms(lambda: psa_diff.run_dp(a, b, lens, p), 3)
     pms, want = cuda_ms(lambda: psa_diff.scan_rows_striped(tile, tb_, tl, p),
                         1, False)
+    forced = layout_forced(lambda D: psa_diff.run_dp_striped(
+        tile, tb_, tl, p, D=D), P, want, k1, striped_limit(n_pad))
+    sweep = layout_sweep(lambda D: psa_diff.run_dp_striped(
+        tile, tb_, tl, p, D=D), {
+            "min W %d, %d a SM" % (w, k): psa_diff.score_plan(
+                P, n_pad, sms, w, k)[0:3:2]
+            for w in SCORE_MIN_W_SWEEP for k in SCORE_PER_SM_SWEEP}, want)
     times = {"psa_dp_striped": {
         "shape": "%d x %d bp score-only, striped tiles of Sp %d" % (
             len(batch_pairs), len(batch_pairs[1][0]), tile.shape[1]),
         "ms": ms, "plain_ms": pms, "k1_ms": k1_ms,
         "max_abs_err": errs(got, want), "k1_max_abs_err": errs(got, k1),
-        **bound(nbytes(tile, tb_, tl, *got), OPS_PSA_CELL * cells)}}
+        "plan": dict(zip("DCWT", psa_diff.score_plan(P, n_pad, sms))),
+        "forced": forced, "sweep": sweep,
+        **score_bound(nbytes(tile, tb_, tl, *got), cells)}}
     emit({"phase": "striped_kernels", "cases": cases,
           "times": times["psa_dp_striped"], "gcups": cells / ms / 1e6,
           "k1_gcups": cells / k1_ms / 1e6, "smi": smi_line})
     if times["psa_dp_striped"]["max_abs_err"] or \
-            times["psa_dp_striped"]["k1_max_abs_err"]:
+            times["psa_dp_striped"]["k1_max_abs_err"] or sweep["max_abs_err"] \
+            or any(v for v in forced.values() if not isinstance(v, dict)):
         raise AssertionError("striped kernel differs at %s: %s"
                              % (times["psa_dp_striped"]["shape"],
                                 times["psa_dp_striped"]))
@@ -2839,7 +3018,7 @@ def ring_phases(dev, smi_line, k1, k1_edit, traced, traced_edit):
             "ms": ms, "plain_ms": pms, "max_abs_err": e,
             "best": best, "corner": corner,
             "gcups": len(x) * len(y) / ms / 1e6,
-            **bound(nbytes(a, b, *got), OPS_PSA_CELL * len(x) * len(y))}
+            **score_bound(nbytes(a, b, *got), len(x) * len(y))}
     del a, b, got, want
     emit({"phase": "ring_vs_plain", "records": list(recs.values()),
           "smi": smi_line})
@@ -2868,8 +3047,7 @@ def ring_phases(dev, smi_line, k1, k1_edit, traced, traced_edit):
             "k1": [k1["score"], k1["corner"]], "k1_s": k1["s"],
             "traced": [traced["score"], traced["corner"]],
             "rows": b.numel() + (sms - 1) * 256, "n_pad": a.numel(),
-            **bound(nbytes(a, b, out) + 8 * sms * b.numel(),
-                    OPS_PSA_CELL * cells)}
+            **score_bound(nbytes(a, b, out) + 8 * sms * b.numel(), cells)}
     emit({"phase": "ring_200k", **full, "launches": lb["psa_ring"],
           "plain_calls": plain_b, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})

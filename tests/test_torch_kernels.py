@@ -1502,50 +1502,122 @@ def test_psa_dp_ab_finds_k1_in_ptxas_and_sass():
                            "@!P0 IMAD R3, R2, c[0x0][.], RZ"]
 
 
+def _layouts_vs_plain(cuda, a, b, lens, params, D, want, int16):
+    """One launch of the difference-method (``int16``) or the striped DP
+    at a forced D (None: the plan) on (a, b, lens), held to ``want`` and
+    to K1 on the card; one launch of that kernel and no plain call.
+    Returns the plan it ran."""
+    dev_a, dev_b, dev_l = a.to(cuda), b.to(cuda), lens.to(cuda)
+    name = "psa_dp_diff" if int16 else "psa_dp_striped"
+    got = [torch.empty((a.shape[0],), dtype=torch.int32, device=cuda)
+           for _ in range(2)]
+    n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+    if int16:
+        ran = _kernels.psa_dp_diff(dev_a, dev_b, dev_l, params, *got, D=D)
+    else:
+        tile = psa_diff.pack_pairs_striped(
+            [(x[:n].numpy(), y[:m].numpy()) for x, y, (n, m) in
+             zip(a, b, lens.tolist())], cuda, n_pad=a.shape[1])[0]
+        ran = _kernels.psa_dp_striped(tile, dev_b, dev_l, params, *got, D=D)
+    torch.cuda.synchronize()
+    assert psa_scan.plain_calls == p0
+    assert {k for k in _kernels.KERNELS
+            if _kernels.launches[k] != n0[k]} == {name}
+    assert _kernels.launches[name] == n0[name] + 1
+    k1 = psa_diff.run_dp(dev_a, dev_b, dev_l, params)
+    for g, w, k in zip(got, want, k1):
+        assert torch.equal(g.cpu(), w.cpu()) and torch.equal(k, g)
+    return ran
+
+
 # the int16 gate's two edge sets (D = 57) and two sets inside it
 DIFF16 = [P0, (57, -1, -1, 0), (2, -57, -2, -4), (24, -24, -24, -24)]
+LAYOUT_LENGTHS = [(1, 1), (3, 300), (300, 3), (1000, 950), (513, 700),
+                  (2100, 1800), (3000, 2990), (129, 1)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [None, 1, 2, 8])
 @pytest.mark.parametrize("params", DIFF16)
-def test_dp_diff_kernel_matches_plain_and_k1(cuda, params):
-    """The difference-method kernel (int16 offsets, ``psa_dp_diff.cu``)
-    against its plain version on the CPU and K1 on the card, on mixed
-    pairs of 1-3,000 bp (segments of 4 and 12 columns), similar ones."""
-    lengths = [(1, 1), (3, 300), (300, 3), (1000, 950), (513, 700),
-               (2100, 1800), (3000, 2990), (129, 1)]
-    a, b, lens = _batch(9, lengths, 256, 128, similar=True)
+def test_dp_diff_kernel_matches_plain_and_k1(cuda, params, D):
+    """The difference-method kernel (``psa_dp_diff.cu``, int16 offsets in
+    P x D column shards) against its plain version on the CPU and K1 on
+    the card, on mixed pairs of 1-3,000 bp (pairs that end in an earlier
+    shard than the widest), similar ones, at its plan and at forced D = 1,
+    2 and 8 (segments of 12, 8 and 4 columns)."""
+    a, b, lens = _batch(9, LAYOUT_LENGTHS, 256, 128, similar=True)
     want = psa_diff.run_dp_int16(a, b, lens, params)
-    n0 = dict(_kernels.launches)
-    ta, tb_, tl = a.to(cuda), b.to(cuda), lens.to(cuda)
-    got = psa_diff.run_dp_int16(ta, tb_, tl, params)
-    k1 = psa_diff.run_dp(ta, tb_, tl, params)
-    torch.cuda.synchronize()
-    assert _kernels.launches["psa_dp_diff"] == n0["psa_dp_diff"] + 1
-    for w, g, k in zip(want, got, k1):
-        assert torch.equal(g.cpu(), w) and torch.equal(k.cpu(), w)
+    ran = _layouts_vs_plain(cuda, a, b, lens, params, D, want, True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = psa_diff.diff_plan(a.shape[0], a.shape[1], sms)
+    assert ran == (plan if D is None else (D,) + psa_diff.diff_shards(
+        a.shape[1], D) + (plan[4],))
 
 
 @pytest.mark.cuda
-def test_dp_diff_kernel_40kbp_pair(cuda):
-    """A 40 kbp pair, where a strip spans 160 columns in two segments:
-    the int16 kernel equals its plain version (run on the card) and K1,
-    and K1 under a D = 57 set."""
-    assert psa_diff.diff_layout(40000) == (160, 80)
+@pytest.mark.parametrize("D", [None, 1, 2, 8])
+def test_dp_diff_kernel_40kbp_pair(cuda, D):
+    """A 40 kbp pair at the plan (40 shards of 4 columns a thread), D = 1
+    (a strip of 160 columns in two segments), 2 and 8: the int16 kernel
+    equals its plain version (run on the card, at the launch's G) and K1,
+    under the default scoring and a D = 57 set."""
     a, b = _long_pair(40, 40000, 39700)
     ta, tb_, lens = psa_diff.pack_pairs([(a, b)], cuda)
-    p0 = psa_scan.plain_calls
-    want = psa_diff.dp_int16_plain(ta, tb_, lens, P0)
-    assert psa_scan.plain_calls == p0 + 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    G = (psa_diff.diff_plan(1, ta.shape[1], sms)[3] if D is None
+         else psa_diff.diff_shards(ta.shape[1], D)[2])
     for params in (P0, (57, -1, -1, 0)):
-        got = psa_diff.run_dp_int16(ta, tb_, lens, params)
-        k1 = psa_diff.run_dp(ta, tb_, lens, params)
-        torch.cuda.synchronize()
-        for g, k in zip(got, k1):
-            assert torch.equal(g, k)
-        if params == P0:
-            for g, w in zip(got, want):
-                assert torch.equal(g, w)
+        p0 = psa_scan.plain_calls
+        want = psa_diff.dp_int16_plain(ta, tb_, lens, params, G)
+        assert psa_scan.plain_calls == p0 + 1
+        ran = _layouts_vs_plain(cuda, ta, tb_, lens, params, D, want, True)
+        assert ran[3] == G
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int16", [True, False])
+def test_dp_layouts_wide_strips_take_the_global_frontier(cuda, int16):
+    """A 52 kbp pair cut to 700 rows at D = 1: a strip of 204 columns
+    (int16: 208 in two segments) whose frontier does not fit in shared
+    memory, so the kernel keeps it in device memory and reads a from
+    there (the striped DP through the tile's index map); equal to the
+    plain version and K1."""
+    a, b = _long_pair(52, 52000, 700)
+    ta, tb_, lens = psa_diff.pack_pairs([(a, b)], torch.device("cpu"))
+    if int16:
+        want = psa_diff.dp_int16_plain(ta, tb_, lens, P0, 104)
+        assert psa_diff.diff_shards(ta.shape[1], 1)[1:] == (208, 104)
+        assert _kernels._lib().tsta_psa_dp_diff_scratch_words(208, 104, 32)
+    else:
+        want = psa_diff.run_dp(ta, tb_, lens, P0)
+        assert _kernels._lib().tsta_psa_dp_scratch_words(ta.shape[1], 32)
+    _layouts_vs_plain(cuda, ta, tb_, lens, P0, 1, want, int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int16", [True, False])
+def test_dp_layouts_global_frontier_across_shards(cuda, int16):
+    """The global frontier at D = 2: a 70 kbp pair cut to 300 rows beside
+    a 20 kbp pair of 250 rows that ends in shard 0.  Strips of 137 columns
+    (int16: 144 in two segments of 72, their anchors in the scratch), so
+    shard 1 seeds a multi-segment strip from the packets with its
+    frontier and anchors in device memory; equal to the plain version and
+    K1."""
+    pairs = [_long_pair(70, 70000, 300), _long_pair(71, 20000, 250)]
+    ta, tb_, lens = psa_diff.pack_pairs(pairs, torch.device("cpu"))
+    n_pad = ta.shape[1]
+    if int16:
+        C, W, G = psa_diff.diff_shards(n_pad, 2)
+        assert (W, G) == (144, 72) and 20000 < C < 70000
+        assert _kernels._lib().tsta_psa_dp_diff_scratch_words(W, G, 32)
+        want = psa_diff.dp_int16_plain(ta, tb_, lens, P0, G)
+    else:
+        C = -(-n_pad // 2)
+        assert 20000 < C < 70000
+        assert _kernels._lib().tsta_psa_dp_scratch_words(C, 32)
+        want = psa_diff.run_dp(ta, tb_, lens, P0)
+    assert _layouts_vs_plain(cuda, ta, tb_, lens, P0, 2, want,
+                             int16)[0] == 2
 
 
 @pytest.mark.cuda
@@ -1576,17 +1648,63 @@ def test_int16_switch_on_card(cuda, monkeypatch, capsys):
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     assert psa_scan.plain_calls == p0
-    assert (_kernels.launches["psa_dp_diff"] - n0["psa_dp_diff"],
-            _kernels.launches["psa_dp_score"] - n0["psa_dp_score"]) == (2, 0)
+    assert {k: _kernels.launches[k] - n0[k] for k in _kernels.KERNELS
+            if _kernels.launches[k] != n0[k]} == {"psa_dp_diff": 2}
 
 
 @pytest.mark.cuda
 def test_dp_diff_layout_is_the_plain_versions(cuda):
-    """The kernel's strip and segment widths, read from the library, are
-    ``diff_layout``'s at every width up to 4,096 and beyond, at 200 kbp."""
-    ns = list(range(1, 4097)) + list(range(4097, 262145, 61)) + [200064]
-    assert [_kernels.psa_dp_diff_layout(n) for n in ns] == [
-        psa_diff.diff_layout(n) for n in ns]
+    """The kernel's plan (D, C, W, G, T), read from the library, is
+    ``diff_plan``'s at 4,000 (P, n_pad, SMs) and beyond, to 200 kbp, and
+    at one pair of the example's width it cuts the columns over several
+    SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cases = [(P, n, s) for s in sorted({1, 16, 132, sms})
+             for P in (1, 2, 3, 32, 128, 200, 5000)
+             for n in list(range(4, 4097, 12)) + [9088, 10112, 10240, 30720,
+                                                  40064, 100096, 200064]]
+    assert len(cases) > 4000
+    assert [_kernels.psa_dp_diff_plan(*c) for c in cases] == [
+        psa_diff.diff_plan(*c) for c in cases]
+    assert _kernels.psa_dp_diff_plan(1, 10112, sms)[0] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int16", [True, False])
+def test_dp_layouts_past_the_resident_limit(cuda, int16):
+    """Past the card's resident limit at D = 2 each kernel raises its own
+    KernelError naming the limit, without launching; D = 1 over as many
+    pairs runs (an ordinary launch) and equals K1."""
+    rng = np.random.default_rng(30)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pairs = [(rng.integers(65, 69, int(rng.integers(20, 256))).astype(
+              np.uint8), rng.integers(65, 69, int(rng.integers(20, 100)))
+              .astype(np.uint8)) for _ in range(3 * sms)]
+    a, b, lens = psa_diff.pack_pairs(pairs, torch.device("cpu"))
+    C, W, G = psa_diff.diff_shards(a.shape[1], 2)
+    limit = (_kernels.psa_dp_diff_max_blocks(W, G, 32, cuda) if int16 else
+             _kernels.psa_dp_striped_max_blocks(-(-a.shape[1] // 2), 32,
+                                                cuda))
+    reps = -(-(limit + 5) // len(pairs))
+    a, b, lens = (x.repeat(reps, 1) for x in (a, b, lens))
+    name = "psa_dp_diff" if int16 else "psa_dp_striped"
+    want = psa_diff.run_dp(a, b, lens, P0)
+    _layouts_vs_plain(cuda, a, b, lens, P0, 1, want, int16)
+    Q = limit // 2 + 1
+    one = torch.empty((Q,), dtype=torch.int32, device=cuda)
+    n0 = _kernels.launches[name]
+    with pytest.raises(_kernels.KernelError, match="at most %d" % limit):
+        if int16:
+            _kernels.psa_dp_diff(a[:Q].to(cuda), b[:Q].to(cuda),
+                                 lens[:Q].to(cuda), P0, one, one.clone(),
+                                 D=2)
+        else:
+            tile = psa_diff.pack_pairs_striped(pairs, cuda,
+                                               n_pad=a.shape[1])[0]
+            tile = tile.repeat(reps, 1, 1)[:Q].contiguous()
+            _kernels.psa_dp_striped(tile, b[:Q].to(cuda), lens[:Q].to(cuda),
+                                    P0, one, one.clone(), D=2)
+    assert _kernels.launches[name] == n0
 
 
 @pytest.mark.cuda
@@ -1603,33 +1721,47 @@ def test_dp_diff_refuses_bad_tensors_and_params(cuda):
         psa_diff.run_dp_int16(a, b, lens, (2, -58, -2, -4))
     with pytest.raises(_kernels.KernelError):   # the C side's own gate
         _kernels.psa_dp_diff(a, b, lens, (2, -58, -2, -4), one, one.clone())
+    with pytest.raises(ValueError):   # 128 columns make no 200 shards
+        _kernels.psa_dp_diff(a, b, lens, P0, one, one.clone(), D=200)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [None, 1, 2, 8])
 @pytest.mark.parametrize("params", [P0, (3, -2, -1, -6), (1, -1, -1, 0)])
-def test_dp_striped_kernel_matches_plain_and_k1(cuda, params):
-    """The striped-layout kernel (``psa_dp_striped.cu``) against its plain
-    version on the CPU and K1 on the card, on a mixed 100-3,000 bp batch
-    (stripes of 24 columns; the short pairs in the first lanes only) and
-    at a wider tile (Sp 40)."""
+def test_dp_striped_kernel_matches_plain_and_k1(cuda, params, D):
+    """The striped-layout kernel (``psa_dp_striped.cu``, K1's shards on
+    the tile it reads itself) against its plain version on the CPU and K1
+    on the card, on a mixed 100-3,000 bp batch (stripes of 24 columns; the
+    short pairs in the first lanes only; shard edges that cut stripes) and
+    at a wider tile (Sp 40), at K1's plan and at forced D = 1, 2 and 8."""
     rng = np.random.default_rng(21)
     pairs = [(rng.integers(65, 69, n).astype(np.uint8),
               rng.integers(65, 69, m).astype(np.uint8))
              for n, m in [(100, 120), (3000, 2900), (1500, 100), (129, 3000),
                           (2048, 2047), (1, 1), (257, 700), (2999, 3000)]]
-    a, b, lens = psa_diff.pack_pairs(pairs, cuda)
-    k1 = psa_diff.run_dp(a, b, lens, params)
     for n_pad in (None, 5120):
         tile, tb_, tl = psa_diff.pack_pairs_striped(pairs, "cpu", n_pad=n_pad)
         want = psa_diff.run_dp_striped(tile, tb_, tl, params)
-        n0, p0 = _kernels.launches["psa_dp_striped"], psa_scan.plain_calls
-        got = psa_diff.run_dp_striped(tile.to(cuda), tb_.to(cuda),
-                                      tl.to(cuda), params)
-        torch.cuda.synchronize()
-        assert _kernels.launches["psa_dp_striped"] == n0 + 1
-        assert psa_scan.plain_calls == p0
-        for w, g, k in zip(want, got, k1):
-            assert torch.equal(g.cpu(), w) and torch.equal(k.cpu(), w)
+        a = psa_diff.pack_pairs(pairs, "cpu")[0]
+        a = torch.cat([a, torch.zeros((len(pairs), tile.shape[1] * 128
+                                       - a.shape[1]), dtype=torch.uint8)], 1)
+        ran = _layouts_vs_plain(cuda, a, tb_, tl, params, D, want, False)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        plan = psa_diff.score_plan(len(pairs), a.shape[1], sms)
+        assert ran == ((plan[0], plan[1], plan[3]) if D is None else
+                       (D, -(-a.shape[1] // D), plan[3]))
+
+
+@pytest.mark.cuda
+def test_dtype_max_probe_kernel_equals_numpy(cuda):
+    """Q2-17d on the card: every form (the five dtypes' maxes, the four
+    DPX forms) equal to numpy's plain version in every copy."""
+    from tsta_tpu_torch.tools import dtype_max_probe as probe
+    n0 = probe.launches
+    res = probe.measure(iters=40, copies=3, reps=1, dev=cuda)
+    assert set(res) == set(probe.FORMS)
+    assert all(r["equal"] for r in res.values()), res
+    assert probe.launches == n0 + 2 * len(probe.FORMS)
 
 
 @pytest.mark.cuda

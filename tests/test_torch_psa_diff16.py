@@ -96,20 +96,28 @@ def test_plain_narrow_segments_equal_int32(seg):
 
 
 def test_kernel_layouts_group_the_plain_version():
-    """``diff_layout`` gives the kernel's strip and segment widths (every
-    segment <= 128 columns, 256 strips cover n), and the wrapper's plain
-    version runs each pair at its own width: pairs of three widths in one
-    batch equal the int32 route."""
-    for n in (1, 4, 5, 1024, 1025, 10240, 32768, 32769, 40000, 200064):
-        W, G = tdiff.diff_layout(n)
-        assert G % 4 == 0 and W % G == 0 and G <= tdiff.SEG_MAX
-        assert 256 * W >= n and W < -(-n // 256) + 4 * (W // G) + 4
-    assert tdiff.diff_layout(40000) == (160, 80)
-    assert tdiff.diff_layout(200064) == (784, 112)
+    """``diff_plan`` gives the kernel's shards, strip and segment widths
+    (every segment <= 128 columns and a divisor of the strip and, at D >=
+    2, of the shard, 256 strips cover a shard; K1's shards); past the SMs
+    one block a pair, as the kernel had before its shards; and the
+    wrapper's plain
+    version runs a batch of pairs of three widths at one segment width,
+    equal to the int32 route."""
+    for P in (1, 3, 32, 128, 265):
+        for n in (4, 128, 1024, 10240, 32768, 40064, 200064):
+            D, C, W, G, T = tdiff.diff_plan(P, n, 132)
+            assert G % 4 == 0 and W % G == 0 and G <= tdiff.SEG_MAX
+            assert 256 * W >= C and (D == 1 or C % G == 0)
+            assert D == -(-n // C)
+            assert (D - 1) * C < n <= D * C and T == tdiff.SCORE_T
+    assert tdiff.diff_plan(264, 40064, 132) == (1, 40064, 160, 80, 32)
+    assert tdiff.diff_plan(265, 200064, 132) == (1, 200064, 784, 112, 32)
+    assert tdiff.diff_plan(128, 10240, 132) == (2, 5120, 20, 20, 32)
+    assert tdiff.diff_plan(32, 10240, 132) == (8, 1280, 8, 8, 32)
     rng = np.random.default_rng(7)
     pairs = [(_rnd(rng, n), _rnd(rng, 40)) for n in (100, 1100, 2100)]
-    assert [tdiff.diff_layout(len(a))[1] for a, _ in pairs] == [4, 8, 12]
     a, b, lens = tdiff.pack_pairs(pairs, "cpu")
+    assert tdiff.diff_segments(-(-a.shape[1] // 256)) == (12, 12)
     got = tdiff.run_dp_int16(a, b, lens, P0)
     want = tdiff.run_dp(a, b, lens, P0)
     for g, w in zip(got, want):

@@ -1,160 +1,111 @@
-// Exact int32 Gotoh DP, score-only, over the striped column layout: one
-// thread block of 128 threads per pair.
+// Exact int32 Gotoh DP, score-only, over the striped column layout: P pairs,
+// each pair's columns cut into D shards of co-resident 256-thread blocks.
 //
 // Replaces the TPU kernel tsta_tpu/ops/psa_diff.py:_striped_kernel (Q2-11,
 // launched through _psa_diff_call with layout="striped").  Its function is
 // K1's (psa_dp.cu score-only): per pair the matrix-max score and the corner
-// H(m-1, n-1), int32.  The recurrence, boundary terms and closed-form F are
-// K1's (see psa_dp.cu's header).
+// H(m-1, n-1), int32.
 //
 // Layout.  A pair's n_pad = Sp * 128 columns arrive as one (Sp, 128) tile,
 // column j at [j % Sp][j / Sp] (ops/psa_diff.py pack_pairs_striped, JAX's
 // striped a32): lane l of the tile holds the stripe of columns
 // [l*Sp, (l+1)*Sp) down its Sp rows.  The TPU chose it so that F's prefix
 // scans sublanes, which are cheap there, and crosses lanes only on (P, 128)
-// tiles.  Here thread l is lane l and owns that stripe, so the tile is K1's
-// strip-per-thread split with the strips' bytes interleaved: at stripe row
-// u the warp reads a_tile[u*128 + l], 32 consecutive bytes, where K1's
-// threads read 40 or more bytes apart.  The H/E frontier (global scratch,
-// 2 * Sp * 128 int32 per pair) is in the same u*128 + l order, coalesced
-// as in K1.
+// tiles.  Here the schedule is K1's: the body, plan, packets and launch are
+// psa_dp_score.cuh's (each pair over its real extent, plan
+// psa_diff.score_plan at n_pad = Sp * 128), and only the Reader differs.
+// The kernel reads the tile itself:
+// * the shared-memory frontier: at row -1 the block's warps read the
+//   stripes that hold its shard's columns, lanes l0 .. l1 of the tile, in
+//   the tile's own order (at tile row u the bytes u*128 + l0 .. u*128 + l1
+//   to consecutive threads) and scatter each byte into the slab slot of
+//   its column, as K1 stages its bytes in order;
+// * the global frontier (strips past shared memory): column g of the pair
+//   read through the index map, tile[(g % Sp) * 128 + g / Sp].
+// A shard's columns need not be whole stripes: a stripe cut by a shard's
+// edge is read by both shards, each keeping its own columns, so at most
+// two stripes' bytes a shard are read twice, once a launch.  C is not
+// aligned to Sp for that: the plan stays K1's, whose W and blocks an SM
+// come from PERF.md's sweep, and the staging is off the row loop.
 //
-// Per row i, each thread over its stripe's real columns (j < n, rows < m:
-// each pair over its real extent):
-//   pass 1  the stripe's max of y = C(j) - j*e (the TPU kernel's stripe
-//           total, max(q, y) at u = Sp - 1);
-//   scan    the exclusive prefix max of the stripe totals across the 128
-//           lanes, seeded with H(i,-1) + e (dp_common.cuh block_excl_max:
-//           warp shuffles, then the 4 warp totals through shared memory):
-//           the TPU kernel's cross-lane prefix on the compressed tile;
-//   pass 2  the stripe again, carrying the running max down it (the
-//           within-stripe prefix), and writes H and E.
-// The diagonal term at a stripe's first column, H(i-1, l*Sp - 1), is lane
-// l-1's last H of the row before, through a double-buffered shared edge
-// array (the TPU's boundary_rows lane roll).
-//
-// What bounds it on the H100: as K1, about 12 integer operations per cell
-// and six 4-byte frontier accesses through L1/L2, three barriers per row,
-// one block per pair; with 128 threads (the TPU's lanes) against K1's 256
-// each thread walks twice K1's columns per row and an SM holds half the
-// warps, so the row loop's latency is hidden less.  Later work: frontier
-// in shared memory, several pairs per block.
+// What bounds it on the H100: K1's function, about 12 integer operations
+// per cell, so 128 x 10,240 x 10,240 cells bound it at ~9.6 ms; the row's
+// fixed cost (three barriers, a block scan, a share of a packet) sets the
+// pace at narrow strips, as in K1 (psa_dp.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "dp_common.cuh"
+#include "psa_dp_score.cuh"
 
 namespace {
 
-using tsta::kFull;
-using tsta::kNeg;
+constexpr int kLanes = 128;  // the striped tile's lanes
 
-constexpr int kLanes = 128;  // one thread per lane of the striped tile
-
-struct Params {
-  int m, x, e, o;
+// A pair's columns as its (Sp, 128) striped tile, Sp = n_pad / 128.
+struct Striped {
+  const uint8_t* tile;
+  int sp, col0;
+  __device__ Striped(const Score& k, int pair, int col0_)
+      : tile(k.a + (size_t)pair * k.n_pad), sp(k.n_pad / kLanes),
+        col0(col0_) {}
+  __device__ void stage_col(uint8_t*, int, int) const {}
+  // the shard's columns [col0, col0 + Cd): the stripes l0 .. l0 + nl - 1
+  // that hold them, read row by row of the tile, each byte to the slot of
+  // its shard column j, (j % W) * 256 + j / W
+  __device__ void stage_all(uint8_t* s_a, int Cd, int W) const {
+    const int l0 = col0 / sp;
+    const int nl = (col0 + Cd - 1) / sp - l0 + 1;
+    for (int idx = threadIdx.x; idx < sp * nl; idx += kThreads) {
+      const int u = idx / nl;
+      const int l = l0 + idx - u * nl;
+      const int j = l * sp + u - col0;
+      if (j >= 0 && j < Cd)
+        s_a[(j % W) * kThreads + j / W] = tile[u * kLanes + l];
+    }
+  }
+  __device__ int at(int j) const {
+    const int g = col0 + j;
+    const int l = g / sp;
+    return __ldg(tile + (g - l * sp) * kLanes + l);
+  }
 };
 
-__global__ void __launch_bounds__(kLanes)
-psa_dp_striped_kernel(const uint8_t* __restrict__ a_all,
-                      const uint8_t* __restrict__ b_all,
-                      const int32_t* __restrict__ lens, int sp, int m_stride,
-                      Params p, int32_t* __restrict__ score,
-                      int32_t* __restrict__ corner,
-                      int32_t* __restrict__ scratch) {
-  constexpr int kWarps = kLanes / 32;
-  __shared__ int s_warp[2 * kWarps];
-  __shared__ int s_edge[2][kLanes];
-
-  const int pair = blockIdx.x;
-  const int l = threadIdx.x;
-  const int n_real = lens[2 * pair];
-  const int m_real = lens[2 * pair + 1];
-  const int j0 = l * sp;
-  const int nu = max(0, min(sp, n_real - j0));  // this stripe's real columns
-  const size_t tile = (size_t)sp * kLanes;
-  const uint8_t* a = a_all + (size_t)pair * tile + l;  // column j0+u at a[u*128]
-  const uint8_t* b = b_all + (size_t)pair * m_stride;
-  int32_t* H = scratch + (size_t)pair * 2 * tile + l;
-  int32_t* E = H + tile;
-  const int oe = p.o + p.e;
-
-  for (int u = 0; u < nu; ++u) {  // row -1
-    H[u * kLanes] = p.o + (j0 + u + 1) * p.e;
-    E[u * kLanes] = kNeg;
-  }
-  s_edge[1][l] = p.o + (j0 + sp) * p.e;  // H(-1, j0 + Sp - 1)
-  __syncthreads();
-
-  int best = kNeg;
-  for (int i = 0; i < m_real; ++i) {
-    const int bound_prev = i == 0 ? 0 : p.o + i * p.e;  // H(i-1, -1)
-    const int bound_cur = p.o + (i + 1) * p.e;          // H(i, -1)
-    const int bi = b[i];
-    const int hd0 = l == 0 ? bound_prev : s_edge[(i + 1) & 1][l - 1];
-
-    // pass 1: the stripe's max of C(j) - j*e
-    int agg = kNeg;
-    int hd = hd0;
-    for (int u = 0; u < nu; ++u) {
-      const int hp = H[u * kLanes];
-      const int ev = max(E[u * kLanes] + p.e, hp + oe);
-      const int diag = hd + (__ldg(a + u * kLanes) == bi ? p.m : p.x);
-      agg = max(agg, max(diag, ev) - (j0 + u) * p.e);
-      hd = hp;
-    }
-    int run = tsta::block_excl_max<kLanes>(agg, bound_cur + p.e, s_warp);
-
-    // pass 2: F, H, E down the stripe
-    hd = hd0;
-    int hl = 0;  // H(i, j0 + nu - 1)
-    for (int u = 0; u < nu; ++u) {
-      const int j = j0 + u;
-      const int hp = H[u * kLanes];
-      const int ev = max(E[u * kLanes] + p.e, hp + oe);
-      const int diag = hd + (__ldg(a + u * kLanes) == bi ? p.m : p.x);
-      const int c = max(diag, ev);
-      const int h = max(c, p.o + j * p.e + run);
-      run = max(run, c - j * p.e);
-      H[u * kLanes] = h;
-      E[u * kLanes] = ev;
-      best = max(best, h);
-      if (i == m_real - 1 && j == n_real - 1) corner[pair] = h;
-      hd = hp;
-      hl = h;
-    }
-    s_edge[i & 1][l] = hl;
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) best = max(best, __shfl_xor_sync(kFull, best, d));
-  if ((l & 31) == 0) s_warp[l >> 5] = best;
-  __syncthreads();
-  if (l == 0) {
-    int r = kNeg;
-    for (int w = 0; w < kWarps; ++w) r = max(r, s_warp[w]);
-    score[pair] = r;
-  }
+template <bool kGlobal>
+__global__ void __launch_bounds__(kThreads)
+psa_dp_striped_kernel(const Score k) {
+  score_body<kGlobal, Striped>(k);
 }
 
 }  // namespace
 
-// a_tile: (B, sp, 128) uint8, column j of a pair at [j % sp][j / sp]; b:
-// (B, m_stride) uint8; lens: (B, 2) int32 real (n, m), n <= sp * 128 and
-// m <= m_stride; score, corner: (B,) int32; scratch: (B, 2 * sp * 128)
-// int32.  Returns cudaGetLastError() after the launch.
+// The most shards of C columns and T-row packets the current card holds
+// resident at once; a negative value is minus a CUDA error.
+extern "C" int tsta_psa_dp_striped_max_blocks(int C, int T) {
+  return max_blocks(psa_dp_striped_kernel<false>,
+                    psa_dp_striped_kernel<true>, C, T);
+}
+
+// a_tile: (P, sp, 128) uint8, column j of a pair at [j % sp][j / sp]; b:
+// (P, m_stride) uint8; lens: (P, 2) int32 real (n, m), n <= sp * 128 and m
+// <= m_stride; D shards of C columns ((D-1)*C < sp * 128 <= D*C), T rows
+// per packet; comm: (P, D, ceil(m_stride / T), 2T) int32 and flags: (P, D,
+// ceil(m_stride / T)) int32, zero, both null at D = 1; out: (P, D, 2)
+// int32, each shard's best and corner; scratch: (P, D,
+// tsta_psa_dp_scratch_words(C, T)) int32 or null (psa_dp.cu's: the one
+// body's).  D = 1 is an ordinary launch of P blocks; D >= 2 a cooperative
+// launch of P * D.
+// Returns cudaGetLastError() after the launch, or
+// cudaErrorCooperativeLaunchTooLarge without launching when P * D >= 2
+// blocks cannot be resident together.
 extern "C" int tsta_psa_dp_striped(const void* a_tile, const void* b,
-                                   const void* lens, int B, int sp,
+                                   const void* lens, int P, int sp,
                                    int m_stride, int M, int X, int E, int O,
-                                   void* score, void* corner, void* scratch,
+                                   int D, int C, int T, void* comm,
+                                   void* flags, void* out, void* scratch,
                                    void* stream) {
-  const Params p{M, X, E, O};
-  psa_dp_striped_kernel<<<B, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(a_tile), static_cast<const uint8_t*>(b),
-      static_cast<const int32_t*>(lens), sp, m_stride, p,
-      static_cast<int32_t*>(score), static_cast<int32_t*>(corner),
-      static_cast<int32_t*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  if (sp < 1) return (int)cudaErrorInvalidValue;
+  return launch(psa_dp_striped_kernel<false>, psa_dp_striped_kernel<true>,
+                a_tile, b, lens, P, sp * kLanes, m_stride, M, X, E, O, 0, D,
+                C, T, comm, flags, out, scratch, stream);
 }

@@ -31,7 +31,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _SOURCES = ("psa_dp.cu", "psa_dp_traced.cu", "psa_dp_short.cu",
             "psa_dp_diff.cu", "psa_dp_striped.cu", "psa_walk.cu",
             "psa_walk_pair2.cu", "psa_walk_bounded.cu", "poa_dp.cu",
-            "poa_walk.cu", "poa_walk_bounded.cu")
+            "poa_walk.cu", "poa_walk_bounded.cu", "dtype_max_probe.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -44,15 +44,16 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # launches of the one traced body that does the same; psa_dp_short is
 # the score-only DP of short pairs, a lane wavefront, one warp a pair;
 # psa_dp_diff is the score-only DP by the difference method (int16
-# offsets, Q2-9) and
-# psa_dp_striped the one of the striped layout (Q2-11); K3 is the PSA walk,
+# offsets, Q2-9) and psa_dp_striped the one of the striped layout (Q2-11),
+# each on K1's schedule of P * D co-resident column shards; K3 is the PSA walk,
 # psa_walk_pair2 the walk of two pairs per thread (Q2-12) and
 # psa_walk_bounded the walk inside one such chunk; poa_dp and
 # poa_walk are the MSA round DP (its columns sharded over co-resident
 # blocks) and its walk on a single-call round; poa_dp_chunk and
 # poa_dp_window are the POA DP kernel's forward chunk and window remat in
 # a chunked round, and poa_walk_bounded its walk inside one
-# (chunk, window) cell.
+# (chunk, window) cell.  (dtype_max_probe.cu, the narrow-dtype max probe of
+# Q2-17d, is on no path: tools/dtype_max_probe.py launches and counts it.)
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
@@ -190,15 +191,20 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_short_layout.argtypes = [ci, ci,
                                                      ctypes.POINTER(ci)]
             lib.tsta_psa_dp_diff.restype = ci
-            lib.tsta_psa_dp_diff.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 3 + [
-                ci, vp]
+            lib.tsta_psa_dp_diff.argtypes = [vp] * 3 + [ci] * 12 + [vp] * 5
             lib.tsta_psa_dp_diff_scratch_words.restype = ci
-            lib.tsta_psa_dp_diff_scratch_words.argtypes = [ci]
-            lib.tsta_psa_dp_diff_layout.restype = None
-            lib.tsta_psa_dp_diff_layout.argtypes = [ci] + [
-                ctypes.POINTER(ci)] * 2
+            lib.tsta_psa_dp_diff_scratch_words.argtypes = [ci] * 3
+            lib.tsta_psa_dp_diff_max_blocks.restype = ci
+            lib.tsta_psa_dp_diff_max_blocks.argtypes = [ci] * 3
+            lib.tsta_psa_dp_diff_plan.restype = None
+            lib.tsta_psa_dp_diff_plan.argtypes = [ci] * 3 + [
+                ctypes.POINTER(ci)] * 5
             lib.tsta_psa_dp_striped.restype = ci
-            lib.tsta_psa_dp_striped.argtypes = [vp] * 3 + [ci] * 7 + [vp] * 4
+            lib.tsta_psa_dp_striped.argtypes = [vp] * 3 + [ci] * 10 + [vp] * 5
+            lib.tsta_psa_dp_striped_max_blocks.restype = ci
+            lib.tsta_psa_dp_striped_max_blocks.argtypes = [ci, ci]
+            lib.tsta_dtype_max_probe.restype = ci
+            lib.tsta_dtype_max_probe.argtypes = [vp] * 3 + [ci] * 4 + [vp]
             lib.tsta_psa_walk_bounded.restype = ci
             lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 7 + [
                 vp, vp, ci, vp]
@@ -270,42 +276,136 @@ def psa_dp_max_blocks(C: int, T: int, dev) -> int:
     return limit
 
 
-def _score_launch(what, a, b, lens, params, full, D, C, T, comm, out):
-    """One launch of the score-only body over P pairs (``a``: (P, n_pad),
-    ``b``: (P, m_stride), ``lens``: (P, 2)) at D shards of C columns and
-    T-row packets, writing ``out`` ((P, D, 2) int32, each shard's best and
-    corner) and, when given, ``comm`` ((P, D, ceil(m_stride / T), 2T)
-    int32, every packet): the flags and the scratch allocated here, D = 1
-    an ordinary launch, D >= 2 a cooperative one; ``full`` runs every
-    padded cell (the ring), else each pair's real extent (K1).  A refused
-    launch raises :class:`KernelError`."""
-    dev = a.device
-    P, n_pad = a.shape
-    m_stride = b.shape[1]
-    lib = _lib()
+def psa_dp_striped_max_blocks(C: int, T: int, dev) -> int:
+    """The most striped-layout DP blocks (shards of C columns, T-row
+    packets) the card ``dev`` holds resident at once."""
+    with torch.cuda.device(dev):
+        limit = _lib().tsta_psa_dp_striped_max_blocks(C, T)
+    if limit < 0:
+        _raise_on(-limit, "psa_dp_striped occupancy query")
+    return limit
+
+
+def _launch_shards(what, dev, P, D, comm, out, scratch_words, call, limit,
+                   at) -> None:
+    """One launch of a sharded score-only body (K1's, the ring's, the
+    striped DP's or the difference method's) over P pairs of D shards,
+    writing ``out`` ((P, D, 2) int32) and, when given, ``comm`` ((P, D,
+    row blocks, 2T) int32 packets): the flags (zero, one a packet slot)
+    and ``scratch_words`` 32-bit words of scratch a shard are allocated
+    here, and ``call(comm, flags, out, scratch, stream)`` (pointers, None
+    where absent) calls the C entry point and returns its code.  A
+    cooperative launch the card cannot hold raises :class:`KernelError`
+    with ``limit()``, the most blocks it holds at ``at``; any other error
+    code raises too."""
     flags = None
     if comm is not None:
         flags = torch.zeros(comm.shape[:3], dtype=torch.int32, device=dev)
-    sw = lib.tsta_psa_dp_scratch_words(C, T)
-    scratch = (torch.empty((P, D, sw), dtype=torch.int32, device=dev) if sw
-               else None)
-    m_, x_, e_, o_ = params
+    scratch = (torch.empty((P, D, scratch_words), dtype=torch.int32,
+                           device=dev) if scratch_words else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
-        rc = lib.tsta_psa_dp(
-            a.data_ptr(), b.data_ptr(), lens.data_ptr(), P, n_pad, m_stride,
-            m_, x_, e_, o_, int(full), D, C, T, ptr(comm), ptr(flags),
-            out.data_ptr(), ptr(scratch), _stream(dev))
+        rc = call(ptr(comm), ptr(flags), out.data_ptr(), ptr(scratch),
+                  _stream(dev))
     if rc == COOP_TOO_LARGE:
         raise KernelError(
             "%s: %d pairs of %d shards need %d co-resident blocks, but %s "
-            "holds at most %d at C = %d columns, T = %d rows (cooperative "
-            "launch)" % (what, P, D, P * D, torch.cuda.get_device_name(dev),
-                         psa_dp_max_blocks(C, T, dev), C, T))
+            "holds at most %d at %s (cooperative launch)"
+            % (what, P, D, P * D, torch.cuda.get_device_name(dev), limit(),
+               at))
     _raise_on(rc, what)
+
+
+def _score_entry(a, b, lens, params, full, D, C, T, striped=False) -> tuple:
+    """The score-only body's C entry point over P pairs (``a``: (P,
+    n_pad), ``tsta_psa_dp``, or with ``striped`` (P, Sp, 128) tiles, n_pad
+    = Sp * 128, ``tsta_psa_dp_striped``; ``b``: (P, m_stride), ``lens``:
+    (P, 2)) at D shards of C columns and T-row packets, as
+    :func:`_launch_shards` takes it: (scratch words, call, limit, at).
+    ``full`` runs every padded cell (the ring), else each pair's real
+    extent (K1, the striped DP)."""
+    dev = a.device
+    P = a.shape[0]
+    n_pad = a[0].numel()
+    m_stride = b.shape[1]
+    lib = _lib()
+    m_, x_, e_, o_ = params
+
+    def call(comm, flags, out, scratch, stream):
+        if striped:
+            return lib.tsta_psa_dp_striped(
+                a.data_ptr(), b.data_ptr(), lens.data_ptr(), P, n_pad // 128,
+                m_stride, m_, x_, e_, o_, D, C, T, comm, flags, out, scratch,
+                stream)
+        return lib.tsta_psa_dp(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), P, n_pad, m_stride,
+            m_, x_, e_, o_, int(full), D, C, T, comm, flags, out, scratch,
+            stream)
+
+    def limit():
+        return (psa_dp_striped_max_blocks if striped
+                else psa_dp_max_blocks)(C, T, dev)
+
+    return (lib.tsta_psa_dp_scratch_words(C, T), call, limit,
+            "C = %d columns, T = %d rows" % (C, T))
+
+
+def _check_pairs(what, a, b, lens, score, corner, a_shape):
+    """The checks every score-only wrapper makes: CUDA tensors, ``a`` of
+    ``a_shape``, b (B, m_stride), lens (B, 2), score/corner (B,)."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("%s kernel needs CUDA tensors, got %s" % (what, dev))
+    B = a_shape[0]
+    m_stride = b.shape[1]
+    _check(a, "a", torch.uint8, a_shape, dev)
+    _check(b, "b", torch.uint8, (B, m_stride), dev)
+    _check(lens, "lens", torch.int32, (B, 2), dev)
+    _check(score, "score", torch.int32, (B,), dev)
+    _check(corner, "corner", torch.int32, (B,), dev)
+    if B < 1 or min(a_shape) < 1 or m_stride < 1:
+        raise ValueError("%s: %d pairs of %s x m_stride %d"
+                         % (what, B, a_shape[1:], m_stride))
+
+
+def _score_shards(what, P, n_pad, dev, D, T) -> tuple:
+    """(D, C, T) of a score-only launch (K1's or the striped DP's) over P
+    pairs of n_pad columns: the plan (:func:`psa_dp_layout`), or at a
+    forced ``D`` C = n_pad / D rounded up, which must give D shards, and
+    a forced ``T``."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_d, C, _, plan_t = psa_dp_layout(P, n_pad, sms)
+    if D is None:
+        D = plan_d
+    else:
+        C = -(-n_pad // max(D, 1))
+        if D < 1 or -(-n_pad // C) != D:
+            raise ValueError("%s: %d columns do not make %d shards"
+                             % (what, n_pad, D))
+    T = plan_t if T is None else T
+    if T < 1:
+        raise ValueError("%s: T %d rows a packet" % (what, T))
+    return D, C, T
+
+
+def _score_pairs(what, a, b, score, corner, D, T, entry) -> None:
+    """A launch over P pairs of a sharded score-only body at D shards and
+    T-row packets, each pair over its real extent, ``entry`` its C entry
+    point as :func:`_launch_shards` takes it: the packets (D >= 2) and the
+    shards' (best, corner) allocated here, the latter reduced by a max
+    into ``score``/``corner``."""
+    B, m_stride = b.shape
+    comm = None
+    if D >= 2:
+        comm = torch.empty((B, D, -(-m_stride // T), 2 * T),
+                           dtype=torch.int32, device=a.device)
+    out = torch.empty((B, D, 2), dtype=torch.int32, device=a.device)
+    _launch_shards(what, a.device, B, D, comm, out, *entry)
+    torch.amax(out[:, :, 0], 1, out=score)
+    torch.amax(out[:, :, 1], 1, out=corner)
 
 
 def psa_dp(a, b, lens, params, score, corner, *, D=None, T=None) -> tuple:
@@ -322,39 +422,10 @@ def psa_dp(a, b, lens, params, score, corner, *, D=None, T=None) -> tuple:
     card's co-resident limit.  The shards' (best, corner) are reduced by a
     max after the launch.  Returns the (D, C, T) it ran.  The traced DP is
     :func:`psa_dp_traced`."""
-    dev = a.device
-    if dev.type != "cuda":
-        raise ValueError("psa_dp kernel needs CUDA tensors, got %s" % dev)
-    B, n_stride = a.shape
-    m_stride = b.shape[1]
-    _check(a, "a", torch.uint8, (B, n_stride), dev)
-    _check(b, "b", torch.uint8, (B, m_stride), dev)
-    _check(lens, "lens", torch.int32, (B, 2), dev)
-    _check(score, "score", torch.int32, (B,), dev)
-    _check(corner, "corner", torch.int32, (B,), dev)
-    if B < 1 or n_stride < 1 or m_stride < 1:
-        raise ValueError("psa_dp: %d pairs of n_stride %d x m_stride %d"
-                         % (B, n_stride, m_stride))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan_d, C, _, plan_t = psa_dp_layout(B, n_stride, sms)
-    if D is None:
-        D = plan_d
-    else:
-        C = -(-n_stride // max(D, 1))
-        if D < 1 or -(-n_stride // C) != D:
-            raise ValueError("psa_dp: %d columns do not make %d shards"
-                             % (n_stride, D))
-    T = plan_t if T is None else T
-    if T < 1:
-        raise ValueError("psa_dp: T %d rows a packet" % T)
-    comm = None
-    if D >= 2:
-        comm = torch.empty((B, D, -(-m_stride // T), 2 * T),
-                           dtype=torch.int32, device=dev)
-    out = torch.empty((B, D, 2), dtype=torch.int32, device=dev)
-    _score_launch("psa_dp", a, b, lens, params, False, D, C, T, comm, out)
-    torch.amax(out[:, :, 0], 1, out=score)
-    torch.amax(out[:, :, 1], 1, out=corner)
+    _check_pairs("psa_dp", a, b, lens, score, corner, tuple(a.shape))
+    D, C, T = _score_shards("psa_dp", a.shape[0], a.shape[1], a.device, D, T)
+    _score_pairs("psa_dp", a, b, score, corner, D, T,
+                 _score_entry(a, b, lens, params, False, D, C, T))
     launches["psa_dp_score"] += 1
     return D, C, T
 
@@ -428,75 +499,101 @@ def psa_dp_short(a, b, lens, params, score, corner, *, W=None,
     return layout
 
 
-def psa_dp_diff(a, b, lens, params, score, corner) -> None:
-    """Launch the difference-method DP (one block per pair, H/E as int16
-    offsets from per-segment int32 anchors) over B pairs, each over its
-    real extent: ``a``: (B, n_stride) uint8, n_stride a multiple of 4,
-    ``b``: (B, m_stride) uint8, ``lens``: (B, 2) int32 real (n, m);
-    ``score``/``corner``: (B,) int32 outputs.  ``params`` must pass
-    ``psa_diff.supports_params_int16`` (D <= 57); the C side refuses the
-    rest without launching."""
+def psa_dp_diff_plan(P: int, n_pad: int, sms: int) -> tuple:
+    """(D, C, W, G, T): the shards, columns a shard, columns a thread,
+    columns a segment and rows a packet ``psa_dp_diff.cu`` plans for P
+    pairs of ``n_pad`` columns on a card of ``sms`` SMs, read from the
+    built library (``psa_diff.diff_plan`` is its twin)."""
+    out = [ctypes.c_int() for _ in range(5)]
+    _lib().tsta_psa_dp_diff_plan(P, n_pad, sms, *map(ctypes.byref, out))
+    return tuple(v.value for v in out)
+
+
+def psa_dp_diff_max_blocks(W: int, G: int, T: int, dev) -> int:
+    """The most difference-method DP blocks (W columns a thread in segments
+    of G, T-row packets) the card ``dev`` holds resident at once."""
+    with torch.cuda.device(dev):
+        limit = _lib().tsta_psa_dp_diff_max_blocks(W, G, T)
+    if limit < 0:
+        _raise_on(-limit, "psa_dp_diff occupancy query")
+    return limit
+
+
+def psa_dp_diff(a, b, lens, params, score, corner, *, D=None,
+                T=None) -> tuple:
+    """Launch the difference-method DP (H/E as int16 offsets from
+    per-segment int32 anchors) over B pairs, each over its real extent:
+    ``a``: (B, n_stride) uint8, n_stride a multiple of 4, ``b``: (B,
+    m_stride) uint8, ``lens``: (B, 2) int32 real (n, m);
+    ``score``/``corner``: (B,) int32 outputs.  Each pair's columns are cut
+    into D shards of C columns, one co-resident block each, W columns a
+    thread in segments of G, T rows a packet: the kernel's plan for B
+    pairs on this card (:func:`psa_dp_diff_plan`); ``D``
+    (``psa_diff.diff_shards``: C whole segments, which must give D shards)
+    and ``T`` override it, for tests and sweeps.  D = 1 launches B blocks,
+    any B; D >= 2 is a cooperative launch of B * D blocks, which raises
+    :class:`KernelError`, without launching, past the card's co-resident
+    limit.  ``params`` must pass ``psa_diff.supports_params_int16`` (D <=
+    57); the C side refuses the rest without launching.  Returns the (D,
+    C, W, G, T) it ran."""
+    from tsta_tpu_torch.ops.psa_diff import diff_shards
+    _check_pairs("psa_dp_diff", a, b, lens, score, corner, tuple(a.shape))
     dev = a.device
-    if dev.type != "cuda":
-        raise ValueError("psa_dp_diff kernel needs CUDA tensors, got %s" % dev)
     B, n_stride = a.shape
     m_stride = b.shape[1]
-    _check(a, "a", torch.uint8, (B, n_stride), dev)
-    _check(b, "b", torch.uint8, (B, m_stride), dev)
-    _check(lens, "lens", torch.int32, (B, 2), dev)
-    _check(score, "score", torch.int32, (B,), dev)
-    _check(corner, "corner", torch.int32, (B,), dev)
     if n_stride % 4 or a.data_ptr() % 4:
         raise ValueError("psa_dp_diff reads a in 4-byte words: n_stride %d"
                          % n_stride)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = psa_dp_diff_plan(B, n_stride, sms)
+    if D is None:
+        D, C, W, G, _ = plan
+    else:
+        C, W, G = diff_shards(n_stride, D)
+    T = plan[4] if T is None else T
+    if T < 1:
+        raise ValueError("psa_dp_diff: T %d rows a packet" % T)
     lib = _lib()
-    sw = lib.tsta_psa_dp_diff_scratch_words(n_stride)
-    scratch = torch.empty((B, sw), dtype=torch.int32, device=dev)
-    m_, x_, e_, o_ = params
-    rc = lib.tsta_psa_dp_diff(a.data_ptr(), b.data_ptr(), lens.data_ptr(), B,
-                              n_stride, m_stride, m_, x_, e_, o_,
-                              score.data_ptr(), corner.data_ptr(),
-                              scratch.data_ptr(), sw, _stream(dev))
-    _raise_on(rc, "psa_dp_diff")
+
+    def call(comm, flags, out, scratch, stream):
+        return lib.tsta_psa_dp_diff(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), B, n_stride,
+            m_stride, *params, D, C, W, G, T, comm, flags, out, scratch,
+            stream)
+
+    _score_pairs("psa_dp_diff", a, b, score, corner, D, T, (
+        lib.tsta_psa_dp_diff_scratch_words(W, G, T), call,
+        lambda: psa_dp_diff_max_blocks(W, G, T, dev),
+        "W = %d columns a thread, G = %d, T = %d rows" % (W, G, T)))
     launches["psa_dp_diff"] += 1
+    return D, C, W, G, T
 
 
-def psa_dp_diff_layout(n: int) -> tuple:
-    """(W, G): the strip and segment widths ``psa_dp_diff.cu`` takes for a
-    pair of ``n`` columns, read from the built library."""
-    w, g = ctypes.c_int(), ctypes.c_int()
-    _lib().tsta_psa_dp_diff_layout(n, ctypes.byref(w), ctypes.byref(g))
-    return w.value, g.value
-
-
-def psa_dp_striped(a_tile, b, lens, params, score, corner) -> None:
-    """Launch the striped-layout DP (one block of 128 threads per pair,
-    thread l on the columns [l*Sp, (l+1)*Sp)) over B pairs, each over its
-    real extent: ``a_tile``: (B, Sp, 128) uint8, column j of a pair at
-    [j % Sp, j // Sp]; ``b``: (B, m_stride) uint8; ``lens``: (B, 2) int32
-    real (n, m); ``score``/``corner``: (B,) int32 outputs."""
-    dev = a_tile.device
-    if dev.type != "cuda":
-        raise ValueError("psa_dp_striped kernel needs CUDA tensors, got %s"
-                         % dev)
+def psa_dp_striped(a_tile, b, lens, params, score, corner, *, D=None,
+                   T=None) -> tuple:
+    """Launch the striped-layout DP over B pairs, each over its real
+    extent: ``a_tile``: (B, Sp, 128) uint8, column j of a pair at [j % Sp,
+    j // Sp]; ``b``: (B, m_stride) uint8; ``lens``: (B, 2) int32 real (n,
+    m); ``score``/``corner``: (B,) int32 outputs.  K1's schedule on the
+    tile, which the kernel reads itself: each pair's n_pad = Sp * 128
+    columns in D shards of C columns, T rows a packet, K1's plan
+    (:func:`psa_dp_layout`) or a forced ``D`` and ``T`` as
+    :func:`psa_dp` takes them; D >= 2 past the card's co-resident limit
+    raises :class:`KernelError` without launching.  Returns the (D, C, T)
+    it ran."""
     if a_tile.dim() != 3 or a_tile.shape[2] != 128 or a_tile.shape[1] < 1:
         raise ValueError("a_tile must be (B, Sp, 128), got %s"
                          % (tuple(a_tile.shape),))
+    _check_pairs("psa_dp_striped", a_tile, b, lens, score, corner,
+                 tuple(a_tile.shape))
     B, sp = a_tile.shape[:2]
-    m_stride = b.shape[1]
-    _check(a_tile, "a_tile", torch.uint8, (B, sp, 128), dev)
-    _check(b, "b", torch.uint8, (B, m_stride), dev)
-    _check(lens, "lens", torch.int32, (B, 2), dev)
-    _check(score, "score", torch.int32, (B,), dev)
-    _check(corner, "corner", torch.int32, (B,), dev)
-    scratch = torch.empty((B, 2 * sp * 128), dtype=torch.int32, device=dev)
-    m_, x_, e_, o_ = params
-    rc = _lib().tsta_psa_dp_striped(
-        a_tile.data_ptr(), b.data_ptr(), lens.data_ptr(), B, sp, m_stride,
-        m_, x_, e_, o_, score.data_ptr(), corner.data_ptr(),
-        scratch.data_ptr(), _stream(dev))
-    _raise_on(rc, "psa_dp_striped")
+    D, C, T = _score_shards("psa_dp_striped", B, sp * 128, a_tile.device,
+                            D, T)
+    _score_pairs("psa_dp_striped", a_tile, b, score, corner, D, T,
+                 _score_entry(a_tile, b, lens, params, False, D, C, T,
+                              striped=True))
     launches["psa_dp_striped"] += 1
+    return D, C, T
 
 
 def _check_walk(plane, nm, words, counts, what: str):
@@ -1103,6 +1200,8 @@ def psa_ring(a, b, D, T, n_real, m_real, params, comm, out) -> None:
         raise ValueError("psa_ring: real lengths (%d, %d) outside (%d, %d)"
                          % (n_real, m_real, n, m))
     lens = torch.tensor([[n_real, m_real]], dtype=torch.int32, device=dev)
-    _score_launch("psa_ring", a.view(1, n), b.view(1, m), lens, params, True,
-                  D, C, T, comm.view(1, D, mb, 2 * T), out.view(1, D, 2))
+    _launch_shards("psa_ring", dev, 1, D, comm.view(1, D, mb, 2 * T),
+                   out.view(1, D, 2),
+                   *_score_entry(a.view(1, n), b.view(1, m), lens, params,
+                                 True, D, C, T))
     launches["psa_ring"] += 1

@@ -26,19 +26,22 @@ routers, call it behind theirs.
 
 ``use_int16=True``, or ``TSTA_DIFF_INT16`` set to any non-empty value,
 sends a score-only batch to the difference method (JAX's ``_diff_kernel``):
-:func:`run_dp_int16`, whose kernel ``csrc/psa_dp_diff.cu`` holds the
-frontier as int16 offsets from per-segment int32 anchors, with the plain
-version :func:`scan_rows_int16`.  It is exact, and so gives the int32
-route's numbers, for the parameters of :func:`supports_params_int16`
-(D <= 57); the switch raises ValueError outside them, as JAX's does.
+:func:`run_dp_int16`, whose kernel ``csrc/psa_dp_diff.cu`` runs K1's
+schedule of column shards (:func:`diff_plan`) with each shard's frontier
+as int16 offsets from per-segment int32 anchors, with the plain version
+:func:`scan_rows_int16` and the shards' replay :func:`dp_int16_shards`.
+It is exact, and so gives the int32 route's numbers, for the parameters
+of :func:`supports_params_int16` (D <= 57); the switch raises ValueError
+outside them, as JAX's does.
 The default stays int32, as in the JAX package.
 
 ``layout="striped"``, or ``TSTA_PSA_LAYOUT=striped``, sends a score-only
 batch to the striped layout (JAX's ``_striped_kernel``): each pair's
 columns as an (Sp, 128) tile, column j at ``[j % Sp, j // Sp]``
 (:func:`pack_pairs_striped`), run by :func:`run_dp_striped`, whose kernel
-``csrc/psa_dp_striped.cu`` gives lane l the stripe [l*Sp, (l+1)*Sp), with
-the plain version :func:`scan_rows_striped`.  Every other layout
+``csrc/psa_dp_striped.cu`` runs K1's schedule (:func:`score_plan`) on the
+tile, which it reads itself (:func:`striped_slab` is its reader's twin),
+with the plain version :func:`scan_rows_striped`.  Every other layout
 (``packed``, ``packed2``) is K1's function and takes K1, as JAX's
 ``_psa_diff_call`` sends every non-striped layout to ``_abs_kernel``.
 """
@@ -60,7 +63,9 @@ LANES = 128
 T_R = 256               # row padding quantum (the JAX kernel's rows/step)
 K_REANCHOR = 16         # rows between the int16 anchors' re-bases (JAX's)
 SEG_MAX = 128           # widest segment one int32 anchor carries
-DIFF_THREADS = 256      # csrc/psa_dp_diff.cu's block: one strip per thread
+# csrc/psa_dp_diff.cu's plan: threads a block (one strip each), the fewest
+# columns a thread (a 4-byte word of a)
+DIFF_THREADS, DIFF_MIN_W = 256, 4
 # csrc/psa_dp_traced.cu's plan: threads per block (one shard each), rows
 # per packet, and the fewest columns per thread of a shard
 TRACED_THREADS, TRACED_T, TRACED_MIN_W = 256, 32, 4
@@ -90,18 +95,6 @@ def supports_params_int16(params) -> bool:
     kept so that both packages take the same parameter sets."""
     p = as_params(params)
     return supports_params(p) and _delta_bound(p) <= 57
-
-
-def diff_layout(n: int) -> tuple:
-    """(W, G): ``csrc/psa_dp_diff.cu``'s strip width per thread and segment
-    width for a pair of ``n`` real columns: W = ceil(n / 256) rounded up to
-    4 (K1's strip), then cut into W / G segments of G <= SEG_MAX columns,
-    G a multiple of 4, so the segments form one grid of width G."""
-    w = -(-n // DIFF_THREADS)
-    w = (w + 3) & ~3
-    nseg = -(-w // SEG_MAX)
-    g = (-(-w // nseg) + 3) & ~3
-    return nseg * g, g
 
 
 def traced_plan(P: int, n_pad: int, sms: int, min_w: int = TRACED_MIN_W,
@@ -149,6 +142,54 @@ def score_plan(P: int, n_pad: int, sms: int, min_w: int = SCORE_MIN_W,
         per_sm = 2 if SCORE_SPLIT_W <= w1 <= SCORE_SPLIT_MAX_W else 1
     C = min(width(per_sm) * SCORE_THREADS, n_pad)
     return -(-n_pad // C), C, -(-C // SCORE_THREADS), SCORE_T
+
+
+def diff_segments(w: int) -> tuple:
+    """(W, G): a strip of at least ``w`` columns a thread cut into equal
+    segments of G <= SEG_MAX columns: w rounded up to 4, nseg =
+    ceil(w / SEG_MAX) segments of G = ceil(w / nseg) rounded up to 4, W =
+    nseg * G (``csrc/psa_dp_diff.cu``'s rule)."""
+    w = (w + 3) & ~3
+    nseg = -(-w // SEG_MAX)
+    g = (-(-w // nseg) + 3) & ~3
+    return nseg * g, g
+
+
+def diff_cut(n_pad: int, D: int) -> tuple:
+    """(C, W, G): ``n_pad`` columns cut into at most D shards for
+    ``csrc/psa_dp_diff.cu`` (its ``cut``): the strip of ceil(n_pad / D)
+    columns over DIFF_THREADS threads, at least DIFF_MIN_W, segments by
+    :func:`diff_segments`, C = ceil(n_pad / D) rounded up to whole
+    segments (n_pad when that is less)."""
+    span = -(-n_pad // max(D, 1))
+    W, G = diff_segments(max(DIFF_MIN_W, -(-span // DIFF_THREADS)))
+    return min(-(-span // G) * G, n_pad), W, G
+
+
+def diff_plan(P: int, n_pad: int, sms: int, min_w: int = SCORE_MIN_W,
+              per_sm=None) -> tuple:
+    """(D, C, W, G, T): how ``csrc/psa_dp_diff.cu`` cuts each of P pairs of
+    ``n_pad`` columns on a card of ``sms`` SMs (its
+    ``tsta_psa_dp_diff_plan``): K1's shards (:func:`score_plan`'s D, with
+    ``min_w`` and ``per_sm`` as it takes them), cut by :func:`diff_cut`
+    into W columns a thread in segments of G, C columns a shard; D =
+    ceil(n_pad / C), T = SCORE_T.  C is whole segments, so the segments
+    form one grid of width G from column 0 and :func:`scan_rows_int16` at
+    G is the plain version of the launch.  ``min_w`` and ``per_sm`` give
+    the smoke's sweep its other plans; the kernel's are the defaults."""
+    C, W, G = diff_cut(n_pad, score_plan(P, n_pad, sms, min_w, per_sm)[0])
+    return -(-n_pad // C), C, W, G, SCORE_T
+
+
+def diff_shards(n_pad: int, D: int) -> tuple:
+    """(C, W, G) of a difference-method launch forced to D shards of
+    ``n_pad`` columns (:func:`diff_cut`); ValueError when those do not
+    make D shards."""
+    C, W, G = diff_cut(n_pad, D)
+    if D < 1 or -(-n_pad // C) != D:
+        raise ValueError("psa_dp_diff: %d columns do not make %d shards of "
+                         "whole %d-column segments" % (n_pad, D, G))
+    return C, W, G
 
 
 def _traced_n_pad(n_max: int) -> int:
@@ -218,13 +259,14 @@ def run_dp(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor, params,
 
 @torch.no_grad()
 def scan_rows_int16(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
-                    m_real: torch.Tensor, params, seg: int):
+                    m_real: torch.Tensor, params, seg: int, col0: int = 0,
+                    left=None, right=None):
     """The difference method's plain version: :func:`psa_scan.scan_rows`'s
     score-only DP with the H/E frontier as int16 offsets, in the kernel's
     design.
 
     Columns fall into segments of ``seg`` columns from column 0 (the
-    kernel's segment width, :func:`diff_layout`), each with an int32
+    kernel's segment width G, :func:`diff_plan`), each with an int32
     anchor, H(-1, start) at first; after every K_REANCHOR-th row each
     anchor moves to its segment's first H of that row.  The cell
     arithmetic runs on torch.int16 tensors, whose additions wrap, so an
@@ -236,6 +278,18 @@ def scan_rows_int16(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     scan_rows; ``n_real``/``m_real``: (B,) real lengths.  Returns (best,
     corner) as (B,) int32, scan_rows' numbers for the parameters of
     :func:`supports_params_int16`.
+
+    A column shard, as ``csrc/psa_dp_diff.cu`` cuts a row: ``a`` holds
+    the global columns ``col0 .. col0 + n - 1``, col0 a multiple of
+    ``seg``; the corner is the pair's only where they hold column
+    n_real-1; ``left`` ((B, m, 2) int32, default the matrix's left
+    boundary) gives for each row i the kernel's packet, H(i-1, col0-1) and
+    the inclusive F prefix max(H(i,-1) + e, max_{k<col0} (C(k) - k*e)),
+    which enter the shard's first segment as every segment's left
+    neighbour and carry do; ``right``, a (B, m, 2) int32 tensor, receives
+    the packet at the shard's last column as the kernel's thread forms it:
+    H(i-1) there from its offset and anchor, and the running max R of the
+    last segment, in int16, plus its beta.
     """
     if a.device.type == "cuda":
         psa_scan.plain_calls += 1
@@ -248,6 +302,8 @@ def scan_rows_int16(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     m = b.shape[1]
     ns = -(-n // seg)
     if ns * seg > n:   # whole segments: the extra columns are padding too
+        if right is not None:
+            raise ValueError("a shard that sends packets is whole segments")
         a = torch.cat([a, torch.full((B, ns * seg - n), A_PAD,
                                      dtype=a.dtype, device=dev)], 1)
     a3 = a.view(B, ns, seg).to(i32)
@@ -255,40 +311,50 @@ def scan_rows_int16(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
     lane = torch.arange(seg, dtype=i32, device=dev)
     le = (lane * e_).to(i16)                     # l*e
     ole = (o_ + lane * e_).to(i16)               # o + l*e
-    start_e = torch.arange(ns, dtype=i32, device=dev) * seg * e_
+    start_e = (col0 + torch.arange(ns, dtype=i32, device=dev) * seg) * e_
     alpha = (o_ + e_ + start_e).expand(B, ns).contiguous()
     h = le.expand(B, ns, seg).contiguous()
     ev = torch.full((B, ns, seg), guard, dtype=i16, device=dev)
     neg = torch.full((B, ns, 1), guard, dtype=i16, device=dev)
     best = torch.full((B,), NEG, dtype=i32, device=dev)
     corner = torch.full((B,), NEG, dtype=i32, device=dev)
-    cn = n_real.to(device=dev, dtype=torch.int64) - 1
-    cseg = (cn // seg).view(B, 1)
+    cn = n_real.to(device=dev, dtype=torch.int64) - 1 - col0
     mrow = m_real.to(device=dev, dtype=torch.int64) - 1
-    corner_rows = set(mrow.tolist())
+    # a pair whose corner column lies outside the shard never takes it
+    mrow = torch.where((cn >= 0) & (cn < n), mrow, -1)
+    cn = cn.clamp(0, n - 1)
+    cseg = (cn // seg).view(B, 1)
+    corner_rows = set(mrow.tolist()) - {-1}
     col = torch.empty((B, 1), dtype=i32, device=dev)
     beta = alpha - start_e
     for i in range(m):
-        bound_prev = 0 if i == 0 else o_ + i * e_    # H(i-1, -1)
-        bound_cur = o_ + (i + 1) * e_                # H(i, -1)
+        if left is None:
+            fill = col.fill_(0 if i == 0 else o_ + i * e_)   # H(i-1, -1)
+            seed = col.clone().fill_(o_ + (i + 1) * e_ + e_)  # H(i, -1) + e
+        else:
+            fill, seed = left[:, i, 0:1], left[:, i, 1:2]
+        if right is not None:   # H(i-1, the shard's last column)
+            right[:, i, 0] = h[:, -1, -1].to(i32) + alpha[:, -1]
         sub = torch.where(a3 == b32[:, i, None, None], m_, x_).to(i16)
         # H(i-1, start - 1) of each segment, in the segment's own frame
-        left = torch.cat([col.fill_(bound_prev),
-                          h[:, :-1, -1].to(i32) + alpha[:, :-1]], 1)
-        hd = torch.cat([(left - alpha).to(i16)[..., None], h[..., :-1]], 2)
+        hleft = torch.cat([fill, h[:, :-1, -1].to(i32) + alpha[:, :-1]], 1)
+        hd = torch.cat([(hleft - alpha).to(i16)[..., None], h[..., :-1]], 2)
         diag = hd + sub
         e_row = torch.maximum(ev + e_, h + (o_ + e_))
         c = torch.maximum(diag, e_row)
         y = c - le
         pre = torch.cummax(torch.cat([neg, y[..., :-1]], 2), 2).values
         top = torch.maximum(pre[..., -1], y[..., -1]).to(i32) + beta
-        carry = torch.cummax(torch.cat([col.fill_(bound_cur + e_),
-                                        top[:, :-1]], 1), 1).values
+        carry = torch.cummax(torch.cat([seed, top[:, :-1]], 1), 1).values
         carry = torch.clamp(carry - beta, guard, 32767).to(i16)
+        if right is not None:   # R of the last segment, + its beta
+            r_end = torch.maximum(carry[:, -1], torch.maximum(
+                pre[:, -1, -1], y[:, -1, -1]))
+            right[:, i, 1] = r_end.to(i32) + beta[:, -1]
         hr = torch.maximum(c, ole + torch.maximum(pre, carry[..., None]))
         best = torch.maximum(best, (hr.amax(2).to(i32) + alpha).amax(1))
         if i in corner_rows:
-            here = hr.view(B, ns * seg).gather(1, cn.view(B, 1)).to(i32)
+            here = hr.reshape(B, ns * seg).gather(1, cn.view(B, 1)).to(i32)
             corner = torch.where(mrow == i,
                                  (here + alpha.gather(1, cseg)).view(B),
                                  corner)
@@ -302,41 +368,74 @@ def scan_rows_int16(a: torch.Tensor, b: torch.Tensor, n_real: torch.Tensor,
 
 
 def dp_int16_plain(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
-                   params):
+                   params, seg=None):
     """:func:`scan_rows_int16` over B padded pairs (the inputs of
-    :func:`pack_pairs`), each pair at its own segment width in the kernel
-    (:func:`diff_layout` of its n), on the tensors' device: (scores,
-    corners) as (B,) int32."""
-    widths = [diff_layout(n)[1] for n in lens[:, 0].tolist()]
-    score = torch.empty((a.shape[0],), dtype=torch.int32, device=a.device)
-    corner = torch.empty_like(score)
-    for g in sorted(set(widths)):
-        idx = torch.tensor([k for k, w in enumerate(widths) if w == g],
-                           device=a.device)
-        score[idx], corner[idx] = scan_rows_int16(
-            a[idx], b[idx], lens[idx, 0], lens[idx, 1], params, g)
-    return score, corner
+    :func:`pack_pairs`) at segment width ``seg`` (the kernel's plan's G;
+    by default :func:`diff_segments`' G for the batch's width over one
+    block), on the tensors' device: (scores, corners) as (B,) int32."""
+    if seg is None:
+        seg = diff_segments(-(-a.shape[1] // DIFF_THREADS))[1]
+    return scan_rows_int16(a, b, lens[:, 0], lens[:, 1], params, seg)
+
+
+@torch.no_grad()
+def dp_int16_shards(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
+                    params, D: int, C: int, G: int):
+    """A replay of ``csrc/psa_dp_diff.cu``'s shard schedule over B padded
+    pairs at D shards of C columns in segments of G: each pair over its
+    real extent (rows < m, columns < n rounded up to 4), a shard wholly
+    past them skipped; shard 0 from the matrix's left boundary and shard
+    d >= 1 through :func:`scan_rows_int16` at ``col0 = d * C``, seeded by
+    shard d - 1's two int32 packet lanes a row, its int16 running max
+    included.  (best, corner) as (B,) int32, the max over the shards."""
+    p = as_params(params)
+    B = a.shape[0]
+    best = torch.full((B,), NEG, dtype=torch.int32, device=a.device)
+    corner = best.clone()
+    for k in range(B):
+        n_real, m_real = (int(v) for v in lens[k])
+        n_ext = min(-(-n_real // 4) * 4, a.shape[1])
+        left = None
+        for d in range(D):
+            if d * C >= n_ext:
+                break
+            cols = slice(d * C, min((d + 1) * C, n_ext))
+            sends = (d + 1) * C < n_ext
+            right = (torch.empty((1, m_real, 2), dtype=torch.int32,
+                                 device=a.device) if sends else None)
+            sb, sc = scan_rows_int16(
+                a[k:k + 1, cols].contiguous(),
+                b[k:k + 1, :m_real].contiguous(), lens[k:k + 1, 0],
+                lens[k:k + 1, 1], p, G, col0=d * C, left=left, right=right)
+            best[k] = max(int(best[k]), int(sb[0]))
+            corner[k] = max(int(corner[k]), int(sc[0]))
+            left = right
+    return best, corner
 
 
 def run_dp_int16(a: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
-                 params):
+                 params, *, D=None, T=None):
     """The difference-method DP over B padded pairs, score-only, each
     over its real extent: the inputs of :func:`pack_pairs`; (scores,
     corners) as (B,) int32.  A CPU tensor takes the plain version
     (:func:`dp_int16_plain`); a CUDA tensor launches
-    ``csrc/psa_dp_diff.cu`` or raises.  Parameters outside
-    :func:`supports_params_int16` raise ValueError."""
+    ``csrc/psa_dp_diff.cu`` or raises, at its plan or the overrides ``D``
+    and ``T`` (for tests and sweeps; the plain version takes neither).
+    Parameters outside :func:`supports_params_int16` raise ValueError."""
     p = as_params(params)
     if not supports_params_int16(p):
         raise ValueError("int16 difference kernel requires M>0>X, E<0, "
                          "O<=0 and max(M,-X,-(O+E),-E) <= 57 (got %s)"
                          % (p,))
     if a.device.type == "cpu":
+        if D is not None or T is not None:
+            raise ValueError("D and T are the card kernel's overrides; the "
+                             "plain version takes neither")
         return dp_int16_plain(a, b, lens, p)
     B = a.shape[0]
     score = torch.empty((B,), dtype=torch.int32, device=a.device)
     corner = torch.empty((B,), dtype=torch.int32, device=a.device)
-    _kernels.psa_dp_diff(a, b, lens, p, score, corner)
+    _kernels.psa_dp_diff(a, b, lens, p, score, corner, D=D, T=T)
     return score, corner
 
 
@@ -460,25 +559,61 @@ def scan_rows_striped(a_tile: torch.Tensor, b: torch.Tensor,
     return best, corner
 
 
+def striped_slab(tile: torch.Tensor, col0: int, Cd: int, W: int):
+    """The shared-memory slab a block of ``csrc/psa_dp_striped.cu`` stages
+    from one pair's (Sp, 128) tile for its shard of the columns [col0,
+    col0 + Cd), W columns a thread, in the kernel reader's order: the
+    stripes l0 .. l1 that hold the shard's columns, read row by row of the
+    tile (entry u*128 + l, consecutive for consecutive threads), each byte
+    to its column j's slot (j % W) * SCORE_THREADS + j // W.  Returns
+    (slab, reads): the slab as a (W * SCORE_THREADS,) uint8 tensor (slots
+    of no column hold 0) and the tile entries read, in order."""
+    sp = tile.shape[0]
+    flat = tile.reshape(-1)
+    slab = torch.zeros(W * SCORE_THREADS, dtype=torch.uint8)
+    l0 = col0 // sp
+    nl = (col0 + Cd - 1) // sp - l0 + 1
+    idx = torch.arange(sp * nl)
+    u, l = idx // nl, l0 + idx % nl
+    j = l * sp + u - col0
+    reads = u * LANES + l
+    keep = (j >= 0) & (j < Cd)
+    slab[(j[keep] % W) * SCORE_THREADS + j[keep] // W] = flat[reads[keep]]
+    return slab, reads
+
+
+def striped_at(tile: torch.Tensor, g: int) -> int:
+    """Column ``g`` of a pair read from its (Sp, 128) tile through the
+    index map of ``csrc/psa_dp_striped.cu``'s global frontier:
+    tile[(g % Sp) * 128 + g // Sp]."""
+    sp = tile.shape[0]
+    return int(tile.reshape(-1)[(g - g // sp * sp) * LANES + g // sp])
+
+
 def run_dp_striped(a_tile: torch.Tensor, b: torch.Tensor, lens: torch.Tensor,
-                   params):
+                   params, *, D=None, T=None):
     """The striped DP over B pairs, score-only: the inputs of
     :func:`pack_pairs_striped`; (scores, corners) as (B,) int32.  A CPU
     tensor takes the plain version (:func:`scan_rows_striped`); a CUDA
-    tensor launches ``csrc/psa_dp_striped.cu`` (each pair over its real
-    extent) or raises.  Parameters outside :func:`supports_params` raise
-    ValueError: only there is padding score-neutral, so that both give
-    K1's numbers."""
+    tensor launches ``csrc/psa_dp_striped.cu`` (K1's schedule on the
+    tile: each pair over its real extent, its columns in column shards)
+    or raises, at K1's plan or the overrides ``D`` and ``T`` (for tests
+    and sweeps; the plain version takes neither).  Parameters outside
+    :func:`supports_params` raise ValueError: only there is padding
+    score-neutral, so that both give K1's numbers."""
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("striped DP requires M>0>X, E<0, O<=0 (got %s)"
                          % (p,))
     if a_tile.device.type == "cpu":
+        if D is not None or T is not None:
+            raise ValueError("D and T are the card kernel's overrides; the "
+                             "plain version takes neither")
         return scan_rows_striped(a_tile, b, lens, p)
     B = a_tile.shape[0]
     score = torch.empty((B,), dtype=torch.int32, device=a_tile.device)
     corner = torch.empty((B,), dtype=torch.int32, device=a_tile.device)
-    _kernels.psa_dp_striped(a_tile, b, lens, p, score, corner)
+    _kernels.psa_dp_striped(a_tile, b, lens, p, score, corner, D=D, T=T)
     return score, corner
 
 

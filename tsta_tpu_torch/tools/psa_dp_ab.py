@@ -4,7 +4,7 @@ by side, then the chosen kernel's times, alternating, outputs compared.
 Run from the root of a checkout, on a machine with a card and ``nvcc``::
 
     python -m tsta_tpu_torch.tools.psa_dp_ab --other DIR \
-        [--kernel k1|ring|traced|chunk|short] [--rounds 2]
+        [--kernel k1|ring|traced|chunk|short|striped|diff] [--rounds 2]
 
 ``DIR`` is the root of another checkout of the repo, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
@@ -16,8 +16,9 @@ parent commit unpacked with ``git archive`` into a git-ignored directory.
    ptxas's resource lines and its SASS (``cuobjdump -sass``), the
    instructions compared with the constant-bank offsets of the kernel's
    parameters masked, since a new parameter moves them.  With ``--kernel
-   short`` it also prints ptxas's lines (registers, spills) for every
-   entry of each checkout's ``psa_dp_short.cu``.
+   short``, ``striped`` or ``diff`` it also prints ptxas's lines
+   (registers, spills) for every entry of each checkout's
+   ``psa_dp_short.cu``, ``psa_dp_striped.cu`` or ``psa_dp_diff.cu``.
 2. **Time.**  Each run is a fresh process started in one checkout's root
    with that root on ``PYTHONPATH``: it builds that checkout's kernels and
    times, with CUDA events, the median of ``--reps`` after a warm-up:
@@ -42,7 +43,14 @@ parent commit unpacked with ``git archive`` into a git-ignored directory.
      cold (the 50 MB L2 flushed by a 256 MB write before each run), and K1
      (``psa_diff.run_dp``) on the same pairs; where the checkout's
      ``_kernels.psa_dp_short`` takes ``per_sm``, also at 1, 2 and 3 blocks
-     an SM.
+     an SM;
+   * ``striped``: ``psa_diff.run_dp_striped`` (Q2-11) on the 128 pairs of
+     10,240 bp of ``k1`` as striped tiles, warm and cold, and K1 on the
+     same pairs;
+   * ``diff``: ``psa_diff.run_dp_int16`` (Q2-9) on those 128 pairs and on
+     the int16 probe's 32 x 10,240 bp (slot 0 the 10 kbp example, as
+     ``bench.stage_int16_probe``), warm and cold, and K1 on the same
+     pairs.
 
    Each round runs other, this, this, other, so neither side always goes
    first.
@@ -234,6 +242,30 @@ elif kernel == "short":
             label = "%s4096 short pairs %s" % (tag, "cold" if cold else "warm")
             ms, out = timed(fn, reps, flush=flush if cold else None)
             res[label] = record(ms, out, counter)
+elif kernel in ("striped", "diff"):
+    pairs = [mutated(10240, 1280, 170) for _ in range(128)]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    groups = [("128 x 10240", pairs)]
+    if kernel == "diff":
+        prng = np.random.default_rng(0)
+        groups.append(("32 x 10240 int16 probe", [example()] + [
+            tuple(prng.integers(65, 69, 10240).astype(np.uint8)
+                  for _ in range(2)) for _ in range(31)]))
+    for label, group in groups:
+        a, b, lens = psa_diff.pack_pairs(group, dev)
+        if kernel == "striped":
+            tile, tb_, tl = psa_diff.pack_pairs_striped(group, dev)
+            fn = lambda: psa_diff.run_dp_striped(tile, tb_, tl, p)
+        else:
+            fn = lambda: psa_diff.run_dp_int16(a, b, lens, p)
+        runs = [(kernel, fn, "psa_dp_" + kernel),
+                ("K1", lambda: psa_diff.run_dp(a, b, lens, p),
+                 "psa_dp_score")]
+        for tag, f, counter in runs:
+            for cold in (False, True):
+                ms, out = timed(f, reps, flush=flush if cold else None)
+                res["%s %s %s" % (tag, label, "cold" if cold else "warm")] = \
+                    record(ms, out, counter)
 else:
     from tsta_tpu_torch.ops import psa_chunked
     reads = long_reads()
@@ -322,7 +354,7 @@ def ptxas_report(root: str, work: str, tag: str, source: str) -> dict:
     src = os.path.join(root, "tsta_tpu_torch", "csrc", source)
     r = subprocess.run([_kernels.nvcc_path()] + _kernels.ARCH_FLAGS
                        + ["-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", src,
-                          "-o", os.path.join(work, tag + ".short.cubin")],
+                          "-o", os.path.join(work, tag + ".report.cubin")],
                        capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError("nvcc failed on %s:\n%s" % (src, r.stderr))
@@ -387,7 +419,7 @@ def main(argv=None) -> int:
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
     ap.add_argument("--kernel", choices=("k1", "ring", "traced", "chunk",
-                                         "short"),
+                                         "short", "striped", "diff"),
                     default="k1", help="which DP to time (default k1)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
@@ -397,9 +429,10 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as work:
         code = {k: k1_code(root, work, k) for k, root in trees.items()}
-        if args.kernel == "short":
-            emit({"ptxas psa_dp_short.cu": {
-                k: ptxas_report(root, work, k, "psa_dp_short.cu")
+        if args.kernel in ("short", "striped", "diff"):
+            source = "psa_dp_%s.cu" % args.kernel
+            emit({"ptxas " + source: {
+                k: ptxas_report(root, work, k, source)
                 for k, root in trees.items()}})
     so, st = code["other"]["sass"], code["this"]["sass"]
     diff = [d for d in difflib.unified_diff(so, st, lineterm="", n=0)
