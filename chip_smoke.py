@@ -227,7 +227,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
     plane again and K3's own launch on it (CUDA events, median of 3), its
     words and count held to ``traceback.walk_staged_plain`` on that plane
     (the plain walk on the ring's schedule, which copies only its windows
-    to the host), the time the kernels record's ``ms_100k``.
+    to the host), the time the kernels record's ``ms_100k``;
+21. the walk probes (``walk_probes.cu``, Q2-17a, b, c, e; on no path of
+    the system, ``tools/walk_probes.py``): every mode of each at its
+    script's sizes, the launch counters reset before and read after, one
+    line a probe: each output (every program's row and the INT32_MIN
+    words) equal to the plain replay, ms (CUDA events), ns a step, the
+    walker loop's instructions a step in the library's SASS, the
+    refetches, the bound (the chain rule or one instruction a clock) and
+    the plain replay's ms; fails on a difference, a bound beaten, a loop
+    missing from the SASS, a time that does not grow with N, or 60 s.
 
 A ``done`` line gives the script's wall.  The last three lines are the
 kernels record (each kernel's launches on
@@ -236,7 +245,9 @@ what bounds it, and for the walks their chain bound: the longest walk's
 steps at one dependent shared-memory load, ``CHAIN_CYCLES`` at the
 boost clock, each (a POA walk's chain is its moves plus its pred moves,
 two dependent loads a pred move, from its counters); K1 twice, at 128 x
-10,240 bp and at one pair, the ``--notrace`` example), the
+10,240 bp and at one pair, the ``--notrace`` example; the probes on no
+path: the dtype-max probe's int32 form and each walk probe's fullest mode,
+every form or mode beside it), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no result, without
 CUDA or outside a checkout of the repo.
@@ -824,6 +835,8 @@ def main() -> int:
         edit_times["traced_200k"])
     launches.update(ring_launches)
     times["psa_walk 32 x 10 kbp"].update(traced_100k_phase(dev, smi_line))
+    probe_launches, probe_times = walk_probe_phase(dev, smi_line)
+    launches.update(probe_launches)
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "smi": smi_line})
@@ -873,6 +886,16 @@ def main() -> int:
          "tsta_tpu/ops/traceback.py:723", striped_times["psa_walk_pair2"]),
         ("psa_ring", src % "psa_dp.cu", "tsta_tpu/ops/psa_ring.py:78",
          ring_times["psa_ring"]),
+        ("dtype_max_probe", src % "dtype_max_probe.cu",
+         "scripts/dtype_max_probe.py:19", int16_times["dtype_max_probe"]),
+        ("walk_probe_a", src % "walk_probes.cu", "scripts/walk_ablate.py:36",
+         probe_times["walk_probe_a"]),
+        ("walk_probe_b", src % "walk_probes.cu",
+         "scripts/walk_ablate2.py:32", probe_times["walk_probe_b"]),
+        ("walk_probe_c", src % "walk_probes.cu",
+         "scripts/walk_ablate3.py:33", probe_times["walk_probe_c"]),
+        ("walk_probe_e", src % "walk_probes.cu", "scripts/db_probe.py:14",
+         probe_times["walk_probe_e"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -887,7 +910,8 @@ def main() -> int:
                                             "sweep", "S", "s_sweep_ms",
                                             "counts", "chain_bound_ms",
                                             "chain_steps",
-                                            "ms_100k", "chain_bound_ms_100k")
+                                            "ms_100k", "chain_bound_ms_100k",
+                                            "iters", "modes")
                           if k in t}}
                       for n, s, r, t in entries]})
     print(smi_line)
@@ -2480,6 +2504,51 @@ def traced_100k_phase(dev, smi_line):
     return {"ms_100k": k3_ms, "chain_bound_ms_100k": k3["chain_bound_ms"]}
 
 
+def walk_probe_phase(dev, smi_line):
+    """Phase 21, the walk probes (``walk_probes.cu``, Q2-17a, b, c, e):
+    every mode of each at its script's sizes through
+    ``tools.walk_probes.measure``, the launch counters reset before and
+    read after; one line a probe.  Fails if an output differs from the
+    plain replay, a mode beats its bound, a walker loop is missing from
+    the SASS, a time does not grow with N, a probe was not launched, or
+    the phase takes 60 s or more.  Returns the launches and the kernels
+    record's entries."""
+    from tsta_tpu_torch.ops import _kernels
+    from tsta_tpu_torch.tools import walk_probes as wp
+
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    recs = wp.measure("abce", reps=5, dev=dev)
+    launches = {"walk_probe_" + p: _kernels.launches["walk_probe_" + p]
+                for p in "abce"}
+    wall = time.perf_counter() - t0
+    keys = ("ms", "ms_half", "scaling", "ns_per_step", "ns_per_step_marginal",
+            "tpu_unit_ns", "sass_instr_per_step", "sass_loop_instructions",
+            "refetches", "bound_ms", "bound_by", "bound_rule", "chain_ms",
+            "issue_ms", "bytes_ms", "plain_ms", "equal", "problems")
+    times, bad = {}, {}
+    for probe in "abce":
+        rs = [r for r in recs if r["probe"] == probe]
+        modes = {r["mode"]: {k: r[k] for k in keys} for r in rs}
+        full = modes[wp.SCRIPTS[probe][1]]
+        name = "walk_probe_" + probe
+        emit({"phase": name, "replaces": wp.SCRIPTS[probe][0],
+              "sizes": wp.SIZES[probe], "modes": modes,
+              "launches": launches[name], "smi": smi_line})
+        bad.update({"%s %s" % (probe, m): v["problems"]
+                    for m, v in modes.items() if v["problems"]})
+        times[name] = {**{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
+                       "max_abs_err": max(r["max_abs_err"] for r in rs),
+                       "shape": wp.SIZES[probe], "modes": modes}
+    emit({"phase": "walk_probes", "wall_s": wall, "launches": launches,
+          "smi": smi_line})
+    if bad or min(launches.values()) < 1 or wall >= 60:
+        raise AssertionError("walk probes: %s, launches %s, %.1f s"
+                             % (bad, launches, wall))
+    return launches, times
+
+
 def start():
     """Reset the launch counters before a path; returns the count of plain
     calls so far, for :func:`stop`."""
@@ -2743,6 +2812,7 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
                              "%s %s %s" % (js, stdout, ld))
 
     # (e) the dtype-max probe (Q2-17d): every form equal to numpy
+    n0 = dtype_max_probe.launches
     res = dtype_max_probe.measure(dev=dev)
     emit({"phase": "dtype_max_probe", "iters": 2000, "copies": 256,
           "forms": {k: {f: v[f] for f in ("ms", "plain_ms",
@@ -2761,7 +2831,16 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
         raise AssertionError("dtype_max_probe beat its bound: %s"
                              % {k: (v["ms"], v["bound_ms"])
                                 for k, v in res.items()})
-    return {"psa_dp_diff": ld["psa_dp_diff"]}, times
+    # the kernels record: the int32 form, every form beside it
+    times["dtype_max_probe"] = {
+        **{k: res["int32"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+        "max_abs_err": max(v["max_abs_err"] for v in res.values()),
+        "shape": [256, 256, 128], "iters": 2000,
+        "modes": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms")}
+                  for k, v in res.items()}}
+    return {"psa_dp_diff": ld["psa_dp_diff"],
+            "dtype_max_probe": dtype_max_probe.launches - n0}, times
 
 
 def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):

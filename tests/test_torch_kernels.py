@@ -1764,6 +1764,63 @@ def test_dtype_max_probe_kernel_equals_numpy(cuda):
     assert probe.launches == n0 + 2 * len(probe.FORMS)
 
 
+# the walk probes' small sizes (tests/test_torch_walk_probes.py's)
+PROBE_SMALL = {"a": dict(N=64), "b": dict(N=96),
+               "c": dict(N=300, P=2, M_ROWS=512, N_W=1024), "e": {}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe,mode", [
+    (p, m) for p in "abce" for m in _kernels.WALK_PROBE_MODES[p]])
+def test_walk_probe_kernel_equals_plain(cuda, probe, mode):
+    """Q2-17a, b, c, e on the card at small sizes: the whole ``out``,
+    every program's row and the INT32_MIN words, equal to the plain
+    replay; one launch counted."""
+    from tsta_tpu_torch.tools import walk_probes as wp
+    sz = {**wp.SIZES[probe], **PROBE_SMALL[probe]}
+    n = sz.get("N", sz.get("STEPS"))
+    plane, host = wp.make_plane(probe, cuda, **sz)
+    cols = _kernels.walk_probe_out_cols(probe, n)
+    out = torch.full((sz.get("P", 1), cols), wp.INT32_MIN,
+                     dtype=torch.int32, device=cuda)
+    key = "walk_probe_" + probe
+    n0 = _kernels.launches[key]
+    wp.run(probe, mode, plane, out, n)
+    torch.cuda.synchronize()
+    assert _kernels.launches[key] == n0 + 1
+    want, _ = wp.plain(probe, mode, host, **sz)
+    assert np.array_equal(out.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_walk_probe_sass_keeps_every_loop(cuda):
+    """Every probe kernel's walker loop is in the library's SASS, with a
+    step of at least one instruction."""
+    from tsta_tpu_torch.tools import walk_probes as wp
+    got = wp.sass_steps(wp.library_sass())
+    for probe, modes in _kernels.WALK_PROBE_MODES.items():
+        for mode in modes:
+            loop = got.get((probe, mode))
+            assert loop is not None and loop["per_step"] > 0, (probe, mode)
+
+
+@pytest.mark.cuda
+def test_walk_probe_refuses_bad_shapes(cuda):
+    """Shapes the kernels do not take raise ValueError, with no launch."""
+    n0 = dict(_kernels.launches)
+    plane = torch.zeros((256, 1024), dtype=torch.int32, device=cuda)
+    out = torch.full((8, 101), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        _kernels.walk_probe_b(plane, out, "unroll8", 100)
+    with pytest.raises(ValueError, match="1024"):
+        _kernels.walk_probe_a(plane[:, :512].contiguous(), out, "rd", 100)
+    with pytest.raises(ValueError, match="mode"):
+        _kernels.walk_probe_a(plane, out, "dma18", 100)
+    with pytest.raises(ValueError, match="out"):
+        _kernels.walk_probe_c(plane, out, "nodma", 100)
+    assert dict(_kernels.launches) == n0
+
+
 @pytest.mark.cuda
 def test_layout_variable_on_card(cuda, monkeypatch):
     """``TSTA_PSA_LAYOUT=striped`` sends ``psa_align_batch_diff`` to the

@@ -31,7 +31,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(
 _SOURCES = ("psa_dp.cu", "psa_dp_traced.cu", "psa_dp_short.cu",
             "psa_dp_diff.cu", "psa_dp_striped.cu", "psa_walk.cu",
             "psa_walk_pair2.cu", "psa_walk_bounded.cu", "poa_dp.cu",
-            "poa_walk.cu", "poa_walk_bounded.cu", "dtype_max_probe.cu")
+            "poa_walk.cu", "poa_walk_bounded.cu", "dtype_max_probe.cu",
+            "walk_probes.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -54,10 +55,13 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # a chunked round, and poa_walk_bounded its walk inside one
 # (chunk, window) cell.  (dtype_max_probe.cu, the narrow-dtype max probe of
 # Q2-17d, is on no path: tools/dtype_max_probe.py launches and counts it.)
+# walk_probe_a, _b, _c and _e are the walk probes of walk_probes.cu
+# (Q2-17a, b, c, e), on no path: tools/walk_probes.py launches them.
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
-           "poa_dp_window", "poa_walk_bounded", "psa_ring")
+           "poa_dp_window", "poa_walk_bounded", "psa_ring", "walk_probe_a",
+           "walk_probe_b", "walk_probe_c", "walk_probe_e")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: JAX's PACK_RMAX x 128
 # the bounded walk's phase length (steps a staged window serves;
 # psa_walk_stage.cuh; K3 plans its own, psa_walk_layout), the threads a
@@ -75,6 +79,18 @@ POA_WALK_S, POA_WALK_ROWS_PER_S, POA_WALK_THREADS = 64, 5, 128
 SHARD_THREADS, SHARD_MIN_S, SHARD_MAX_S, SHARD_MAX, SHARD_T = (
     256, 8, 32, 132, 16)
 COOP_TOO_LARGE = 720   # cudaErrorCooperativeLaunchTooLarge (CUDA >= 10.1)
+# walk_probes.cu's modes, in the order of its enums, and its fixed shapes:
+# the band of (a) and (b), 24 whole rows of 1,024 words; (b)'s out width;
+# (c)'s band; (e)'s x; the refetch state's start in (a) and (b)
+WALK_PROBE_MODES = {
+    "a": ("empty", "wr", "rd", "rd3", "cond", "cond_dma"),
+    "b": ("while_empty", "fori_empty", "unroll4", "unroll8", "cond_dma",
+          "full_unroll8"),
+    "c": ("nodma", "decode", "six", "dma119", "dma18"),
+    "e": ("db",),
+}
+PROBE_AB_BAND, PROBE_B_OUT_COLS, PROBE_C_BAND = (24, 1024), 10248, (128, 256)
+PROBE_E_X, PROBE_BI0 = (16, 8, 128), -(2 ** 30)
 launches = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
@@ -205,6 +221,12 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_striped_max_blocks.argtypes = [ci, ci]
             lib.tsta_dtype_max_probe.restype = ci
             lib.tsta_dtype_max_probe.argtypes = [vp] * 3 + [ci] * 4 + [vp]
+            for k in "abc":
+                fn = getattr(lib, "tsta_walk_probe_" + k)
+                fn.restype = ci
+                fn.argtypes = [vp, vp] + [ci] * 5 + [vp]
+            lib.tsta_walk_probe_e.restype = ci
+            lib.tsta_walk_probe_e.argtypes = [vp, vp, ci, vp]
             lib.tsta_psa_walk_bounded.restype = ci
             lib.tsta_psa_walk_bounded.argtypes = [vp, vp] + [ci] * 7 + [
                 vp, vp, ci, vp]
@@ -1205,3 +1227,95 @@ def psa_ring(a, b, D, T, n_real, m_real, params, comm, out) -> None:
                    *_score_entry(a.view(1, n), b.view(1, m), lens, params,
                                  True, D, C, T))
     launches["psa_ring"] += 1
+
+
+def walk_probe_out_cols(probe: str, n: int) -> int:
+    """The width of a walk probe's ``out`` at N = ``n``, as its script's."""
+    return {"a": n + 1, "b": PROBE_B_OUT_COLS, "c": n + 8, "e": 1}[probe]
+
+
+def _walk_probe_args(probe: str, plane, out, mode: str, n: int):
+    """Check a walk probe's tensors and return (device, mode index)."""
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError("walk_probe_%s needs CUDA tensors, got %s"
+                         % (probe, dev))
+    modes = WALK_PROBE_MODES[probe]
+    if mode not in modes:
+        raise ValueError("walk_probe_%s: mode %r not in %s"
+                         % (probe, mode, modes))
+    if plane.dim() != (3 if probe == "e" else 2):
+        raise ValueError("walk_probe_%s: plane of shape %s"
+                         % (probe, tuple(plane.shape)))
+    _check(plane, "plane", torch.int32, plane.shape, dev)
+    if n < 1 or (probe == "b" and n % 8):
+        raise ValueError("walk_probe_%s: N %d (a multiple of 8 in b)"
+                         % (probe, n))
+    if probe in "ab" and (plane.shape[1] != PROBE_AB_BAND[1]
+                          or plane.shape[0] < PROBE_AB_BAND[0]):
+        raise ValueError("walk_probe_%s: the plane must be (>= 24, 1024), "
+                         "got %s" % (probe, tuple(plane.shape)))
+    if probe == "c" and (plane.shape[0] < PROBE_C_BAND[0]
+                         or plane.shape[1] < PROBE_C_BAND[1]
+                         or plane.shape[1] % 4 or plane.data_ptr() % 16):
+        raise ValueError("walk_probe_c: the plane must be (>= 128, >= 256) "
+                         "with rows of 16-byte multiples, got %s"
+                         % (tuple(plane.shape),))
+    cols = walk_probe_out_cols(probe, n)
+    if out.dim() != 2 or out.shape[1] != cols or out.shape[0] < 1:
+        raise ValueError("walk_probe_%s: out of shape %s, expected (P, %d)"
+                         % (probe, tuple(out.shape), cols))
+    _check(out, "out", torch.int32, out.shape, dev)
+    if probe == "e" and (tuple(plane.shape) != PROBE_E_X
+                         or out.shape[0] != 1):
+        raise ValueError("walk_probe_e: x %s and out %s, expected %s and "
+                         "(1, 1)" % (tuple(plane.shape), tuple(out.shape),
+                                     PROBE_E_X))
+    return dev, modes.index(mode)
+
+
+def walk_probe_a(plane, out, mode: str, n: int) -> None:
+    """Launch Q2-17a (``walk_probes.cu``, scripts/walk_ablate.py's kernel)
+    in ``mode`` at N = ``n`` steps, one block a row of ``out`` ((P, n + 1)
+    int32, INT32_MIN where no mode writes: the caller fills it); ``plane``:
+    (>= 24, 1,024) int32."""
+    dev, k = _walk_probe_args("a", plane, out, mode, n)
+    rc = _lib().tsta_walk_probe_a(plane.data_ptr(), out.data_ptr(), k, n,
+                                  out.shape[0], plane.shape[0], PROBE_BI0,
+                                  _stream(dev))
+    _raise_on(rc, "walk_probe_a")
+    launches["walk_probe_a"] += 1
+
+
+def walk_probe_b(plane, out, mode: str, n: int) -> None:
+    """Launch Q2-17b (scripts/walk_ablate2.py's kernel) as
+    :func:`walk_probe_a`, ``out`` (P, 10,248), ``n`` a multiple of 8."""
+    dev, k = _walk_probe_args("b", plane, out, mode, n)
+    rc = _lib().tsta_walk_probe_b(plane.data_ptr(), out.data_ptr(), k, n,
+                                  out.shape[0], plane.shape[0], PROBE_BI0,
+                                  _stream(dev))
+    _raise_on(rc, "walk_probe_b")
+    launches["walk_probe_b"] += 1
+
+
+def walk_probe_c(plane, out, mode: str, n: int) -> None:
+    """Launch Q2-17c (scripts/walk_ablate3.py's kernel) as
+    :func:`walk_probe_a` on an (M_ROWS, N_W) int32 ``plane``, ``out`` (P,
+    n + 8)."""
+    dev, k = _walk_probe_args("c", plane, out, mode, n)
+    rc = _lib().tsta_walk_probe_c(plane.data_ptr(), out.data_ptr(), k, n,
+                                  out.shape[0], plane.shape[0],
+                                  plane.shape[1], _stream(dev))
+    _raise_on(rc, "walk_probe_c")
+    launches["walk_probe_c"] += 1
+
+
+def walk_probe_e(x, out, steps: int = 64) -> None:
+    """Launch Q2-17e (scripts/db_probe.py's kern): ``x`` (16, 8, 128)
+    int32 into the two buffers of the band, then ``steps`` reads summed
+    into ``out`` ((1, 1) int32)."""
+    dev, _ = _walk_probe_args("e", x, out, "db", max(steps, 1))
+    rc = _lib().tsta_walk_probe_e(x.data_ptr(), out.data_ptr(), steps,
+                                  _stream(dev))
+    _raise_on(rc, "walk_probe_e")
+    launches["walk_probe_e"] += 1

@@ -159,6 +159,8 @@ def measure(iters: int = 2000, copies: int = 256, reps: int = 5,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "equal": bool((got == want[None]).all()),
+            "max_abs_err": int(np.abs(got.astype(np.int64)
+                                      - want[None].astype(np.int64)).max()),
             "vs": base}
     for r in res.values():
         r["speed_over_int32_form"] = res[r["vs"]]["ms"] / r["ms"]
