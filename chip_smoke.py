@@ -236,7 +236,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
     walker loop's instructions a step in the library's SASS, the
     refetches, the bound (the chain rule or one instruction a clock) and
     the plain replay's ms; fails on a difference, a bound beaten, a loop
-    missing from the SASS, a time that does not grow with N, or 60 s.
+    missing from the SASS, a time that does not grow with N, or 60 s;
+22. rounds past 64 preds (the wide forms of ``poa_dp.cu`` and the POA
+    walks: 32-bit words, 13-bit pred fields), the launch counters and the
+    plain MSA calls (``counting_plain``) reset before each path and read
+    after: (a) phase 7's first grown graph with node ``WIDE_AT`` raised
+    by a deletion staircase (``staircase``) to in-degree 65, 128, 129 and
+    1,000, its next read a deletion into that node (the pred index the
+    walk enters it by must be 64 or more), DP and walk held to the plain
+    versions on the card at the plan, forced D (``POA_WIDE_FORCED``) and
+    forced walk plans (``POA_WALK_FORCED_WIDE``, R = 0 among them) with
+    the replay's counters; then that graph at 129 as a chunked round
+    (``chunking_budget``), equal to the plain chunked round and to the
+    unchunked one, its pieces held by ``hold_round``; (b) 3 x 50 kbp with
+    a 65-pred staircase at node 25,000 from round 1 on (``staircased``)
+    through ``align_seqs(kernel="cuda")`` and ``align_seqs_many`` beside
+    a 5 x 5 kbp problem, every output held to the plain route on the card
+    (the parent's route, timed), no plain call; each round's ``dp_ms``
+    and ``walk_ms``, and round 2's DP and walk (median of 3) beside the
+    16-bit build on the same reads without the staircase.
 
 A ``done`` line gives the script's wall.  The last three lines are the
 kernels record (each kernel's launches on
@@ -244,7 +262,10 @@ its main path, error against its plain version, ms, plain ms, bound and
 what bounds it, and for the walks their chain bound: the longest walk's
 steps at one dependent shared-memory load, ``CHAIN_CYCLES`` at the
 boost clock, each (a POA walk's chain is its moves plus its pred moves,
-two dependent loads a pred move, from its counters); K1 twice, at 128 x
+two dependent loads a pred move, from its counters; a wide walk's is
+one load a move, ``L2_CYCLES`` for a miss or a pred past the staged
+head, from the replay; the wide DPs' operations at the issue rate,
+``poa_wide_bound``); K1 twice, at 128 x
 10,240 bp and at one pair, the ``--notrace`` example; the probes on no
 path: the dtype-max probe's int32 form and each walk probe's fullest mode,
 every form or mode beside it), the
@@ -295,6 +316,10 @@ OPS_PSA_CELL, OPS_PSA_CODE, OPS_WALK_STEP = 12, 6, 8
 # the H100's boost clock; the kernels record keeps the bytes/operations
 # bound beside it.  The phase lengths of the walks' S sweep.
 CHAIN_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
+# a wide POA walk's move that reads device memory (a miss's word, or a
+# pred past the row's staged head) waits at least an L2 hit: taken as 200
+# cycles, a floor, not a measured figure
+L2_CYCLES = 200
 WALK_S_SWEEP = (32, 64, 128)
 # the difference method computes K1's function: OPS_PSA_CELL per cell, at
 # two cells per s16x2 instruction
@@ -345,6 +370,14 @@ POA_WALK_FORCED = ((32, 0, 128), (8, 0, 64), (16, 64, 96), (64, 256, 256))
 POA_WIDE_READ = 1_100_000
 EXAMPLE_MSA_SHA256 = ("9e0fb0926e830ff30b0122827c6ee184"
                       "2ad36f0eab7b90b84292d06f98c7ca72")
+# phase 22: the in-degrees its staircases raise one node of phase 7's
+# grown graphs to, that node (a topo position of read 0's chain), and the
+# 3 x 50 kbp graph's staircase; the wide DP's forced (D, T, G) and the
+# wide walks' forced plans (S, R, threads), R = 0 every move a miss
+WIDE_IN, WIDE_AT, WIDE_50K = (65, 128, 129, 1000), 1200, (65, 25000)
+POA_WIDE_FORCED = ((2, 16, None), (3, 1, None), (5, 32, None), (5, 16, 2))
+POA_WALK_FORCED_WIDE = ((32, 0, 128), (8, 0, 64), (16, 64, 96),
+                        (64, 207, 256))
 
 
 def emit(rec: dict) -> None:
@@ -462,23 +495,66 @@ def score_bound(nbytes: float, cells: float, per_instr: int = 1) -> dict:
                                    / INT32_OPS_PER_S * 1e3)}
 
 
+def poa_wide_bound(nbytes: float, ops: float) -> dict:
+    """The kernels record's bound fields for a wide POA kernel moving
+    ``nbytes`` bytes with ``ops`` integer operations, by instruction
+    class: ``poa_dp.cu`` and the walks use no DPX instruction, so each
+    operation is one instruction at the issue rate (SCHED_LANES_PER_S).
+    ``bound_ms_scalar`` keeps the rule of :func:`bound`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCHED_LANES_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops),
+            "bound_ms_scalar": bound(nbytes, ops)["bound_ms"]}
+
+
 def chain_bound(steps: int) -> dict:
     """The chain bound of a walk whose longest chain has ``steps`` steps."""
     return {"chain_bound_ms": steps * CHAIN_CYCLES / SM_CLOCK_HZ * 1e3,
             "chain_steps": steps}
 
 
-def poa_walk_record(counts, maxdist: int, max_in: int) -> dict:
+def poa_walk_record(counts, maxdist: int, max_in: int,
+                    past_head: int | None = None) -> dict:
     """A POA walk's plan (S, R, threads), its counters (moves, pred
-    moves, misses, phases) and its chain bound: each move loads its word
-    and a pred move then the pred the word names, two dependent loads, so
-    the chain is moves + pred moves loads at ``CHAIN_CYCLES`` each."""
+    moves, misses, phases) and its chain bound.  The 16-bit walks: each
+    move loads its word and a pred move then the pred the word names, two
+    dependent loads, so the chain is moves + pred moves loads at
+    ``CHAIN_CYCLES`` each.  The wide walk (``past_head`` given: its pred
+    moves past a row's staged head, from the replay) loads the head with
+    the word, one shared load a move, and from device memory, at
+    ``L2_CYCLES``, a missed move's word and a pred past the head."""
     from tsta_tpu_torch.ops import msa_poa
     steps, pred_moves, misses, phases = (int(x) for x in counts)
-    return {"plan": list(msa_poa.poa_walk_plan(maxdist, max_in)),
-            "counts": {"moves": steps, "pred_moves": pred_moves,
-                       "misses": misses, "phases": phases},
-            **chain_bound(steps + pred_moves)}
+    rec = {"plan": list(msa_poa.poa_walk_plan(maxdist, max_in)),
+           "counts": {"moves": steps, "pred_moves": pred_moves,
+                      "misses": misses, "phases": phases}}
+    if past_head is None:
+        return {**rec, **chain_bound(steps + pred_moves)}
+    cycles = ((steps - misses) * CHAIN_CYCLES
+              + (misses + past_head) * L2_CYCLES)
+    rec["counts"]["past_head"] = past_head
+    return {**rec, "chain_bound_ms": cycles / SM_CLOCK_HZ * 1e3,
+            "chain_steps": steps}
+
+
+def wide_walk_record(kernel_counts, words, preds, row: int, j: int,
+                     maxdist: int, base: int = 0, col0: int = 0) -> dict:
+    """:func:`poa_walk_record` of a wide walk from (row, j) at its plan,
+    its pred moves past the staged head counted by the replay of that
+    plan (``poa_walk_staged_plain``), whose counters must equal the
+    kernel's ``kernel_counts``."""
+    from tsta_tpu_torch.ops import msa_poa
+    S, R, _ = msa_poa.poa_walk_plan(maxdist, preds.shape[1])
+    tally = {}
+    _, _, rc = msa_poa.poa_walk_staged_plain(words, preds, row, j, 0, S, R,
+                                             base, col0, tally=tally)
+    if rc.tolist() != list(kernel_counts):
+        raise AssertionError("wide walk: counters %s, replay %s"
+                             % (list(kernel_counts), rc.tolist()))
+    return poa_walk_record(kernel_counts, maxdist, preds.shape[1],
+                           tally["past_head"])
 
 
 def nbytes(*tensors) -> int:
@@ -837,6 +913,8 @@ def main() -> int:
     times["psa_walk 32 x 10 kbp"].update(traced_100k_phase(dev, smi_line))
     probe_launches, probe_times = walk_probe_phase(dev, smi_line)
     launches.update(probe_launches)
+    wide_launches, wide_times = wide_phases(dev, smi_line)
+    launches.update(wide_launches)
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "smi": smi_line})
@@ -896,6 +974,17 @@ def main() -> int:
          "scripts/walk_ablate3.py:33", probe_times["walk_probe_c"]),
         ("walk_probe_e", src % "walk_probes.cu", "scripts/db_probe.py:14",
          probe_times["walk_probe_e"]),
+        ("poa_dp_wide", src % "poa_dp.cu", "tsta_tpu/ops/msa_pallas.py:58",
+         wide_times["poa_dp_wide"]),
+        ("poa_walk_wide", src % "poa_walk.cu",
+         "tsta_tpu/ops/msa_pallas.py:646", wide_times["poa_walk_wide"]),
+        ("poa_dp_chunk_wide", src % "poa_dp.cu",
+         "tsta_tpu/ops/msa_pallas.py:58", wide_times["poa_dp_chunk_wide"]),
+        ("poa_dp_window_wide", src % "poa_dp.cu",
+         "tsta_tpu/ops/msa_pallas.py:58", wide_times["poa_dp_window_wide"]),
+        ("poa_walk_bounded_wide", src % "poa_walk_bounded.cu",
+         "tsta_tpu/ops/msa_pallas.py:775",
+         wide_times["poa_walk_bounded_wide"]),
     ]
     emit({"kernels": [{"name": n, "route": "cuda", "source": s,
                        "replaces": r, "launches": launches[n],
@@ -1034,10 +1123,11 @@ def notrace_cli(fa, fb, pair):
             "plain": plain_out, "plain_s": time.perf_counter() - t0}
 
 
-def next_round(seqs, rounds, params, dev, budget=None):
+def next_round(seqs, rounds, params, dev, budget=None, stair=None):
     """The device inputs of round ``rounds + 1`` of ``seqs``, after
     ``rounds`` rounds through the kernels, planned for ``budget`` bytes
-    (default: the card's)."""
+    (default: the card's); ``stair`` (k, at): read 0's chain with node
+    ``at``'s in-degree raised to k (:func:`staircase`)."""
     import numpy as np
     import torch
 
@@ -1047,6 +1137,8 @@ def next_round(seqs, rounds, params, dev, budget=None):
     if budget is None:
         budget = device_budget(dev)
     g = PoaGraph.from_sequence(seqs[0], len(seqs))
+    if stair:
+        staircase(g, *stair)
     for sno in range(1, rounds + 1):
         packed, order, _ = msa_poa.run_round(g, seqs[sno], params, dev,
                                              "cuda", budget)
@@ -1061,6 +1153,9 @@ def next_round(seqs, rounds, params, dev, budget=None):
 
     return {"tables": [put(x) for x in (predsT, pmaskT, bases.reshape(N),
                                         fills, a)],
+            "lists": ([put(x) for x in msa_poa.pred_lists(preds, pmaskT)]
+                      if max_in > msa_poa.MAX_IN else None),
+            "order": list(order),
             "n_real": n_real, "n_nodes": len(order), "W": W, "NC": NC,
             "NWIN": NWIN, "preds": put(preds),
             "mask": put(msa_poa.sink_mask(g, order, N)),
@@ -1081,13 +1176,14 @@ def poa_compare(r, params, reps: int, plain_warm: bool, forced=(),
 
     from tsta_tpu_torch.ops import msa_native, msa_poa
     args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
-    ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(*args), reps)
+    lists = r["lists"]
+    ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(*args, lists=lists), reps)
     pms, (pw, ps) = cuda_ms(lambda: msa_native.round_dp_plain(*args), 1,
                             plain_warm)
     nn = r["n_nodes"]
     dp_err = max(max_err(kw[:nn], pw[:nn]), max_err(ks, ps))
     for D, T, G in forced:
-        fw, fs = msa_poa.poa_dp(*args, D=D, T=T, G=G)
+        fw, fs = msa_poa.poa_dp(*args, lists=lists, D=D, T=T, G=G)
         dp_err = max(dp_err, max_err(fw[:nn], pw[:nn]), max_err(fs, ps))
         del fw, fs
     best = msa_poa.best_sink(ps, r["mask"])
@@ -1099,7 +1195,10 @@ def poa_compare(r, params, reps: int, plain_warm: bool, forced=(),
     wpms, pal = cuda_ms(lambda: msa_poa.walk_plain(pw, r["preds"], best,
                                                    r["n_real"]), 1,
                         plain_warm)
-    walk = poa_walk_record(counts.tolist(), maxdist, r["preds"].shape[1])
+    wide = lists is not None
+    walk = (wide_walk_record(counts.tolist(), kw, r["preds"], int(best),
+                             r["n_real"] - 1, maxdist) if wide else
+            poa_walk_record(counts.tolist(), maxdist, r["preds"].shape[1]))
     walk_err = max_err(kal, pal)
     swept = []
     for S, R, threads in walk_forced:
@@ -1119,17 +1218,114 @@ def poa_compare(r, params, reps: int, plain_warm: bool, forced=(),
     c = walk["counts"]
     # each move reads a word, each pred move a pred; an align write a
     # consumed column
-    walk_bytes = (c["moves"] * 2 + c["pred_moves"] * 4 + r["n_real"] * 4
-                  + nbytes(best))
+    walk_bytes = (c["moves"] * kw.element_size() + c["pred_moves"] * 4
+                  + r["n_real"] * 4 + nbytes(best))
+    rule = poa_wide_bound if wide else bound
     return ({"shape": r["shape"], "ms": ms, "plain_ms": pms,
              "max_abs_err": dp_err, "plan": list(msa_poa.poa_plan(n)),
              "forced": [[*msa_poa.poa_plan(n, D, T), G or D]
                         for D, T, G in forced],
-             **bound(nbytes(*tables, kw, ks), dp_ops)},
+             **rule(nbytes(*tables, kw, ks), dp_ops)},
             {"shape": r["shape"], "ms": wms, "plain_ms": wpms,
              "max_abs_err": walk_err, "maxdist": maxdist, **walk,
              "forced": swept,
-             **bound(walk_bytes, OPS_WALK_STEP * c["moves"])})
+             **rule(walk_bytes, OPS_WALK_STEP * c["moves"])})
+
+
+def grown_reads(seed):
+    """Phase 7's seeded reads: a 2,000 bp base and 4 copies with 240
+    substitutions and 30 deletions."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(acgt, 2000)
+    reads = [base.tobytes()]
+    for _ in range(4):
+        s = base.copy()
+        s[rng.integers(0, 2000, 240)] = rng.choice(acgt, 240)
+        reads.append(np.delete(s, rng.integers(0, 2000, 30)).tobytes())
+    return reads
+
+
+def staircase(g, k: int, m: int) -> int:
+    """Raise the in-degree of the node at topo position ``m`` of ``g`` to
+    ``k``: edges into it from the nodes before it in topo order, nearest
+    first, as reads with deletions of every length up to ~k ending at one
+    base make them; the largest pred distance, and so the ring's W, stays
+    about k.  Returns the node."""
+    order = list(g.topo)
+    v = int(order[m])
+    have = {int(p) for p in g._preds[v, :int(g._ndeg[v])]}
+    q = 1
+    while int(g._ndeg[v]) < k:
+        u = int(order[m - q])
+        q += 1
+        if u not in have:
+            g.add_edge(u, v)
+            have.add(u)
+    g.toposort()
+    return v
+
+
+@contextlib.contextmanager
+def staircased(k: int, at: int, min_len: int):
+    """Within: ``PoaGraph.from_sequence`` of a read of at least
+    ``min_len`` bp gives its chain with node ``at``'s in-degree raised to
+    k (so every round of that problem is wide); shorter reads' chains as
+    they are."""
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    orig = PoaGraph.__dict__["from_sequence"]
+
+    def from_sequence(cls, seq, n_seq):
+        g = orig.__func__(cls, seq, n_seq)
+        if len(seq) >= min_len:
+            staircase(g, k, at)
+        return g
+
+    PoaGraph.from_sequence = classmethod(from_sequence)
+    try:
+        yield
+    finally:
+        PoaGraph.from_sequence = orig
+
+
+def deletion_read(read: bytes, at: int, d: int, seed: int) -> bytes:
+    """``read`` with ~10% of its bases substituted and the ``d`` bases
+    before position ``at`` deleted: against a graph whose node ``at`` has
+    a staircase, its walk enters that node from the pred at table index
+    ``d``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    s = np.frombuffer(read, np.uint8).copy()
+    s[rng.integers(0, len(s), len(s) // 10)] = rng.choice(acgt, len(s) // 10)
+    return np.concatenate([s[:at - d], s[at:]]).tobytes()
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Within: every call of the MSA round's plain versions
+    (``round_dp_plain``, ``walk_plain``, ``walk_bounded_plain``) counted
+    in the yielded dict."""
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    calls = {"round_dp_plain": 0, "walk_plain": 0, "walk_bounded_plain": 0}
+    saved = [(m, name, getattr(m, name)) for m, name in (
+        (msa_native, "round_dp_plain"), (msa_poa, "walk_plain"),
+        (msa_poa, "walk_bounded_plain"))]
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for m, name, fn in saved:
+        setattr(m, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 def deletion_reads(length=2000, cut=300):
@@ -1249,18 +1445,7 @@ def msa_phases(dev, smi_line):
     # walk takes a pred jump past its window
     errs = {"poa_dp": 0, "poa_walk": 0}
     shapes, walks = [], []
-    sets = []
-    for seed in (1, 2):
-        rng = np.random.default_rng(SEED + seed)
-        acgt = np.frombuffer(b"ACGT", np.uint8)
-        base = rng.choice(acgt, 2000)
-        reads = [base.tobytes()]
-        for _ in range(4):
-            s = base.copy()
-            s[rng.integers(0, 2000, 240)] = rng.choice(acgt, 240)
-            reads.append(np.delete(s, rng.integers(0, 2000, 30)).tobytes())
-        sets.append(reads)
-    sets.append(deletion_reads())
+    sets = [grown_reads(1), grown_reads(2), deletion_reads()]
     for reads in sets:
         for rounds in range(len(reads) - 1):
             r = next_round(reads, rounds, params, dev)
@@ -1567,9 +1752,10 @@ def pair_rows(out, i: int, k: int):
     return bytes(ri[c] for c in keep), bytes(rk[c] for c in keep)
 
 
-def hold_round(dev, g, seq, label: str, sweep: bool):
-    """One chunked round of ``seq`` against ``g`` at the card's budget,
-    forward through the kernel, then held piece by piece to the plain
+def hold_round(dev, g, seq, label: str, sweep: bool, budget=None):
+    """One chunked round of ``seq`` against ``g`` at the card's budget
+    (or ``budget``; ``label`` names it in the records' shapes), forward
+    through the kernel, then held piece by piece to the plain
     versions: its last forward chunk from the ring that entered it
     (scores, ring out, checkpoints, each also against the forward's), and
     the first cell its walk rematerialises (words, ring out) and walks
@@ -1585,8 +1771,9 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
     params = AlignParams()
     times = {}
     prep, n, n_real, a, NC, NWIN = msa_poa.prep_round(
-        g, seq, params, device_budget(dev))
+        g, seq, params, budget or device_budget(dev))
     r = msa_chunked.ChunkedRound(g, prep, a, n_real, NC, NWIN, params, dev)
+    rule = bound if r.lists is None else poa_wide_bound
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     snaps, scores, ckpt = r.forward(msa_poa.poa_dp)
@@ -1616,12 +1803,12 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
               max_err(ksc, scores[sl]), max_err(kck, ckpt[sl]))
     args, _ = r.forward_call(c, None, None)
     times["poa_dp_chunk"] = {
-        "shape": "200 kbp %s, chunk %d: %d of %d rows x %d columns, "
+        "shape": "%s, chunk %d: %d of %d rows x %d columns, "
                  "NWIN %d, W %d" % (label, c, r.rows(c), NC, n, NWIN, r.W),
         "ms": ms, "plain_ms": pms, "max_abs_err": err,
         "plan": list(msa_poa.poa_plan(n)),
-        **bound(nbytes(*args[:5], snaps[c], *outs["kernel"]),
-                chunk_ops(args[:2], r.rows(c), n, False))}
+        **rule(nbytes(*args[:5], snaps[c], *outs["kernel"]),
+               chunk_ops(args[:2], r.rows(c), n, False))}
     if sweep:
         want = outs["kernel"]
 
@@ -1653,13 +1840,13 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
     words = res["kernel"][0]
     err = max(max_err(k, p) for k, p in zip(res["kernel"], res["plain"]))
     times["poa_dp_window"] = {
-        "shape": "200 kbp %s, cell (%d, %d): %d of %d rows x %d columns"
+        "shape": "%s, cell (%d, %d): %d of %d rows x %d columns"
                  % (label, c, w, r.rows(c), NC, r.CW),
         "ms": ms, "plain_ms": pms, "max_abs_err": err,
         "plan": list(msa_poa.poa_plan(r.CW)),
-        **bound(nbytes(*[x for x in args if torch.is_tensor(x)], ring_in,
-                       *res["kernel"]),
-                chunk_ops(args[:2], r.rows(c), r.CW, True))}
+        **rule(nbytes(*[x for x in args if torch.is_tensor(x)], ring_in,
+                      *res["kernel"]),
+               chunk_ops(args[:2], r.rows(c), r.CW, True))}
     preds = r.chunk_preds(c)
     walks = {}
     counts = torch.zeros((4,), dtype=torch.int32, device=dev)
@@ -1675,7 +1862,11 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
                       False)
     consumed = j - int(walks["kernel"][0][1])
     werr = max(max_err(k, p) for k, p in zip(walks["kernel"], walks["plain"]))
-    rec = poa_walk_record(counts.tolist(), r.maxdist, preds.shape[1])
+    if r.lists is None:
+        rec = poa_walk_record(counts.tolist(), r.maxdist, preds.shape[1])
+    else:
+        rec = wide_walk_record(counts.tolist(), words, preds, row, j,
+                               r.maxdist, c * NC, w * r.CW)
     mv = rec["counts"]
     times["poa_walk_bounded"] = {
         "shape": times["poa_dp_window"]["shape"] + ", %d columns walked"
@@ -1683,8 +1874,8 @@ def hold_round(dev, g, seq, label: str, sweep: bool):
         "ms": wms, "plain_ms": wpms, "max_abs_err": werr,
         "consumed": consumed, "maxdist": r.maxdist, **rec,
         # a word a move, a pred a pred move, an align write a column
-        **bound(mv["moves"] * 2 + mv["pred_moves"] * 4 + consumed * 4 + 12,
-                OPS_WALK_STEP * mv["moves"])}
+        **rule(mv["moves"] * words.element_size() + mv["pred_moves"] * 4
+               + consumed * 4 + 12, OPS_WALK_STEP * mv["moves"])}
     return times, forward_s, forward_score, walks["kernel"][0].tolist()
 
 
@@ -1711,13 +1902,13 @@ def check_200k(dev, smi_line, seqs, out):
     params = AlignParams()
     g = PoaGraph.from_sequence(seqs[0], len(seqs))
     times, forward_s, forward_score, exit_state = hold_round(
-        dev, g, seqs[1], "round 1", True)
+        dev, g, seqs[1], "200 kbp round 1", True)
     packed, order, _ = msa_poa.run_round(g, seqs[1], params, dev, "cuda",
                                          device_budget(dev))
     msa_native._finish_round(g, seqs[1], 1, order, packed.cpu().numpy(),
                              [], [], [])
     times2, forward2_s, forward2_score, exit2 = hold_round(
-        dev, g, seqs[2], "round 2", False)
+        dev, g, seqs[2], "200 kbp round 2", False)
     consumed = min(times["poa_walk_bounded"]["consumed"],
                    times2["poa_walk_bounded"]["consumed"])
     del g, packed
@@ -2547,6 +2738,222 @@ def walk_probe_phase(dev, smi_line):
         raise AssertionError("walk probes: %s, launches %s, %.1f s"
                              % (bad, launches, wall))
     return launches, times
+
+
+def chunking_budget(g, seq, params) -> int:
+    """The largest budget, in steps of 1 MiB below twice the wide plane's
+    bytes, at which ``seq``'s round against ``g`` plans its int32 plane
+    in chunks (its 16-bit plane would then run as one call)."""
+    from tsta_tpu_torch.ops import msa_poa
+    prep, n = msa_poa.prep_round(g, seq, params, 1 << 40)[:2]
+    N, W = prep[4], prep[6]
+    for b in range(8 * N * n - 1, 0, -(1 << 20)):
+        try:
+            if msa_poa.round_plan(N, n, W, b, 4):
+                return b
+        except ValueError:
+            pass
+    raise AssertionError("no budget chunks the wide round")
+
+
+def wide_phases(dev, smi_line):
+    """Phase 22: MSA rounds past 64 preds through the kernels' wide forms
+    (32-bit words, 13-bit pred fields), the launch counters and the count
+    of plain calls reset before each path and read after.  Returns the
+    paths' launches of the wide kernels and their timing records."""
+    import torch
+
+    from tsta_tpu_torch import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import _kernels, msa_native, msa_poa
+    params = AlignParams()
+    t_phase = time.perf_counter()
+    narrow_kernels = ("poa_dp", "poa_walk", *CHUNK_KERNELS)
+
+    # (a) phase 7's first grown graph with node WIDE_AT's in-degree raised
+    # to each of WIDE_IN, its next read a deletion into that node
+    base = grown_reads(1)
+    errs = {"poa_dp_wide": 0, "poa_walk_wide": 0}
+    small = []
+    for k in WIDE_IN:
+        d = min(k - 1, 600)
+        reads = base[:3] + [deletion_read(base[0], WIDE_AT, d, SEED + k)]
+        _kernels.reset_launches()
+        r = next_round(reads, 2, params, dev, stair=(k, WIDE_AT))
+        dp, walk = poa_compare(r, params, 1, False, POA_WIDE_FORCED,
+                               POA_WALK_FORCED_WIDE)
+        # the pred the walk took into the staircase node
+        words, scores = msa_poa.poa_dp(*r["tables"], r["n_real"],
+                                       r["n_nodes"], params, r["W"],
+                                       lists=r["lists"])
+        best = msa_poa.best_sink(scores, r["mask"])
+        align = msa_poa.poa_walk(words, r["preds"], best, r["n_real"]).cpu()
+        row = r["order"].index(WIDE_AT)
+        cols = (align == row).nonzero().flatten().tolist()
+        index = (int(words[row, cols[0]]) >> 4) & 8191 if cols else None
+        launched = {x: v for x, v in _kernels.launches.items() if v}
+        errs["poa_dp_wide"] = max(errs["poa_dp_wide"], dp["max_abs_err"])
+        errs["poa_walk_wide"] = max(errs["poa_walk_wide"],
+                                    walk["max_abs_err"])
+        small.append({"in_degree": k, "deletion": d, "shape": r["shape"],
+                      "stair_pred_index": index, "launches": launched,
+                      "dp": {x: dp[x] for x in ("ms", "plain_ms", "plan",
+                                                "forced", "max_abs_err")},
+                      "walk": {x: walk[x] for x in (
+                          "ms", "plain_ms", "maxdist", "plan", "counts",
+                          "forced", "max_abs_err")}})
+        if index is None or index < msa_poa.MAX_IN \
+                or any(launched.get(x) for x in narrow_kernels):
+            raise AssertionError("phase 22 (a): in-degree %d walked in by "
+                                 "index %s, launches %s" % (k, index,
+                                                            launched))
+        del r, words, scores
+    emit({"phase": "wide_small", "max_abs_err": errs, "rounds": small,
+          "smi": smi_line})
+    if any(errs.values()):
+        raise AssertionError("a wide form differs from its plain version: "
+                             "%s" % errs)
+
+    # (a) a chunked wide round: in-degree 129, a 2,048-column read
+    k = 129
+    read = deletion_read(base[0], WIDE_AT, k - 1, SEED + k) + base[4][:160]
+    g = PoaGraph.from_sequence(base[0], 4)
+    staircase(g, k, WIDE_AT)
+    for sno in (1, 2):
+        packed, order, _ = msa_poa.run_round(g, base[sno], params, dev,
+                                             "cuda", 1 << 40)
+        msa_native._finish_round(g, base[sno], sno, order,
+                                 packed.cpu().numpy(), [], [], [])
+    budget = chunking_budget(g, read, params)
+    p0 = start()
+    with counting_plain() as calls:
+        got, _, plain_k = msa_poa.run_round(g, read, params, dev, "cuda",
+                                            budget)
+        torch.cuda.synchronize()
+    chunk_launches, _ = stop(p0)
+    plain_calls = dict(calls)
+    want, _, plain_p = msa_poa.run_round(g, read, params, dev, "plain",
+                                         budget)
+    whole, _, _ = msa_poa.run_round(g, read, params, dev, "cuda", 1 << 40)
+    chunk_times = hold_round(dev, g, read, "grown 2 kbp graph, in-degree 129",
+                             False, budget)[0]
+    chunk_ok = (torch.equal(got, want) and torch.equal(got, whole)
+                and not plain_k and plain_p)
+    wide_chunk = ("poa_dp_chunk_wide", "poa_dp_window_wide",
+                  "poa_walk_bounded_wide")
+    emit({"phase": "wide_chunked", "budget": budget, "equal": chunk_ok,
+          "launches": {x: v for x, v in chunk_launches.items() if v},
+          "plain_calls": plain_calls, "times": chunk_times,
+          "smi": smi_line})
+    if not chunk_ok or any(plain_calls.values()) \
+            or min(chunk_launches[x] for x in wide_chunk) < 1 \
+            or any(chunk_launches[x] for x in narrow_kernels) \
+            or any(t["max_abs_err"] for t in chunk_times.values()):
+        raise AssertionError("phase 22 (a): the chunked wide round differs "
+                             "or left the wide kernels")
+    del g, got, want, whole
+
+    # (b) 3 x 50 kbp with a staircase at node WIDE_50K[1] from round 1 on,
+    # through align_seqs and align_seqs_many beside a narrow problem, then
+    # the plain route (the parent's) once
+    seqs, narrow = long_reads(), fleet_problem(100)
+    with staircased(*WIDE_50K, 20000):
+        clock = msa_poa.RoundClock(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        p0 = start()
+        r0 = msa_native.plain_rounds
+        with counting_plain() as calls:
+            t0 = time.perf_counter()
+            out = msa_native.align_seqs(seqs, params, kernel="cuda",
+                                        device=dev, clock=clock)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, _ = stop(p0)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            fleet = msa_native.align_seqs_many([seqs, narrow], params,
+                                               kernel="cuda", device=dev)
+            torch.cuda.synchronize()
+        plain_rounds = msa_native.plain_rounds - r0
+        plain_calls = dict(calls)
+        fleet_ok = (fleet[0] == out and fleet[1] == msa_native.align_seqs(
+            narrow, params, device=dev))
+        pclock = msa_poa.RoundClock(dev)
+        t0 = time.perf_counter()
+        pout = msa_native.align_seqs(seqs, params, kernel="plain",
+                                     device=dev, clock=pclock)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    same = out == pout
+
+    # round 2's DP and walk (median of 3), beside the 16-bit build on the
+    # graph without the staircase
+    times, rounds2 = {}, {}
+    for label, stair in (("wide", WIDE_50K), ("16-bit", None)):
+        r = next_round(seqs, 1, params, dev, stair=stair)
+        args = (*r["tables"], r["n_real"], r["n_nodes"], params, r["W"])
+        ms, (kw, ks) = cuda_ms(lambda: msa_poa.poa_dp(
+            *args, lists=r["lists"]), 3)
+        best = msa_poa.best_sink(ks, r["mask"])
+        maxdist = msa_poa.max_pred_distance(r["preds"].cpu().numpy())
+        counts = torch.zeros((4,), dtype=torch.int32, device=dev)
+        wms, kal = cuda_ms(lambda: msa_poa.poa_walk(
+            kw, r["preds"], best, r["n_real"], maxdist=maxdist,
+            counts=counts), 3)
+        rec = (wide_walk_record(counts.tolist(), kw, r["preds"], int(best),
+                                r["n_real"] - 1, maxdist) if stair else
+               poa_walk_record(counts.tolist(), maxdist,
+                               r["preds"].shape[1]))
+        rounds2[label] = {"shape": r["shape"], "dp_ms": ms, "walk_ms": wms,
+                          "dp_plan": list(msa_poa.poa_plan(
+                              r["tables"][4].shape[0])),
+                          "walk": rec}
+        if stair:
+            pal = msa_poa.walk_plain(kw, r["preds"], best, r["n_real"])
+            nn, c = r["n_nodes"], rec["counts"]
+            times["poa_dp_wide"] = {
+                "shape": "50 kbp round 2, in-degree %d: %s" % (
+                    WIDE_50K[0], r["shape"]), "ms": ms,
+                "plain_ms": pclock.rounds[1]["dp_ms"],
+                "max_abs_err": max(errs["poa_dp_wide"], int(not same)),
+                "plan": rounds2[label]["dp_plan"],
+                **poa_wide_bound(nbytes(*r["tables"], *r["lists"], kw, ks),
+                                 chunk_ops(r["tables"][:2], nn,
+                                           r["tables"][4].shape[0], True))}
+            times["poa_walk_wide"] = {
+                "shape": times["poa_dp_wide"]["shape"], "ms": wms,
+                "plain_ms": pclock.rounds[1]["walk_ms"],
+                "max_abs_err": max(errs["poa_walk_wide"],
+                                   max_err(kal, pal)),
+                "maxdist": maxdist, **rec,
+                **poa_wide_bound(c["moves"] * 4 + c["pred_moves"] * 4
+                                 + r["n_real"] * 4 + 4,
+                                 OPS_WALK_STEP * c["moves"])}
+        del r, args, kw, ks, kal
+    for x, key in (("poa_dp_chunk_wide", "poa_dp_chunk"),
+                   ("poa_dp_window_wide", "poa_dp_window"),
+                   ("poa_walk_bounded_wide", "poa_walk_bounded")):
+        times[x] = chunk_times[key]
+    wide_launches = {x: launches[x] for x in ("poa_dp_wide", "poa_walk_wide")}
+    wide_launches.update({x: chunk_launches[x] for x in wide_chunk})
+    emit({"phase": "wide_50k", "equal_to_plain_route": same,
+          "fleet_equal": fleet_ok, "wall_s": wall,
+          "cells_per_s": msa_cells(seqs, out) / wall,
+          "peak_device_gb": peak, "rounds": out.round_scores,
+          "graph_len": out.graph_len, "launches": {
+              x: v for x, v in launches.items() if v},
+          "plain_rounds": plain_rounds, "plain_calls": plain_calls,
+          "rounds_split": clock.rounds, "plain_route_wall_s": plain_wall,
+          "plain_route_rounds_split": pclock.rounds, "round2": rounds2,
+          "phase_s": time.perf_counter() - t_phase, "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    if not same or not fleet_ok or plain_rounds \
+            or any(plain_calls.values()) \
+            or (launches["poa_dp_wide"], launches["poa_walk_wide"]) != (2, 2) \
+            or any(launches[x] for x in narrow_kernels) \
+            or any(t["max_abs_err"] for t in times.values()):
+        raise AssertionError("phase 22 (b): the wide 3 x 50 kbp run differs "
+                             "from the plain route or left the kernels")
+    return wide_launches, times
 
 
 def start():

@@ -267,17 +267,39 @@ def _deletion_reads():
     return reads + [bytes(c) for c in cut]
 
 
+def _staircase(g, k, m=None):
+    """Raise the in-degree of the node at topo position ``m`` (default the
+    middle) of ``g`` (either package's PoaGraph) to ``k``: edges into it
+    from the nodes before it in topo order, nearest first, as reads with
+    deletions of every length up to ~k ending at one base would make
+    them.  The largest pred distance, and so the ring's W, stays about k.
+    Returns the node."""
+    order = list(g.topo)
+    m = len(order) // 2 if m is None else m
+    v = int(order[m])
+    have = {int(p) for p in g._preds[v, :int(g._ndeg[v])]}
+    q = 1
+    while int(g._ndeg[v]) < k:
+        u = int(order[m - q])
+        q += 1
+        if u not in have:
+            g.add_edge(u, v)
+            have.add(u)
+    g.toposort()
+    return v
+
+
 def _walk_plans_match_replay(cuda, words, preds, best, n_real, want,
-                             maxdist):
-    """``poa_walk.cu`` at its plan and each forced (S, R, threads) on the
-    card: the align map equals ``want`` and the counters (moves, pred
+                             maxdist, forced=POA_WALK_FORCED):
+    """``poa_walk.cu`` at its plan and each ``forced`` (S, R, threads) on
+    the card: the align map equals ``want`` and the counters (moves, pred
     moves, misses, phases) equal ``poa_walk_staged_plain``'s replay of
     the same plan on the CPU plane ``words``.  Returns the plan's
     counters."""
     from tsta_tpu_torch.ops import msa_poa
     wd, pd, bd = words.to(cuda), preds.to(cuda), best.to(cuda)
     plan = None
-    for S, R, threads in ((None, None, None),) + POA_WALK_FORCED:
+    for S, R, threads in ((None, None, None),) + tuple(forced):
         counts = torch.zeros((4,), dtype=torch.int32, device=cuda)
         got = msa_poa.poa_walk(wd, pd, bd, n_real, maxdist=maxdist, S=S,
                                R=R, threads=threads, counts=counts)
@@ -423,30 +445,207 @@ def test_msa_kernel_route_matches_cpu(cuda):
     assert plain == want[0]
 
 
+# the wide walks' forced plans (S, R, threads): two buffers of 4-byte
+# words, R = 0 misses every move
+POA_WALK_FORCED_WIDE = ((8, 0, 64), (8, 16, 256), (16, 64, 96),
+                        (32, 128, 128), (64, 207, 256), (32, 0, 128))
+# in-degrees of the wide forms' card tests: the first wide table (128
+# entries), its last index, a 256-entry table, and 1,024 entries
+WIDE_IN = (65, 128, 129, 1000)
+
+
+def _wide_graph(k, seed=1, rounds=2, at=1200):
+    """A grown graph: read 0's chain (2,000 bp) with node ``at``'s
+    in-degree raised to ``k`` by a staircase, then ``rounds`` rounds of
+    mutated copies through the plain versions; and the next read, a copy
+    of read 0 with ~10% substitutions and a deletion that ends at node
+    ``at``, so its walk enters that node from its pred at table index
+    min(k - 1, 600)."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    reads = _reads(seed, rounds + 1, 2000)
+    g = PoaGraph.from_sequence(reads[0], len(reads) + 1)
+    _staircase(g, k, at)
+    for sno in range(1, rounds + 1):
+        packed, order, _ = msa_poa.run_round(g, reads[sno], AP, cpu, "plain",
+                                             1 << 34)
+        msa_native._finish_round(g, reads[sno], sno, order, packed.numpy(),
+                                 [], [], [])
+    assert g.max_in_degree() >= k
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    s = np.frombuffer(reads[0], np.uint8).copy()
+    s[rng.integers(0, len(s), 200)] = rng.choice(acgt, 200)
+    d = min(k - 1, 600)
+    return g, np.concatenate([s[:at - d], s[at:]]).tobytes()
+
+
 @pytest.mark.cuda
-def test_wide_round_goes_plain_and_cuda_refuses_it(cuda, monkeypatch):
+@pytest.mark.parametrize("k", WIDE_IN)
+def test_wide_poa_dp_and_walks_match_plain(cuda, k):
+    """The wide forms on a grown 2 kbp graph with a staircase of in-degree
+    k: ``poa_dp.cu``'s single call at its plan and at forced D = 2, 3, 5
+    (T = 16, 1, 32; 5 shards also on 2 blocks), every real word and score
+    equal to the plain version's 13-bit words; the walk at its plan and at
+    forced plans, R = 0 among them, its align map equal to the plain
+    walk's and its counters to the wide replay's; and the bounded walk
+    from the sink over the whole plane as one cell, equal to the plain
+    bounded walk."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    g, seq = _wide_graph(k)
+    tk, n_real, n_nodes, W, order, preds = _round_inputs(g, seq, AP, cpu)
+    assert tk[0].shape[0] > 64
+    pw, ps = msa_poa.poa_dp(*tk, n_real, n_nodes, AP, W)
+    assert pw.dtype == torch.int32
+    td = [x.to(cuda) for x in tk]
+    lists = [torch.from_numpy(x).to(cuda)
+             for x in msa_poa.pred_lists(preds, tk[1].numpy())]
+    n0 = dict(_kernels.launches)
+    for D, T, G in ((None, None, None), (2, 16, None), (3, 1, None),
+                    (5, 32, None), (5, 16, 2)):
+        kw, ks = msa_poa.poa_dp(*td, n_real, n_nodes, AP, W, lists=lists,
+                                D=D, T=T, G=G)
+        torch.cuda.synchronize()
+        assert kw.dtype == torch.int32
+        assert torch.equal(kw.cpu()[:n_nodes], pw[:n_nodes]), (D, T, G)
+        assert torch.equal(ks.cpu(), ps), (D, T, G)
+    assert _kernels.launches["poa_dp_wide"] == n0["poa_dp_wide"] + 5
+    assert _kernels.launches["poa_dp"] == n0["poa_dp"]
+    N = tk[0].shape[1]
+    best = msa_poa.best_sink(ps, torch.from_numpy(
+        msa_poa.sink_mask(g, order, N)))
+    pd = torch.from_numpy(preds)
+    want = msa_poa.walk_plain(pw, pd, best, n_real)
+    maxdist = msa_poa.max_pred_distance(preds)
+    _walk_plans_match_replay(cuda, pw, pd, best, n_real, want, maxdist,
+                             POA_WALK_FORCED_WIDE)
+    assert (_kernels.launches["poa_walk_wide"]
+            == n0["poa_walk_wide"] + 1 + len(POA_WALK_FORCED_WIDE))
+    assert _kernels.launches["poa_walk"] == n0["poa_walk"]
+    al_p = torch.full((pw.shape[1],), -1, dtype=torch.int32)
+    out_p = msa_poa.walk_bounded_plain(pw, pd, int(best), n_real - 1, 0, 0,
+                                       0, al_p)
+    al_k = torch.full((pw.shape[1],), -1, dtype=torch.int32, device=cuda)
+    counts = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    out_k = msa_poa.poa_walk_bounded(pw.to(cuda), pd.to(cuda), int(best),
+                                     n_real - 1, 0, 0, 0, al_k,
+                                     maxdist=maxdist, counts=counts)
+    S, R, _ = msa_poa.poa_walk_plan(maxdist, pd.shape[1])
+    _, out_r, rc = msa_poa.poa_walk_staged_plain(pw, pd, int(best),
+                                                 n_real - 1, 0, S, R)
+    torch.cuda.synchronize()
+    assert torch.equal(al_k.cpu(), al_p) and torch.equal(al_p, want)
+    assert out_k.tolist() == out_p.tolist() == out_r.tolist()
+    assert counts.tolist() == rc.tolist()
+    assert (_kernels.launches["poa_walk_bounded_wide"]
+            == n0["poa_walk_bounded_wide"] + 1)
+
+
+@pytest.mark.cuda
+def test_wide_walks_take_a_table_not_a_power_of_two(cuda):
+    """The wide walks read a pred index from its 13-bit field whatever the
+    table's width: the in-degree 129 round's (N, 256) table padded to 260
+    columns walks as the 256-wide one, at the plan and with R = 0, its
+    counters equal to the replay's.  The wide DP without its pred lists,
+    a wide table not a multiple of 4 ints a row and a 16-bit one not a
+    power of two are refused before any launch."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    g, seq = _wide_graph(129)
+    tk, n_real, n_nodes, W, order, preds = _round_inputs(g, seq, AP, cpu)
+    pw, ps = msa_poa.poa_dp(*tk, n_real, n_nodes, AP, W)
+    N = tk[0].shape[1]
+    best = msa_poa.best_sink(ps, torch.from_numpy(
+        msa_poa.sink_mask(g, order, N)))
+    pd = torch.from_numpy(preds)
+    want = msa_poa.walk_plain(pw, pd, best, n_real)
+    wide = torch.nn.functional.pad(pd, (0, 4))
+    maxdist = msa_poa.max_pred_distance(preds)
+    n0 = _kernels.launches["poa_walk_wide"]
+    _walk_plans_match_replay(cuda, pw, wide, best, n_real, want, maxdist,
+                             ((32, 0, 128),))
+    assert _kernels.launches["poa_walk_wide"] == n0 + 2
+    td = [x.to(cuda) for x in tk]
+    with pytest.raises(ValueError, match="pred lists"):
+        msa_poa.poa_dp(*td, n_real, n_nodes, AP, W)
+    i32 = torch.int32
+    align = torch.full((pw.shape[1],), -1, dtype=i32, device=cuda)
+    for words, pr in ((pw.to(cuda), torch.zeros((N, 66), dtype=i32,
+                                                device=cuda)),
+                      (pw.to(cuda).to(torch.int16),
+                       torch.zeros((N, 12), dtype=i32, device=cuda))):
+        with pytest.raises(ValueError, match="power of two"):
+            _kernels.poa_walk(words, pr, best.to(cuda), n_real, align)
+        with pytest.raises(ValueError, match="power of two"):
+            _kernels.poa_walk_bounded(words, pr, 0, 5, 0, 0, 0, align,
+                                      torch.zeros((3,), dtype=i32,
+                                                  device=cuda))
+    assert _kernels.launches["poa_walk_wide"] == n0 + 2
+
+
+@pytest.mark.cuda
+def test_wide_chunked_round_on_card_matches_cpu(cuda):
+    """A wide round (in-degree 129) the plan chunks at a small budget, on
+    the card: forward chunks, window remats and bounded walks in their
+    wide forms, the packed result equal to the CPU's plain chunked round
+    and to the unchunked one; no 16-bit launch, no plain round."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_poa
+    AP, cpu = AlignParams(), torch.device("cpu")
+    g, seq = _wide_graph(129)
+    seq += _reads(9, 1, 160)[0]   # 2,048 columns: two column windows
+    budget = 48_000_000   # 3 chunks of 1,024 rows at 4 bytes a word
+    _, _, _, _, NC, NWIN = msa_poa.prep_round(g, seq, AP, budget)
+    assert (NC, NWIN) == (1024, 2)
+    want, order, plain = msa_poa.run_round(g, seq, AP, cpu, "auto", budget)
+    whole, _, _ = msa_poa.run_round(g, seq, AP, cpu, "auto", 1 << 34)
+    assert plain and torch.equal(want, whole)
+    n0 = dict(_kernels.launches)
+    got, _, plain = msa_poa.run_round(g, seq, AP, cuda, "cuda", budget)
+    torch.cuda.synchronize()
+    assert not plain and torch.equal(got.cpu(), want)
+    moved = {k: _kernels.launches[k] - n0[k] for k in _kernels.KERNELS
+             if _kernels.launches[k] != n0[k]}
+    assert set(moved) == {"poa_dp_chunk_wide", "poa_dp_window_wide",
+                          "poa_walk_bounded_wide"}, moved
+
+
+@pytest.mark.cuda
+def test_wide_route_on_card_matches_cpu(cuda, monkeypatch):
+    """Progressive runs on graphs past 64 preds (a staircase of 65 from
+    round 1 on) through the kernels' wide forms, ``kernel="cuda"`` and
+    ``"auto"`` and the fleet, equal to the CPU's plain runs; no plain
+    round on the card."""
     from tsta_tpu_torch.config import AlignParams
     from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_native
     orig = PoaGraph.from_sequence
 
-    def hacked(seq, n_seq):
+    def stair(seq, n_seq):
         g = orig(seq, n_seq)
-        tail = len(g) - 1
-        for _ in range(65):
-            g.add_edge(g.add_node(ord("A"), 0), tail)
-        g.toposort()
+        _staircase(g, 65)
         return g
 
-    monkeypatch.setattr(PoaGraph, "from_sequence", staticmethod(hacked))
-    reads = _reads(3, 3, 120)
+    monkeypatch.setattr(PoaGraph, "from_sequence", staticmethod(stair))
+    reads = _reads(3, 4, 600)
     want = msa_native.align_seqs(reads, AlignParams(), device="cpu")
     p0 = msa_native.plain_rounds
-    got = msa_native.align_seqs(reads, AlignParams(), device=cuda)
-    assert got == want and msa_native.plain_rounds == p0 + 2
-    with pytest.raises(ValueError, match="in-degree"):
-        msa_native.align_seqs(reads, AlignParams(), kernel="cuda",
-                              device=cuda)
+    n0 = dict(_kernels.launches)
+    for kernel in ("cuda", "auto"):
+        got = msa_native.align_seqs(reads, AlignParams(), kernel=kernel,
+                                    device=cuda)
+        assert got == want
+    fleet = msa_native.align_seqs_many([reads, reads[:2]], AlignParams(),
+                                       device=cuda)
+    assert fleet[0] == want
+    assert msa_native.plain_rounds == p0
+    assert _kernels.launches["poa_dp_wide"] == n0["poa_dp_wide"] + 3 * 3 + 1
+    assert _kernels.launches["poa_dp"] == n0["poa_dp"]
 
 
 @pytest.mark.cuda

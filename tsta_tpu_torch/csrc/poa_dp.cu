@@ -44,6 +44,23 @@
 // (pred indices in 6 bits: in-degree <= 64) into a row-major (rows, n)
 // plane, and per node the sink score H(v, n_real-1).
 //
+// The wide form (in-degree 65 to 8,192; msa_native.round_dp_plain's
+// 13-bit words, the JAX package's scan engine's rounds) writes one 32-bit
+// word a cell,
+//   (h_type*4 + e_ext*2 + f_ext) | h_pred << 4 | e_pred << 17,
+// with the same arithmetic and tie rules.  Its preds come from a
+// compacted list (CSR: per node the (buffer row id, table index) of each
+// valid entry, in table order, built once a round on the host,
+// msa_poa.pred_lists), so a node reads its preds, not max_in rows: at
+// in-degree 1,000 the table is 1,024 rows, and most nodes of such a graph
+// have one or two preds.  A node streams its list through the same
+// 64-entry shared buffer in table-order passes, carrying the first-max
+// reductions (hb, eb, pk) across passes, so ties and the shared memory
+// stay as in the 16-bit form; a pass after the first costs two barriers.
+// Its kernels are separate (poa_dp_wide_kernel, always built to walk its
+// shards), so the 16-bit builds keep their code (their SASS compared with
+// tools/poa_dp_ab.py).
+//
 // Checkpoints (msa_pallas.py:337-369): with nwin > 0, after global column
 // (w+1)*cw - 1 of each window w < nwin, the thread that owns that column
 // writes H, the inclusive running max q = max(F prefix, C - j*e) and F
@@ -167,7 +184,8 @@ using tsta::kNeg;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxIn = 64;
+constexpr int kMaxIn = 64;        // preds a pass (the 16-bit form's all)
+constexpr int kWideMaxIn = 1 << 13;  // the wide form's 13-bit fields
 constexpr int kMinS = 8;         // columns per thread, at least
 constexpr int kMaxS = 32;        // at most (the strip lives in registers)
 constexpr int kMaxShards = 132;  // past this many shards S grows
@@ -187,8 +205,22 @@ struct Params {
   int m, x, e, o;
 };
 
-// One node's valid predecessors in table order: ring slot (-1 for the
-// virtual row) and index in the pred table (the traceback's pred field).
+// The words of a form: 16-bit with 6-bit pred fields, or the wide form's
+// 32-bit with 13-bit ones.
+template <bool kWide>
+struct WordFmt {
+  using T = uint16_t;
+  static constexpr int kBits = 6;
+};
+template <>
+struct WordFmt<true> {
+  using T = uint32_t;
+  static constexpr int kBits = 13;
+};
+
+// One node's valid predecessors in table order (one pass of them in the
+// wide form): ring slot (-1 for the virtual row) and index in the pred
+// table (the traceback's pred field).
 struct Preds {
   int slot[kMaxIn];
   int idx[kMaxIn];
@@ -201,7 +233,7 @@ struct Launch {
   const int32_t* bases;   // (N,)
   const int32_t* fills;   // (4, N)
   const uint8_t* a;       // (n,)
-  uint16_t* words;        // (N, n) or null
+  void* words;            // (N, n) uint16 (uint32 wide) or null
   int32_t* scores;        // (N,)
   int32_t* ring;          // (W, 2, D * 256 * S)
   int32_t* ckpt;          // (N, nwin, 3) or null
@@ -211,6 +243,8 @@ struct Launch {
   int chunk_base, col0, nwin, cw;  // global row/column origin, windows
   int D, C, S, T, n_blocks;  // shards, their columns, a thread's, a packet's
   Params p;
+  const int2* pcsr;       // wide: (nnz,) (buffer row id, table index)
+  const int32_t* poff;    // wide: (N + 1,), row i's at [poff[i], poff[i+1])
 };
 
 // Node i's pred-table entries kk = lane and lane + 32, read by warp 0 a
@@ -255,14 +289,119 @@ __device__ __forceinline__ void store_preds(Preds& P, const PredRow& q,
   if (lane == 0) P.deg = __popc(m0) + __popc(m1);
 }
 
+// The wide form's pass of node i's list from its entry q0: entries q0 +
+// lane and q0 + lane + 32, and the pass's length n (warp-uniform).
+struct CsrRow {
+  int2 e0, e1;
+  int n;
+};
+
+__device__ __forceinline__ CsrRow fetch_csr(const Launch& L, int i, int q0,
+                                            int lane) {
+  CsrRow q{{0, 0}, {0, 0}, 0};
+  if (i < L.n_nodes) {
+    const int o = __ldg(L.poff + i) + q0;
+    q.n = min(kMaxIn, __ldg(L.poff + i + 1) - o);
+    if (lane < q.n) q.e0 = __ldg(L.pcsr + o + lane);
+    if (lane + 32 < q.n) q.e1 = __ldg(L.pcsr + o + lane + 32);
+  }
+  return q;
+}
+
+// Warp 0 writes a pass (already compacted, in table order) into P.
+__device__ __forceinline__ void store_csr(Preds& P, const CsrRow& q,
+                                          int lane, int W) {
+  if (lane < q.n) {
+    P.slot[lane] = q.e0.x == 0 ? -1 : q.e0.x % W;
+    P.idx[lane] = q.e0.y;
+  }
+  if (lane + 32 < q.n) {
+    P.slot[lane + 32] = q.e1.x == 0 ? -1 : q.e1.x % W;
+    P.idx[lane + 32] = q.e1.y;
+  }
+  if (lane == 0) P.deg = q.n;
+}
+
+template <bool kWide>
+__device__ __forceinline__ auto fetch_next(const Launch& L, int i, int lane) {
+  if constexpr (kWide)
+    return fetch_csr(L, i, 0, lane);
+  else
+    return fetch_preds(L, i, lane);
+}
+
+template <bool kWide, class Row>
+__device__ __forceinline__ void store_next(Preds& P, const Row& q, int lane,
+                                           int W) {
+  if constexpr (kWide)
+    store_csr(P, q, lane, W);
+  else
+    store_preds(P, q, lane, W);
+}
+
+// The wide form's reductions of P's preds over a strip's kS columns and
+// the column left of it (hl, al), preds outer so that one pred's loads
+// are in flight together: first-max H and its index; first-max E
+// candidate, its index and whether it extends E (pk: ha | ea << kB | ex
+// << 2kB).  The 16-bit form's loop is the same, inline in run_shard.
+template <int kS, int kB>
+__device__ __forceinline__ void reduce_preds(const Preds& P, const Params& p,
+                                             const int32_t* ring0, int RS,
+                                             int g0, int (&hb)[kS],
+                                             int (&eb)[kS], int (&pk)[kS],
+                                             int& hl, int& al) {
+  constexpr int kMask = (1 << kB) - 1;
+  for (int c = 0; c < P.deg; ++c) {
+    const int s = P.slot[c], idx = P.idx[c];
+    int hp[kS], ep[kS], hq;
+    if (s < 0) {
+      hq = p.o + g0 * p.e;
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        hp[k] = p.o + (g0 + k + 1) * p.e;
+        ep[k] = kNeg;
+      }
+    } else {
+      const int32_t* h = ring0 + (size_t)s * 2 * RS;
+      hq = h[(kS - 1) * kThreads - 1];  // thread t-1's last column
+#pragma unroll
+      for (int k = 0; k < kS; ++k) {
+        hp[k] = h[k * kThreads];
+        ep[k] = h[RS + k * kThreads];
+      }
+    }
+    if (hq > hl) {
+      hl = hq;
+      al = idx;
+    }
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      if (hp[k] > hb[k]) {
+        hb[k] = hp[k];
+        pk[k] = (pk[k] & ~kMask) | idx;
+      }
+      const int ec = max(ep[k] + p.e, hp[k] + p.o + p.e);
+      if (ec > eb[k]) {
+        eb[k] = ec;
+        pk[k] = (pk[k] & kMask) | idx << kB | (ep[k] + p.e == ec) << (2 * kB);
+      }
+    }
+  }
+}
+
 // One shard's DP, all the launch's nodes, by the whole block.  Shared
 // memory: the left shard's packet (4T ints), the block scan's warp
-// totals, the current and next node's preds, each thread's last F.
-template <int kS, bool kWords, bool kCkpt>
+// totals, the current and next node's preds (and, wide, a node's later
+// passes in s_more), each thread's last F.
+template <int kS, bool kWords, bool kCkpt, bool kWide>
 __device__ __forceinline__ void run_shard(const Launch& L, const int d,
                                           const int D, int32_t* s_pkt,
                                           int* s_warp, Preds* s_preds,
-                                          int* s_edge) {
+                                          int* s_edge, Preds* s_more) {
+  using Word = typename WordFmt<kWide>::T;
+  constexpr int kB = WordFmt<kWide>::kBits;
+  constexpr int kMask = (1 << kB) - 1;
+  constexpr int kPer = 8 / sizeof(Word);  // words a 64-bit store
   const Params p = L.p;
   const int t = threadIdx.x, lane = t & 31;
   const int T = L.T, N = L.N, W = L.W;
@@ -285,8 +424,9 @@ __device__ __forceinline__ void run_shard(const Launch& L, const int d,
                 ? __ldg(reinterpret_cast<const uint32_t*>(L.a + j0) + q)
                 : 0u;
 
-  PredRow next{0, 0, false, false};
-  if (t < 32) store_preds(s_preds[0], fetch_preds(L, 0, lane), lane, W);
+  decltype(fetch_next<kWide>(L, 0, 0)) next{};
+  if (t < 32) store_next<kWide>(s_preds[0], fetch_next<kWide>(L, 0, lane),
+                                lane, W);
   __syncthreads();
   for (int b = 0; b < L.n_blocks; ++b) {
     if (d > 0) {
@@ -304,13 +444,11 @@ __device__ __forceinline__ void run_shard(const Launch& L, const int d,
       const int r = i - b * T;
       const Preds& P = s_preds[i & 1];
       const int base = __ldg(L.bases + i);
-      if (t < 32) next = fetch_preds(L, i + 1, lane);
+      if (t < 32) next = fetch_next<kWide>(L, i + 1, lane);
 
       // The pred reductions of the strip's columns and of the column left
-      // of it (j0 - 1), preds outer so that one pred's loads are in
-      // flight together: first-max H and its index; first-max E
-      // candidate, its index and whether it extends E (ha | ea << 6 |
-      // ex << 12).
+      // of it (j0 - 1); the wide form's later passes each between two
+      // barriers, every thread at each.
       int hb[kS], eb[kS], pk[kS];
 #pragma unroll
       for (int k = 0; k < kS; ++k) {
@@ -319,7 +457,21 @@ __device__ __forceinline__ void run_shard(const Launch& L, const int d,
         pk[k] = 0;
       }
       int hl = kNeg, al = 0;
-      if (ncol > 0) {
+      if constexpr (kWide) {
+        const int deg = __ldg(L.poff + i + 1) - __ldg(L.poff + i);
+        for (int q0 = 0;; q0 += kMaxIn) {
+          if (ncol > 0)
+            reduce_preds<kS, kB>(q0 == 0 ? P : *s_more, p, ring0, RS, g0, hb,
+                                 eb, pk, hl, al);
+          if (q0 + kMaxIn >= deg) break;
+          __syncthreads();  // every thread done with the last pass
+          if (t < 32)
+            store_csr(*s_more, fetch_csr(L, i, q0 + kMaxIn, lane), lane, W);
+          __syncthreads();
+        }
+      } else if (ncol > 0) {
+        // the 16-bit form's loop, inline: as a call of reduce_preds its
+        // SASS moved (the same function, other registers and schedule)
         for (int c = 0; c < P.deg; ++c) {
           const int s = P.slot[c], idx = P.idx[c];
           int hp[kS], ep[kS], hq;
@@ -414,25 +566,26 @@ __device__ __forceinline__ void run_shard(const Launch& L, const int d,
           }
           if constexpr (kWords) {
             const int htype = h == diag ? 0 : (h == eb[k] ? 1 : 2);
-            int w = (htype * 4 + ((pk[k] >> 12) & 1) * 2) | (ad << 4) |
-                    (((pk[k] >> 6) & 63) << 10);
+            int w = (htype * 4 + ((pk[k] >> (2 * kB)) & 1) * 2) | (ad << 4) |
+                    (((pk[k] >> kB) & kMask) << (4 + kB));
             if (k == 0) {
               f0 = f;  // its f_ext needs the neighbour's F(v, j0-1)
             } else {
               w |= f == fl + p.e;
             }
-            acc |= (uint64_t)(uint16_t)w << (16 * (k % 4));
-            if (k % 4 == 3) {
-              if (k == 3) {
+            acc |= (uint64_t)(Word)w << (8 * sizeof(Word) * (k % kPer));
+            if (k % kPer == kPer - 1) {
+              if (k == kPer - 1) {
                 first = acc;
               } else {
-                *reinterpret_cast<uint64_t*>(L.words + (size_t)i * L.n + j0 +
-                                             k - 3) = acc;
+                *reinterpret_cast<uint64_t*>(static_cast<Word*>(L.words) +
+                                             (size_t)i * L.n + j0 + k -
+                                             (kPer - 1)) = acc;
               }
               acc = 0;
             }
           }
-          ad = pk[k] & 63;
+          ad = pk[k] & kMask;
           fl = f;
           hd = hb[k];
         }
@@ -444,7 +597,7 @@ __device__ __forceinline__ void run_shard(const Launch& L, const int d,
         pkt[3 * T + r] = fl;
       }
       if constexpr (kWords) s_edge[t] = fl;  // F(v, j0 + ncol - 1)
-      if (t < 32) store_preds(s_preds[(i + 1) & 1], next, lane, W);
+      if (t < 32) store_next<kWide>(s_preds[(i + 1) & 1], next, lane, W);
       __syncthreads();
       if constexpr (kWords) {
         if (ncol > 0) {
@@ -452,8 +605,8 @@ __device__ __forceinline__ void run_shard(const Launch& L, const int d,
               t > 0 ? s_edge[t - 1]
                     : (d == 0 ? __ldg(L.fills + 3 * N + i) : s_pkt[3 * T + r]);
           first |= (uint64_t)(f0 == fleft + p.e);
-          *reinterpret_cast<uint64_t*>(L.words + (size_t)i * L.n + j0) =
-              first;
+          *reinterpret_cast<uint64_t*>(static_cast<Word*>(L.words) +
+                                       (size_t)i * L.n + j0) = first;
         }
       }
     }
@@ -474,12 +627,28 @@ __global__ void __launch_bounds__(kThreads) poa_dp_kernel(const Launch L) {
   __shared__ int s_edge[kThreads];
   if constexpr (kWalk) {
     for (int d = blockIdx.x; d < L.D; d += gridDim.x)
-      run_shard<kS, kWords, kCkpt>(L, d, L.D, s_pkt, s_warp, s_preds,
-                                   s_edge);
+      run_shard<kS, kWords, kCkpt, false>(L, d, L.D, s_pkt, s_warp, s_preds,
+                                          s_edge, nullptr);
   } else {
-    run_shard<kS, kWords, kCkpt>(L, blockIdx.x, gridDim.x, s_pkt, s_warp,
-                                 s_preds, s_edge);
+    run_shard<kS, kWords, kCkpt, false>(L, blockIdx.x, gridDim.x, s_pkt,
+                                        s_warp, s_preds, s_edge, nullptr);
   }
+}
+
+// The wide form, walking its shards (one each at G = D): one build per
+// use and strip width (a build without the shard loop ran the 50 kbp
+// round ~1.5% faster, not worth its compile time).
+template <int kS, bool kWords, bool kCkpt>
+__global__ void __launch_bounds__(kThreads)
+    poa_dp_wide_kernel(const Launch L) {
+  extern __shared__ int32_t s_pkt[];
+  __shared__ int s_warp[2 * kWarps];
+  __shared__ Preds s_preds[2];
+  __shared__ Preds s_more;
+  __shared__ int s_edge[kThreads];
+  for (int d = blockIdx.x; d < L.D; d += gridDim.x)
+    run_shard<kS, kWords, kCkpt, true>(L, d, L.D, s_pkt, s_warp, s_preds,
+                                       s_edge, &s_more);
 }
 
 // The kernel of one use, strip width and grid kind, or null for an S it
@@ -494,9 +663,25 @@ const void* kernel_for(int S) {
   }
 }
 
+template <bool kWords, bool kCkpt>
+const void* wide_kernel_for(int S) {
+  switch (S) {
+    case 8: return (const void*)poa_dp_wide_kernel<8, kWords, kCkpt>;
+    case 16: return (const void*)poa_dp_wide_kernel<16, kWords, kCkpt>;
+    case 32: return (const void*)poa_dp_wide_kernel<32, kWords, kCkpt>;
+    default: return nullptr;
+  }
+}
+
 // The kernel of a launch: with words (window remat, single call), with
-// checkpoints (forward chunk) or neither; walking its shards or not.
-const void* kernel_of(bool words, bool ckpt, bool walk, int S) {
+// checkpoints (forward chunk) or neither; the wide form, or walking its
+// shards or not.
+const void* kernel_of(bool words, bool ckpt, bool walk, int S,
+                      bool wide = false) {
+  if (wide)
+    return words  ? wide_kernel_for<true, false>(S)
+           : ckpt ? wide_kernel_for<false, true>(S)
+                  : wide_kernel_for<false, false>(S);
   if (walk)
     return words  ? kernel_for<true, false, true>(S)
            : ckpt ? kernel_for<false, true, true>(S)
@@ -522,20 +707,20 @@ extern "C" void tsta_poa_dp_layout(int n, int* D, int* C, int* S, int* T) {
 
 // The most blocks of S columns a thread with T-node packets the current
 // card holds resident at once, the least over the kernel's three uses,
-// each in both builds (for the wrapper's default grid and its error
-// message; the launch itself is refused with
-// cudaErrorCooperativeLaunchTooLarge); a negative value is minus a CUDA
-// error.
-extern "C" int tsta_poa_dp_max_blocks(int T, int S) {
+// each in both builds, or with ``wide`` over the wide form's three (for
+// the wrapper's default grid and its error message; the launch itself is
+// refused with cudaErrorCooperativeLaunchTooLarge); a negative value is
+// minus a CUDA error.
+extern "C" int tsta_poa_dp_max_blocks(int T, int S, int wide) {
   if (!kernel_of(false, false, false, S))
     return -static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, coop = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  for (int k = 0; k < 6; ++k) {
+  for (int k = 0; k < (wide ? 3 : 6); ++k) {
     int per_sm = 0;
-    const void* fn = kernel_of(k % 3 == 0, k % 3 == 1, k >= 3, S);
+    const void* fn = kernel_of(k % 3 == 0, k % 3 == 1, k >= 3, S, wide);
     const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fn, kThreads, sizeof(int32_t) * 4 * (size_t)T);
     if (rc != cudaSuccess) return -static_cast<int>(rc);
@@ -555,6 +740,11 @@ extern "C" int tsta_poa_dp_max_blocks(int T, int S) {
 // columns a thread (8, 16 or 32; C <= 256 * S), T nodes per packet
 // (1..256); comm: (D, ceil(n_nodes / T), 4T) int32 and flags: (D,
 // ceil(n_nodes / T)) int32, zero, both null for D = 1 or no nodes.
+// The wide form (max_in up to 8,192): pcsr, (nnz, 2) int32, the valid
+// entries (buffer row id, table index) of the table in row-major order,
+// and poff, (N + 1,) int32, row i's entries [poff[i], poff[i + 1]) of
+// pcsr (a chunk's poff is its rows' slice of the round's);
+// words uint32; predsT and pmaskT unread.  Both null: the 16-bit form.
 // Returns cudaGetLastError() after the launch (cooperative for G >= 2),
 // or the launch's error: cudaErrorCooperativeLaunchTooLarge, without
 // launching, when G blocks cannot be resident together.
@@ -565,9 +755,12 @@ extern "C" int tsta_poa_dp(const void* predsT, const void* pmaskT,
                            int E, int O, int chunk_base, int col0, int nwin,
                            int cw, void* words, void* scores, void* ring,
                            void* ckpt, int D, int C, int S, int T, int G,
-                           void* comm, void* flags, void* stream) {
-  const void* fn = kernel_of(words, ckpt, G < D, S);
-  if (!fn || max_in > kMaxIn || (words && ckpt) ||
+                           void* comm, void* flags, const void* pcsr,
+                           const void* poff, void* stream) {
+  const bool wide = poff != nullptr;
+  const void* fn = kernel_of(words, ckpt, G < D, S, wide);
+  if (!fn || max_in > (wide ? kWideMaxIn : kMaxIn) || (wide && !pcsr) ||
+      (words && ckpt) ||
       (ckpt && (nwin < 1 || cw < 1)) || T < 1 || T > kTMax || C % 4 ||
       C > S * kThreads || D < 1 || (D - 1) * C >= n || D * C < n || G < 1 ||
       G > D || (D > 1 && n_nodes > 0 && !(comm && flags)))
@@ -577,7 +770,7 @@ extern "C" int tsta_poa_dp(const void* predsT, const void* pmaskT,
                  static_cast<const int32_t*>(bases),
                  static_cast<const int32_t*>(fills),
                  static_cast<const uint8_t*>(a),
-                 static_cast<uint16_t*>(words),
+                 words,
                  static_cast<int32_t*>(scores),
                  static_cast<int32_t*>(ring),
                  static_cast<int32_t*>(ckpt),
@@ -586,7 +779,9 @@ extern "C" int tsta_poa_dp(const void* predsT, const void* pmaskT,
                  N, n_nodes, n, n_real, W, max_in,
                  chunk_base, col0, nwin, cw,
                  D, C, S, T, (n_nodes + T - 1) / T,
-                 Params{M, X, E, O}};
+                 Params{M, X, E, O},
+                 static_cast<const int2*>(pcsr),
+                 static_cast<const int32_t*>(poff)};
   const size_t smem = sizeof(int32_t) * 4 * (size_t)T;
   auto st = static_cast<cudaStream_t>(stream);
   void* args[] = {(void*)&L};

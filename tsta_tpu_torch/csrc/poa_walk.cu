@@ -1,4 +1,5 @@
-// POA traceback walk over the round DP's 16-bit word plane, one block.
+// POA traceback walk over the round DP's 16-bit word plane, one block;
+// the wide form (in-degree past 64) over its 32-bit plane.
 //
 // Replaces the TPU kernel tsta_tpu/ops/msa_pallas.py:_poa_walk_kernel
 // (launched through _walk_banded); the 3-state machine of
@@ -33,7 +34,7 @@ namespace {
 
 template <int V>
 __global__ void __launch_bounds__(tsta::kPoaWalkMaxThreads)
-    poa_walk_kernel(const uint16_t* __restrict__ words,
+    poa_walk_kernel(const tsta::PoaWord<V>* __restrict__ words,
                     const int32_t* __restrict__ preds,
                     const int32_t* __restrict__ best, int N, int n,
                     int n_real, int max_in, int32_t* __restrict__ align,
@@ -58,11 +59,13 @@ int launch(const void* words, const void* preds, const void* best, int N,
            int n, int n_real, int max_in, void* align, void* counts, int S,
            int R, int threads, cudaStream_t stream) {
   const int rc = tsta::poa_walk_prepare(poa_walk_kernel<V>, S, R, threads,
-                                        N, n, max_in, words, preds);
+                                        N, n, max_in, words, preds, V < 0);
   if (rc) return rc;
-  poa_walk_kernel<V><<<1, threads, 2 * tsta::poa_walk_buf_bytes(S, R, max_in),
+  poa_walk_kernel<V><<<1, threads,
+                       2 * tsta::poa_walk_buf_bytes_of<V>(S, R, max_in),
                        stream>>>(
-      static_cast<const uint16_t*>(words), static_cast<const int32_t*>(preds),
+      static_cast<const tsta::PoaWord<V>*>(words),
+      static_cast<const int32_t*>(preds),
       static_cast<const int32_t*>(best), N, n, n_real, max_in,
       static_cast<int32_t*>(align), static_cast<int32_t*>(counts), S, R);
   return static_cast<int>(cudaGetLastError());
@@ -70,13 +73,15 @@ int launch(const void* words, const void* preds, const void* best, int N,
 
 }  // namespace
 
-// words: (N, n) uint16, n a multiple of 8; preds: (N, max_in) int32
+// words: (N, n) uint16 (max_in <= 64) or uint32 (the wide form, max_in
+// 128 to 8,192), n a multiple of 8; preds: (N, max_in) int32
 // buffer row ids, N * max_in a multiple of 4, both 16-byte aligned; best:
 // (1,) int32 start row; align: (n,) int32, filled with -1 by the caller;
 // counts: (4,) int32 (moves, pred moves, misses, phases); S moves a
 // phase (a multiple of 8), R rows a window, ``threads`` a block (a
 // multiple of 32 in [64, 256]).  A build per max_in up to 8 (its preds
-// loaded with the word), one for wider tables.  Returns the CUDA error of
+// loaded with the word), one for wider tables, one for the wide form.
+// Returns the CUDA error of
 // the checks, the shared-memory attribute or the launch
 // (cudaGetLastError()).
 extern "C" int tsta_poa_walk(const void* words, const void* preds,
@@ -84,6 +89,9 @@ extern "C" int tsta_poa_walk(const void* words, const void* preds,
                              int max_in, void* align, void* counts, int S,
                              int R, int threads, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (max_in > 64)
+    return launch<tsta::kPoaWide>(words, preds, best, N, n, n_real, max_in,
+                                  align, counts, S, R, threads, st);
   switch (max_in) {
     case 1: return launch<1>(words, preds, best, N, n, n_real, max_in, align,
                              counts, S, R, threads, st);

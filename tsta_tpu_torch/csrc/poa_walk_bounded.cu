@@ -33,7 +33,7 @@ namespace {
 
 template <int V>
 __global__ void __launch_bounds__(tsta::kPoaWalkMaxThreads)
-    poa_walk_bounded_kernel(const uint16_t* __restrict__ words,
+    poa_walk_bounded_kernel(const tsta::PoaWord<V>* __restrict__ words,
                             const int32_t* __restrict__ preds, int nc,
                             int cw, int max_in, int row, int j, int state,
                             int base, int col0, int32_t* __restrict__ align,
@@ -68,12 +68,13 @@ int launch(const void* words, const void* preds, int nc, int cw, int max_in,
            cudaStream_t stream) {
   const int rc = tsta::poa_walk_prepare(poa_walk_bounded_kernel<V>, S, R,
                                         threads, nc, cw, max_in, words,
-                                        preds);
+                                        preds, V < 0);
   if (rc) return rc;
-  poa_walk_bounded_kernel<V><<<1, threads,
-                               2 * tsta::poa_walk_buf_bytes(S, R, max_in),
-                               stream>>>(
-      static_cast<const uint16_t*>(words), static_cast<const int32_t*>(preds),
+  poa_walk_bounded_kernel<V><<<
+      1, threads, 2 * tsta::poa_walk_buf_bytes_of<V>(S, R, max_in),
+      stream>>>(
+      static_cast<const tsta::PoaWord<V>*>(words),
+      static_cast<const int32_t*>(preds),
       nc, cw, max_in, row, j, state, base, col0, static_cast<int32_t*>(align),
       static_cast<int32_t*>(out), static_cast<int32_t*>(counts), S, R);
   return static_cast<int>(cudaGetLastError());
@@ -81,7 +82,8 @@ int launch(const void* words, const void* preds, int nc, int cw, int max_in,
 
 }  // namespace
 
-// words: (nc, cw) uint16, the cell's plane, cw a multiple of 8; preds:
+// words: (nc, cw) uint16 (uint32 in the wide form, max_in past 64), the
+// cell's plane, cw a multiple of 8; preds:
 // (nc, max_in) int32 buffer row ids of the cell's rows, nc * max_in a
 // multiple of 4, both 16-byte aligned; align: (n,) int32 of the round,
 // updated at the consumed columns; out: (3,) int32; counts: (4,) int32
@@ -95,6 +97,10 @@ extern "C" int tsta_poa_walk_bounded(const void* words, const void* preds,
                                      int S, int R, int threads,
                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (max_in > 64)
+    return launch<tsta::kPoaWide>(words, preds, nc, cw, max_in, row, j,
+                                  state, base, col0, align, out, counts, S,
+                                  R, threads, st);
   switch (max_in) {
     case 1: return launch<1>(words, preds, nc, cw, max_in, row, j, state,
                              base, col0, align, out, counts, S, R, threads,

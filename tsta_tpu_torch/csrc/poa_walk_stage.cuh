@@ -54,9 +54,25 @@
 // the pred table a multiple of 4 ints and both 16-byte aligned:
 // poa_walk_prepare refuses anything else.  The block is 64 to 256 threads:
 // the walker's warp and one to seven loader warps.
+//
+// The wide form (V = kPoaWide: the round DP's 32-bit words with 13-bit
+// pred fields, in-degree 65 to 8,192) stages each row's words and the
+// head of its pred row, its first kPoaWideHead entries (one 16-byte copy
+// a row): all of a 128-wide table's row would not leave room for the
+// rows (at S = 64, max_in 128 and R = 320, over twice the 227 KB), and
+// most rows of such a graph have one to four preds, the few wide nodes
+// the rest.  A move loads the head with its word (one ld.shared.v4, as
+// the 16-bit form's max_in 4 build) and selects the pred the word names;
+// a pred past the head comes from device memory once the word is in, a
+// dependent load (a miss's second).  With every pred from device memory
+// the 3 x 50 kbp round 2's walk took 21.4 ms, with the head loaded after
+// the word 8.0, against the 16-bit walk's 4.3 (PERF.md §6, PR 19).  Its
+// buffers hold R (at least one) x (2S + 8) words of 4 bytes and as many
+// heads (R = 207 at S = 64).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "psa_walk_stage.cuh"   // cp_async16, cp_async_wait_all
@@ -64,6 +80,15 @@
 namespace tsta {
 
 constexpr int kPoaWalkMinThreads = 64, kPoaWalkMaxThreads = 256;
+constexpr int kPoaWide = -1;   // the walker's V for the wide form
+constexpr int kPoaWideHead = 4;   // the preds of a row it stages
+
+// The word of a walker's V: 16-bit with 6-bit pred fields, or the wide
+// form's 32-bit with 13-bit ones.
+template <int V>
+using PoaWord = std::conditional_t<(V < 0), uint32_t, uint16_t>;
+template <int V>
+constexpr int kPoaBits = V < 0 ? 13 : 6;
 
 // Bytes of the word rows of a window buffer: R rows of 2S + 8 words, at
 // least one (the walker's clamped loads stay inside it at R = 0).
@@ -75,6 +100,27 @@ inline __host__ __device__ int poa_walk_word_bytes(int S, int R) {
 // rows, rounded out to whole 16-byte copies.
 inline __host__ __device__ int poa_walk_buf_bytes(int S, int R, int max_in) {
   return poa_walk_word_bytes(S, R) + (R * max_in + 8) * 4;
+}
+
+// The wide form's: its word rows of 4-byte words, and after them one head
+// of kPoaWideHead preds a row, at least one of each.  (Kept apart from the
+// 16-bit form's, whose code a shared function moved.)
+inline __host__ __device__ int poa_walk_wide_word_bytes(int S, int R) {
+  return (R > 1 ? R : 1) * (2 * S + 8) * 4;
+}
+
+inline __host__ __device__ int poa_walk_wide_buf_bytes(int S, int R) {
+  return (R > 1 ? R : 1) * ((2 * S + 8) * 4 + kPoaWideHead * 4);
+}
+
+// The buffer of walker V's form.
+template <int V>
+inline __host__ __device__ int poa_walk_buf_bytes_of(int S, int R,
+                                                     int max_in) {
+  if constexpr (V < 0)
+    return poa_walk_wide_buf_bytes(S, R);
+  else
+    return poa_walk_buf_bytes(S, R, max_in);
 }
 
 struct PoaWindow {
@@ -102,6 +148,12 @@ __device__ __forceinline__ PoaWindow poa_walk_window(int r0, int j0, int S,
 __device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
   uint32_t v;
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
   return v;
 }
 
@@ -149,19 +201,30 @@ __device__ __forceinline__ int poa_pred_base(int r0, int R, int max_in) {
 }
 
 // Loader ``lt`` of ``nl``: start its share of the window anchored at
-// (r0, j0) into the buffer at shared address ``sbuf``.
+// (r0, j0) into the buffer at shared address ``sbuf`` (the wide form's:
+// its words and the head of each row's preds, row slot r - rb's at 16 *
+// (r - rb) past the words).
+template <int V>
 __device__ __forceinline__ void poa_walk_stage(
-    uint32_t sbuf, const uint16_t* __restrict__ words,
+    uint32_t sbuf, const PoaWord<V>* __restrict__ words,
     const int32_t* __restrict__ preds, int rows, int cols, int max_in,
     int S, int R, int r0, int j0, int lt, int nl) {
+  constexpr int kQ = V < 0 ? 2 : 3;   // log2 of the words a 16-byte copy
   const PoaWindow w = poa_walk_window(r0, j0, S, R, rows, cols);
   if (w.hi <= w.lo) return;
   const int Wc = 2 * S + 8, rb = r0 - R + 1;
-  const int nq = (w.c1 - w.c0) >> 3, nr = w.hi - w.lo;
+  const int nq = (w.c1 - w.c0) >> kQ, nr = w.hi - w.lo;
   for (int k = lt; k < nr * nq; k += nl) {
-    const int r = w.lo + k / nq, q = (k % nq) << 3;
-    cp_async16(sbuf + ((r - rb) * Wc + q) * 2,
+    const int r = w.lo + k / nq, q = (k % nq) << kQ;
+    cp_async16(sbuf + ((r - rb) * Wc + q) * (int)sizeof(PoaWord<V>),
                words + (size_t)r * cols + w.c0 + q);
+  }
+  if constexpr (V < 0) {
+    const uint32_t hbuf = sbuf + poa_walk_wide_word_bytes(S, R);
+    for (int k = lt; k < nr; k += nl)
+      cp_async16(hbuf + (w.lo + k - rb) * (4 * kPoaWideHead),
+                 preds + (size_t)(w.lo + k) * max_in);
+    return;
   }
   const uint32_t pbuf = sbuf + poa_walk_word_bytes(S, R);
   const int fb = poa_pred_base(r0, R, max_in);
@@ -175,13 +238,18 @@ __device__ __forceinline__ void poa_walk_stage(
 // plane and the preds were written by earlier launches; neighbouring rows'
 // preds share a line, so a run of misses mostly finds its pred in L1),
 // packed (pred << 32 | word).
+template <int V>
 __device__ __forceinline__ uint64_t poa_walk_miss(
-    const uint16_t* __restrict__ words, const int32_t* __restrict__ preds,
+    const PoaWord<V>* __restrict__ words, const int32_t* __restrict__ preds,
     int row, int j, int cols, int max_in, int state) {
-  const uint32_t w = __ldg(reinterpret_cast<const unsigned short*>(words) +
-                           (size_t)row * cols + j);
+  constexpr int kB = kPoaBits<V>;
+  const uint32_t w = V < 0 ? __ldg(reinterpret_cast<const unsigned*>(words) +
+                                   (size_t)row * cols + j)
+                           : __ldg(reinterpret_cast<const unsigned short*>(
+                                       words) + (size_t)row * cols + j);
   const uint32_t st = state == 0 ? (w >> 2) & 3u : (uint32_t)state;
-  const int f = row * max_in + (int)((w >> (st == 0 ? 4 : 10)) & 63u);
+  const int f = row * max_in +
+                (int)((w >> (st == 0 ? 4 : 4 + kB)) & ((1u << kB) - 1));
   const int p = st < 2 ? __ldg(preds + f) : 0;
   return (uint64_t)(uint32_t)p << 32 | w;
 }
@@ -194,13 +262,14 @@ __device__ __forceinline__ uint64_t poa_walk_miss(
 // gap in the graph's row (F).  V: the preds a row has (max_in) when it is
 // at most 8, all loaded with the word, so the pred the word names is a
 // select and not a second dependent load; 0 for wider tables, whose pred
-// is loaded once the word is in.
+// is loaded once the word is in; kPoaWide for the wide form, whose pred
+// is loaded from device memory once the word is in.
 template <int V>
 struct PoaWalker {
   int row, j, state;
   int steps, pred_moves, misses;
   int base, col0, rows, cols, max_in;
-  const uint16_t* __restrict__ words;
+  const PoaWord<V>* __restrict__ words;
   const int32_t* __restrict__ preds;
   int32_t* __restrict__ align;
 
@@ -250,7 +319,11 @@ struct PoaWalker {
     for (int s = 0; s < S; ++s) {
       const unsigned rc = min((unsigned)(row - rb), rlim);
       const unsigned jc = min((unsigned)(j - c0), clim);
-      uint32_t w = lds_u16(win + rc * (2u * Wc) + 2u * jc);
+      uint32_t w;
+      if constexpr (V < 0)
+        w = lds_u32(win + rc * (4u * Wc) + 4u * jc);
+      else
+        w = lds_u16(win + rc * (2u * Wc) + 2u * jc);
       int rh = 0, re = 0;
       if constexpr (V > 0) {
         PredRow<V> pr;
@@ -259,12 +332,20 @@ struct PoaWalker {
         for (int q = 0; q < V; ++q) pr.v[q] -= off;
         rh = pr.pick((w >> 4) & 63u);
         re = pr.pick((w >> 10) & 63u);
+      } else if constexpr (V < 0) {
+        PredRow<kPoaWideHead> pr;
+        pr.load(win + poa_walk_wide_word_bytes(S, R) +
+                4u * kPoaWideHead * rc);
+#pragma unroll
+        for (int q = 0; q < kPoaWideHead; ++q) pr.v[q] -= off;
+        rh = pr.pick((w >> 4) & (kPoaWideHead - 1));
+        re = pr.pick((w >> 17) & (kPoaWideHead - 1));
       }
       if (__builtin_expect(
               !((unsigned)(row - rlo) < nr && (unsigned)(j - c0) < nc), 0)) {
         if (!inside()) return true;
         const uint64_t wp =
-            poa_walk_miss(words, preds, row, j, cols, max_in, state);
+            poa_walk_miss<V>(words, preds, row, j, cols, max_in, state);
         w = (uint32_t)wp;
         rh = re = (int)(wp >> 32) - off;
         ++misses;
@@ -274,6 +355,13 @@ struct PoaWalker {
         PredRow<1> pr = {{0}};
         if (st < 2) pr.load(pbase + 4u * (rc * max_in + idx));
         rh = re = pr.v[0] - off;
+      } else if constexpr (V < 0) {
+        // a pred past the staged head
+        const uint32_t st = state == 0 ? (w >> 2) & 3u : (uint32_t)state;
+        const uint32_t idx =
+            (w >> (st == 0 ? 4 : 17)) & ((1u << kPoaBits<V>) - 1);
+        if (st < 2 && idx >= kPoaWideHead)
+          rh = re = __ldg(preds + row * max_in + (int)idx) - off;
       }
       move(w, rh, re, al);
     }
@@ -283,7 +371,7 @@ struct PoaWalker {
 
 // Run ``wk`` (meaningful in thread 0; every thread of the block calls
 // this, each with the entry position) on the window ring.  ``smem``:
-// 2 * poa_walk_buf_bytes(S, R, max_in) bytes of dynamic shared memory,
+// 2 * poa_walk_buf_bytes_of<V>(S, R, max_in) bytes of dynamic shared memory,
 // 16-byte aligned.  counts[0..3] = (moves, pred moves, misses, phases).
 //
 // Phase k ends at barrier k.  The walker publishes the next anchor and
@@ -296,7 +384,7 @@ __device__ __forceinline__ void poa_walk_ring(PoaWalker<V>& wk, int S, int R,
                                               int32_t* __restrict__ counts) {
   __shared__ int anchor[2][2];
   __shared__ int done[2];
-  const int buf = poa_walk_buf_bytes(S, R, wk.max_in);
+  const int buf = poa_walk_buf_bytes_of<V>(S, R, wk.max_in);
   const uint32_t sbase =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int lt = static_cast<int>(threadIdx.x) - 32;
@@ -308,17 +396,17 @@ __device__ __forceinline__ void poa_walk_ring(PoaWalker<V>& wk, int S, int R,
     done[0] = done[1] = 0;
   }
   if (lt >= 0) {
-    poa_walk_stage(sbase, wk.words, wk.preds, wk.rows, wk.cols, wk.max_in,
-                   S, R, ai, aj, lt, nl);
+    poa_walk_stage<V>(sbase, wk.words, wk.preds, wk.rows, wk.cols, wk.max_in,
+                      S, R, ai, aj, lt, nl);
     cp_async_wait_all();
   }
   __syncthreads();
   int k = 0;
   for (;; ++k) {
     if (lt >= 0) {
-      poa_walk_stage(sbase + ((k + 1) & 1) * buf, wk.words, wk.preds,
-                     wk.rows, wk.cols, wk.max_in, S, R, anchor[k & 1][0],
-                     anchor[k & 1][1], lt, nl);
+      poa_walk_stage<V>(sbase + ((k + 1) & 1) * buf, wk.words, wk.preds,
+                        wk.rows, wk.cols, wk.max_in, S, R, anchor[k & 1][0],
+                        anchor[k & 1][1], lt, nl);
       cp_async_wait_all();
     } else if (threadIdx.x == 0) {
       const int pi = wk.row, pj = wk.j;   // where this phase begins
@@ -344,18 +432,21 @@ __device__ __forceinline__ void poa_walk_ring(PoaWalker<V>& wk, int S, int R,
 // take: S a multiple of 8, R >= 0, ``threads`` a multiple of 32 in
 // [kPoaWalkMinThreads, kPoaWalkMaxThreads], the plane's width a multiple
 // of 8 words, the pred table's size a multiple of 4 ints and both 16-byte
-// aligned (the copies' unit).  Returns a CUDA error code (0 on success).
+// aligned (the copies' unit); ``wide``: the wide form's buffers.  Returns
+// a CUDA error code (0 on success).
 template <class Kernel>
 inline int poa_walk_prepare(Kernel kernel, int S, int R, int threads,
                             int rows, int cols, int max_in,
-                            const void* words, const void* preds) {
+                            const void* words, const void* preds,
+                            bool wide = false) {
   if (S < 8 || S % 8 || R < 0 || threads % 32 ||
       threads < kPoaWalkMinThreads || threads > kPoaWalkMaxThreads ||
-      cols % 8 || (rows * max_in) % 4 ||
+      cols % 8 || (rows * max_in) % 4 || (wide && max_in % 4) ||
       reinterpret_cast<uintptr_t>(words) % 16 ||
       reinterpret_cast<uintptr_t>(preds) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = 2 * poa_walk_buf_bytes(S, R, max_in);
+  const int bytes = 2 * (wide ? poa_walk_wide_buf_bytes(S, R)
+                              : poa_walk_buf_bytes(S, R, max_in));
   if (bytes > 48 * 1024)
     return static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));

@@ -53,15 +53,19 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # blocks) and its walk on a single-call round; poa_dp_chunk and
 # poa_dp_window are the POA DP kernel's forward chunk and window remat in
 # a chunked round, and poa_walk_bounded its walk inside one
-# (chunk, window) cell.  (dtype_max_probe.cu, the narrow-dtype max probe of
-# Q2-17d, is on no path: tools/dtype_max_probe.py launches and counts it.)
+# (chunk, window) cell; each of these five with ``_wide`` is its wide form
+# (in-degree past 64: 32-bit words with 13-bit pred fields).
+# (dtype_max_probe.cu, the narrow-dtype max probe of Q2-17d, is on no
+# path: tools/dtype_max_probe.py launches and counts it.)
 # walk_probe_a, _b, _c and _e are the walk probes of walk_probes.cu
 # (Q2-17a, b, c, e), on no path: tools/walk_probes.py launches them.
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
            "poa_dp_window", "poa_walk_bounded", "psa_ring", "walk_probe_a",
-           "walk_probe_b", "walk_probe_c", "walk_probe_e")
+           "walk_probe_b", "walk_probe_c", "walk_probe_e", "poa_dp_wide",
+           "poa_walk_wide", "poa_dp_chunk_wide", "poa_dp_window_wide",
+           "poa_walk_bounded_wide")
 SHORT_MAX_N = 2048   # psa_dp_short's widest pair: JAX's PACK_RMAX x 128
 # the bounded walk's phase length (steps a staged window serves;
 # psa_walk_stage.cuh; K3 plans its own, psa_walk_layout), the threads a
@@ -70,6 +74,8 @@ SHORT_MAX_N = 2048   # psa_dp_short's widest pair: JAX's PACK_RMAX x 128
 WALK_S, MAX_DYNAMIC_SMEM = 64, 232_448
 WALK_MIN_THREADS, WALK_MAX_THREADS = 64, 256
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
+POA_WIDE_MAX_IN = 1 << 13   # the wide form's 32-bit words: 13 bits
+POA_WIDE_HEAD = 4   # the preds of a row the wide walks stage (kPoaWideHead)
 # the POA walks' plan (poa_walk_plan, csrc/poa_walk_stage.cuh): moves a
 # phase, the most rows a window takes per move of a phase, threads a block
 POA_WALK_S, POA_WALK_ROWS_PER_S, POA_WALK_THREADS = 64, 5, 128
@@ -95,7 +101,7 @@ launches = dict.fromkeys(KERNELS, 0)
 
 _LOCK = threading.Lock()
 _LIB = None
-_POA_LIMITS: dict = {}   # (card, T, S) -> poa_dp's co-resident limit
+_POA_LIMITS: dict = {}   # (card, T, S, wide) -> poa_dp's co-resident limit
 build_info: dict = {}
 
 
@@ -241,11 +247,11 @@ def _lib() -> ctypes.CDLL:
                                                 vp, vp]
             lib.tsta_poa_dp.restype = ci
             lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 4 + [
-                ci] * 5 + [vp] * 3
+                ci] * 5 + [vp] * 5
             lib.tsta_poa_dp_layout.restype = None
             lib.tsta_poa_dp_layout.argtypes = [ci] + [ctypes.POINTER(ci)] * 4
             lib.tsta_poa_dp_max_blocks.restype = ci
-            lib.tsta_poa_dp_max_blocks.argtypes = [ci, ci]
+            lib.tsta_poa_dp_max_blocks.argtypes = [ci, ci, ci]
             lib.tsta_poa_walk.restype = ci
             lib.tsta_poa_walk.argtypes = [vp, vp, vp] + [ci] * 4 + [
                 vp, vp] + [ci] * 3 + [vp]
@@ -939,14 +945,15 @@ def poa_dp_layout(n: int) -> tuple:
     return tuple(v.value for v in out)
 
 
-def poa_dp_max_blocks(T: int, S: int, dev) -> int:
+def poa_dp_max_blocks(T: int, S: int, dev, wide: bool = False) -> int:
     """The most ``poa_dp`` blocks of S columns a thread with T-node
     packets the card ``dev`` holds resident at once (0 without
-    cooperative launch), queried once per card, T and S."""
+    cooperative launch), of the 16-bit form or with ``wide`` the wide
+    form, queried once per card, T, S and form."""
     with torch.cuda.device(dev):
-        key = (torch.cuda.current_device(), T, S)
+        key = (torch.cuda.current_device(), T, S, bool(wide))
         if key not in _POA_LIMITS:
-            limit = _lib().tsta_poa_dp_max_blocks(T, S)
+            limit = _lib().tsta_poa_dp_max_blocks(T, S, int(bool(wide)))
             if limit < 0:
                 _raise_on(-limit, "poa_dp occupancy query")
             _POA_LIMITS[key] = limit
@@ -955,7 +962,7 @@ def poa_dp_max_blocks(T: int, S: int, dev) -> int:
 
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
            words, scores, *, ring=None, chunk_base=0, col0=0, ckpt=None,
-           D=None, T=None, G=None) -> tuple:
+           lists=None, D=None, T=None, G=None) -> tuple:
     """Launch the POA round DP: D shards of C columns on G co-resident
     blocks (one cooperative launch for G >= 2), by default one shard a
     block up to the card's resident limit and past it several a block,
@@ -964,7 +971,12 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     int32; ``fills``: (4, N) int32 left-boundary seeds; ``a``: (n,)
     uint8, the read's columns [col0, col0 + n); ``W``: ring slots.
     Writes rows < ``n_nodes`` of ``scores`` ((N,) int32) and of
-    ``words`` ((N, n) int16, or None for none).
+    ``words`` ((N, n) int16, or None for none).  A table wider than
+    :data:`POA_MAX_IN` (up to :data:`POA_WIDE_MAX_IN`) runs the wide form:
+    ``words`` int32 with 13-bit pred fields, each row's preds read from
+    ``lists`` = (pcsr, poff), int32 (nnz, 2) and (N + 1,)
+    (:func:`msa_poa.pred_lists`; poff may be a slice of a longer one, its
+    offsets into pcsr), each use counted under its name with ``_wide``.
 
     Three uses, each with its launch counter: ``ring`` None is the single
     call (``poa_dp``, a private ring, words required); with ``ring``
@@ -989,14 +1001,16 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     _check(fills, "fills", torch.int32, (4, N), dev)
     _check(a, "a", torch.uint8, (n,), dev)
     _check(scores, "scores", torch.int32, (N,), dev)
+    wide = max_in > POA_MAX_IN
     if words is not None:
-        _check(words, "words", torch.int16, (N, n), dev)
+        _check(words, "words", torch.int32 if wide else torch.int16, (N, n),
+               dev)
     if a.data_ptr() % 4:
         raise ValueError("poa_dp reads a four bytes at a time: a must be "
                          "4-byte aligned")
-    if max_in > POA_MAX_IN:
-        raise ValueError("poa_dp packs pred indices into 6 bits: max_in %d "
-                         "> %d" % (max_in, POA_MAX_IN))
+    if max_in > POA_WIDE_MAX_IN:
+        raise ValueError("poa_dp packs pred indices into 13 bits: max_in %d "
+                         "> %d" % (max_in, POA_WIDE_MAX_IN))
     if n % 4 or not 1 <= n_real or not 0 <= n_nodes <= N or W < 1 \
             or chunk_base < 0 or col0 < 0:
         raise ValueError("poa_dp: bad sizes n=%d n_real=%d n_nodes=%d N=%d "
@@ -1007,7 +1021,7 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     if not 1 <= T <= 256:
         raise ValueError("poa_dp: T %d outside 1..256" % T)
     if G is None:
-        G = max(1, min(D, poa_dp_max_blocks(T, S, dev)))
+        G = max(1, min(D, poa_dp_max_blocks(T, S, dev, wide)))
     elif not 1 <= G <= D:
         raise ValueError("poa_dp: G %d blocks outside 1..%d" % (G, D))
     nwin = cw = 0
@@ -1032,6 +1046,15 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
         nb = -(-n_nodes // T)
         comm = torch.empty((D, nb, 4 * T), dtype=torch.int32, device=dev)
         flags = torch.zeros((D, nb), dtype=torch.int32, device=dev)
+    pcsr = poff = None
+    if wide:
+        kind += "_wide"
+        if lists is None:
+            raise ValueError("poa_dp: a table of %d preds takes the wide "
+                             "form, which needs its pred lists" % max_in)
+        pcsr, poff = lists
+        _check(pcsr, "pcsr", torch.int32, (pcsr.shape[0], 2), dev)
+        _check(poff, "poff", torch.int32, (N + 1,), dev)
     m_, x_, e_, o_ = params
     with torch.cuda.device(dev):
         rc = _lib().tsta_poa_dp(
@@ -1041,13 +1064,15 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
             None if words is None else words.data_ptr(), scores.data_ptr(),
             ring.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
             D, C, S, T, G, None if comm is None else comm.data_ptr(),
-            None if flags is None else flags.data_ptr(), _stream(dev))
+            None if flags is None else flags.data_ptr(),
+            None if pcsr is None else pcsr.data_ptr(),
+            None if poff is None else poff.data_ptr(), _stream(dev))
     if rc == COOP_TOO_LARGE:
         raise KernelError(
             "%s: %d blocks of %d shards are not co-resident: %s holds at "
             "most %d at S = %d columns a thread, T = %d nodes (cooperative "
             "launch)" % (kind, G, D, torch.cuda.get_device_name(dev),
-                         poa_dp_max_blocks(T, S, dev), S, T))
+                         poa_dp_max_blocks(T, S, dev, wide), S, T))
     _raise_on(rc, kind)
     launches[kind] += 1
     return D, C, S, T, G
@@ -1055,8 +1080,12 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
 
 def poa_walk_bytes(S: int, R: int, max_in: int) -> int:
     """Dynamic shared memory of a POA walk block: two window buffers of R
-    rows (at least one) of 2S + 8 words and R * max_in + 8 preds
+    rows (at least one) of 2S + 8 words and R * max_in + 8 preds, or for
+    a table wider than :data:`POA_MAX_IN` (the wide form) of 2S + 8 words
+    of 4 bytes and the first :data:`POA_WIDE_HEAD` preds of each row
     (``poa_walk_stage.cuh``'s ``poa_walk_buf_bytes``)."""
+    if max_in > POA_MAX_IN:
+        return 2 * max(R, 1) * ((2 * S + 8) * 4 + POA_WIDE_HEAD * 4)
     return 2 * (max(R, 1) * (2 * S + 8) * 2 + (R * max_in + 8) * 4)
 
 
@@ -1092,7 +1121,8 @@ def poa_walk_plan(maxdist: int | None, max_in: int, *, S=None, R=None,
     elif not 0 <= int(R) <= cap:
         raise ValueError("POA walk: R %d rows outside [0, %d] (two windows "
                          "of %d words a row and %d preds fit %d bytes)"
-                         % (int(R), cap, 2 * S + 8, max_in,
+                         % (int(R), cap, 2 * S + 8,
+                            POA_WIDE_HEAD if max_in > POA_MAX_IN else max_in,
                             MAX_DYNAMIC_SMEM))
     return S, int(R), threads
 
@@ -1100,13 +1130,21 @@ def poa_walk_plan(maxdist: int | None, max_in: int, *, S=None, R=None,
 def _check_poa_copies(cols: int, words, preds, what: str) -> None:
     """The window ring stages in 16-byte copies: the plane's width a
     multiple of 8 words, the pred table a multiple of 4 ints, both
-    16-byte aligned, else ValueError."""
+    16-byte aligned, else ValueError.  The 16-bit walk masks a pred index
+    with the table's width, which must so be a power of two (as
+    :func:`msa_poa.prepare` makes it); the wide form stages each row's
+    head in one copy, so its rows are a multiple of 4 ints."""
     if cols % 8 or preds.numel() % 4 or words.data_ptr() % 16 \
             or preds.data_ptr() % 16:
         raise ValueError("%s stages the plane in 16-byte copies: %d columns "
                          "must be a multiple of 8, the pred table's %d ints "
                          "a multiple of 4, and both 16-byte aligned"
                          % (what, cols, preds.numel()))
+    max_in = preds.shape[1]
+    if (max_in % 4 if max_in > POA_MAX_IN else max_in & (max_in - 1)):
+        raise ValueError("%s: a pred table %d wide; the 16-bit form takes a "
+                         "power of two, the wide form a multiple of 4"
+                         % (what, max_in))
 
 
 def _poa_counts(counts, dev):
@@ -1120,20 +1158,22 @@ def poa_walk(words, preds, best, n_real, align, *, maxdist=None, S=None,
              R=None, threads=None, counts=None):
     """Launch the POA walk (one block on the window ring,
     :func:`poa_walk_plan`'s S, R and threads for ``maxdist`` unless
-    forced) over an (N, n) int16 word plane; ``preds``: (N, max_in)
-    int32; ``best``: (1,) int32 start row; ``align``: (n,) int32 output,
-    pre-filled with -1 by the caller.  Returns ``counts`` ((4,) int32,
-    allocated when None): moves, pred moves, misses, phases."""
+    forced) over an (N, n) int16 word plane, or for ``preds`` wider than
+    :data:`POA_MAX_IN` the wide form's int32 plane; ``preds``: (N,
+    max_in) int32; ``best``: (1,) int32 start row; ``align``: (n,) int32
+    output, pre-filled with -1 by the caller.  Returns ``counts`` ((4,)
+    int32, allocated when None): moves, pred moves, misses, phases."""
     dev = words.device
     if dev.type != "cuda":
         raise ValueError("poa_walk kernel needs CUDA tensors, got %s" % dev)
     N, n = words.shape
     max_in = preds.shape[1]
-    _check(words, "words", torch.int16, (N, n), dev)
+    wide = max_in > POA_MAX_IN
+    _check(words, "words", torch.int32 if wide else torch.int16, (N, n), dev)
     _check(preds, "preds", torch.int32, (N, max_in), dev)
     _check(best, "best", torch.int32, (1,), dev)
     _check(align, "align", torch.int32, (n,), dev)
-    if max_in > POA_MAX_IN or not 1 <= n_real <= n:
+    if max_in > POA_WIDE_MAX_IN or not 1 <= n_real <= n:
         raise ValueError("poa_walk: max_in %d, n_real %d, n %d"
                          % (max_in, n_real, n))
     _check_poa_copies(n, words, preds, "poa_walk")
@@ -1144,8 +1184,9 @@ def poa_walk(words, preds, best, n_real, align, *, maxdist=None, S=None,
                               best.data_ptr(), N, n, n_real, max_in,
                               align.data_ptr(), counts.data_ptr(), S, R,
                               threads, _stream(dev))
-    _raise_on(rc, "poa_walk")
-    launches["poa_walk"] += 1
+    kind = "poa_walk_wide" if wide else "poa_walk"
+    _raise_on(rc, kind)
+    launches[kind] += 1
     return counts
 
 
@@ -1159,7 +1200,8 @@ def poa_walk_bounded(words, preds, row, j, state, base, col0, align, out,
     rows of the pred table.  Walks from (row, j, state) until it leaves
     the cell, writing ``align`` ((n,) int32) at the consumed columns, and
     ``out`` ((3,) int32) = (row, j, state).  Returns ``counts`` as
-    :func:`poa_walk`."""
+    :func:`poa_walk`; ``preds`` wider than :data:`POA_MAX_IN` take the
+    wide form (``words`` int32)."""
     dev = words.device
     if dev.type != "cuda":
         raise ValueError("poa_walk_bounded kernel needs CUDA tensors, got "
@@ -1167,11 +1209,13 @@ def poa_walk_bounded(words, preds, row, j, state, base, col0, align, out,
     nc, cw = words.shape
     max_in = preds.shape[1]
     n = align.shape[0]
-    _check(words, "words", torch.int16, (nc, cw), dev)
+    wide = max_in > POA_MAX_IN
+    _check(words, "words", torch.int32 if wide else torch.int16, (nc, cw),
+           dev)
     _check(preds, "preds", torch.int32, (nc, max_in), dev)
     _check(align, "align", torch.int32, (n,), dev)
     _check(out, "out", torch.int32, (3,), dev)
-    if max_in > POA_MAX_IN or not 0 <= col0 <= n - cw or base < 0 \
+    if max_in > POA_WIDE_MAX_IN or not 0 <= col0 <= n - cw or base < 0 \
             or state not in (0, 1, 2):
         raise ValueError("poa_walk_bounded: max_in %d, cell (%d, %d) of "
                          "(%d, %d), n %d, state %d"
@@ -1184,8 +1228,9 @@ def poa_walk_bounded(words, preds, row, j, state, base, col0, align, out,
         words.data_ptr(), preds.data_ptr(), nc, cw, max_in, row, j, state,
         base, col0, align.data_ptr(), out.data_ptr(), counts.data_ptr(), S,
         R, threads, _stream(dev))
-    _raise_on(rc, "poa_walk_bounded")
-    launches["poa_walk_bounded"] += 1
+    kind = "poa_walk_bounded_wide" if wide else "poa_walk_bounded"
+    _raise_on(rc, kind)
+    launches[kind] += 1
     return counts
 
 

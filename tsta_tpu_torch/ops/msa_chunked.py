@@ -35,8 +35,9 @@ the single-call walk's steps.
 The TPU driver's CAP-bounded walk log, K-fused cell chains and
 speculative remats hide the TPU host link's round trips; here each cell
 costs one remat, one walk launch and one 12-byte read.  The working set
-is one cell's (NC, CW) int16 words at a time, the ring snapshots and the
-checkpoints.
+is one cell's (NC, CW) int16 words at a time (int32 in a round past 64
+preds, whose launches take the kernels' wide forms), the ring snapshots
+and the checkpoints.
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ class ChunkedRound:
 
     def __init__(self, g, prep, a, n_real: int, NC: int, NWIN: int, params,
                  dev):
-        predsT, pmaskT, bases, fills, N, _, W, order, preds = prep
+        predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
         self.n, self.n_real, self.NC, self.NWIN, self.W = (
             a.shape[0], n_real, NC, NWIN, W)
         self.CW = self.n // NWIN if NWIN else self.n
@@ -113,6 +114,11 @@ class ChunkedRound:
         self.fills = put(np.pad(fills, ((0, 0), (0, pad)),
                                 constant_values=NEG))
         self.preds = put(np.pad(preds, ((0, pad), (0, 0))))
+        # the wide DP's pred lists (the padded rows have none)
+        self.lists = None
+        if max_in > msa_poa.MAX_IN:
+            pcsr, poff = msa_poa.pred_lists(preds, pmaskT)
+            self.lists = (put(pcsr), put(np.pad(poff, (0, pad), "edge")))
         # the walk's plan: the most rows a move climbs
         self.maxdist = msa_poa.max_pred_distance(preds)
         self.mask = put(msa_poa.sink_mask(g, order, N + pad))
@@ -126,6 +132,13 @@ class ChunkedRound:
         """Chunk ``c``'s (NC, max_in) pred rows, for the bounded walk."""
         return self.preds[c * self.NC:(c + 1) * self.NC]
 
+    def _lists(self, c: int):
+        """Chunk ``c``'s pred lists: the round's, its rows' offsets."""
+        if self.lists is None:
+            return None
+        pcsr, poff = self.lists
+        return pcsr, poff[c * self.NC:(c + 1) * self.NC + 1]
+
     def forward_call(self, c: int, ring, ckpt):
         """Chunk ``c``'s forward: ``ring`` carries in and out, ``ckpt``
         (its (NC, NWIN, 3) slice, or None) takes the checkpoints."""
@@ -134,7 +147,7 @@ class ChunkedRound:
                 self.bases[c * NC:(c + 1) * NC], _chunk(self.fills, c, NC),
                 self.a, self.n_real, self.rows(c), self.params, self.W)
         return args, {"ring": ring, "chunk_base": c * NC, "ckpt": ckpt,
-                      "with_words": False}
+                      "with_words": False, "lists": self._lists(c)}
 
     def forward(self, dp):
         """The forward pass through ``dp``: the ring snapshot at each
@@ -177,7 +190,8 @@ class ChunkedRound:
         args = (pt, pm, self.bases[c * NC:(c + 1) * NC], fills,
                 self.a[col0:col0 + CW], self.n_real, self.rows(c),
                 self.params, self.W)
-        return args, {"ring": ring, "chunk_base": c * NC, "col0": col0}
+        return args, {"ring": ring, "chunk_base": c * NC, "col0": col0,
+                      "lists": self._lists(c)}
 
 
 @torch.no_grad()

@@ -45,8 +45,9 @@ from tsta_tpu_torch.ops.psa_scan import NEG, as_params
 
 KERNELS = ("auto", "plain", "cuda")
 
-# Rounds whose graph in-degree exceeded the POA kernels' 64 preds and so
-# ran the plain versions with wide words (msa_poa.run_round).
+# Rounds whose graph in-degree exceeded 64 preds and that ran the plain
+# versions with wide words (msa_poa.run_round: on the CPU or with
+# kernel="plain"; the kernels' routes on a card run the wide forms).
 plain_rounds = 0
 
 
@@ -70,7 +71,7 @@ def _warn_ambiguity(seqs) -> None:
 @torch.no_grad()
 def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
                    W, *, ring=None, chunk_base=0, col0=0, ckpt=None,
-                   with_words=True, cw=None):
+                   with_words=True, cw=None, lists=None):
     """One round's DP in PyTorch, one topo row at a time: the plain
     version of ``csrc/poa_dp.cu`` in all three of its uses, and the
     counterpart of the JAX package's ``_round_dp``, with the kernel's
@@ -91,7 +92,9 @@ def round_dp_plain(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params,
     | h_pred << 4 | e_pred << (4 + b)``, an (N, n) int16 plane with b = 6
     when max_in <= 64, else int32 with b = 13 (None without
     ``with_words``); scores (N,) int32 H(v, n_real-1) where the launch
-    holds that column, NEG elsewhere."""
+    holds that column, NEG elsewhere.  ``lists``, the wide kernel's pred
+    lists, is taken for the kernel's signature and not read: this
+    version reads the table."""
     m_, x_, e_, o_ = as_params(params)
     max_in, N = predsT.shape
     n = a.shape[0]
@@ -397,9 +400,9 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
         seq = bytes(seqs[seq_no])
         if progress is not None:
             progress(done0 + read_idx, n_rounds)
-        packed, order, wide = msa_poa.run_round(g, seq, params, dev, kernel,
-                                                budget, clock)
-        plain_rounds += wide
+        packed, order, plain_wide = msa_poa.run_round(g, seq, params, dev,
+                                                      kernel, budget, clock)
+        plain_rounds += plain_wide
         host = packed.cpu().numpy()
         if clock:
             clock.mark("got")
@@ -457,8 +460,8 @@ def align_seqs_many(seq_sets: List[List[bytes]],
         ctx = (torch.cuda.stream(st["stream"]) if cuda
                else contextlib.nullcontext())
         with ctx:
-            packed, order, wide = msa_poa.run_round(st["g"], seq, params,
-                                                    dev, kernel, budget)
+            packed, order, plain_wide = msa_poa.run_round(
+                st["g"], seq, params, dev, kernel, budget)
             done = None
             if cuda:
                 host = torch.empty(packed.shape, dtype=torch.int32,
@@ -468,7 +471,7 @@ def align_seqs_many(seq_sets: List[List[bytes]],
                 done.record()
             else:
                 host = packed
-        plain_rounds += wide
+        plain_rounds += plain_wide
         st["pending"] = (seq_no, seq, order, host, done)
 
     for st in states:

@@ -10,7 +10,8 @@ current stream:
    order of ``g.csr()`` (the tie rules depend on it), bases, the
    left-boundary fills and the ring size ``W``;
 2. the DP (:func:`poa_dp`, ``csrc/poa_dp.cu``): a (N, n) 16-bit word
-   plane and the per-node sink scores;
+   plane (32-bit past 64 preds, the wide form) and the per-node sink
+   scores;
 3. the best sink, a first-max argmax over the sink rows;
 4. the walk (:func:`poa_walk`, ``csrc/poa_walk.cu``) from the best sink
    to the per-column aligned rows, on a window ring of the plane and the
@@ -48,7 +49,7 @@ from tsta_tpu_torch.utils import profiling
 
 LANES = 128
 MAX_IN = _kernels.POA_MAX_IN   # the 16-bit words' 6-bit pred fields
-WIDE_MAX_IN = 1 << 13          # the plain version's int32 words: 13 bits
+WIDE_MAX_IN = _kernels.POA_WIDE_MAX_IN   # the wide form: 13 bits
 
 
 def _next_pow2(v):
@@ -79,21 +80,16 @@ def _hm1(N_real, max_in, preds, lens, e_, o_, hm1) -> None:
         hm1.ctypes.data_as(ctypes.POINTER(ctypes.c_long)))
 
 
-def prepare(g, params, cap: bool = True):
+def prepare(g, params):
     """Dense per-round tables of graph ``g`` in topo order, as
     ``msa_pallas._prepare``: ``(predsT, pmaskT, bases, fills, N, max_in,
     W, order, preds)`` with predsT/pmaskT (max_in, N) int32 (buffer row
     ids, 0 = the virtual row), bases (1, N), fills (4, N) int32, preds
     (N, max_in).  ``max_in`` is the in-degree rounded up to a power of
-    two; with ``cap`` an in-degree above 64 raises ``ValueError``."""
+    two."""
     order = g.topo
     N_real = len(order)
-    max_in = max(1, g.max_in_degree())
-    if cap and max_in > MAX_IN:
-        raise ValueError(
-            "POA kernel traceback packs predecessor indices into 6 bits "
-            "(in-degree %d > %d; the reference caps at 42)" % (max_in, MAX_IN))
-    max_in = _next_pow2(max_in)
+    max_in = _next_pow2(max(1, g.max_in_degree()))
     N = bucket(N_real)
     nb = _node_block(N)
     N = -(-N // nb) * nb
@@ -137,26 +133,41 @@ def prepare(g, params, cap: bool = True):
             max_in, W, order, preds)
 
 
-def round_plan(N: int, n: int, W: int, budget: int):
+def pred_lists(preds, pmaskT) -> tuple:
+    """The wide DP's pred lists from :func:`prepare`'s host tables, built
+    once a round: ``(pcsr, poff)``, pcsr (nnz, 2) int32 the valid entries
+    as (buffer row id, table index), row by row in table order, and poff
+    (N + 1,) int32, row i's entries at [poff[i], poff[i + 1])."""
+    row, k = np.nonzero(pmaskT.T)
+    pcsr = np.stack([preds[row, k], k], 1).astype(np.int32)
+    poff = np.zeros((preds.shape[0] + 1,), np.int32)
+    poff[1:] = np.cumsum(np.bincount(row, minlength=preds.shape[0]))
+    return pcsr, poff
+
+
+def round_plan(N: int, n: int, W: int, budget: int, word_bytes: int = 2):
     """``msa_pallas._round_plan`` with the budget passed in: ``None`` when
     the (N, n) words plane fits one call, else the node-chunk size ``NC``
-    of a chunked round; raises ``ValueError`` when not even that fits."""
-    if 2 * N * n <= int(0.5 * budget):
+    of a chunked round; raises ``ValueError`` when not even that fits.
+    ``word_bytes``: 2 for the 16-bit plane (the JAX package's count), 4
+    for the wide form's int32 plane."""
+    wb = word_bytes
+    if wb * N * n <= int(0.5 * budget):
         return None
     nb = _node_block(N)
     NC = nb
-    while 2 * (NC * 2) * n <= budget // 4 and NC * 2 < _next_pow2(N):
+    while wb * (NC * 2) * n <= budget // 4 and NC * 2 < _next_pow2(N):
         NC *= 2
     nchunks = -(-N // NC)
     if nchunks <= 1:
-        if 2 * N * n + 8 * W * n <= int(0.8 * budget):
+        if wb * N * n + 8 * W * n <= int(0.8 * budget):
             return None
         raise ValueError(
             "native MSA round cannot fit the chip (%d nodes x %d cols, "
             "ring W=%d, ~%.2f MB plane vs %.2f MB budget); use "
             "engine='compat' (host-RAM planes) for reads this long"
-            % (N, n, W, 2 * N * n / 2 ** 20, budget / 2 ** 20))
-    need = (4 * NC * n + (nchunks + 1) * 8 * W * n
+            % (N, n, W, wb * N * n / 2 ** 20, budget / 2 ** 20))
+    need = (2 * wb * NC * n + (nchunks + 1) * 8 * W * n
             + _ckpt_windows(n) * LANES * 4 * nchunks * NC)
     if need > int(0.8 * budget):
         raise ValueError(
@@ -189,18 +200,19 @@ def round_columns(n_real: int) -> int:
     return n
 
 
-def prep_round(g, seq: bytes, params, budget: int, cap: bool = True):
+def prep_round(g, seq: bytes, params, budget: int):
     """Tables, padded read and plan of one round: ``(prep, n, n_real, a,
     NC, NWIN)`` with ``a`` the (n,) uint8 read, zero-padded, ``NC`` the
-    plan's node chunk (None: one call) and ``NWIN`` the chunked round's
-    column windows (0: none, the backward rematerialises whole chunks)."""
+    plan's node chunk (None: one call; the plan counts the wide form's 4
+    bytes a word past 64 preds) and ``NWIN`` the chunked round's column
+    windows (0: none, the backward rematerialises whole chunks)."""
     if len(seq) == 0:
         raise ValueError("cannot align an empty read")
-    prep = prepare(g, params, cap=cap)
-    N, W = prep[4], prep[6]
+    prep = prepare(g, params)
+    N, max_in, W = prep[4], prep[5], prep[6]
     n_real = len(seq)
     n = round_columns(n_real)
-    NC = round_plan(N, n, W, budget)
+    NC = round_plan(N, n, W, budget, 4 if max_in > MAX_IN else 2)
     NWIN = _ckpt_windows(n) if NC is not None else 0
     a = np.zeros((n,), np.uint8)
     a[:n_real] = np.frombuffer(bytes(seq), np.uint8)
@@ -226,17 +238,19 @@ def new_ring(W: int, n: int, dev, D: int | None = None) -> torch.Tensor:
 
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
            ring=None, chunk_base=0, col0=0, ckpt=None, with_words=True,
-           D=None, T=None, G=None):
+           lists=None, D=None, T=None, G=None):
     """The round DP over rows < ``n_nodes``: returns ``(words, scores)``,
-    words (N, n) int16 (rows >= n_nodes zero; None without
-    ``with_words``) and scores (N,) int32 (NEG past n_nodes).  The other
+    words (N, n) int16, int32 past 64 preds (the wide form; rows >=
+    n_nodes zero; None without ``with_words``) and scores (N,) int32
+    (NEG past n_nodes).  The other
     arguments are :func:`msa_native.round_dp_plain`'s: without ``ring``
     the single call, with it a chunked round's forward chunk (no words,
     ``ckpt``) or window remat (words).  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/poa_dp.cu`` (:func:`poa_plan`'s
     D shards on co-resident blocks; ``D`` and ``T`` override the plan, a
     ring is then laid out for the forced D, and ``G`` the grid) or
-    raise."""
+    raise.  The wide form reads each row's preds from ``lists``,
+    :func:`pred_lists` on the tables' device (unused on the CPU)."""
     if a.device.type == "cpu":
         if D is not None or T is not None or G is not None:
             raise ValueError("poa_dp: D, T and G are the kernel's overrides")
@@ -245,16 +259,17 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
                               n_nodes, params, W, ring=ring,
                               chunk_base=chunk_base, col0=col0, ckpt=ckpt,
                               with_words=with_words)
-    N = predsT.shape[1]
+    max_in, N = predsT.shape
     words = None
     if with_words:
-        words = torch.empty((N, a.shape[0]), dtype=torch.int16,
+        words = torch.empty((N, a.shape[0]), dtype=torch.int16
+                            if max_in <= MAX_IN else torch.int32,
                             device=a.device)
     scores = torch.full((N,), NEG, dtype=torch.int32, device=a.device)
     _kernels.poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes,
                     as_params(params), W, words, scores, ring=ring,
-                    chunk_base=chunk_base, col0=col0, ckpt=ckpt, D=D, T=T,
-                    G=G)
+                    chunk_base=chunk_base, col0=col0, ckpt=ckpt,
+                    lists=lists, D=D, T=T, G=G)
     if words is not None:
         words[n_nodes:].zero_()
     return words, scores
@@ -417,7 +432,7 @@ def poa_walk_window(r0: int, j0: int, S: int, R: int, rows: int,
 @torch.no_grad()
 def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
                           S: int, R: int, base: int = 0, col0: int = 0,
-                          align=None):
+                          align=None, tally=None):
     """The POA walk replayed on the schedule of the walk kernels' window
     ring (``csrc/poa_walk_stage.cuh``), from a whole plane (``base`` =
     ``col0`` = 0, from (best, n_real - 1, 0)) or from one cell of a
@@ -431,15 +446,24 @@ def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
     A move inside the walker's window reads its word and pred from the
     slot of the walker's anchor and asserts (AssertionError) that the slot
     holds that cell; a move outside reads the plane and counts a miss.
-    ``words``: int16 (6-bit pred fields), on the CPU or the card (then
-    only the windows and the missed words are copied to the host).
+    ``words``: int16 (6-bit pred fields), or int32 with a pred table
+    wider than 64 (the wide form, 13-bit fields: the windows hold the
+    first ``_kernels.POA_WIDE_HEAD`` preds of each row, and a pred past
+    them is read from the table), on the CPU or the card (then only the
+    windows and the missed words are copied to the host).
     Returns ``(align, exit, counts)``: ``align`` ((n,) int32, a new one
     filled with -1 when None) updated at the consumed columns, the (3,)
     int32 exit (row, j, state) and the (4,) int32 counts (moves, pred
-    moves, misses, phases), the kernels' own."""
-    if words.dtype != torch.int16:
-        raise ValueError("the walk kernels read int16 words, got %s"
-                         % words.dtype)
+    moves, misses, phases), the kernels' own.  A ``tally`` dict gets
+    ``past_head``: the pred moves inside the window whose pred lies past
+    the staged head (the wide form's loads from device memory)."""
+    wide = preds.shape[1] > MAX_IN
+    if words.dtype != (torch.int32 if wide else torch.int16):
+        raise ValueError("the walk kernels read %s words with a %d-wide pred "
+                         "table, got %s" % ("int32" if wide else "int16",
+                                           preds.shape[1], words.dtype))
+    bits = 13 if wide else 6
+    fmask, wmask = (1 << bits) - 1, 0xFFFFFFFF if wide else 0xFFFF
     rows, cols = words.shape
     if align is None:
         align = torch.full((col0 + cols,), -1, dtype=torch.int32,
@@ -458,12 +482,12 @@ def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
         rb = r0 - R + 1
         lo, hi = max(lo, rb), min(hi, rb + max(R, 0))   # the buffer's slots
         c1 = min(c1, c0 + Wc)
-        win = np.zeros((max(R, 0), Wc), np.int32)
+        win = np.zeros((max(R, 0), Wc), np.int64)
         held = np.full((max(R, 0), Wc), -1, np.int64)   # the cell a slot holds
         prow = np.full((max(R, 0),), -1, np.int64)      # the pred row
         if hi > lo and c1 > c0:
             win[lo - rb:hi - rb, :c1 - c0] = plane(lo, hi, c0, c1).view(
-                np.uint16)
+                np.uint32 if wide else np.uint16)
             held[lo - rb:hi - rb, :c1 - c0] = (
                 np.arange(lo, hi)[:, None] * cols + np.arange(c0, c1))
             prow[lo - rb:hi - rb] = np.arange(lo, hi)
@@ -473,7 +497,7 @@ def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
         return 0 <= r < rows and 0 <= c < cols
 
     r, c = row - base, j - col0
-    steps = pred_moves = misses = phases = 0
+    steps = pred_moves = misses = phases = past_head = 0
     cols_out, rows_out = [], []
     cur, anchor = stage(r, c), (r, c)
     done = False
@@ -492,13 +516,16 @@ def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
                     "%d, columns from %d" % (r, c, rb, c0))
                 w = int(win[r - rb, c - c0])
             else:
-                w = int(plane(r, r + 1, c, c + 1)[0, 0]) & 0xFFFF
+                w = int(plane(r, r + 1, c, c + 1)[0, 0]) & wmask
                 misses += 1
             st = (w >> 2) & 3 if state == 0 else state
             if st < 2:   # a diagonal or an E move reads a pred
-                assert not hit or prow[r - rb] == r, \
+                idx = (w >> (4 if st == 0 else 4 + bits)) & fmask
+                far = wide and idx >= _kernels.POA_WIDE_HEAD
+                assert not hit or prow[r - rb] == r or far, \
                     "pred of row %d not staged" % r
-                p = int(pr[r, (w >> (4 if st == 0 else 10)) & 63])
+                past_head += hit and far
+                p = int(pr[r, idx])
                 pred_moves += 1
             if st != 1:
                 cols_out.append(c + col0)
@@ -514,6 +541,8 @@ def poa_walk_staged_plain(words, preds, row: int, j: int, state: int,
             done = not inside(r, c)
         phases += 1
         cur, anchor = nxt, start
+    if tally is not None:
+        tally["past_head"] = past_head
     if cols_out:
         align[torch.tensor(cols_out, device=align.device)] = torch.tensor(
             rows_out, dtype=torch.int32, device=align.device)
@@ -597,28 +626,24 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
 
     ``kernel``: "auto" runs the kernels on a CUDA device, "plain" the
     plain versions, "cuda" the kernels only.  A graph whose in-degree
-    exceeds 64 takes the plain versions with wide words (the TPU path
-    sends it to its scan engine); "cuda" refuses it.  A round the plan
-    chunks runs through :func:`msa_chunked.round_chunked`, which reads
-    12 bytes back per cell it walks.  Returns ``(packed, order, wide)``:
-    the (2 + n,) int32 ``[best, score, align...]`` on the device, the
-    topo order, and whether the round took the wide route."""
+    exceeds 64 takes the wide forms (32-bit words with 13-bit pred
+    fields; the TPU path sends it to its scan engine): the kernels' on a
+    CUDA device, the plain versions' on the CPU or with "plain"; past
+    8,192 preds any route raises ValueError.  A round the plan chunks runs
+    through :func:`msa_chunked.round_chunked`, which reads 12 bytes back
+    per cell it walks.  Returns ``(packed, order, plain_wide)``: the (2 +
+    n,) int32 ``[best, score, align...]`` on the device, the topo order,
+    and whether the round ran the plain versions with wide words."""
     from tsta_tpu_torch.ops.msa_native import round_dp_plain
     wide = g.max_in_degree() > MAX_IN
-    if wide and kernel == "cuda":
-        raise ValueError(
-            "kernel='cuda': the round's in-degree %d exceeds the POA "
-            "kernels' %d (use kernel='auto', which runs such rounds "
-            "through the plain versions)" % (g.max_in_degree(), MAX_IN))
-    use_kernel = dev.type == "cuda" and kernel != "plain" and not wide
+    if g.max_in_degree() > WIDE_MAX_IN:
+        raise ValueError("in-degree %d exceeds the wide words' %d"
+                         % (g.max_in_degree(), WIDE_MAX_IN))
+    use_kernel = dev.type == "cuda" and kernel != "plain"
     if clock:
         clock.mark("start")
-    prep, n, n_real, a, NC, NWIN = prep_round(g, seq, params, budget,
-                                              cap=not wide)
+    prep, n, n_real, a, NC, NWIN = prep_round(g, seq, params, budget)
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
-    if max_in > WIDE_MAX_IN:
-        raise ValueError("in-degree %d exceeds the plain round's %d"
-                         % (max_in, WIDE_MAX_IN))
     if NC is not None:
         from tsta_tpu_torch.ops import msa_chunked
         with profiling.span("msa round chunked"):
@@ -626,7 +651,7 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
                                                params, dev, use_kernel, clock)
         if clock:
             clock.mark("walk1")
-        return packed, order, wide
+        return packed, order, wide and not use_kernel
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(
@@ -634,13 +659,19 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
 
     tables = (put(predsT), put(pmaskT), put(bases.reshape(N)), put(fills),
               put(a))
+    lists = (tuple(put(x) for x in pred_lists(preds, pmaskT))
+             if wide and use_kernel else None)
     preds_d = put(preds)
     mask = put(sink_mask(g, order, N))
     if clock:
         clock.mark("dp0")
     with profiling.span("msa round"):
-        dp = poa_dp if use_kernel else round_dp_plain
-        words, scores = dp(*tables, n_real, len(order), params, W)
+        if use_kernel:
+            words, scores = poa_dp(*tables, n_real, len(order), params, W,
+                                   lists=lists)
+        else:
+            words, scores = round_dp_plain(*tables, n_real, len(order),
+                                           params, W)
         if clock:
             clock.mark("dp1")
         best = best_sink(scores, mask)
@@ -652,4 +683,4 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
         packed = pack_round(scores, align, best)
     if clock:
         clock.mark("walk1")
-    return packed, order, wide
+    return packed, order, wide and not use_kernel

@@ -19,12 +19,18 @@ warm-up) in its three uses:
   (seed 13, at the card's budget: 32,768-row chunks, 196,608 columns, 8
   windows), from a zeroed entry ring;
 * the window remat of that chunk's last window (24,576 columns), from a
-  zeroed ring and zeroed checkpoints.
+  zeroed ring and zeroed checkpoints;
+* in a checkout with the wide form, its single call on the 3 x 50 kbp
+  round 2 with a 65-pred staircase (``chip_smoke.WIDE_50K``), which only
+  that checkout times.
 
 The zeroed rings and checkpoints are the same inputs in both checkouts, so
 their words, scores, checkpoints and rings (read column by column through
 each checkout's own ``msa_poa.ring_positions``) must agree.  Each round
-runs other, this, this, other.  Prints one JSON object per run and, last,
+runs other, this, this, other.  First each checkout's ``poa_dp.cu`` is
+compiled to a cubin: per kernel build its SASS instruction count and
+whether the masked SASS of the two sides is equal
+(``psa_dp_ab.compare_code``).  Prints one JSON object per run and, last,
 the summary: per use each side's median of its runs' medians, this over
 other, and whether every run's outputs agree.
 """
@@ -37,6 +43,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
+
+from tsta_tpu_torch.tools.psa_dp_ab import compare_code
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -130,14 +139,25 @@ res["window remat, 200 kbp round 1"] = {
     "ms": ms, "shape": "%d of %d rows x %d columns" % (cr.rows(c), NC, cr.CW),
     "plan": plan(cr.CW),
     "outputs_sha256": digest(w[:cr.rows(c)], cols(ring, cr.CW))}
+del w, ring, ck_all, hb, snap
+import inspect
+if "stair" in inspect.signature(chip_smoke.next_round).parameters:
+    r = chip_smoke.next_round(chip_smoke.long_reads(), 1, P, dev,
+                              stair=chip_smoke.WIDE_50K)
+    args = (*r["tables"], r["n_real"], r["n_nodes"], P, r["W"])
+    ms, (w, s) = timed(lambda: msa_poa.poa_dp(*args, lists=r["lists"]))
+    res["wide single call, 50 kbp round 2"] = {
+        "ms": ms, "shape": r["shape"], "plan": plan(args[4].shape[0]),
+        "outputs_sha256": digest(w[:r["n_nodes"]], s)}
+    del r, args, w, s
 for v in res.values():
     v["median_ms"] = statistics.median(v["ms"])
 ptx = _kernels.build_info.get("ptxas", "").splitlines()
 regs = [ptx[k + 1].strip() for k, line in enumerate(ptx[:-1])
         if "poa_dp_kernel" in line and "Compiling entry" in line]
 print(json.dumps({"uses": res, "ptxas": regs,
-                  "launches": {k: _kernels.launches[k] for k in
-                               ("poa_dp", "poa_dp_chunk", "poa_dp_window")},
+                  "launches": {k: v for k, v in _kernels.launches.items()
+                               if v},
                   "build_s": _kernels.build_info.get("seconds")}))
 """
 
@@ -163,6 +183,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     trees = {"other": os.path.abspath(args.other), "this": ROOT}
+    with tempfile.TemporaryDirectory() as work:
+        emit({"code poa_dp.cu": compare_code(trees, work, "poa_dp.cu")})
     runs = {"other": [], "this": []}
     for rnd in range(args.rounds):
         for k in ("other", "this", "this", "other"):
@@ -171,12 +193,18 @@ def main(argv=None) -> int:
             emit({"round": rnd, "tree": k, **res})
     summary = {}
     for use in runs["this"][0]["uses"]:
-        med = {k: statistics.median(r["uses"][use]["median_ms"] for r in v)
-               for k, v in runs.items()}
+        # a use only this checkout has (the wide form) has no ratio
+        have = {k: [r["uses"][use] for r in v if use in r["uses"]]
+                for k, v in runs.items()}
+        have = {k: v for k, v in have.items() if v}
+        med = {k: statistics.median(u["median_ms"] for u in v)
+               for k, v in have.items()}
         summary[use] = {
-            "median_ms": med, "this_over_other": med["this"] / med["other"],
-            "outputs_equal": len({r["uses"][use]["outputs_sha256"]
-                                  for v in runs.values() for r in v}) == 1,
+            "median_ms": med,
+            "this_over_other": (med["this"] / med["other"] if "other" in med
+                                else None),
+            "outputs_equal": len({u["outputs_sha256"]
+                                  for v in have.values() for u in v}) == 1,
             "plan": runs["this"][0]["uses"][use]["plan"]}
     emit({"summary": summary})
     return 0

@@ -21,7 +21,15 @@ timing) and times the walk with CUDA events, the median of ``--reps``:
   checkout's kernels;
 * Q2-6's walk (``msa_poa.poa_walk_bounded``) in the first cell of the 3 x
   200 kbp round 1 (seed 13, at the card's budget), from the best sink:
-  the cell ``chip_smoke.hold_round`` times.
+  the cell ``chip_smoke.hold_round`` times;
+* in a checkout with the wide form, Q2-5 on the 3 x 50 kbp round 2 with a
+  65-pred staircase (``chip_smoke.WIDE_50K``), which only that checkout
+  times.
+
+First each checkout's ``poa_walk.cu`` and ``poa_walk_bounded.cu`` are
+compiled to cubins: per kernel build its SASS instruction count and
+whether the masked SASS of the two sides is equal
+(``psa_dp_ab.compare_code``).
 
 Each shape is timed twice: ``cold``, with the 50 MB L2 flushed (a 256 MB
 write) before each launch, as the main path finds a plane right after its
@@ -44,8 +52,11 @@ import os
 import subprocess
 import sys
 
+import tempfile
+
 from tsta_tpu_torch.tools.psa_dp_ab import (CHILD_HELPERS, ROOT, alternate,
-                                            child_run, emit, summarize)
+                                            child_run, compare_code, emit,
+                                            summarize)
 
 # the timed process, run in either checkout: only what both have
 CHILD = CHILD_HELPERS + r"""
@@ -89,16 +100,18 @@ def record(label, fn, outputs, counter, maxdist, max_in):
             "equal": digest(outputs(out)) == res[label + " cold"]["outputs"]}
 
 
-def single(label, seqs, rounds):
-    r = chip_smoke.next_round(seqs, rounds, P, dev)
+def single(label, seqs, rounds, **kw):
+    r = chip_smoke.next_round(seqs, rounds, P, dev, **kw)
     args = (*r["tables"], r["n_real"], r["n_nodes"], P, r["W"])
-    words, scores = msa_poa.poa_dp(*args)
+    wide = {"lists": r["lists"]} if r.get("lists") is not None else {}
+    words, scores = msa_poa.poa_dp(*args, **wide)
     best = msa_poa.best_sink(scores, r["mask"])
     preds = r["preds"]
     shapes[label] = r["shape"]
     record(label, lambda **k: msa_poa.poa_walk(words, preds, best,
                                                r["n_real"], **k),
-           lambda o: [o], "poa_walk",
+           lambda o: [o], "poa_walk_wide" if preds.shape[1] > 64
+           else "poa_walk",
            msa_poa.max_pred_distance(preds.cpu().numpy())
            if staged else None, preds.shape[1])
     del words, scores, r, args
@@ -110,6 +123,9 @@ ex = chip_smoke.example_msa_reads()
 for k in range(4):
     single("Q2-5 example round %d" % (k + 1), ex, k)
 single("Q2-5 50 kbp round 2", chip_smoke.long_reads(), 1)
+if "stair" in inspect.signature(chip_smoke.next_round).parameters:
+    single("Q2-5 wide 50 kbp round 2", chip_smoke.long_reads(), 1,
+           stair=chip_smoke.WIDE_50K)
 
 seqs = chip_smoke.long_reads(13, 200000)
 g = PoaGraph.from_sequence(seqs[0], 3)
@@ -159,6 +175,9 @@ def main(argv=None) -> int:
                          "cold)")
     args = ap.parse_args(argv)
     trees = {"other": os.path.abspath(args.other), "this": ROOT}
+    with tempfile.TemporaryDirectory() as work:
+        emit({"code " + src: compare_code(trees, work, src)
+              for src in ("poa_walk.cu", "poa_walk_bounded.cu")})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -348,6 +348,59 @@ def k1_code(root: str, work: str, tag: str) -> dict:
             "sass": sass_functions(dump)[names[0]]}
 
 
+_KERNEL_KEY = re.compile(r"([a-z_]+_kernel)I((?:L[a-z]+n?\d+E)+)E")
+
+
+def kernel_key(name: str) -> str:
+    """A mangled kernel's name and template arguments, without its
+    namespace and parameter types (so ``poa_walk_kernel<Li0E>`` names one
+    build whatever the spelling of its first parameter's type)."""
+    m = _KERNEL_KEY.search(name)
+    return m.group(1) + "<" + m.group(2) + ">" if m else name
+
+
+def source_code(root: str, work: str, tag: str, source: str) -> dict:
+    """Compile ``root``'s ``csrc/<source>`` with the port's flags; per
+    kernel (:func:`kernel_key`): its ptxas lines and masked SASS."""
+    nvcc = _kernels.nvcc_path()
+    src = os.path.join(root, "tsta_tpu_torch", "csrc", source)
+    cubin = os.path.join(work, "%s.%s.cubin" % (tag, source))
+    r = subprocess.run([nvcc] + _kernels.ARCH_FLAGS
+                       + ["-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", src,
+                          "-o", cubin], capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError("nvcc failed on %s:\n%s" % (src, r.stderr))
+    entries = ptxas_entries(r.stdout + r.stderr)
+    dump = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    return {kernel_key(n): {"ptxas": entries.get(n, []), "sass": f}
+            for n, f in sass_functions(dump).items()}
+
+
+def compare_code(trees: dict, work: str, source: str) -> dict:
+    """Each checkout's kernels of ``csrc/<source>`` side by side: per
+    kernel the SASS instruction count of each side and, where both have
+    it, whether the masked SASS is equal (and, where not, the first 40
+    lines of the difference)."""
+    code = {k: source_code(root, work, k, source) for k, root in trees.items()}
+    out = {}
+    for key in sorted(set(code["this"]) | set(code["other"])):
+        have = {k: c[key] for k, c in code.items() if key in c}
+        out[key] = {"instructions": {k: len(v["sass"])
+                                     for k, v in have.items()},
+                    "ptxas": {k: [x for x in v["ptxas"] if "Used" in x]
+                              for k, v in have.items()}}
+        if len(have) == 2:
+            so, st = have["other"]["sass"], have["this"]["sass"]
+            out[key]["sass_equal_masked"] = so == st
+            if so != st:
+                out[key]["sass_diff_lines"] = [
+                    d for d in difflib.unified_diff(so, st, lineterm="", n=0)
+                    if d[:1] in "+-" and d[:3] not in ("+++", "---")][:40]
+    return out
+
+
 def ptxas_report(root: str, work: str, tag: str, source: str) -> dict:
     """ptxas's lines (registers, spills, shared memory) for every entry of
     ``root``'s ``csrc/<source>``, compiled with the port's flags."""
