@@ -10,7 +10,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. device: card name, ``nvidia-smi`` name and power limit, torch, CUDA
    and nvcc versions;
 2. build: the kernels of ``tsta_tpu_torch/csrc`` compiled with nvcc for
-   sm_90a into the ignored ``build/`` directory;
+   sm_90a into the ignored ``build/`` directory, and each PSA walk's step
+   loops in the library's SASS (``walk_probes.walk_sass_steps``: their
+   instructions a step, a pair-step in the two-pair walk);
 3. kernels: each kernel against its plain PyTorch version on the card,
    exact integer equality (the score-only DP, K1, ``psa_dp.cu``, on a
    mixed 100-3,000 bp batch and a 40 kbp pair at its plan's shards; the
@@ -195,7 +197,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
     run's (in this process, through K1), the striped kernel launched and
     K1 not; (d) phase 5's 32 x 10 kbp traced plane walked by K3 and the
     two-pair walk (CUDA events), every word and count equal to phase 6's
-    plain walk of that plane, then its first 31 pairs, which take K3;
+    plain walk of that plane, then its first 31 pairs, which take K3; then
+    phase 6 (b)'s traced batch of 4,096 short pairs, group by group, both
+    walks timed (sums over the groups, and over the groups of an even
+    number of pairs, those the two-pair walk takes) and held to phase 6
+    (b)'s plain walks, an odd group taking K3;
 19. the ring wavefront (``psa_dp.cu`` at one pair, every padded cell:
     one long pair's columns sharded over co-resident blocks, one per
     ``seq`` shard of a virtual one-card mesh): (a) the kernel against its
@@ -256,7 +262,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
     and ``walk_ms``, and round 2's DP and walk (median of 3) beside the
     16-bit build on the same reads without the staircase.
 
-A ``done`` line gives the script's wall.  The last three lines are the
+A ``done`` line gives the script's wall, a ``walk_bounds`` line each PSA
+walk's time beside its two bounds.  The last three lines are the
 kernels record (each kernel's launches on
 its main path, error against its plain version, ms, plain ms, bound and
 what bounds it, and for the walks their chain bound: the longest walk's
@@ -265,7 +272,10 @@ boost clock, each (a POA walk's chain is its moves plus its pred moves,
 two dependent loads a pred move, from its counters; a wide walk's is
 one load a move, ``L2_CYCLES`` for a miss or a pred past the staged
 head, from the replay; the wide DPs' operations at the issue rate,
-``poa_wide_bound``); K1 twice, at 128 x
+``poa_wide_bound``), and for the PSA walks their issue bound, the most
+steps a walker thread takes at the fewest instructions a step of any PSA
+walk's step loops (each computes the same step; each kernel's own count
+beside it), one a clock (``issue_bound``); K1 twice, at 128 x
 10,240 bp and at one pair, the ``--notrace`` example; the probes on no
 path: the dtype-max probe's int32 form and each walk probe's fullest mode,
 every form or mode beside it), the
@@ -321,6 +331,8 @@ CHAIN_CYCLES, SM_CLOCK_HZ = 30, 1.98e9
 # cycles, a floor, not a measured figure
 L2_CYCLES = 200
 WALK_S_SWEEP = (32, 64, 128)
+# the PSA walks' kernels, whose step loops give their issue bounds
+WALK_KERNELS = ("psa_walk", "psa_walk_bounded", "psa_walk_pair2")
 # the difference method computes K1's function: OPS_PSA_CELL per cell, at
 # two cells per s16x2 instruction
 CELLS_PER_S16X2 = 2
@@ -515,6 +527,17 @@ def chain_bound(steps: int) -> dict:
             "chain_steps": steps}
 
 
+def issue_bound(per_step: float, steps: int) -> dict:
+    """The issue bound of a PSA walk: ``steps``, the most steps one walker
+    thread takes (the longest walk; in the two-pair walk its block's two
+    walks together), at ``per_step`` instructions a step (the fewest of
+    any PSA walk's step loops in the library's SASS, a pair-step in the
+    two-pair loop, ``walk_probes.walk_sass_steps``: each loop computes the
+    same step), one instruction a clock."""
+    return {"issue_bound_ms": steps * per_step / SM_CLOCK_HZ * 1e3,
+            "issue_per_step": per_step, "issue_steps": steps}
+
+
 def poa_walk_record(counts, maxdist: int, max_in: int,
                     past_head: int | None = None) -> dict:
     """A POA walk's plan (S, R, threads), its counters (moves, pred
@@ -639,12 +662,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.build()
     info = _kernels.build_info
+    from tsta_tpu_torch.tools import walk_probes
+    walk_sass = walk_probes.walk_sass_steps(walk_probes.library_sass())
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(info["seconds"], 3),
           "library": os.path.relpath(info["path"], ROOT),
           "flags": " ".join(_kernels.NVCC_FLAGS),
           "ptxas": [ln.strip() for ln in info["ptxas"].splitlines()
-                    if "Used" in ln or "spill" in ln]})
+                    if "Used" in ln or "spill" in ln],
+          "walk_step_loops": walk_sass})
+    if any(not walk_sass.get(k, {}).get("per_step") for k in WALK_KERNELS):
+        raise AssertionError("a PSA walk's step loop is missing from the "
+                             "SASS: %s" % walk_sass)
 
     # 3. each kernel against its plain version, on the card
     errs = {k: 0 for k in PSA_KERNELS}
@@ -878,8 +907,8 @@ def main() -> int:
             **chain_bound(int(kcnt.max())),
             **bound(steps + nbytes(nm, kw, kcnt), OPS_WALK_STEP * steps)}
         del a, b, nm, plane, ks, kc, ps, pc, kw, kcnt, pw, pcnt
-    times["psa_walk traced batch"] = traced_batch_walks(dev, smi_line,
-                                                        params, p)
+    times["psa_walk traced batch"], short_batch = traced_batch_walks(
+        dev, smi_line, params, p)
     emit({"phase": "timings", "times": times, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
     emit({"phase": "psa_traced_plan", "smi": smi_line, **{
@@ -904,7 +933,8 @@ def main() -> int:
     int16_launches, int16_times = int16_phases(dev, smi_line, batches, pairs)
     launches.update(int16_launches)
     striped_launches, striped_times = striped_phases(
-        dev, smi_line, batches, pairs, tpairs, walk_plain)
+        dev, smi_line, batches, pairs, tpairs, walk_plain, short_batch)
+    del short_batch
     launches.update(striped_launches)
     ring_launches, ring_times = ring_phases(
         dev, smi_line, k1, edit_times["k1_200k"], psa_times["traced_200k"],
@@ -920,6 +950,26 @@ def main() -> int:
           "smi": smi_line})
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    # every PSA walk computes the same step: each is charged the fewest
+    # instructions a step of any of their step loops, its own beside it
+    least = min(walk_sass[k]["per_step"] for k in WALK_KERNELS)
+    for kernel, t in (("psa_walk", times["psa_walk 32 x 10 kbp"]),
+                      ("psa_walk", times["psa_walk traced batch"]),
+                      ("psa_walk", edit_times["psa_r1_walk"]),
+                      ("psa_walk_bounded", psa_times["psa_walk_bounded"]),
+                      ("psa_walk_pair2", striped_times["psa_walk_pair2"])):
+        t.update(issue_bound(least, t.get("thread_steps", t["chain_steps"])),
+                 own_per_step=walk_sass[kernel]["per_step"])
+        t["walk_bound_ms"] = max(t["chain_bound_ms"], t["issue_bound_ms"])
+    emit({"phase": "walk_bounds", "smi": smi_line, **{
+        label: {k: t[k] for k in ("ms", "walk_bound_ms", "chain_bound_ms",
+                                  "issue_bound_ms", "issue_per_step",
+                                  "issue_steps", "own_per_step")}
+        for label, t in (("K3 32 x 10 kbp", times["psa_walk 32 x 10 kbp"]),
+                         ("K3 traced batch", times["psa_walk traced batch"]),
+                         ("Q2-16", edit_times["psa_r1_walk"]),
+                         ("Q2-8", psa_times["psa_walk_bounded"]),
+                         ("Q2-12", striped_times["psa_walk_pair2"]))}})
     src = "tsta_tpu_torch/csrc/%s"
     launches["psa_dp_score_1pair"] = notrace_launches["psa_dp_score"]
     entries = [
@@ -998,7 +1048,12 @@ def main() -> int:
                                             "k1_s_200k", "plan", "forced",
                                             "sweep", "S", "s_sweep_ms",
                                             "counts", "chain_bound_ms",
-                                            "chain_steps",
+                                            "chain_steps", "issue_bound_ms",
+                                            "issue_per_step", "issue_steps",
+                                            "own_per_step", "walk_bound_ms",
+                                            "ms_short", "k3_ms_short",
+                                            "ms_short_even",
+                                            "k3_ms_short_even",
                                             "ms_100k", "chain_bound_ms_100k",
                                             "iters", "modes")
                           if k in t}}
@@ -2271,7 +2326,7 @@ def traced_batch_walks(dev, smi_line, params, p) -> dict:
     del a, b, lens
     ms = pms = 0.0
     err = steps = longest = moved = 0
-    plans = []
+    plans, plain_walks = [], []
     for g in groups:
         a, b, nm = psa_diff.pack_pairs([pairs[i] for i in g], dev, traced=True)
         plane = psa_diff.dp_packed(a, b, nm, p, True)[2]
@@ -2285,6 +2340,7 @@ def traced_batch_walks(dev, smi_line, params, p) -> dict:
         moved += int(kcnt.sum()) + nbytes(nm, kw, kcnt)
         longest = max(longest, int(kcnt.max()))
         plans.append([len(g), *plane.shape[1:], *k3_plan(len(g))])
+        plain_walks.append((pw, pcnt))
         del plane, nm, kw, kcnt, pw, pcnt
     rec = {"shape": "%d pairs of 150-2,000 bp traced, %d groups" % (
                len(pairs), len(groups)),
@@ -2302,7 +2358,8 @@ def traced_batch_walks(dev, smi_line, params, p) -> dict:
         raise AssertionError("traced batch of short pairs: wrong result, "
                              "route or plan: %s %s plain %d, scores equal "
                              "%s" % (lr, plans, plain, scores_equal))
-    return rec
+    return rec, {"pairs": pairs, "groups": groups, "plain": plain_walks,
+                 "plain_ms": pms}
 
 
 def short_pairs(rng, count):
@@ -3250,7 +3307,8 @@ def int16_phases(dev, smi_line, batches, batch_pairs):
             "dtype_max_probe": dtype_max_probe.launches - n0}, times
 
 
-def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
+def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain,
+                   short_batch):
     """Phase 18, the striped layout and the two-pair walk: (a) ``batches``
     (phase 3's mixed batch and 40 kbp pair) through
     ``psa_align_batch_diff(layout="striped")`` against K1 and, on the mixed
@@ -3259,10 +3317,11 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
     ``TSTA_PSA_LAYOUT=striped tsta-torch batch`` on those pairs; (d) the
     walks of ``tpairs``' traced plane (phase 5's 32 x 10 kbp), held to
     ``walk_plain``, phase 6's plain walk of that plane (words, counts,
-    ms).  Each path runs with the launch counters and the count of plain
-    calls on the card reset before it and read after it.  Returns the
-    launches of (c) and (d)'s two-pair walk and the kernels record's
-    timings."""
+    ms), and the groups of phase 6 (b)'s traced batch of 4,096 short pairs
+    (``short_batch``: its pairs, groups and plain walks).  Each path runs
+    with the launch counters and the count of plain calls on the card
+    reset before it and read after it.  Returns the launches of (c) and
+    (d)'s two-pair walk and the kernels record's timings."""
     import numpy as np
     import torch
 
@@ -3405,8 +3464,37 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
         raise AssertionError("TSTA_PSA_LAYOUT=striped batch: wrong result "
                              "or route: %s %s" % (js, ld))
 
-    # (d) the walks of phase 5's traced plane (K2's, which phase 6 held to
-    # the plain DP, on the same pairs): the two-pair walk's path, then both
+    # (d) the two-pair walk
+    lw, times["psa_walk_pair2"] = pair2_walks(dev, smi_line, tpairs,
+                                              walk_plain, short_batch)
+    return {"psa_dp_striped": js["launches"]["psa_dp_striped"],
+            "psa_walk_pair2": lw}, times
+
+
+def pair2_walks(dev, smi_line, tpairs, walk_plain, short_batch):
+    """Phase 18 (d), the two-pair walk (``psa_walk_pair2.cu``): the walks
+    of ``tpairs``' traced plane (phase 5's 32 x 10 kbp), held to
+    ``walk_plain``, phase 6's plain walk of it (words, counts, ms), then
+    its first 31 pairs, which take K3; then the groups of phase 6 (b)'s
+    traced batch of 4,096 short pairs (``short_batch``: its pairs, groups
+    and plain walks), an odd group taking K3, both walks timed over all
+    groups and over the even ones.  Each path runs with the
+    launch counters and the count of plain calls on the card reset before
+    it and read after it.  Returns the two-pair walk's launches on the 32 x
+    10 kbp plane and the kernels record's timing."""
+    import torch
+
+    from tsta_tpu_torch.ops import _kernels, psa_diff
+    from tsta_tpu_torch.ops import traceback as tb
+
+    p = (2, -5, -2, -4)
+
+    def errs(got, want):
+        return max(max_err(torch.as_tensor(g).cpu(), torch.as_tensor(w).cpu())
+                   for g, w in zip(got, want))
+
+    # the walks of phase 5's traced plane (K2's, which phase 6 held to the
+    # plain DP, on the same pairs): the two-pair walk's path, then both
     # walks timed, each held to phase 6's plain walk; 31 pairs take K3
     a, b, nm = psa_diff.pack_pairs(tpairs, dev, traced=True)
     plane = psa_diff.dp_packed(a, b, nm, p, traced=True)[2]
@@ -3420,8 +3508,9 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
     p0 = start()
     ow, oc = tb.walk_packed(plane[:31], nm[:31].contiguous(), pair2=True)
     lo, plain_o = stop(p0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     steps = int(c2.sum())   # one plane byte read per move
-    times["psa_walk_pair2"] = {
+    rec = {
         "shape": "%d x 10 kbp traced plane, %d steps" % (len(tpairs), steps),
         "ms": ms, "plain_ms": pms, "k3_ms": k3_ms,
         "max_abs_err": max(errs((w2, c2), (pw, pc)),
@@ -3429,22 +3518,68 @@ def striped_phases(dev, smi_line, batches, batch_pairs, tpairs, walk_plain):
         "k3_max_abs_err": max(errs((w2, c2), (kw, kc)),
                               errs((kw, kc), (pw, pc))),
         "odd_max_abs_err": errs((ow, oc), (kw[:31], kc[:31])),
+        "plan": list(_kernels.psa_walk_layout(len(tpairs), sms)),
+        "thread_steps": int(c2.view(-1, 2).sum(1).max()),
         **chain_bound(int(c2.max())),
         **bound(steps + nbytes(nm, w2, c2), OPS_WALK_STEP * steps)}
-    emit({"phase": "pair2_walk", "times": times["psa_walk_pair2"],
+    del plane, w2, c2, w2t, c2t, kw, kc, ow, oc
+    # phase 6 (b)'s traced batch of 4,096 short pairs, group by group as
+    # its route cuts it: the two-pair walk's path (an odd group takes K3),
+    # then both walks timed (the sums over the groups), each held to phase
+    # 6 (b)'s plain walks; also the sums over the groups of an even number
+    # of pairs alone, those the two-pair walk takes
+    pairs, groups = short_batch["pairs"], short_batch["groups"]
+    planes = []
+    for g in groups:
+        a, b, nm = psa_diff.pack_pairs([pairs[i] for i in g], dev, traced=True)
+        planes.append((psa_diff.dp_packed(a, b, nm, p, True)[2], nm))
+        del a, b
+    p0 = start()
+    got = [tb.walk_packed(plane, nm, pair2=True) for plane, nm in planes]
+    lb, plain_b = stop(p0)
+    even = sum(len(g) % 2 == 0 for g in groups)
+    short = {"ms_short": 0.0, "k3_ms_short": 0.0, "ms_short_even": 0.0,
+             "k3_ms_short_even": 0.0, "short_max_abs_err": 0,
+             "short_k3_max_abs_err": 0, "short_thread_steps": 0,
+             "short_groups": []}
+    for (plane, nm), (pw, pc), (gw, gc) in zip(planes, short_batch["plain"],
+                                               got):
+        gms, (w2t, c2t) = cuda_ms(
+            lambda: tb.walk_packed(plane, nm, pair2=True), 3)
+        kms, (kw, kc) = cuda_ms(lambda: tb.walk_packed(plane, nm), 3)
+        short["ms_short"] += gms
+        short["k3_ms_short"] += kms
+        short["short_max_abs_err"] = max(short["short_max_abs_err"],
+                                         errs((gw, gc), (pw, pc)),
+                                         errs((w2t, c2t), (pw, pc)))
+        short["short_k3_max_abs_err"] = max(short["short_k3_max_abs_err"],
+                                            errs((kw, kc), (gw, gc)))
+        if len(nm) % 2 == 0:   # the groups the two-pair walk takes
+            short["ms_short_even"] += gms
+            short["k3_ms_short_even"] += kms
+            short["short_thread_steps"] = max(
+                short["short_thread_steps"], int(gc.view(-1, 2).sum(1).max()))
+        short["short_groups"].append(
+            [len(nm), *plane.shape[1:], gms, kms,
+             *_kernels.psa_walk_layout(len(nm), sms)])
+    del planes, got
+    rec.update(short)
+    emit({"phase": "pair2_walk", "times": rec,
           "launches": {k: lw[k] for k in ("psa_walk_pair2", "psa_walk")},
           "odd_launches": {k: lo[k] for k in ("psa_walk_pair2", "psa_walk")},
-          "plain_calls": plain_w + plain_o, "smi": smi_line,
+          "short_launches": {k: lb[k] for k in ("psa_walk_pair2",
+                                                "psa_walk")},
+          "plain_calls": plain_w + plain_o + plain_b, "smi": smi_line,
           "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
-    t = times["psa_walk_pair2"]
-    if (t["max_abs_err"] or t["k3_max_abs_err"] or t["odd_max_abs_err"]
-            or plain_w or plain_o or lw["psa_walk_pair2"] != 1
+    if (rec["max_abs_err"] or rec["k3_max_abs_err"] or rec["odd_max_abs_err"]
+            or rec["short_max_abs_err"] or rec["short_k3_max_abs_err"]
+            or plain_w or plain_o or plain_b or lw["psa_walk_pair2"] != 1
             or lw["psa_walk"] or lo["psa_walk"] != 1
-            or lo["psa_walk_pair2"]):
-        raise AssertionError("two-pair walk: wrong result or route: %s %s %s"
-                             % (t, lw, lo))
-    return {"psa_dp_striped": js["launches"]["psa_dp_striped"],
-            "psa_walk_pair2": lw["psa_walk_pair2"]}, times
+            or lo["psa_walk_pair2"] or lb["psa_walk_pair2"] != even
+            or lb["psa_walk"] != len(groups) - even or not even):
+        raise AssertionError("two-pair walk: wrong result or route: %s %s %s "
+                             "%s" % (rec, lw, lo, lb))
+    return lw["psa_walk_pair2"], rec
 
 
 def ring_phases(dev, smi_line, k1, k1_edit, traced, traced_edit):

@@ -2050,17 +2050,54 @@ def _traced_plane(cuda, lengths, seed):
     return plane, lens.to(cuda)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("lengths", [
+def _tail_plane(cuda, lengths, params, seed):
+    """A traced plane of similar pairs of the given (n, m) whose b ends in
+    a mutated copy of a (m >> n ends a walk in a long run up outside the
+    matrix, n >> m in one left): the card's traced DP's under the default
+    scoring, the plain DP's moved to the card under any other."""
+    rng = np.random.default_rng(seed)
+    P = len(lengths)
+    n_pad = -(-max(n for n, _ in lengths) // 512) * 512
+    m_pad = -(-max(m for _, m in lengths) // 256) * 256
+    a = np.full((P, n_pad), psa_scan.A_PAD, np.uint8)
+    b = np.full((P, m_pad), psa_scan.B_PAD, np.uint8)
+    for k, (n, m) in enumerate(lengths):
+        a[k, :n] = rng.integers(65, 69, n)
+        src = a[k, :n].copy()
+        src[rng.integers(0, n, n // 20)] = rng.integers(65, 69, n // 20)
+        src = np.delete(src, rng.integers(0, n, n // 30))
+        b[k, :m] = np.concatenate([rng.integers(65, 69, m), src])[-m:]
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    nm = torch.tensor(lengths, dtype=torch.int32)
+    if params == P0:
+        *_, plane = psa_diff.dp_packed(a.to(cuda), b.to(cuda), nm.to(cuda),
+                                       P0, traced=True)
+    else:
+        *_, plane = psa_scan.scan_rows(a, b, nm[:, 0], nm[:, 1], params,
+                                       traced=True)
+    return plane.contiguous().to(cuda), nm.to(cuda)
+
+
+EDIT = (0, -1, -1, 0)
+PAIR2_CASES = [
     [(512, 500), (400, 512), (130, 60), (9, 8)],
     [(1000, 990), (600, 1024), (1024, 30), (7, 700), (800, 812), (1, 1)],
-])
-def test_walk_pair2_matches_plain_and_k3(cuda, lengths):
-    """The two-pair walk (``psa_walk_pair2.cu``) on traced planes of 4 and
-    6 uneven pairs (one pair drains while its partner walks on): every word
-    and count of the plain version and K3; then the first P - 1 pairs, an
-    odd count, take K3."""
-    plane, nm = _traced_plane(cuda, lengths, 23)
+    [(1, 1), (700, 690)],             # one pair drains in phase 0
+    [(40, 900), (30, 700)],           # m >> n: long runs up
+    [(900, 40), (700, 30)],           # n >> m: long runs left
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [P0, EDIT], ids=["default", "edit"])
+@pytest.mark.parametrize("lengths", PAIR2_CASES)
+def test_walk_pair2_matches_plain_and_k3(cuda, lengths, params):
+    """The two-pair walk (``psa_walk_pair2.cu``) on traced planes of 2, 4
+    and 6 uneven pairs under the default and the edit scoring (one pair
+    drains while its partner walks on; long runs up and left outside the
+    matrix): every word and count of the plain version and K3; then the
+    first P - 1 pairs, an odd count, take K3."""
+    plane, nm = _tail_plane(cuda, lengths, params, 23)
     pw, pc = tb.walk_packed_plain(plane.cpu(), nm.cpu())
     kw, kc = tb.walk_packed(plane, nm)
     n0 = dict(_kernels.launches)
@@ -2079,6 +2116,108 @@ def test_walk_pair2_matches_plain_and_k3(cuda, lengths):
     assert _kernels.launches["psa_walk_pair2"] == n0["psa_walk_pair2"]
     assert torch.equal(ow.cpu(), pw[:P - 1]) and torch.equal(oc.cpu(),
                                                              pc[:P - 1])
+
+
+PAIR2_S_CASES = (8, 24, 32, 64, 112)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", PAIR2_S_CASES)
+def test_walk_pair2_at_forced_plans_matches_plain(cuda, S):
+    """The two-pair walk at a forced phase length and each block size, its
+    words filled with -1 first: traced planes of uneven pairs, synthetic
+    planes (pure-left, pure-up, diagonal and random runs; a plane of 16
+    columns, narrower than any window) equal the plain walk in every word
+    (the tail words the block zeroes among them) and count, one launch a
+    call."""
+    cases = [_tail_plane(cuda, PAIR2_CASES[1], P0, 31),
+             _tail_plane(cuda, PAIR2_CASES[3], EDIT, 32)]
+    for k, kind in enumerate(("left", "up", "diagonal", "random")):
+        for P, m_pad, n_pad in ((4, 300, 256), (2, 40, 1040), (2, 9, 16)):
+            plane = _code_plane(kind, (P, m_pad, n_pad), 7 * k + P)
+            nm = torch.tensor([[n_pad - p * (n_pad // (P + 1)), m_pad - p]
+                               for p in range(P)], dtype=torch.int32)
+            cases.append((plane.to(cuda), nm.to(cuda)))
+    for plane, nm in cases:
+        pw, pc = tb.walk_packed_plain(plane.cpu(), nm.cpu())
+        for threads in WALK_THREAD_CASES:
+            words = torch.full(pw.shape, -1, dtype=torch.int32, device=cuda)
+            counts = torch.full(pc.shape, -1, dtype=torch.int32, device=cuda)
+            n0 = dict(_kernels.launches)
+            _kernels.psa_walk_pair2(plane, nm, words, counts, S=S,
+                                    threads=threads)
+            torch.cuda.synchronize()
+            assert _kernels.launches["psa_walk_pair2"] == \
+                n0["psa_walk_pair2"] + 1
+            assert sum(_kernels.launches.values()) == sum(n0.values()) + 1
+            assert torch.equal(counts.cpu(), pc) and torch.equal(
+                words.cpu(), pw), (S, threads)
+
+
+@pytest.mark.cuda
+def test_walk_pair2_many_blocks_an_sm_match_plain(cuda):
+    """More than 2 x SMs pairs: traced pairs of 1 to 300 bp (P / 2 blocks
+    past the SM count, so the plan takes its smaller S), and 2,048 random
+    code planes of 1 to 60 bp at S = 8 and 16 on 64 threads, as many
+    blocks an SM as the card holds: every word and count of the plain
+    walk, in 10 launches into words filled with -1."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rng = np.random.default_rng(43)
+    lengths = [(int(rng.integers(1, 301)), int(rng.integers(1, 301)))
+               for _ in range(2 * sms + 6)]
+    a, b, lens = _batch(44, lengths, 256, 512, similar=True)
+    *_, traced = psa_diff.dp_packed(a.to(cuda), b.to(cuda), lens.to(cuda),
+                                    P0, traced=True)
+    assert _kernels.psa_walk_layout(len(lengths), sms)[0] < \
+        _kernels.psa_walk_layout(2, sms)[0]
+    P, m_pad, n_pad = 2048, 64, 64
+    codes = torch.from_numpy(rng.integers(0, 27, (P, m_pad, n_pad))
+                             .astype(np.uint8))
+    cnm = torch.from_numpy(rng.integers(1, 61, (P, 2)).astype(np.int32))
+    for plane, nm, shapes in ((traced, lens.to(cuda), [(None, None)]),
+                              (codes.to(cuda), cnm.to(cuda),
+                               [(8, 64), (16, 64), (None, None)])):
+        pw, pc = tb.walk_packed_plain(plane.cpu(), nm.cpu())
+        for S, threads in shapes:
+            for _ in range(10):
+                words = torch.full(pw.shape, -1, dtype=torch.int32,
+                                   device=cuda)
+                counts = torch.full(pc.shape, -1, dtype=torch.int32,
+                                    device=cuda)
+                _kernels.psa_walk_pair2(plane, nm, words, counts, S=S,
+                                        threads=threads)
+                assert torch.equal(counts.cpu(), pc), (S, threads)
+                assert torch.equal(words.cpu(), pw), (S, threads)
+
+
+@pytest.mark.cuda
+def test_walk_pair2_refuses_a_bad_plan(cuda):
+    """A phase length whose four windows and guards pass a block's shared
+    memory (120, 128) or that is not a multiple of 8, and a block that is
+    not whole warps in 64-256, raise before any launch."""
+    plane, nm = _traced_plane(cuda, [(300, 200), (100, 90)], 24)
+    n0 = dict(_kernels.launches)
+    for S in (0, 12, 120, 128):
+        with pytest.raises(ValueError):
+            tb.walk_packed(plane, nm, pair2=True, S=S)
+    for threads in (32, 48, 288):
+        with pytest.raises(ValueError):
+            tb.walk_packed(plane, nm, pair2=True, threads=threads)
+    assert _kernels.launches == n0
+    # the library's own checks: its shared memory is pair2_bytes, and a
+    # phase past 112 (its offset step past a byte) is refused even where
+    # the windows would fit
+    lib = _kernels._lib()
+    for S in (8, 64, 112):
+        assert lib.tsta_psa_walk_pair2_bytes(S) == _kernels.pair2_bytes(S)
+    words = torch.zeros((2, tb.packed_words_len(sum(plane.shape[1:]))),
+                        dtype=torch.int32, device=cuda)
+    counts = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    args = _kernels._check_walk(plane, nm, words, counts, "psa_walk_pair2")
+    for S in (120, 128):
+        assert lib.tsta_psa_walk_pair2(*args[:-1], S, 128, args[-1]) != 0
+    with pytest.raises(ValueError):
+        _kernels.pair2_s(120)
 
 
 @pytest.mark.cuda

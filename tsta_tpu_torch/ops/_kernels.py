@@ -47,8 +47,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # psa_dp_diff is the score-only DP by the difference method (int16
 # offsets, Q2-9) and psa_dp_striped the one of the striped layout (Q2-11),
 # each on K1's schedule of P * D co-resident column shards; K3 is the PSA walk,
-# psa_walk_pair2 the walk of two pairs per thread (Q2-12) and
-# psa_walk_bounded the walk inside one such chunk; poa_dp and
+# psa_walk_pair2 the walk of two pairs per thread, each on its own window
+# ring (Q2-12), and psa_walk_bounded the walk inside one such chunk; poa_dp and
 # poa_walk are the MSA round DP (its columns sharded over co-resident
 # blocks) and its walk on a single-call round; poa_dp_chunk and
 # poa_dp_window are the POA DP kernel's forward chunk and window remat in
@@ -72,6 +72,8 @@ SHORT_MAX_N = 2048   # psa_dp_short's widest pair: JAX's PACK_RMAX x 128
 # walk block may take, and the dynamic shared memory a block may take on
 # the H100
 WALK_S, MAX_DYNAMIC_SMEM = 64, 232_448
+# the two-pair walk's longest phase (csrc/psa_walk_pair2.cu's kPair2MaxS)
+PAIR2_MAX_S = 112
 WALK_MIN_THREADS, WALK_MAX_THREADS = 64, 256
 POA_MAX_IN = 64   # the POA words carry pred indices in 6 bits
 POA_WIDE_MAX_IN = 1 << 13   # the wide form's 32-bit words: 13 bits
@@ -244,7 +246,9 @@ def _lib() -> ctypes.CDLL:
                 ctypes.POINTER(ci)] * 2
             lib.tsta_psa_walk_pair2.restype = ci
             lib.tsta_psa_walk_pair2.argtypes = [vp, vp, ci, ci, ci, vp, ci,
-                                                vp, vp]
+                                                vp, ci, ci, vp]
+            lib.tsta_psa_walk_pair2_bytes.restype = ci
+            lib.tsta_psa_walk_pair2_bytes.argtypes = [ci]
             lib.tsta_poa_dp.restype = ci
             lib.tsta_poa_dp.argtypes = [vp] * 5 + [ci] * 14 + [vp] * 4 + [
                 ci] * 5 + [vp] * 5
@@ -654,26 +658,80 @@ def _check_copies(n_pad: int, what: str, *tensors) -> None:
                          "aligned" % (what, n_pad))
 
 
-def walk_s(S: int | None = None) -> int:
+def walk_ring_bytes(S: int) -> int:
+    """Bytes of a walk's window ring at phase length S: two windows of (2S
+    + 1) x (2S + 16) bytes (``csrc/psa_walk_stage.cuh``)."""
+    return 2 * (2 * S + 1) * (2 * S + 16)
+
+
+def pair2_guard(S: int) -> int:
+    """Bytes before each pair's two windows in the two-pair walk's shared
+    memory, which its reads past the window's first row land in
+    (``csrc/psa_walk_pair2.cu``'s ``pair2_guard``)."""
+    return 2 * S + 32
+
+
+def pair2_bytes(S: int) -> int:
+    """Bytes of the two-pair walk's shared memory at phase length S: a ring
+    a pair, each after its guard (``csrc/psa_walk_pair2.cu``,
+    ``tsta_psa_walk_pair2_bytes``)."""
+    return 2 * (pair2_guard(S) + walk_ring_bytes(S))
+
+
+def walk_s(S: int | None = None, nbytes=walk_ring_bytes) -> int:
     """A walk's phase length: ``S`` (forced by a test or a sweep) or
-    :data:`WALK_S`; a multiple of 8 whose two windows fit a block's
-    shared memory (``csrc/psa_walk_stage.cuh``), else ValueError."""
+    :data:`WALK_S`; a multiple of 8 whose shared memory, ``nbytes(S)``
+    (the two windows of one ring unless said), fits a block, else
+    ValueError."""
     S = WALK_S if S is None else int(S)
-    # two windows of (2S + 1) x (2S + 16) bytes: the header's walk_ring_bytes
-    if S < 8 or S % 8 or 2 * (2 * S + 1) * (2 * S + 16) > MAX_DYNAMIC_SMEM:
+    if S < 8 or S % 8 or nbytes(S) > MAX_DYNAMIC_SMEM:
         raise ValueError("walk phase length S must be a multiple of 8 whose "
-                         "two windows fit %d bytes, got %d"
+                         "windows fit %d bytes, got %d"
                          % (MAX_DYNAMIC_SMEM, S))
     return S
+
+
+def pair2_s(S: int | None = None) -> int:
+    """The two-pair walk's phase length: :func:`walk_s` over its shared
+    memory (:func:`pair2_bytes`), and at most :data:`PAIR2_MAX_S`, since
+    its step keeps a cell offset's step (2S + 17) in a byte; else
+    ValueError."""
+    S = walk_s(S, pair2_bytes)
+    if S > PAIR2_MAX_S:
+        raise ValueError("the two-pair walk's phase length S is at most %d, "
+                         "got %d" % (PAIR2_MAX_S, S))
+    return S
+
+
+def _layout(fn, P: int, sms: int) -> tuple:
+    out = [ctypes.c_int() for _ in range(2)]
+    fn(P, sms, *map(ctypes.byref, out))
+    return tuple(v.value for v in out)
 
 
 def psa_walk_layout(P: int, sms: int) -> tuple:
     """(S, threads): K3's plan for P pairs on a card of ``sms`` SMs, read
     from the built library: 128 threads, S = 64 up to one pair an SM,
     else 32."""
-    out = [ctypes.c_int() for _ in range(2)]
-    _lib().tsta_psa_walk_layout(P, sms, *map(ctypes.byref, out))
-    return tuple(v.value for v in out)
+    return _layout(_lib().tsta_psa_walk_layout, P, sms)
+
+
+def _walk_plan(plane, S, threads, what: str, check_s=walk_s) -> tuple:
+    """(S, threads) of a walk launch over ``plane``: K3's plan
+    (:func:`psa_walk_layout`) for its pairs on this card where not forced,
+    S checked by ``check_s`` and threads here."""
+    if S is None or threads is None:
+        sms = torch.cuda.get_device_properties(plane.device) \
+            .multi_processor_count
+        plan_s, plan_threads = psa_walk_layout(plane.shape[0], sms)
+        S = plan_s if S is None else S
+        threads = plan_threads if threads is None else threads
+    S, threads = check_s(S), int(threads)
+    if threads % 32 or not WALK_MIN_THREADS <= threads <= WALK_MAX_THREADS:
+        raise ValueError("%s: threads must be a multiple of 32 in [%d, %d], "
+                         "got %d" % (what, WALK_MIN_THREADS, WALK_MAX_THREADS,
+                                     threads))
+    return S, threads
 
 
 def psa_walk(plane, nm, words, counts, *, S=None, threads=None) -> None:
@@ -684,31 +742,26 @@ def psa_walk(plane, nm, words, counts, *, S=None, threads=None) -> None:
     (P,) int32 outputs."""
     args = _check_walk(plane, nm, words, counts, "psa_walk")
     _check_copies(plane.shape[2], "psa_walk", plane)
-    if S is None or threads is None:
-        sms = torch.cuda.get_device_properties(plane.device) \
-            .multi_processor_count
-        plan_s, plan_threads = psa_walk_layout(plane.shape[0], sms)
-        S = plan_s if S is None else S
-        threads = plan_threads if threads is None else threads
-    S, threads = walk_s(S), int(threads)
-    if threads % 32 or not WALK_MIN_THREADS <= threads <= WALK_MAX_THREADS:
-        raise ValueError("psa_walk: threads must be a multiple of 32 in "
-                         "[%d, %d], got %d"
-                         % (WALK_MIN_THREADS, WALK_MAX_THREADS, threads))
+    S, threads = _walk_plan(plane, S, threads, "psa_walk")
     _raise_on(_lib().tsta_psa_walk(*args[:-1], S, threads, args[-1]),
               "psa_walk")
     launches["psa_walk"] += 1
 
 
-def psa_walk_pair2(plane, nm, words, counts) -> None:
-    """Launch the two-pair walk (one thread walks pairs 2q and 2q + 1)
-    over a (P, m_pad, n_pad) uint8 code plane, P even; the arguments and
-    outputs of :func:`psa_walk`."""
+def psa_walk_pair2(plane, nm, words, counts, *, S=None, threads=None) -> None:
+    """Launch the two-pair walk (block q walks pairs 2q and 2q + 1, one
+    thread both chains, each pair on its own window ring; S steps a phase
+    and ``threads`` a block: K3's plan, :func:`psa_walk_layout`, unless
+    forced, S checked by :func:`pair2_s`) over a (P, m_pad, n_pad) uint8
+    code plane, P even; the arguments and outputs of :func:`psa_walk`."""
     args = _check_walk(plane, nm, words, counts, "psa_walk_pair2")
     if plane.shape[0] < 2 or plane.shape[0] % 2:
         raise ValueError("psa_walk_pair2 walks an even number of pairs, got "
                          "%d" % plane.shape[0])
-    _raise_on(_lib().tsta_psa_walk_pair2(*args), "psa_walk_pair2")
+    _check_copies(plane.shape[2], "psa_walk_pair2", plane)
+    S, threads = _walk_plan(plane, S, threads, "psa_walk_pair2", pair2_s)
+    _raise_on(_lib().tsta_psa_walk_pair2(*args[:-1], S, threads, args[-1]),
+              "psa_walk_pair2")
     launches["psa_walk_pair2"] += 1
 
 

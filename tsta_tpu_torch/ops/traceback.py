@@ -24,8 +24,10 @@ the plane in SMEM, the kernels stage a window of it in shared memory
 ahead of the walk (:func:`walk_window`, whose schedule
 :func:`walk_staged_plain` replays), but any plane fits the window ring,
 so there is neither the band's gate nor a fall-back.  With
-``pair2=True`` and an even P it walks two pairs per thread
-(``csrc/psa_walk_pair2.cu``), JAX's ``pair2`` walk: the same moves.
+``pair2=True`` and an even P it walks two pairs per thread, each from
+its own window ring (``csrc/psa_walk_pair2.cu``, whose schedule
+:func:`walk_pair2_staged_plain` replays), JAX's ``pair2`` walk: the same
+moves.
 """
 
 from __future__ import annotations
@@ -397,6 +399,227 @@ def walk_staged_plain(plane: torch.Tensor, prev_row: torch.Tensor,
                         device=moves.device)
 
 
+class _Pair2Walk:
+    """One pair of the two-pair walk kernel, as its walker thread and its
+    loaders see it (``csrc/psa_walk_pair2.cu``): the walk's state (i, j,
+    t, forced), its cell's offset ``off`` in the current window, and its
+    part of shared memory, a guard and two windows, as two arrays: the
+    flat plane index a byte was staged from (-1: not staged by the
+    window it lies in) and its code."""
+
+    def __init__(self, plane, n, m, S, reach):
+        self.plane, self.S, self.reach = plane, S, reach
+        self.W = 2 * S + 16
+        self.win = (2 * S + 1) * self.W
+        self.guard = _kernels.pair2_guard(S)
+        size = self.guard + 2 * self.win
+        self.src = np.full(size, -1, np.int64)
+        self.val = np.zeros(size, np.int64)
+        self.i, self.j, self.t, self.forced = m - 1, n - 1, 0, 0
+        self.moves = []
+        self.ai, self.aj = self.i, self.j   # the current window's anchor
+
+    def in_core(self):
+        return self.i >= 0 and self.j >= 0
+
+    def more(self):
+        return self.i >= 0 or self.j >= 0
+
+    def stage(self, b, i0, j0):
+        """The loaders' copies of the window anchored at (i0, j0) into
+        window b (``pair_stage``): rows [i0 - 2S, i0] from slot 0, columns
+        from ``walk_window``'s c0; the rest of the window not staged."""
+        m_pad, n_pad = self.plane.shape
+        at = self.guard + b * self.win
+        self.src[at:at + self.win] = -1
+        r0, r1, c0, c1 = walk_window(i0, j0, self.S, 0, m_pad, n_pad)
+        if r1 <= r0:
+            return
+        rows = np.arange(r0, r1)[:, None]
+        cols = np.arange(c0, c1)[None, :]
+        dst = at + (rows - (i0 - 2 * self.S)) * self.W + (cols - c0)
+        self.src[dst] = rows * n_pad + cols
+        self.val[dst] = self.plane[r0:r1, c0:c1].cpu().numpy()
+
+    def begin(self, cur):
+        """The walker's view of window ``cur`` for a phase: its start, its
+        slot 0's row and column 0's plane column, and ``off``, the walk's
+        cell."""
+        self.at = self.guard + cur * self.win
+        self.ra = self.ai - 2 * self.S
+        self.c0 = max(self.aj - 2 * self.S, 0) // 16 * 16
+        self.off = (self.i - self.ra) * self.W + (self.j - self.c0)
+
+    def read(self, off, cell=None):
+        """The byte at ``off`` in the current window: within the window or
+        the guard before it, else AssertionError.  ``cell``: the plane
+        cell (i, j) whose code the walk needs there, which the window must
+        hold; else None (any byte)."""
+        self.reach[0] = min(self.reach[0], off)
+        self.reach[1] = max(self.reach[1], off)
+        assert -self.guard <= off < self.win, \
+            "read at %d outside the window (and its guard of %d) at row " \
+            "%d, column %d" % (off, self.guard, self.ra, self.c0)
+        if cell is None:
+            return None
+        n_pad = self.plane.shape[1]
+        assert self.src[self.at + off] == cell[0] * n_pad + cell[1], \
+            "read of %s outside the window at row %d, column %d" % (
+                cell, self.ra, self.c0)
+        return int(self.val[self.at + off])
+
+    def step(self, masked, rules):
+        """One step of ``chain_step``: the three reads, then, in the
+        matrix, the move, the next forced move and the offset's step, held
+        to :func:`decode_step`'s; a code read past the matrix's edge (i or
+        j 0) taken as any byte.  Outside the matrix (``masked``) the reads
+        are issued and nothing changes."""
+        i, j, W = self.i, self.j, self.W
+        if not self.in_core():
+            assert masked, "an unmasked step outside the matrix"
+            for d in (0, 1, W):
+                self.read(self.off - d)
+            return
+        c = self.read(self.off, (i, j))
+        l = self.read(self.off - 1, (i, j - 1) if j > 0 else None)
+        u = self.read(self.off - W, (i - 1, j) if i > 0 else None)
+        step_move, step_next, f0, f2, e0, e2 = rules
+        key = (1, int(i > 0), min(j, 1) + 1, self.forced, c,
+               l // 3 % 3 if j > 0 else 0, u % 3 if i > 0 else 0)
+        move, nxt = int(step_move[key]), int(step_next[key])
+        assert move == (self.forced - 1 if self.forced else c // 9)
+        # the kernel's next forced move: bit ``move`` of the rules' union,
+        # over every byte an edge read may hold
+        ls = np.arange(256) if l is None else np.array([l])
+        us = np.arange(256) if u is None else np.array([u])
+        go = (((f0 >> c) | (f2 >> (ls[:, None] & 31))) & 1) | \
+            (((e0 << 2 >> c) | (e2 << 2 >> (us[None, :] & 31))) & 4)
+        forced = set(((go >> move) & 1).ravel().tolist())
+        self.moves.append(move)
+        self.i -= move != 0
+        self.j -= move != 2
+        self.t += 1
+        self.off -= (1, W + 1, W)[move]
+        if self.in_core():   # the next forced move is read only here
+            assert forced == {int(nxt > 0)}, (i, j, forced, nxt)
+        self.forced = nxt
+
+    def tail(self):
+        """Outside the matrix: left, then up, to the end (``run_tail``)."""
+        while self.more():
+            move = 0 if self.j >= 0 else 2
+            self.moves.append(move)
+            self.i -= move != 0
+            self.j -= move != 2
+            self.t += 1
+        self.forced = 0
+
+
+def _pair2_phase(walks, S, rules):
+    """``chains_phase`` of the walks that begin it inside the matrix: the
+    steps each is sure to take inside it (the least of their i and j,
+    down to a multiple of 16) unmasked, i and j then read back off the
+    offset; the rest of the phase masked, 4 steps of each a body, until
+    every walk has left the matrix; then the tail of each that left."""
+    fast = min(S, *(min(w.i, w.j) for w in walks))
+    fast -= fast % 16
+    for _ in range(fast):
+        for w in walks:
+            w.step(False, rules)
+    for w in walks:
+        rel = w.off
+        assert rel >= 0 and (w.i, w.j) == (w.ra + rel // w.W,
+                                          w.c0 + rel % w.W)
+    for _ in range(fast, S, 4):
+        for _ in range(4):
+            for w in walks:
+                w.step(True, rules)
+        if not any(w.in_core() for w in walks):
+            break
+    for w in walks:
+        if not w.in_core() and w.more():
+            w.tail()
+
+
+@torch.no_grad()
+def walk_pair2_staged_plain(plane: torch.Tensor, nm: torch.Tensor, S: int,
+                            phases: list | None = None,
+                            reach: list | None = None):
+    """The two-pair walk kernel (``csrc/psa_walk_pair2.cu``) emulated read
+    by read.  Block q walks pairs 2q and 2q + 1; each pair has its part
+    of shared memory, a guard of ``_kernels.pair2_guard(S)`` bytes and two
+    windows.  Before phase 0 the loaders stage each pair's window at its
+    entry; in phase k they stage window (k + 1) % 2 anchored where the
+    pair's phase k began, and the walker reads window k % 2, anchored
+    where its phase k - 1 began.  A phase that both pairs begin inside
+    the matrix steps both (:func:`_pair2_phase`); else each that is
+    inside alone, and a pair that begins outside runs its tail.  Every
+    read the kernel issues is checked: the three of each step, inside
+    the matrix or not (a pair that left it issues its reads at its exit
+    cell until the phase ends), each within its pair's current window or
+    the guard before it; a code a move depends on from that window, the
+    right cell, staged by this phase's anchor; the kernel's move and
+    next forced move (its branch-free rules, a read past the matrix's
+    edge any byte) equal to :func:`decode_step`'s.  Raises AssertionError
+    where one is not.  ``plane`` and ``nm`` as :func:`walk_packed_plain`,
+    P even; returns its (words, counts).  ``phases``, when given, gets
+    each block's phase count; ``reach``, a list [lo, hi], the lowest and
+    highest read offset from a window's start."""
+    P, m_pad, n_pad = _check_walk_args(plane, nm)
+    if P < 2 or P % 2:
+        raise ValueError("the two-pair walk takes an even number of pairs, "
+                         "got %d" % P)
+    if plane.device.type == "cuda":
+        psa_scan.plain_calls += 1
+    step_move, step_next = _step_table()
+    # the kernel's step masks (walk_step_masks), read off the same rules
+    codes = range(27)
+    rules = (step_move, step_next,
+             sum(int(step_next[1, 1, 2, 1, c, 0, 0] == 1) << c for c in codes),
+             sum(int(step_next[1, 1, 2, 1, 3, c // 3 % 3, 0] == 1) << c
+                 for c in codes),
+             sum(int(step_next[1, 1, 2, 3, c, 0, 0] == 3) << c for c in codes),
+             sum(int(step_next[1, 1, 2, 3, 1, 0, c % 3] == 3) << c
+                 for c in codes))
+    reach = [0, 0] if reach is None else reach
+    moves = torch.zeros((P, m_pad + n_pad), dtype=torch.int8)
+    counts = []
+    for q in range(P // 2):
+        walks = [_Pair2Walk(plane[2 * q + x], *(int(v) for v in nm[2 * q + x]),
+                            S, reach) for x in range(2)]
+        for w in walks:
+            w.stage(0, w.i, w.j)
+        k = 0
+        while True:
+            starts = [(w.i, w.j) for w in walks]   # where phase k begins
+            for w, (i0, j0) in zip(walks, starts):   # the loaders
+                w.stage((k + 1) % 2, i0, j0)
+            for w in walks:
+                w.begin(k % 2)
+            if all(w.in_core() for w in walks):
+                _pair2_phase(walks, S, rules)
+            else:
+                for w in walks:
+                    if w.in_core():
+                        _pair2_phase([w], S, rules)
+                    elif w.more():
+                        w.tail()
+            for w, (i0, j0) in zip(walks, starts):
+                w.ai, w.aj = i0, j0
+            k += 1
+            if not any(w.more() for w in walks):
+                break
+        if phases is not None:
+            phases.append(k)
+        for x, w in enumerate(walks):
+            assert (w.i, w.j, w.t) == (-1, -1, len(w.moves))
+            counts.append(w.t)
+            if w.moves:
+                moves[2 * q + x, :w.t] = torch.tensor(w.moves,
+                                                      dtype=torch.int8)
+    return pack_moves_words(moves), torch.tensor(counts, dtype=torch.int32)
+
+
 def walk_bounded(plane: torch.Tensor, prev_row: torch.Tensor, base: int,
                  i: int, j: int, t: int, forced: int,
                  moves: torch.Tensor, S: int | None = None) -> torch.Tensor:
@@ -431,9 +654,11 @@ def walk_packed(plane: torch.Tensor, nm: torch.Tensor, pair2: bool = False,
     window ring, ``S`` steps a phase and ``threads`` a block:
     ``_kernels.psa_walk_layout``'s plan for P pairs unless forced), or
     with ``pair2`` under :func:`uses_pair2`'s gate ``csrc/psa_walk_pair2.cu``
-    (one thread per two pairs; the counterpart of JAX's
-    ``_decode_moves_banded_packed(pair2=True)``), and raises if the kernel
-    cannot be built or launched.  Pairing is scheduling only: the plain
+    (one block and one walker thread per two pairs, each pair on its own
+    window ring; ``S`` and ``threads`` K3's plan unless forced; the
+    counterpart of
+    JAX's ``_decode_moves_banded_packed(pair2=True)``), and raises if the
+    kernel cannot be built or launched.  Pairing is scheduling only: the plain
     version already walks every pair in one lockstep loop."""
     P, m_pad, n_pad = _check_walk_args(plane, nm)
     if plane.device.type == "cpu":
@@ -447,10 +672,8 @@ def walk_packed(plane: torch.Tensor, nm: torch.Tensor, pair2: bool = False,
     words = torch.empty((P, n_words), dtype=torch.int32, device=plane.device)
     counts = torch.empty((P,), dtype=torch.int32, device=plane.device)
     if uses_pair2(P, pair2):
-        if S is not None or threads is not None:
-            raise ValueError("the two-pair walk has no phase length or "
-                             "block shape")
-        _kernels.psa_walk_pair2(plane, nm, words, counts)
+        _kernels.psa_walk_pair2(plane, nm, words, counts, S=S,
+                                threads=threads)
     else:
         _kernels.psa_walk(plane, nm, words, counts, S=S, threads=threads)
     return words, counts

@@ -354,9 +354,18 @@ _KERNEL_KEY = re.compile(r"([a-z_]+_kernel)I((?:L[a-z]+n?\d+E)+)E")
 def kernel_key(name: str) -> str:
     """A mangled kernel's name and template arguments, without its
     namespace and parameter types (so ``poa_walk_kernel<Li0E>`` names one
-    build whatever the spelling of its first parameter's type)."""
+    build whatever the spelling of its first parameter's type); a kernel
+    that is no template by its name alone (an anonymous namespace's name
+    carries a hash of the file's path)."""
     m = _KERNEL_KEY.search(name)
-    return m.group(1) + "<" + m.group(2) + ">" if m else name
+    if m:
+        return m.group(1) + "<" + m.group(2) + ">"
+    for run in re.finditer(r"\d+", name):   # <length><identifier>
+        for k in range(run.start(), run.end()):
+            ident = name[run.end():run.end() + int(name[k:run.end()])]
+            if ident.endswith("_kernel") and ident[:1].isalpha():
+                return ident
+    return name
 
 
 def source_code(root: str, work: str, tag: str, source: str) -> dict:

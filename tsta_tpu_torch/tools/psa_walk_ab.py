@@ -1,5 +1,6 @@
-"""The PSA traceback walks in two checkouts on one card: K3 and Q2-8's times,
-alternating, every output compared.
+"""The PSA traceback walks in two checkouts on one card: their compiled code
+side by side, then K3, Q2-12 and Q2-8's times, alternating, every output
+compared.
 
 Run from the root of a checkout, on a machine with a card and ``nvcc``::
 
@@ -9,11 +10,15 @@ Run from the root of a checkout, on a machine with a card and ``nvcc``::
 ``DIR`` is the root of another checkout of the repo, for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory.
 
-Each run is a fresh process started in one checkout's root with that root
-on ``PYTHONPATH`` (``psa_dp_ab``'s harness: other, this, this, other each
-round): it builds that checkout's kernels, prints ptxas's lines for the
-walk kernels, makes each plane with that checkout's DP (outside the
-timing) and times the walk with CUDA events, the median of ``--reps``:
+First each checkout's ``psa_walk.cu``, ``psa_walk_bounded.cu`` and
+``psa_walk_pair2.cu`` are compiled to cubins and their kernels' SASS
+compared, the parameters' constant-bank offsets masked
+(``psa_dp_ab.compare_code``).  Then each run is a fresh process started in
+one checkout's root with that root on ``PYTHONPATH`` (``psa_dp_ab``'s
+harness: other, this, this, other each round): it builds that checkout's
+kernels, prints ptxas's lines for the walk kernels, makes each plane with
+that checkout's DP (outside the timing) and times the walk with CUDA
+events, the median of ``--reps``:
 
 * K3 (``traceback.walk_packed``) on the traced plane of the 10 kbp
   example (``tests/golden/example_big``; the example's walk, Q2-16's
@@ -22,6 +27,10 @@ timing) and times the walk with CUDA events, the median of ``--reps``:
   a traced batch of 4,096 pairs of 150-2,000 bp (``chip_smoke.py`` phase
   16 (c)'s generator), one launch for each group the route cuts
   (``psa_diff._traced_groups``), their sum;
+* Q2-12 (``traceback.walk_packed(pair2=True)``, the two-pair walk) on the
+  32 x 10 kbp plane and on the traced batch's groups, an odd group taking
+  K3 (its sum); then K3 and Q2-12 on the batch's groups of an even number
+  of pairs alone, the launches that run the two-pair walk (their sums);
 * Q2-8 (``traceback.walk_bounded``) on chunk 0 of reads 0 and 1 of that
   set at 65,536 rows a chunk (65,536 x 200,064), from the state the
   chunked route's own walk entered it with.
@@ -30,8 +39,8 @@ Each shape is timed twice: ``cold``, with the 50 MB L2 flushed (a 256 MB
 write) before each launch, as the main path finds a plane right after its
 DP wrote it; and ``warm``, launch after launch.  With ``--sweep``, this
 checkout's first run of each round also times each shape cold at each
-forced ``S:threads`` (K3; Q2-8 takes each S at its 256 threads), every
-output compared with its plan's.  Prints one JSON object per line; the
+forced ``S:threads`` (K3 and Q2-12; Q2-8 takes each S at its 256
+threads), every output compared with its plan's.  Prints one JSON object per line; the
 last is the summary: for each shape each side's median of its runs'
 medians, this over other, and whether every run's outputs agree (words
 and counts, or moves and exit state, through a checksum), with the card's
@@ -44,9 +53,13 @@ import argparse
 import os
 import subprocess
 import sys
+import tempfile
 
 from tsta_tpu_torch.tools.psa_dp_ab import (CHILD_HELPERS, ROOT, alternate,
-                                            child_run, emit, summarize)
+                                            child_run, compare_code, emit,
+                                            summarize)
+
+WALK_SOURCES = ("psa_walk.cu", "psa_walk_bounded.cu", "psa_walk_pair2.cu")
 
 # the timed process, run in either checkout: only what both have
 CHILD = CHILD_HELPERS + r"""
@@ -118,6 +131,11 @@ for label, group in (("K3 example", [ex]),
     plans[label] = layout(len(group), sms) if layout else None
     record(label, lambda **s: tb.walk_packed(plane, nm, **s), lambda o: o,
            "psa_walk", steps)
+    if len(group) == 32:
+        label = "Q2-12 32 x 10 kbp"
+        plans[label] = plans["K3 32 x 10 kbp"]   # K3's plan
+        record(label, lambda **s: tb.walk_packed(plane, nm, pair2=True, **s),
+               lambda o: o, "psa_walk_pair2", steps)
     del plane
     torch.cuda.empty_cache()
 batch = short_pairs(np.random.default_rng(20261016 + 16), 4096)
@@ -131,8 +149,20 @@ for g in groups:
 label = "K3 traced batch 4096 x 150-2000 bp"
 plans[label] = [[len(g), *(layout(len(g), sms) if layout else [])]
                 for g in groups]
+batch_steps = sum(int(c.sum()) for c in walk_groups(planes)[1::2])
 record(label, lambda **s: walk_groups(planes, **s), lambda o: o, "psa_walk",
-       sum(int(c.sum()) for c in walk_groups(planes)[1::2]))
+       batch_steps)
+record("Q2-12 traced batch 4096 x 150-2000 bp",
+       lambda **s: walk_groups(planes, pair2=True, **s), lambda o: o,
+       "psa_walk_pair2", batch_steps)
+even = [(plane, nm) for plane, nm in planes if len(nm) % 2 == 0]
+even_steps = sum(int(c.sum()) for c in walk_groups(even)[1::2])
+record("K3 traced batch, even groups", lambda **s: walk_groups(even, **s),
+       lambda o: o, "psa_walk", even_steps)
+record("Q2-12 traced batch, even groups",
+       lambda **s: walk_groups(even, pair2=True, **s), lambda o: o,
+       "psa_walk_pair2", even_steps)
+del even
 del planes
 torch.cuda.empty_cache()
 ea, eb = (np.frombuffer(r, np.uint8) for r in reads[:2])
@@ -166,11 +196,14 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweep", default="",
-                    help="K3 block shapes S:threads to time in this "
-                         "checkout, e.g. 64:256,32:128,16:64 (its first run "
-                         "of each round, cold)")
+                    help="K3 and Q2-12 block shapes S:threads to time in "
+                         "this checkout, e.g. 64:256,32:128,16:64 (its first "
+                         "run of each round, cold)")
     args = ap.parse_args(argv)
     trees = {"other": os.path.abspath(args.other), "this": ROOT}
+    with tempfile.TemporaryDirectory() as work:
+        emit({"code " + src: compare_code(trees, work, src)
+              for src in WALK_SOURCES})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()

@@ -346,18 +346,11 @@ def _successors(insns) -> list:
     return succ
 
 
-def walker_loop(insns):
-    """The walker's loop in one kernel's SASS: the last outermost natural
-    loop after the block's barrier (the fill's loop comes before it; a
-    refetch's copy and wait loops nest inside it; (e)'s copies' loop comes
-    before it).  Returns {"instructions": its body's, "cycle": the
-    instructions of its shortest cycle (the step that takes no rare
-    branch)}, or None when no loop follows the barrier."""
+def _natural_loops(insns):
+    """The instructions' successors and the natural loops of one kernel's
+    SASS, over the instructions reachable from its entry: (succ, {header:
+    (body, back-edge sources)})."""
     n = len(insns)
-    bar = next((k for k, ins in enumerate(insns)
-                if ins[2].startswith("BAR")), None)
-    if bar is None or n == 0:
-        return None
     succ = _successors(insns)
     preds = [[] for _ in range(n)]
     for k, ss in enumerate(succ):
@@ -395,20 +388,92 @@ def walker_loop(insns):
                     if u not in body:
                         body.add(u)
                         stack.extend(p for p in preds[u] if p in seen)
+    return succ, loops
+
+
+def _shortest_cycle(h, body, srcs, succ):
+    """The instructions of the loop's shortest cycle through its header
+    (breadth first, one instruction a node), header first; None if none
+    closes."""
+    parent, queue = {h: None}, [h]
+    for u in queue:
+        for s in succ[u]:
+            if s in body and s not in parent:
+                parent[s] = u
+                queue.append(s)
+    ends = [k for k in srcs if k in parent]
+    if not ends:
+        return None
+    path, k = [], min(ends, key=lambda e: queue.index(e))
+    while k is not None:
+        path.append(k)
+        k = parent[k]
+    return path[::-1]
+
+
+def walker_loop(insns):
+    """The walker's loop in one kernel's SASS: the last outermost natural
+    loop after the block's barrier (the fill's loop comes before it; a
+    refetch's copy and wait loops nest inside it; (e)'s copies' loop comes
+    before it).  Returns {"instructions": its body's, "cycle": the
+    instructions of its shortest cycle (the step that takes no rare
+    branch)}, or None when no loop follows the barrier."""
+    bar = next((k for k, ins in enumerate(insns)
+                if ins[2].startswith("BAR")), None)
+    if bar is None or not insns:
+        return None
+    succ, loops = _natural_loops(insns)
     outer = [h for h, (body, _) in loops.items() if h > bar and not any(
         g != h and h in b for g, (b, _) in loops.items())]
     if not outer:
         return None
     h = max(outer)
     body, srcs = loops[h]
-    dist, queue = {h: 1}, [h]
-    for u in queue:   # breadth first: one instruction a node
-        for s in succ[u]:
-            if s in body and s not in dist:
-                dist[s] = dist[u] + 1
-                queue.append(s)
     return {"instructions": len(body),
-            "cycle": min(dist[k] for k in srcs if k in dist)}
+            "cycle": len(_shortest_cycle(h, body, srcs, succ))}
+
+
+# the PSA walks on the window ring: K3 and Q2-16 (psa_walk.cu), Q2-8
+# (psa_walk_bounded.cu), Q2-12 (psa_walk_pair2.cu)
+_WALK_KERNEL = re.compile(r"(psa_walk(?:_bounded|_pair2)?)_kernel")
+WALK_LOADS_A_STEP = 3   # a step reads its cell, the left and the upper code
+
+
+def step_loops(insns) -> list:
+    """The walker's step loops in one window-ring walk kernel's SASS: each
+    natural loop with no barrier whose shortest cycle reads the window
+    with ``ld.shared.u8`` (LDS.U8, three a step), as {"instructions": its
+    body's, "cycle": its shortest cycle's, "lds": the LDS.U8 on that
+    cycle, "per_step": cycle over lds / 3}, fewest per_step first.  In the
+    two-pair loop every three loads are a step of one pair, so its
+    per_step counts a pair-step."""
+    succ, loops = _natural_loops(insns)
+    res = []
+    for h, (body, srcs) in loops.items():
+        if any(insns[k][2].startswith("BAR") for k in body):
+            continue   # the phase loop, which holds the step loops
+        path = _shortest_cycle(h, body, srcs, succ)
+        lds = sum(insns[k][2].startswith("LDS.U8") for k in path or ())
+        if lds >= WALK_LOADS_A_STEP:
+            res.append({"instructions": len(body), "cycle": len(path),
+                        "lds": lds,
+                        "per_step": len(path) * WALK_LOADS_A_STEP / lds})
+    return sorted(res, key=lambda r: r["per_step"])
+
+
+def walk_sass_steps(text: str) -> dict:
+    """{kernel: {"loops": :func:`step_loops`, "per_step": the fewest}} for
+    the PSA walk kernels in ``text`` (``cuobjdump -sass`` of the library):
+    ``psa_walk``, ``psa_walk_bounded`` and ``psa_walk_pair2``."""
+    res = {}
+    for name, insns in parse_sass(text).items():
+        m = _WALK_KERNEL.search(name)
+        if not m:
+            continue
+        loops = step_loops(insns)
+        res[m.group(1)] = {"loops": loops, "per_step":
+                           loops[0]["per_step"] if loops else None}
+    return res
 
 
 def sass_steps(text: str) -> dict:
