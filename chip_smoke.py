@@ -260,7 +260,34 @@ Phases (each prints one JSON line; any failure exits non-zero):
     a 5 x 5 kbp problem, every output held to the plain route on the card
     (the parent's route, timed), no plain call; each round's ``dp_ms``
     and ``walk_ms``, and round 2's DP and walk (median of 3) beside the
-    16-bit build on the same reads without the staircase.
+    16-bit build on the same reads without the staircase;
+23. the meshes on the card, the launch counters and the plain calls
+    (``counting_plain``, ``psa_scan.plain_calls``) reset before each path
+    and read after, each path byte-equal to the meshless run: (a) phase
+    9's 3 x 50 kbp reads through ``align_seqs(mesh=make_mesh(1, K,
+    [cuda:0] * K))`` at K = 8 and 16 (``MESH_ONE_CARD_K``), one
+    ``poa_dp.cu`` launch at D = K and one walk a round; (b) the
+    column-window wavefront (``parallel/msa_longseq.py``): first on phase
+    7's first grown graph over 3 windows, its cells (every window's words,
+    scores, ring and edges) and walks held to their plain versions on the
+    card, then the cells of round 2 of phase 9's reads over 2 windows of
+    24,576 columns (12 shards a cell) held to the plain forward on the
+    card, then ``align_seqs(link=LocalLink([cuda:0] * K))`` on phase 9's
+    reads at K = 1, 2 and 4 windows, a ``poa_dp.cu`` launch a cell
+    (words, the checkpoint at its window's last column) and a
+    ``poa_walk_bounded.cu`` launch a window walked: each window's DP and
+    walk ms (CUDA events), the round-2 cells' bound, the walls;
+    (c) ``align_seqs_multihost`` as 2 and 4 processes on cuda:0 over gloo
+    (``jax`` and ``tsta_tpu`` blocked in each), one window a rank: each
+    rank's output digest, wall, window times, launches (one
+    ``poa_dp.cu`` launch a cell and one ``poa_walk_bounded.cu`` launch a
+    walk of its window, nothing else), plain calls (``counting_plain``)
+    and peak device memory; (d) phase 5's 128 x 10,240 bp score-only and 32 x
+    10 kbp traced batches shared over ``make_mesh(4, 1, [cuda:0] * 4)``:
+    one K1 launch a share, K2 and K3 at least one a share, every score,
+    corner and alignment equal to phase 5's; (e) the 3 x 50 kbp run with
+    ``TSTA_HBM_BUDGET_GB=4`` (chunked) and ``TSTA_POA_PROFILE=1``, its
+    ``[poa_chunked]`` lines printed, equal to phase 9's.
 
 A ``done`` line gives the script's wall, a ``walk_bounds`` line each PSA
 walk's time beside its two bounds.  The last three lines are the
@@ -390,6 +417,55 @@ WIDE_IN, WIDE_AT, WIDE_50K = (65, 128, 129, 1000), 1200, (65, 25000)
 POA_WIDE_FORCED = ((2, 16, None), (3, 1, None), (5, 32, None), (5, 16, 2))
 POA_WALK_FORCED_WIDE = ((32, 0, 128), (8, 0, 64), (16, 64, 96),
                         (64, 207, 256))
+# phase 23: the one-card seq axes (a 50 kbp round pads to at most 8,192
+# columns a shard at K >= 7), the wavefront's windows, the processes, the
+# data shares, and the budget (GiB) that chunks the 3 x 50 kbp rounds
+MESH_ONE_CARD_K, MESH_WINDOWS, MESH_RANKS, MESH_DATA = (8, 16), (1, 2, 4), (
+    2, 4), 4
+MESH_BUDGET_GB = "4"
+# a rank of phase 23 (c): one window of each round of the 3 x 50 kbp run
+# on cuda:0, jax and the JAX package blocked
+RANK_CHILD = r"""
+import json, sys, time
+BLOCKED = ("jax", "jaxlib", "tsta_tpu")
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("import blocked: " + name)
+sys.meta_path.insert(0, _Block())
+import torch
+import chip_smoke
+from tsta_tpu_torch import AlignParams
+from tsta_tpu_torch.ops import _kernels, msa_native, psa_scan
+from tsta_tpu_torch.parallel import mesh, msa_multihost
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.zeros(1, device=dev)
+_kernels._lib()
+assert mesh.maybe_init_distributed()
+seqs = chip_smoke.long_reads()
+stats = []
+_kernels.reset_launches()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+with chip_smoke.counting_plain() as calls:
+    out = msa_multihost.align_seqs_multihost(seqs, AlignParams(), device=dev,
+                                             stats=stats)
+    torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+rank, size = msa_multihost.world()
+print("RANK " + json.dumps({
+    "rank": rank, "size": size, "wall_s": wall,
+    "digest": chip_smoke.msa_digest(out),
+    "windows": [st["windows"] for st in stats],
+    "launches": {k: v for k, v in _kernels.launches.items() if v},
+    "plain_rounds": msa_native.plain_rounds,
+    "plain_calls": calls,
+    "psa_plain_calls": psa_scan.plain_calls,
+    "peak_device_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+    "blocked_clean": not [k for k in sys.modules
+                          if k.split(".")[0] in BLOCKED]}), flush=True)
+"""
 
 
 def emit(rec: dict) -> None:
@@ -462,6 +538,15 @@ def msa_cells(seqs, out) -> int:
     that round's read length (as the bench counts them)."""
     glen = [len(seqs[0])] + out.graph_len[:-1]
     return sum(g * len(s) for g, s in zip(glen, seqs[1:]))
+
+
+def msa_digest(out) -> str:
+    """sha256 of an MsaOutput's rows, consensus, round scores, graph and
+    add lengths."""
+    h = hashlib.sha256(b"\n".join(out.rows) + b"|" + out.consensus)
+    h.update(json.dumps([out.round_scores, out.graph_len,
+                         out.add_len]).encode())
+    return h.hexdigest()
 
 
 def max_err(got, want) -> int:
@@ -945,6 +1030,7 @@ def main() -> int:
     launches.update(probe_launches)
     wide_launches, wide_times = wide_phases(dev, smi_line)
     launches.update(wide_launches)
+    mesh_phases(dev, smi_line, res_50k, (pairs, res), (tpairs, tres))
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "smi": smi_line})
@@ -3736,6 +3822,301 @@ def ring_phases(dev, smi_line, k1, k1_edit, traced, traced_edit):
                bound_ms_200k=full["bound_ms"], gcups_200k=full["gcups"],
                k1_s_200k=k1["s"])
     return {"psa_ring": lb["psa_ring"]}, {"psa_ring": rec}
+
+
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_ranks(nproc: int) -> list:
+    """Phase 23 (c): ``RANK_CHILD`` as ``nproc`` processes joined over
+    gloo on loopback; each rank's record, in rank order.  Raises if a
+    rank fails."""
+    env = dict(os.environ, TSTA_COORDINATOR="127.0.0.1:%d" % free_port(),
+               TSTA_NUM_PROCESSES=str(nproc), TSTA_DIST_TIMEOUT_S="180",
+               GLOO_SOCKET_IFNAME="lo")
+    env.pop("PYTHONPATH", None)
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_CHILD], cwd=ROOT,
+                              env=dict(env, TSTA_PROCESS_ID=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        if p.returncode != 0 or not lines:
+            raise RuntimeError("rank %d of %d failed (rc %s):\n%s"
+                               % (r, nproc, p.returncode, err[-4000:]))
+        recs.append(json.loads(lines[-1][5:]))
+    return recs
+
+
+def mesh_round_bound(st, word_bytes: int) -> dict:
+    """The least time of one wavefront round's cells: each window's (N, C)
+    words written and its tables read once, and the single call's
+    operations over the round's columns."""
+    n, K, nodes = st["n"], st["K"], st["nodes"]
+    tables = K * (st["NC"] * st["chunks"]) * (8 * st["max_in"] + 20)
+    words = (st["NC"] * st["chunks"]) * n * word_bytes
+    ops = n * (OPS_POA_PRED * st["preds_in"]
+               + (OPS_POA_CELL + OPS_POA_WORD) * nodes)
+    return bound(tables + words + 12 * nodes * K, ops)
+
+
+def mesh_phases(dev, smi_line, res_50k, score_batch, traced_batch):
+    """Phase 23: the meshes on one card, each path byte-equal to the
+    meshless run; fails on a difference, a kernel not launched a window or
+    a share, or a plain call."""
+    import numpy as np
+    import torch
+
+    from tsta_tpu_torch import AlignParams
+    from tsta_tpu_torch.ops import _kernels, msa_native
+    from tsta_tpu_torch.parallel import batch as pbatch
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    params = AlignParams()
+    seqs = long_reads()
+    want = msa_digest(res_50k)
+    t_phase = time.perf_counter()
+    bad = []
+
+    def timed(fn):
+        with counting_plain() as calls:
+            p0 = start()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched, psa_plain = stop(p0)
+        return out, {"wall_s": wall,
+                     "launches": {k: v for k, v in launched.items() if v},
+                     "plain_calls": psa_plain + sum(calls.values()),
+                     "peak_device_gb":
+                         torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    # (a) a one-card seq axis: the single launch at D = K
+    one_card = {}
+    for K in MESH_ONE_CARD_K:
+        mesh = meshlib.make_mesh(1, K, devices=[dev] * K)
+        out, rec = timed(lambda: msa_native.align_seqs(seqs, params,
+                                                       mesh=mesh))
+        rec["equal"] = msa_digest(out) == want
+        one_card[K] = rec
+        if (not rec["equal"] or rec["plain_calls"]
+                or rec["launches"] != {"poa_dp": 2, "poa_walk": 2}):
+            bad.append(("one card", K, rec))
+
+    # (b) first the wavefront's cells and walks against their plain
+    # versions on the card: phase 7's first grown graph over 3 windows of
+    # 512-row chunks, every window's words, scores, ring and left edges
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_poa
+    from tsta_tpu_torch.parallel import msa_longseq
+    reads = grown_reads(1)
+    g = PoaGraph.from_sequence(reads[0], len(reads))
+    for sno in (1, 2):
+        packed, order, _ = msa_poa.run_round(g, reads[sno], params, dev,
+                                             "cuda", 1 << 34)
+        msa_native._finish_round(g, reads[sno], sno, order,
+                                 packed.cpu().numpy(), [], [], [])
+    fw = {}
+    for kern in (True, False):
+        _kernels.reset_launches()
+        fw[kern] = msa_longseq._Forward(
+            g, reads[3], params, [dev] * 3, msa_longseq.LocalLink(), kern,
+            None, 512)
+        torch.cuda.synchronize()
+        if kern:
+            cell_launches = {k: v for k, v in _kernels.launches.items() if v}
+    cell_err = max(
+        max_err(torch.from_numpy(fw[True].sink), torch.from_numpy(
+            fw[False].sink)),
+        *(max_err(getattr(fw[True].wins[d], k), getattr(fw[False].wins[d], k))
+          for d in fw[True].wins for k in ("words", "scores", "ring")),
+        *(max_err(fw[True].wins[d].left, fw[False].wins[d].left)
+          for d in fw[True].wins if d))
+    kst, pst = [], []
+    kpk, _ = msa_longseq.wavefront_round(g, reads[3], params, [dev] * 3,
+                                         rows_per_chunk=512, stats=kst)
+    ppk, _ = msa_longseq.wavefront_round(g, reads[3], params, [dev] * 3,
+                                         use_kernel=False,
+                                         rows_per_chunk=512, stats=pst)
+    cell_err = max(cell_err, int(not np.array_equal(kpk, ppk)))
+    cell_rec = {"max_abs_err": cell_err, "launches": cell_launches,
+             "shape": "%d nodes, %d windows of %d columns, %d chunks" % (
+                 kst[0]["nodes"], kst[0]["active"], kst[0]["C"],
+                 kst[0]["chunks"]),
+             "ms": sum(w["dp_ms"] for w in kst[0]["windows"].values()),
+             "plain_ms": sum(w["dp_ms"] for w in pst[0]["windows"].values()),
+             "walk_ms": sum(w["walk_ms"] or 0
+                            for w in kst[0]["windows"].values()),
+             "walk_plain_ms": sum(w["walk_ms"] or 0
+                                  for w in pst[0]["windows"].values())}
+    del fw
+    if cell_err or cell_launches.get("poa_dp_window", 0) != (
+            kst[0]["active"] * kst[0]["chunks"]):
+        bad.append(("cells against plain", cell_rec))
+
+    # (b) then at the main path's shape: round 2 of the 3 x 50 kbp reads
+    # over two windows of 24,576 columns, each cell a cooperative launch
+    # of 12 shards, against the plain forward on the card
+    g = PoaGraph.from_sequence(seqs[0], len(seqs))
+    packed, order, _ = msa_poa.run_round(g, seqs[1], params, dev, "cuda",
+                                         1 << 34)
+    msa_native._finish_round(g, seqs[1], 1, order, packed.cpu().numpy(),
+                             [], [], [])
+    fw = {}
+    for kern in (True, False):
+        _kernels.reset_launches()
+        fw[kern] = msa_longseq._Forward(
+            g, seqs[2], params, [dev] * 2, msa_longseq.LocalLink(), kern,
+            None, None)
+        torch.cuda.synchronize()
+        if kern:
+            big_launches = {k: v for k, v in _kernels.launches.items() if v}
+    fk = fw[True]
+    big_err = max(
+        max_err(torch.from_numpy(fk.sink), torch.from_numpy(fw[False].sink)),
+        *(max_err(getattr(fk.wins[d], k), getattr(fw[False].wins[d], k))
+          for d in fk.wins for k in ("words", "scores", "ring")),
+        *(max_err(fk.wins[d].left, fw[False].wins[d].left)
+          for d in fk.wins if d))
+    big_rec = {"max_abs_err": big_err, "launches": big_launches,
+               "shape": "%d nodes, %d windows of %d columns, %d chunks of "
+                        "%d rows, %d shards a cell" % (
+                            fk.prep[4], fk.A, fk.C, fk.nchunks, fk.NC,
+                            _kernels.poa_plan(fk.C)[0]),
+               "ms": sum(w.timer.ms("dp") for w in fk.wins.values()),
+               "plain_ms": sum(w.timer.ms("dp")
+                               for w in fw[False].wins.values())}
+    big_cells = fk.A * fk.nchunks
+    del fw, fk
+    torch.cuda.empty_cache()
+    if big_err or big_launches != {"poa_dp_window": big_cells}:
+        bad.append(("50 kbp cells against plain", big_rec))
+
+    # (b) then the 3 x 50 kbp reads over the card repeated
+    windows, bounds = {}, {}
+    for K in MESH_WINDOWS:
+        link = msa_longseq.LocalLink([dev] * K)
+        stats = []
+        out, rec = timed(lambda: msa_native.align_seqs(
+            seqs, params, link=link, stats=stats))
+        rec["equal"] = msa_digest(out) == want
+        rec["rounds"] = [{k: st[k] for k in ("n", "C", "active", "NC",
+                                             "chunks", "nodes", "dp_wall_s",
+                                             "walk_wall_s", "windows")}
+                         for st in stats]
+        cells = sum(st["active"] * st["chunks"] for st in stats)
+        walks = sum(len([w for w in st["windows"].values()
+                         if w["walk_ms"] is not None]) for st in stats)
+        st = stats[-1]
+        bounds[K] = {
+            "cells_ms": sum(w["dp_ms"] for w in st["windows"].values()),
+            "walks_ms": sum(w["walk_ms"] or 0
+                            for w in st["windows"].values()),
+            "walk_moves": sum(w["walk_counts"][0] for w in
+                              st["windows"].values() if w["walk_counts"]),
+            **mesh_round_bound(st, 2),
+            # a move's word, a pred move's pred: the walks' one chain
+            **chain_bound(sum(w["walk_counts"][0] + w["walk_counts"][1]
+                              for w in st["windows"].values()
+                              if w["walk_counts"]))}
+        windows[K] = rec
+        if (not rec["equal"] or rec["plain_calls"]
+                or rec["launches"].get("poa_dp_window") != cells
+                or rec["launches"].get("poa_walk_bounded") != walks
+                or set(rec["launches"]) != {"poa_dp_window",
+                                            "poa_walk_bounded"}):
+            bad.append(("wavefront", K, rec["launches"], cells, walks))
+
+    # (c) one window a process, the processes on cuda:0 over gloo
+    ranks = {}
+    for P in MESH_RANKS:
+        t0 = time.perf_counter()
+        recs = run_ranks(P)
+        ranks[P] = {"wall_s": time.perf_counter() - t0, "ranks": recs}
+        for r in recs:
+            # the cells and walks of the rank's own window, each round
+            mine = [w for rnd in r["windows"] for w in rnd.values()]
+            launches = {k: v for k, v in (
+                ("poa_dp_window", sum(w["cells"] for w in mine)),
+                ("poa_walk_bounded", sum(w["walk_ms"] is not None
+                                         for w in mine))) if v}
+            if (r["digest"] != want or r["plain_rounds"]
+                    or any(r["plain_calls"].values())
+                    or r["psa_plain_calls"] or not r["blocked_clean"]
+                    or len(r["windows"]) != len(seqs) - 1
+                    or not launches.get("poa_dp_window")
+                    or r["launches"] != launches):
+                bad.append(("ranks", P, r["rank"], r["digest"],
+                            r["launches"], launches))
+
+    # (d) the batches shared over the data axis
+    mesh = meshlib.make_mesh(MESH_DATA, 1, devices=[dev] * MESH_DATA)
+    pairs, res = score_batch
+    tpairs, tres = traced_batch
+    got, score_rec = timed(lambda: pbatch.align_batch(pairs, params,
+                                                      mesh=mesh))
+    score_rec["equal"] = [(r.score, r.last) for r in got] == [
+        (r.score, r.last) for r in res]
+    got, traced_rec = timed(lambda: pbatch.align_batch_traced_device(
+        tpairs, params, mesh=mesh))
+    traced_rec["equal"] = got == tres
+    if (not score_rec["equal"] or score_rec["plain_calls"]
+            or score_rec["launches"] != {"psa_dp_score": MESH_DATA}):
+        bad.append(("score batch", score_rec))
+    if (not traced_rec["equal"] or traced_rec["plain_calls"]
+            or min(traced_rec["launches"].get(k, 0)
+                   for k in ("psa_dp_traced", "psa_walk")) < MESH_DATA):
+        bad.append(("traced batch", traced_rec))
+
+    # (e) the budget variable chunks the rounds, the profile prints
+    saved = {k: os.environ.get(k) for k in ("TSTA_HBM_BUDGET_GB",
+                                            "TSTA_POA_PROFILE")}
+    os.environ.update(TSTA_HBM_BUDGET_GB=MESH_BUDGET_GB, TSTA_POA_PROFILE="1")
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out, budget_rec = timed(lambda: msa_native.align_seqs(
+                seqs, params, device=dev))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    profile = [ln for ln in buf.getvalue().splitlines()
+               if ln.startswith("[poa_chunked]")]
+    budget_rec.update(equal=msa_digest(out) == want, profile=profile)
+    if (not budget_rec["equal"] or budget_rec["plain_calls"]
+            or len(profile) != 4 or not all(
+                budget_rec["launches"].get(k) for k in CHUNK_KERNELS)):
+        bad.append(("budget", budget_rec))
+
+    emit({"phase": "mesh", "smi": smi_line, "one_card": one_card,
+          "cells_vs_plain": cell_rec, "cells_vs_plain_50k": big_rec,
+          "wavefront": windows,
+          "round2_bounds": bounds, "ranks": ranks, "score_batch": score_rec,
+          "traced_batch": traced_rec, "budget": budget_rec,
+          "phase_s": time.perf_counter() - t_phase})
+    if bad:
+        raise AssertionError("phase 23 (meshes) failed: %s" % bad)
 
 
 if __name__ == "__main__":

@@ -189,7 +189,12 @@ def test_batch_resume_and_traced_outputs(tmp_path, capsys):
     for c in cases:
         with open(os.path.join(GOLDEN, c, "ref.out"), "rb") as f:
             assert (out_dir / (c + ".txt")).read_bytes() == f.read()
-    assert tcli.main(base + ["--mesh", "2x1"]) == 1
+    # the pairs shared over a mesh's data axis give the same scores
+    assert tcli.main(base + ["--mesh", "2x1", "--scores",
+                             str(tmp_path / "s3.tsv")]) == 0
+    capsys.readouterr()
+    assert (tmp_path / "s3.tsv").read_text() == \
+        (tmp_path / "s1.tsv").read_text()
 
 
 # the port imports neither jax nor any module of the JAX package; it
@@ -292,8 +297,13 @@ def test_batch_library_matches_jax(monkeypatch):
                                               np.asarray(getattr(w, name)))
     assert (tbatch.align_batch_traced_device(pairs, params, device="cpu")
             == jbatch.align_batch_traced_device(pairs, params))
-    with pytest.raises(NotImplementedError):
-        tbatch.align_batch(pairs, params, mesh=object(), device="cpu")
+    from tsta_tpu.parallel import mesh as jmeshlib
+    from tsta_tpu_torch.parallel import mesh as tmeshlib
+    got = tbatch.align_batch(pairs, params, mesh=tmeshlib.make_mesh(
+        2, 1, devices=["cpu"] * 2))
+    want = jbatch.align_batch(pairs, params, mesh=jmeshlib.make_mesh(2, 1))
+    assert [(g.score, g.last) for g in got] == [
+        (int(w.score), int(w.last)) for w in want]
     with pytest.raises(ValueError):
         tbatch.align_batch(pairs, AlignParams(match=0), device="cpu")
     items = list(range(10))

@@ -454,8 +454,8 @@ POA_WALK_FORCED_WIDE = ((8, 0, 64), (8, 16, 256), (16, 64, 96),
 WIDE_IN = (65, 128, 129, 1000)
 
 
-def _wide_graph(k, seed=1, rounds=2, at=1200):
-    """A grown graph: read 0's chain (2,000 bp) with node ``at``'s
+def _wide_graph(k, seed=1, rounds=2, at=1200, length=2000):
+    """A grown graph: read 0's chain (``length`` bp) with node ``at``'s
     in-degree raised to ``k`` by a staircase, then ``rounds`` rounds of
     mutated copies through the plain versions; and the next read, a copy
     of read 0 with ~10% substitutions and a deletion that ends at node
@@ -465,7 +465,7 @@ def _wide_graph(k, seed=1, rounds=2, at=1200):
     from tsta_tpu_torch.models.poa_graph import PoaGraph
     from tsta_tpu_torch.ops import msa_native, msa_poa
     AP, cpu = AlignParams(), torch.device("cpu")
-    reads = _reads(seed, rounds + 1, 2000)
+    reads = _reads(seed, rounds + 1, length)
     g = PoaGraph.from_sequence(reads[0], len(reads) + 1)
     _staircase(g, k, at)
     for sno in range(1, rounds + 1):
@@ -822,9 +822,9 @@ def test_chunk_wrappers_refuse_bad_tensors(cuda):
                         5, 10, P0, 2,
                         torch.zeros((128, 8192), dtype=torch.int16,
                                     device=cuda), scores, ring=ring)
-    with pytest.raises(ValueError):   # words and checkpoints together
+    with pytest.raises(ValueError):   # checkpoint windows of no columns
         _kernels.poa_dp(predsT, predsT, bases, fills, a, 5, 10, P0, 2,
-                        words, scores, ring=ring, ckpt=ckpt)
+                        words, scores, ring=ring, ckpt=ckpt, cw=0)
     with pytest.raises(ValueError):   # a single call takes no checkpoints
         _kernels.poa_dp(predsT, predsT, bases, fills, a, 5, 10, P0, 2,
                         words, scores, ckpt=ckpt)
@@ -2527,3 +2527,212 @@ def test_walk_wrappers_refuse_a_bad_phase_length(cuda):
         tb.walk_bounded(plane[0], flat[1:1 + plane.shape[2]], 0, 10, 10, 0,
                         0, moves)
     assert _kernels.launches == n0
+
+
+def _mesh_round_graph(seed=7, length=2000):
+    """Round 3 of 4 seeded reads of ``length`` bp: the graph after two
+    plain rounds, and the third read."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.models.poa_graph import PoaGraph
+    from tsta_tpu_torch.ops import msa_native, msa_poa
+    reads = _reads(seed, 4, length, 0.12)
+    g = PoaGraph.from_sequence(reads[0], 4)
+    for sno in (1, 2):
+        packed, order, _ = msa_poa.run_round(
+            g, reads[sno], AlignParams(), torch.device("cpu"), "plain",
+            1 << 34)
+        msa_native._finish_round(g, reads[sno], sno, order, packed.numpy(),
+                                 [], [], [])
+    return g, reads[3]
+
+
+def _wavefront_vs_plain(cuda, g, seq, K, rows):
+    """The wavefront's forward over [cuda] * K (each cell one poa_dp.cu
+    launch: words, col0 > 0, the window's carried ring and the checkpoint
+    at its last column) against the plain versions over [cpu] * K: every
+    window's words, scores, ring and left edges; then the whole round
+    (the walks window by window, poa_walk_bounded.cu) against the CPU's
+    and the single call's packed result.  Returns the launches taken."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_poa
+    from tsta_tpu_torch.parallel import msa_longseq
+    AP, cpu = AlignParams(), torch.device("cpu")
+    wide = g.max_in_degree() > msa_poa.MAX_IN
+    n0 = dict(_kernels.launches)
+    fk = msa_longseq._Forward(g, seq, AP, [cuda] * K,
+                              msa_longseq.LocalLink(), True, None, rows)
+    fp = msa_longseq._Forward(g, seq, AP, [cpu] * K,
+                              msa_longseq.LocalLink(), True, None, rows)
+    torch.cuda.synchronize()
+    cell = "poa_dp_window_wide" if wide else "poa_dp_window"
+    assert (_kernels.launches[cell] - n0[cell]
+            == fk.A * fk.nchunks > fk.A)
+    assert np.array_equal(fk.sink, fp.sink)
+    for d, wk in fk.wins.items():
+        wp = fp.wins[d]
+        assert torch.equal(wk.words.cpu(), wp.words), d
+        assert torch.equal(wk.scores.cpu(), wp.scores), d
+        assert torch.equal(wk.ring.cpu(), wp.ring), d
+        if d:
+            assert torch.equal(wk.left.cpu(), wp.left), d
+    n1 = dict(_kernels.launches)
+    got, order = msa_longseq.wavefront_round(g, seq, AP, [cuda] * K,
+                                             rows_per_chunk=rows)
+    walk = "poa_walk_bounded_wide" if wide else "poa_walk_bounded"
+    assert 1 <= _kernels.launches[walk] - n1[walk] <= fk.A
+    want, _ = msa_longseq.wavefront_round(g, seq, AP, [cpu] * K,
+                                          rows_per_chunk=rows)
+    single, order1, _ = msa_poa.run_round(g, seq, AP, cpu, "plain", 1 << 34)
+    assert order == order1
+    single = single.numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got[:2 + len(seq)], single[:2 + len(seq)])
+    return {k: _kernels.launches[k] - n0[k] for k in n0
+            if _kernels.launches[k] != n0[k]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,rows", [(2, 256), (4, 512), (3, None)])
+def test_wavefront_cells_and_walks_match_plain(cuda, K, rows):
+    g, seq = _mesh_round_graph()
+    _wavefront_vs_plain(cuda, g, seq, K, rows)
+
+
+@pytest.mark.cuda
+def test_wide_wavefront_matches_plain(cuda):
+    """The cells and walks in their wide forms (a staircase of 129)."""
+    g, seq = _wide_graph(129)
+    moved = _wavefront_vs_plain(cuda, g, seq, 3, 512)
+    assert "poa_dp_window" not in moved and "poa_walk_bounded" not in moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_wavefront_cells_of_several_shards_match_plain(cuda, wide):
+    """Windows of 2,560 columns (5 kbp reads over two windows): each cell a
+    cooperative ``poa_dp.cu`` launch of two shards, the second narrower,
+    in the 16-bit form and the wide one (a staircase of 129)."""
+    from tsta_tpu_torch.parallel import msa_longseq
+    g, seq = _wide_graph(129, length=5000) if wide else _mesh_round_graph(
+        7, 5000)
+    n = msa_longseq.mesh_columns(len(seq), 2)
+    assert _kernels.poa_plan(n // 2)[:2] == (2, 2048)
+    _wavefront_vs_plain(cuda, g, seq, 2, 1024)
+
+
+@pytest.mark.cuda
+def test_mesh_msa_routes_on_card_match_cpu(cuda):
+    """``align_seqs(mesh=)`` on one card repeated (the single poa_dp.cu
+    launch at D = K and the single-call walk), ``align_seqs(link=)`` and
+    the wavefront over the card repeated equal the CPU's meshless run; no
+    plain round; a read
+    past K * 8,192 columns on one card raises."""
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_native
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    from tsta_tpu_torch.parallel import msa_longseq
+    AP = AlignParams()
+    reads = _reads(5, 4, 2500)
+    want = msa_native.align_seqs(reads, AP, device="cpu")
+    p0 = msa_native.plain_rounds
+    for K in (2, 5):
+        n0 = dict(_kernels.launches)
+        mesh = meshlib.make_mesh(1, K, devices=[cuda] * K)
+        assert msa_native.align_seqs(reads, AP, mesh=mesh) == want
+        assert _kernels.launches["poa_dp"] == n0["poa_dp"] + 3
+        assert _kernels.launches["poa_walk"] == n0["poa_walk"] + 3
+    for K in (2, 3):
+        n0 = dict(_kernels.launches)
+        stats = []
+        assert msa_native.align_seqs(reads, AP, link=msa_longseq.LocalLink(
+            [cuda] * K), stats=stats) == want
+        assert (_kernels.launches["poa_dp_window"] - n0["poa_dp_window"]
+                == sum(st["active"] * st["chunks"] for st in stats))
+        assert (_kernels.launches["poa_walk_bounded"]
+                - n0["poa_walk_bounded"]) >= len(stats) == 3
+    g, seq = _mesh_round_graph(9, 600)
+    for K in (2, 4):
+        packed, _ = msa_longseq.wavefront_round(g, seq, AP, [cuda] * K)
+        want1, _ = msa_longseq.wavefront_round(g, seq, AP, ["cpu"] * K)
+        assert np.array_equal(packed, want1)
+    assert msa_native.plain_rounds == p0
+    with pytest.raises(ValueError, match="do not make 2 shards"):
+        msa_native.align_seqs([seq, b"A" * 20000], AP, mesh=meshlib.make_mesh(
+            1, 2, devices=[cuda] * 2))
+
+
+@pytest.mark.cuda
+def test_data_sharded_batches_on_card(cuda):
+    """A batch shared over ``make_mesh(4, 1, [cuda] * 4)``: one K1 launch a
+    share score-only, one K2 and one K3 a share traced, every score,
+    corner and alignment equal to the CPU's meshless batch."""
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    rng = np.random.default_rng(17)
+    pairs = [(rng.integers(65, 69, int(rng.integers(200, 900))).astype(
+        np.uint8), rng.integers(65, 69, int(rng.integers(200, 900))).astype(
+        np.uint8)) for _ in range(10)]
+    pairs = [(a, b) if len(a) >= len(b) else (b, a) for a, b in pairs]
+    mesh = meshlib.make_mesh(4, 1, devices=[cuda] * 4)
+    n0 = dict(_kernels.launches)
+    got = psa_diff.psa_align_batch_diff(pairs, P0, mesh=mesh)
+    want = psa_diff.psa_align_batch_diff(pairs, P0, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert _kernels.launches["psa_dp_score"] == n0["psa_dp_score"] + 4
+    got = psa_diff.psa_align_batch_traced_packed(pairs, P0, mesh=mesh)
+    assert got == psa_diff.psa_align_batch_traced_packed(pairs, P0,
+                                                         device="cpu")
+    assert _kernels.launches["psa_dp_traced"] >= n0["psa_dp_traced"] + 4
+    assert _kernels.launches["psa_walk"] >= n0["psa_walk"] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nproc", [2, 3])
+def test_multihost_ranks_share_the_card(cuda, nproc):
+    """``align_seqs_multihost`` as ``nproc`` processes on cuda:0 over gloo,
+    each owning one window of every round: every rank's MSA equals the
+    single-process meshless run on the card."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from tsta_tpu_torch.config import AlignParams
+    from tsta_tpu_torch.ops import msa_native
+    _kernels.build()   # the ranks load the built library, not build it
+    reads = _reads(13, 3, 1500)
+    want = msa_native.align_seqs(reads, AlignParams(), device=cuda)
+    prog = (
+        "import json, sys\n"
+        "from tsta_tpu_torch.parallel import mesh, msa_multihost as mh\n"
+        "from tsta_tpu_torch.ops import _kernels\n"
+        "assert mesh.maybe_init_distributed()\n"
+        "seqs = [bytes.fromhex(h) for h in json.loads(sys.argv[1])]\n"
+        "out = mh.align_seqs_multihost(seqs, device='cuda:0',\n"
+        "                              rows_per_chunk=512)\n"
+        "print('MSA', json.dumps([[r.decode() for r in out.rows],\n"
+        "      out.round_scores, _kernels.launches['poa_dp_window']]))\n")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, TSTA_COORDINATOR="127.0.0.1:%d" % port,
+               TSTA_NUM_PROCESSES=str(nproc), TSTA_DIST_TIMEOUT_S="120",
+               GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", prog, json.dumps([r.hex() for r in reads])],
+        cwd=root, env=dict(env, TSTA_PROCESS_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(nproc)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        rows, rounds, cells = json.loads(
+            [ln for ln in out.splitlines() if ln.startswith("MSA ")][0][4:])
+        assert [r.encode() for r in rows] == want.rows
+        assert rounds == want.round_scores
+        assert cells >= 2 * len(rounds)

@@ -68,8 +68,16 @@ def test_msa_errors_exit_1(tmp_path):
     seqs = _seqs("msa_small1")
     assert tcli.main(["msa", "--engine", "native", "--device", "cpu",
                       "-i", "/nonexistent.fa", "-o", out]) == 1
-    assert tcli.main(["msa", "--engine", "native", "--device", "cpu",
-                      "--mesh", "1x4", "-i", seqs, "-o", out]) == 1
+    # --mesh needs the native engine, as in the JAX package
+    assert tcli.main(["msa", "--device", "cpu", "--mesh", "1x4", "-i", seqs,
+                      "-o", out]) == 1
+    # the native engine over a mesh of 4 seq windows writes the meshless
+    # run's MSA
+    for mesh, path in (("1x4", out + ".mesh"), ("1x1", out + ".one")):
+        assert tcli.main(["msa", "--engine", "native", "--device", "cpu",
+                          "--mesh", mesh, "-i", seqs, "-o", path]) == 0
+    with open(out + ".mesh", "rb") as f, open(out + ".one", "rb") as g:
+        assert f.read() == g.read()
     # kernel=cuda on the CPU is refused, not quietly run elsewhere
     assert tcli.main(["msa", "--engine", "native", "--device", "cpu",
                       "--kernel", "cuda", "-i", seqs, "-o", out]) == 1

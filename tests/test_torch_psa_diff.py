@@ -173,11 +173,18 @@ def test_traced_router_matches_jax(params):
 
 def test_unported_options_raise():
     a = np.frombuffer(b"ACGTAC", np.uint8)
-    with pytest.raises(NotImplementedError):
-        tdiff.psa_align_batch_diff([(a, a)], P0, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        tdiff.psa_align_batch_traced_packed([(a, a)], P0, mesh=object(),
-                                            device="cpu")
+    # a mesh shares the batch over its data axis: the meshless values
+    from tsta_tpu_torch.parallel import mesh as tmeshlib
+    mesh = tmeshlib.make_mesh(2, 1, devices=["cpu"] * 2)
+    b = np.frombuffer(b"ACGTTAC", np.uint8)
+    pairs = [(a, a), (b, a), (a, b)]
+    for got, want in zip(
+            tdiff.psa_align_batch_diff(pairs, P0, mesh=mesh),
+            tdiff.psa_align_batch_diff(pairs, P0, device="cpu")):
+        assert np.array_equal(got, want)
+    assert (tdiff.psa_align_batch_traced_packed(pairs[:2], P0, mesh=mesh)
+            == tdiff.psa_align_batch_traced_packed(pairs[:2], P0,
+                                                   device="cpu"))
     with pytest.raises(ValueError):
         tdiff.psa_align_batch_diff([(a, a)], (2, -5, -2, 4), device="cpu")
     with pytest.raises(ValueError):

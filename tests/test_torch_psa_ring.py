@@ -241,23 +241,21 @@ def test_ring_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_data_axis_refusals_name_what_exists():
-    """``mesh=`` on the batch and MSA entry points still raises, and says
-    what a mesh runs today."""
+    """``mesh=`` on the batch and MSA entry points, once refused, now
+    shares a batch over the ``data`` axis and an MSA round's columns over
+    the ``seq`` axis: each gives the meshless call's values."""
     from tsta_tpu_torch.models import msa
     a = np.frombuffer(b"ACGTAC", np.uint8)
     mesh = _mesh(4, data=2)
     calls = [
-        lambda: psa_diff.psa_align_batch_diff([(a, a)], (2, -5, -2, -4),
-                                              mesh=mesh, device="cpu"),
-        lambda: psa_diff.psa_align_batch_traced_packed(
-            [(a, a)], (2, -5, -2, -4), mesh=mesh, device="cpu"),
-        lambda: batch.align_batch([(a, a)], mesh=mesh, device="cpu"),
-        lambda: msa.align_seqs([b"ACGT", b"ACGA"], mesh=mesh,
-                               engine="native", device="cpu"),
+        lambda **kw: psa_diff.psa_align_batch_diff([(a, a)], (2, -5, -2, -4),
+                                                   **kw)[0].tolist(),
+        lambda **kw: psa_diff.psa_align_batch_traced_packed(
+            [(a, a)], (2, -5, -2, -4), **kw),
+        lambda **kw: [(r.score, r.last) for r in batch.align_batch(
+            [(a, a)], **kw)],
+        lambda **kw: msa.align_seqs([b"ACGT", b"ACGA"], engine="native",
+                                    **kw),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError) as err:
-            call()
-        for name in ("parallel.mesh", "ops.psa_ring", "parallel.longseq",
-                     "data axis"):
-            assert name in str(err.value)
+        assert call(mesh=mesh) == call(device="cpu")

@@ -16,7 +16,13 @@ option.
 ``TSTA_DIFF_INT16`` set to any non-empty value sends ``psa --notrace`` and
 ``batch`` (M > 0) to the int16 difference method, as in the JAX package;
 ``TSTA_PSA_LAYOUT=striped`` sends them to the striped layout's DP.
-``--mesh`` (multi-GPU) belongs to a later slice.
+``--mesh DATAxSEQ`` is a mesh of the visible cards (on ``--device cpu``
+the CPU repeated DATA * SEQ times): ``batch`` shares its pairs over the
+``data`` axis, ``msa --engine native`` runs each round's columns over
+the ``seq`` axis.  ``msa --engine native`` run as several processes with
+``TSTA_COORDINATOR``, ``TSTA_NUM_PROCESSES`` and ``TSTA_PROCESS_ID`` set
+runs one MSA across them (``parallel/msa_multihost.py``, one window a
+process); rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -119,16 +125,23 @@ def cmd_psa(args) -> int:
     return 0
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh and mesh.lower() != "1x1":
-        raise NotImplementedError("--mesh %s: multi-GPU is a later slice "
-                                  "of the port" % mesh)
+def _mesh(args):
+    """The mesh of ``--mesh`` on ``--device`` (None without one)."""
+    if not args.mesh:
+        return None
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    return meshlib.cli_mesh(args.mesh, args.device)
 
 
 def cmd_msa(args) -> int:
     from tsta_tpu_torch.models import msa
     from tsta_tpu_torch.ops import msa_native
-    _refuse_mesh(args.mesh)
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    if args.mesh and args.engine != "native":
+        raise ValueError("--mesh requires --engine native")
+    mesh = _mesh(args)
+    if args.engine == "native" and meshlib.maybe_init_distributed():
+        return _msa_multihost(args, mesh)
     t0 = time.time()
     # -W maps to the compat engine's stripe multiplier; 0 means 10
     width = args.W if args.W > 0 else 10
@@ -142,8 +155,9 @@ def cmd_msa(args) -> int:
                 sys.stderr.write("\n")
     plain0 = msa_native.plain_rounds
     result = msa.align_file(args.input, _params(args), engine=args.engine,
-                            width=width, threads=args.T, progress=progress,
-                            kernel=args.kernel, device=args.device)
+                            width=width, mesh=mesh, threads=args.T,
+                            progress=progress, kernel=args.kernel,
+                            device=args.device)
     wall = time.time() - t0
     msa.write_result(result, args.output)
     if args.json:
@@ -155,6 +169,38 @@ def cmd_msa(args) -> int:
                    "engine": args.engine, "device": args.device,
                    "launches": _launches(),
                    "plain_rounds": msa_native.plain_rounds - plain0})
+    return 0
+
+
+def _msa_multihost(args, mesh) -> int:
+    """``msa --engine native`` as one rank of a process group: every rank
+    aligns, rank 0 writes the output (and the JSON line)."""
+    from tsta_tpu_torch.io import read_records
+    from tsta_tpu_torch.models import msa
+    from tsta_tpu_torch.ops import msa_native
+    from tsta_tpu_torch.parallel import msa_multihost
+    seqs = [r.sequence for r in read_records(args.input)]
+    for i, s in enumerate(seqs):
+        if len(s) == 0:
+            raise ValueError("sequence %d is empty" % i)
+    plain0 = msa_native.plain_rounds
+    t0 = time.time()
+    result = msa_multihost.align_seqs_multihost(
+        seqs, _params(args), mesh=mesh, device=args.device,
+        kernel=args.kernel)
+    wall = time.time() - t0
+    rank, size = msa_multihost.world()
+    if rank == 0:
+        msa.write_result(result, args.output)
+        if args.json:
+            emit_json({"rounds": result.round_scores,
+                       "graph_len": result.graph_len,
+                       "add_len": result.add_len,
+                       "consensus_len": len(result.consensus),
+                       "wall_s": round(wall, 4), "output": args.output,
+                       "engine": args.engine, "device": args.device,
+                       "processes": size, "launches": _launches(),
+                       "plain_rounds": msa_native.plain_rounds - plain0})
     return 0
 
 
@@ -205,12 +251,12 @@ def cmd_msa_batch(args) -> int:
 
 def cmd_batch(args) -> int:
     from tsta_tpu_torch.parallel import batch as pbatch
-    _refuse_mesh(args.mesh)
+    mesh = _mesh(args)
     t0 = time.time()
     results = pbatch.align_manifest(args.pairs, _params(args),
                                     traced=args.traced,
                                     out_dir=args.out_dir,
-                                    resume=args.resume,
+                                    resume=args.resume, mesh=mesh,
                                     device=args.device)
     wall = time.time() - t0
     cells = sum(r["cells"] for r in results)
@@ -250,7 +296,8 @@ def main(argv=None) -> int:
                    help="compat = bit-exact vs reference (C, host); native "
                         "= exact int32 DP on the device")
     p.add_argument("--mesh", default=None, metavar="DATAxSEQ",
-                   help="device mesh; only 1x1 (one card) in this slice")
+                   help="device mesh (native engine): each round's columns "
+                        "over its seq axis")
     p.set_defaults(fn=cmd_msa)
 
     p = sub.add_parser("msa-batch",
@@ -275,7 +322,7 @@ def main(argv=None) -> int:
                    help="incremental result store; completed pairs are "
                         "skipped on restart (preemption-safe)")
     p.add_argument("--mesh", default=None, metavar="DATAxSEQ",
-                   help="device mesh; only 1x1 (one card) in this slice")
+                   help="device mesh: the pairs shared over its data axis")
     p.set_defaults(fn=cmd_batch)
 
     if argv is None:

@@ -12,6 +12,13 @@
 //   window remat  one (chunk, column window) cell of the chunked round's
 //                 backward (:1445): the chunk's entry ring cut to the
 //                 window, fills from the checkpoints, words on.
+// and in a fourth, on the POA round of tsta_tpu/parallel/msa_longseq.py
+// (:21 _round_dp_sharded, XLA, its columns over the mesh's seq axis):
+//   wavefront cell one node chunk over one column window of the
+//                 column-window wavefront (parallel/msa_longseq.py): the
+//                 window's ring carried in and out, fills from the left
+//                 window's checkpoints, words on, and the checkpoint at
+//                 the window's last column on (nwin = 1, cw = its end).
 // One launch computes the DP of its topo-ordered graph nodes (rows)
 // against the read's columns, the recurrence of
 // tsta_tpu/ops/msa_native.py:
@@ -674,19 +681,25 @@ const void* wide_kernel_for(int S) {
 }
 
 // The kernel of a launch: with words (window remat, single call), with
-// checkpoints (forward chunk) or neither; the wide form, or walking its
-// shards or not.
+// checkpoints (forward chunk), with both (a cell of the column-window
+// wavefront, parallel/msa_longseq.py: its words and the checkpoint at its
+// window's last column) or neither; the wide form, or walking its shards
+// or not.  The cell builds are instantiations of their own, so the other
+// builds' code is unchanged by them.
 const void* kernel_of(bool words, bool ckpt, bool walk, int S,
                       bool wide = false) {
   if (wide)
-    return words  ? wide_kernel_for<true, false>(S)
+    return words ? (ckpt ? wide_kernel_for<true, true>(S)
+                         : wide_kernel_for<true, false>(S))
            : ckpt ? wide_kernel_for<false, true>(S)
                   : wide_kernel_for<false, false>(S);
   if (walk)
-    return words  ? kernel_for<true, false, true>(S)
+    return words ? (ckpt ? kernel_for<true, true, true>(S)
+                         : kernel_for<true, false, true>(S))
            : ckpt ? kernel_for<false, true, true>(S)
                   : kernel_for<false, false, true>(S);
-  return words  ? kernel_for<true, false, false>(S)
+  return words ? (ckpt ? kernel_for<true, true, false>(S)
+                       : kernel_for<true, false, false>(S))
          : ckpt ? kernel_for<false, true, false>(S)
                 : kernel_for<false, false, false>(S);
 }
@@ -706,8 +719,9 @@ extern "C" void tsta_poa_dp_layout(int n, int* D, int* C, int* S, int* T) {
 }
 
 // The most blocks of S columns a thread with T-node packets the current
-// card holds resident at once, the least over the kernel's three uses,
-// each in both builds, or with ``wide`` over the wide form's three (for
+// card holds resident at once, the least over the kernel's four builds
+// (words, checkpoints, both, neither), each walking its shards or not, or
+// with ``wide`` over the wide form's four (for
 // the wrapper's default grid and its error message; the launch itself is
 // refused with cudaErrorCooperativeLaunchTooLarge); a negative value is
 // minus a CUDA error.
@@ -718,9 +732,10 @@ extern "C" int tsta_poa_dp_max_blocks(int T, int S, int wide) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  for (int k = 0; k < (wide ? 3 : 6); ++k) {
+  for (int k = 0; k < (wide ? 4 : 8); ++k) {
     int per_sm = 0;
-    const void* fn = kernel_of(k % 3 == 0, k % 3 == 1, k >= 3, S, wide);
+    const void* fn = kernel_of(k % 4 == 0 || k % 4 == 2,
+                               k % 4 == 1 || k % 4 == 2, k >= 4, S, wide);
     const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, fn, kThreads, sizeof(int32_t) * 4 * (size_t)T);
     if (rc != cudaSuccess) return -static_cast<int>(rc);
@@ -735,7 +750,8 @@ extern "C" int tsta_poa_dp_max_blocks(int T, int S, int wide) {
 // n_nodes written where the launch holds column n_real - 1; ring: (W, 2,
 // D * 256 * S) int32, read and written in place.  words: (N, n) uint16 or
 // null; ckpt: (N, nwin, 3) int32 or null (cw > 0, nwin windows of cw
-// columns).  words and ckpt are not both given.  D shards of C columns
+// columns: the checkpoint of window w after global column (w+1)*cw - 1),
+// with or without words.  D shards of C columns
 // (C a multiple of 4, D = ceil(n / C)) on G blocks (1 <= G <= D), S
 // columns a thread (8, 16 or 32; C <= 256 * S), T nodes per packet
 // (1..256); comm: (D, ceil(n_nodes / T), 4T) int32 and flags: (D,
@@ -760,7 +776,6 @@ extern "C" int tsta_poa_dp(const void* predsT, const void* pmaskT,
   const bool wide = poff != nullptr;
   const void* fn = kernel_of(words, ckpt, G < D, S, wide);
   if (!fn || max_in > (wide ? kWideMaxIn : kMaxIn) || (wide && !pcsr) ||
-      (words && ckpt) ||
       (ckpt && (nwin < 1 || cw < 1)) || T < 1 || T > kTMax || C % 4 ||
       C > S * kThreads || D < 1 || (D - 1) * C >= n || D * C < n || G < 1 ||
       G > D || (D > 1 && n_nodes > 0 && !(comm && flags)))

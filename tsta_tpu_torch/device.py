@@ -7,6 +7,8 @@ on its own.  The CPU runs the plain PyTorch versions of the kernels.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -39,10 +41,15 @@ def resolve_device(device=None) -> torch.device:
 
 def device_budget(device) -> int:
     """Bytes the memory plans (a POA round's planes, a traced PSA group's
-    code planes) may take on ``device``: 0.85 of the card's total memory
-    (``torch.cuda.mem_get_info``), or the TPU plans' 12 GiB default on the
-    CPU.  Total, not free, memory: a route must not depend on what the
-    caching allocator happens to hold."""
+    code planes, a chunked traced pair's chunks) may take on ``device``:
+    ``TSTA_HBM_BUDGET_GB`` GiB when that variable is set, on either
+    device (the JAX package's ``msa_pallas._hbm_budget``), else 0.85 of
+    the card's total memory (``torch.cuda.mem_get_info``), or the TPU
+    plans' 12 GiB default on the CPU.  Total, not free, memory: a route
+    must not depend on what the caching allocator happens to hold."""
+    env = os.environ.get("TSTA_HBM_BUDGET_GB")
+    if env:
+        return int(float(env) * 2 ** 30)
     dev = torch.device(device)
     if dev.type == "cuda":
         return int(torch.cuda.mem_get_info(dev)[1] * DEVICE_SHARE)

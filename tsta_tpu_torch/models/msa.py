@@ -10,7 +10,8 @@ consensus.  Two engines:
 * ``native``: the exact int32 engine of this package
   (``ops/msa_native.py``), its rounds on ``device`` through the POA
   kernels or, with ``kernel="plain"`` or on the CPU, their plain
-  versions.
+  versions; with ``mesh``, each round's columns over the mesh's ``seq``
+  axis (``parallel/msa_longseq.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ from typing import List
 
 from tsta_tpu_torch.config import AlignParams
 from tsta_tpu_torch.io import read_records
-from tsta_tpu_torch.parallel.mesh import refuse_data_axis
 
 __all__ = ["MsaOutput", "align_file", "align_seqs", "write_result"]
 
@@ -41,23 +41,24 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
                kernel: str = "auto", device=None) -> MsaOutput:
     """Progressive POA MSA of ``seqs`` (byte strings).  ``width`` and
     ``threads`` are the compat engine's stripe multiplier (reference -W)
-    and OpenMP cap (-T); ``checkpoint_path``, ``progress``, ``kernel`` and
-    ``device`` belong to the native engine.  ``mesh`` (the JAX engine's
-    sharded rounds) raises ``NotImplementedError``."""
+    and OpenMP cap (-T); ``checkpoint_path``, ``progress``, ``kernel``,
+    ``device`` and ``mesh`` (each round's columns over the mesh's ``seq``
+    axis, on its devices) belong to the native engine."""
     if not seqs:
         raise ValueError("no sequences")
     for i, s in enumerate(seqs):
         if len(s) == 0:
             raise ValueError("sequence %d is empty" % i)
-    refuse_data_axis(mesh, "an MSA")
     if engine == "native":
         from tsta_tpu_torch.ops import msa_native
         return msa_native.align_seqs(seqs, params,
                                      checkpoint_path=checkpoint_path,
                                      progress=progress, kernel=kernel,
-                                     device=device)
+                                     device=device, mesh=mesh)
     if engine != "compat":
         raise ValueError("unknown MSA engine %r" % engine)
+    if mesh is not None:
+        raise ValueError("mesh sharding requires engine='native'")
     if checkpoint_path is not None:
         raise ValueError("per-round checkpointing requires "
                          "engine='native'")

@@ -12,6 +12,12 @@ with a plain C interface loaded through ``ctypes``:
 Each compiles on first use into ``build/tsta_tpu_torch/`` beside the
 package (the repository root in a checkout, where ``build/`` is
 git-ignored), keyed by a hash of the source and the compile command.
+As in the JAX package, ``$CC`` names the compiler and
+``TSTA_NATIVE_CFLAGS`` adds space-separated flags (for example
+``-DTSTA_RMAX=2``, the compat engine's in-degree limit); both are part of
+the command, so of the key, and a change rebuilds.  The JAX package's
+``TSTA_NATIVE_CACHE`` is not read: the build directory stays the one
+above.
 ``compat_msa.c`` is the one source that calls OpenMP: it compiles with
 ``-fopenmp`` where the C compiler has an OpenMP runtime, and without it
 where it does not; its wavefront then runs on one thread, with the same
@@ -41,8 +47,16 @@ _OPENMP: dict = {}
 
 
 def compiler() -> str:
-    """The C compiler: ``gcc`` on ``PATH``, else ``cc``."""
-    return shutil.which("gcc") or shutil.which("cc") or "cc"
+    """The C compiler: ``$CC`` when set, else ``gcc`` on ``PATH``, else
+    ``cc``."""
+    return (os.environ.get("CC") or shutil.which("gcc") or shutil.which("cc")
+            or "cc")
+
+
+def cflags() -> list:
+    """:data:`CFLAGS` and the space-separated extras of
+    ``TSTA_NATIVE_CFLAGS`` (the JAX package's ``_all_cflags``)."""
+    return CFLAGS + os.environ.get("TSTA_NATIVE_CFLAGS", "").split()
 
 
 def has_openmp(cc: str) -> bool:
@@ -67,7 +81,7 @@ def build(srcname: str) -> str:
     fails."""
     src = os.path.join(_DIR, srcname)
     cc = compiler()
-    cmd = [cc] + CFLAGS
+    cmd = [cc] + cflags()
     if srcname in OPENMP_SOURCES and has_openmp(cc):
         cmd.append("-fopenmp")
     h = hashlib.sha256(" ".join(cmd).encode())

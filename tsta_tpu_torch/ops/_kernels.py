@@ -1015,7 +1015,7 @@ def poa_dp_max_blocks(T: int, S: int, dev, wide: bool = False) -> int:
 
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
            words, scores, *, ring=None, chunk_base=0, col0=0, ckpt=None,
-           lists=None, D=None, T=None, G=None) -> tuple:
+           cw=None, lists=None, D=None, T=None, G=None) -> tuple:
     """Launch the POA round DP: D shards of C columns on G co-resident
     blocks (one cooperative launch for G >= 2), by default one shard a
     block up to the card's resident limit and past it several a block,
@@ -1037,8 +1037,11 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
     are those of global rows ``chunk_base + i`` of a chunked round,
     either its forward chunk (``poa_dp_chunk``: no words, and ``ckpt``
     ((N, nwin, 3) int32) gets the H, q and F checkpoints at the last
-    column of each of nwin windows of n / nwin columns) or a window remat
-    (``poa_dp_window``: words, no checkpoints).  D, C, S and T are
+    column of each of nwin windows of ``cw`` columns, by default n /
+    nwin) or a window remat (``poa_dp_window``: words, no checkpoints),
+    also counted there with checkpoints, a cell of the column-window
+    wavefront (``parallel/msa_longseq.py``: words, and ``ckpt`` (N, 1,
+    3) at global column ``cw`` - 1, its window's last).  D, C, S and T are
     :func:`poa_plan`'s; ``D`` and ``T`` (1-256) override it and ``G``
     (1..D) the grid, for tests and the smoke's sweeps.  Raises
     :class:`KernelError`, without launching, when the card cannot hold G
@@ -1077,7 +1080,7 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
         G = max(1, min(D, poa_dp_max_blocks(T, S, dev, wide)))
     elif not 1 <= G <= D:
         raise ValueError("poa_dp: G %d blocks outside 1..%d" % (G, D))
-    nwin = cw = 0
+    nwin = 0
     if ring is None:
         if words is None or ckpt is not None or chunk_base or col0:
             raise ValueError("poa_dp: a single call takes words only")
@@ -1085,15 +1088,19 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W,
         ring = torch.empty((W, 2, width), dtype=torch.int32, device=dev)
     else:
         _check(ring, "ring", torch.int32, (W, 2, width), dev)
-        if words is not None and ckpt is not None:
-            raise ValueError("poa_dp: words and ckpt are not both given")
         kind = "poa_dp_window" if words is not None else "poa_dp_chunk"
     if ckpt is not None:
         nwin = ckpt.shape[1]
         _check(ckpt, "ckpt", torch.int32, (N, nwin, 3), dev)
-        if nwin < 1 or n % nwin:
-            raise ValueError("poa_dp: %d columns in %d windows" % (n, nwin))
-        cw = n // nwin
+        if cw is None:
+            if nwin < 1 or n % nwin:
+                raise ValueError("poa_dp: %d columns in %d windows"
+                                 % (n, nwin))
+            cw = n // nwin
+        elif nwin < 1 or cw < 1:
+            raise ValueError("poa_dp: %d windows of %d columns" % (nwin, cw))
+    else:
+        cw = 0
     comm = flags = None
     if D > 1:
         nb = -(-n_nodes // T)

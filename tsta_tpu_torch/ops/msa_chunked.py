@@ -34,13 +34,21 @@ the single-call walk's steps.
 
 The TPU driver's CAP-bounded walk log, K-fused cell chains and
 speculative remats hide the TPU host link's round trips; here each cell
-costs one remat, one walk launch and one 12-byte read.  The working set
+costs one remat, one walk launch and one 12-byte read (K = 1 cell a
+sync).  With ``TSTA_POA_PROFILE`` set and not ``0`` a round prints the
+JAX package's two ``[poa_chunked]`` lines on stdout: the forward's wall
+and plan, and the backward's wall, syncs and remats (no speculative
+remats, so no spec-hit count); the device is synchronised before each
+reading, so the walls are the device's work, not its dispatch.  The working set
 is one cell's (NC, CW) int16 words at a time (int32 in a round past 64
 preds, whose launches take the kernels' wide forms), the ring snapshots
 and the checkpoints.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -132,7 +140,7 @@ class ChunkedRound:
         """Chunk ``c``'s (NC, max_in) pred rows, for the bounded walk."""
         return self.preds[c * self.NC:(c + 1) * self.NC]
 
-    def _lists(self, c: int):
+    def chunk_lists(self, c: int):
         """Chunk ``c``'s pred lists: the round's, its rows' offsets."""
         if self.lists is None:
             return None
@@ -147,7 +155,7 @@ class ChunkedRound:
                 self.bases[c * NC:(c + 1) * NC], _chunk(self.fills, c, NC),
                 self.a, self.n_real, self.rows(c), self.params, self.W)
         return args, {"ring": ring, "chunk_base": c * NC, "ckpt": ckpt,
-                      "with_words": False, "lists": self._lists(c)}
+                      "with_words": False, "lists": self.chunk_lists(c)}
 
     def forward(self, dp):
         """The forward pass through ``dp``: the ring snapshot at each
@@ -191,7 +199,14 @@ class ChunkedRound:
                 self.a[col0:col0 + CW], self.n_real, self.rows(c),
                 self.params, self.W)
         return args, {"ring": ring, "chunk_base": c * NC, "col0": col0,
-                      "lists": self._lists(c)}
+                      "lists": self.chunk_lists(c)}
+
+
+def _profile_clock(prof: bool, dev) -> float:
+    """The host clock, after the device's work when profiling."""
+    if prof and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
 
 
 @torch.no_grad()
@@ -211,11 +226,19 @@ def round_chunked(g, prep, a, n_real: int, NC: int, NWIN: int, params, dev,
             return msa_poa.poa_walk_bounded(*a, maxdist=r.maxdist)
     else:
         walk = msa_poa.walk_bounded_plain
+    prof = os.environ.get("TSTA_POA_PROFILE", "") not in ("", "0")
     if clock:
         clock.mark("dp0")
+    t0 = _profile_clock(prof, dev)
     snaps, scores, ckpt = r.forward(dp)
     if clock:
         clock.mark("dp1")
+    if prof:
+        print("[poa_chunked] forward %d chunks (NC=%d, n=%d, W=%d, "
+              "NWIN=%d): %.3f s" % (r.nchunks, NC, r.n, r.W, NWIN,
+                                    _profile_clock(prof, dev) - t0),
+              flush=True)
+        t0 = _profile_clock(prof, dev)
 
     best = msa_poa.best_sink(scores, r.mask)
     hb = ckpt[:, :, 0].contiguous() if NWIN else None
@@ -231,6 +254,12 @@ def round_chunked(g, prep, a, n_real: int, NC: int, NWIN: int, params, dev,
         cells += 1
         row, j, state = st.tolist()
         del words
+    if prof:
+        print("[poa_chunked] %sbackward %sK=1: %.3f s (%d syncs, %d "
+              "remats)" % ("windowed " if NWIN else "",
+                           "NWIN=%d " % NWIN if NWIN else "",
+                           _profile_clock(prof, dev) - t0, cells, cells),
+              flush=True)
     if clock:
         # one remat per walked cell
         clock.chunked = {"NC": NC, "chunks": r.nchunks, "NWIN": NWIN,

@@ -358,24 +358,43 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
                checkpoint_path: str | None = None, progress=None,
                kernel: str = "auto", device=None,
                clock: msa_poa.RoundClock | None = None,
-               budget: int | None = None) -> MsaOutput:
+               budget: int | None = None, mesh=None, link=None,
+               rows_per_chunk: int | None = None,
+               stats=None) -> MsaOutput:
     """Progressive POA MSA of ``seqs`` on ``device`` (default CUDA).
 
     ``kernel`` as in :func:`msa_poa.run_round`; a round plans for
     ``budget`` bytes (default :func:`device.device_budget` of
     ``device``): a round whose words plane the plan will not hold runs
-    chunked (``ops/msa_chunked.py``).  With
+    chunked (``ops/msa_chunked.py``).  With ``mesh`` every round runs its
+    columns over the mesh's ``seq`` axis
+    (``parallel/msa_longseq.run_round``, as the JAX package sends every
+    round of a meshed MSA to its ``msa_longseq``), on the mesh's devices
+    (``device`` and ``clock`` then do not apply); with ``link`` every round
+    runs the column-window wavefront over the link's windows
+    (``msa_longseq.LocalLink`` in this process,
+    ``parallel.msa_multihost.GlooLink`` one window a process), and
+    ``rows_per_chunk`` and ``stats`` are the wavefront's
+    (``msa_longseq.wavefront_round``).  With
     ``checkpoint_path`` the graph is saved after every round and a
     snapshot of the same reads and parameters resumes the run (the JAX
     package's format, so either package resumes the other's).
     ``progress(done, total)`` is called before each round and at the end;
     ``clock`` collects each round's wall split."""
     global plain_rounds
-    dev = _check_args(kernel, device)
+    if mesh is None and link is None:
+        dev = _check_args(kernel, device)
+        if budget is None:
+            budget = device_budget(dev)
+    else:
+        from tsta_tpu_torch.parallel import msa_longseq
+        row = msa_longseq.axis_devices(mesh, link)
+        _check_args(kernel, next(d for d in row if d is not None))
+        if clock is not None:
+            raise ValueError("a mesh round keeps no RoundClock; "
+                             "pass stats=")
     if not seqs:
         raise ValueError("no sequences")
-    if budget is None:
-        budget = device_budget(dev)
     _warn_ambiguity(seqs)
     n_seq = len(seqs)
     digest = seqs_digest(seqs)
@@ -400,10 +419,15 @@ def align_seqs(seqs: List[bytes], params: AlignParams = AlignParams(),
         seq = bytes(seqs[seq_no])
         if progress is not None:
             progress(done0 + read_idx, n_rounds)
-        packed, order, plain_wide = msa_poa.run_round(g, seq, params, dev,
-                                                      kernel, budget, clock)
+        if mesh is None and link is None:
+            packed, order, plain_wide = msa_poa.run_round(
+                g, seq, params, dev, kernel, budget, clock)
+            host = packed.cpu().numpy()
+        else:
+            host, order, plain_wide = msa_longseq.run_round(
+                g, seq, params, mesh, kernel, budget, link, rows_per_chunk,
+                stats)
         plain_rounds += plain_wide
-        host = packed.cpu().numpy()
         if clock:
             clock.mark("got")
         _finish_round(g, seq, seq_no, order, host, round_scores,

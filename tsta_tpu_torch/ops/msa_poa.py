@@ -238,14 +238,16 @@ def new_ring(W: int, n: int, dev, D: int | None = None) -> torch.Tensor:
 
 def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
            ring=None, chunk_base=0, col0=0, ckpt=None, with_words=True,
-           lists=None, D=None, T=None, G=None):
+           cw=None, lists=None, D=None, T=None, G=None):
     """The round DP over rows < ``n_nodes``: returns ``(words, scores)``,
     words (N, n) int16, int32 past 64 preds (the wide form; rows >=
     n_nodes zero; None without ``with_words``) and scores (N,) int32
     (NEG past n_nodes).  The other
     arguments are :func:`msa_native.round_dp_plain`'s: without ``ring``
     the single call, with it a chunked round's forward chunk (no words,
-    ``ckpt``) or window remat (words).  CPU tensors take the plain
+    ``ckpt``), a window remat (words) or a cell of the column-window
+    wavefront (``parallel/msa_longseq.py``: words and ``ckpt`` at global
+    column ``cw`` - 1, its window's last).  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/poa_dp.cu`` (:func:`poa_plan`'s
     D shards on co-resident blocks; ``D`` and ``T`` override the plan, a
     ring is then laid out for the forced D, and ``G`` the grid) or
@@ -258,7 +260,7 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
         return round_dp_plain(predsT, pmaskT, bases, fills, a, n_real,
                               n_nodes, params, W, ring=ring,
                               chunk_base=chunk_base, col0=col0, ckpt=ckpt,
-                              with_words=with_words)
+                              with_words=with_words, cw=cw)
     max_in, N = predsT.shape
     words = None
     if with_words:
@@ -268,7 +270,7 @@ def poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes, params, W, *,
     scores = torch.full((N,), NEG, dtype=torch.int32, device=a.device)
     _kernels.poa_dp(predsT, pmaskT, bases, fills, a, n_real, n_nodes,
                     as_params(params), W, words, scores, ring=ring,
-                    chunk_base=chunk_base, col0=col0, ckpt=ckpt,
+                    chunk_base=chunk_base, col0=col0, ckpt=ckpt, cw=cw,
                     lists=lists, D=D, T=T, G=G)
     if words is not None:
         words[n_nodes:].zero_()
@@ -621,7 +623,8 @@ class RoundClock:
 
 
 def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
-              budget: int, clock: RoundClock | None = None):
+              budget: int, clock: RoundClock | None = None,
+              D: int | None = None):
     """Dispatch one round of ``seq`` against ``g`` on the current stream.
 
     ``kernel``: "auto" runs the kernels on a CUDA device, "plain" the
@@ -631,9 +634,12 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
     CUDA device, the plain versions' on the CPU or with "plain"; past
     8,192 preds any route raises ValueError.  A round the plan chunks runs
     through :func:`msa_chunked.round_chunked`, which reads 12 bytes back
-    per cell it walks.  Returns ``(packed, order, plain_wide)``: the (2 +
-    n,) int32 ``[best, score, align...]`` on the device, the topo order,
-    and whether the round ran the plain versions with wide words."""
+    per cell it walks.  ``D`` forces the DP kernel's column shards (a
+    ``seq`` axis of D shards on one card, ``parallel/msa_longseq.py``);
+    such a round must fit one call, else ValueError.  Returns ``(packed,
+    order, plain_wide)``: the (2 + n,) int32 ``[best, score, align...]`` on
+    the device, the topo order, and whether the round ran the plain
+    versions with wide words."""
     from tsta_tpu_torch.ops.msa_native import round_dp_plain
     wide = g.max_in_degree() > MAX_IN
     if g.max_in_degree() > WIDE_MAX_IN:
@@ -644,6 +650,13 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
         clock.mark("start")
     prep, n, n_real, a, NC, NWIN = prep_round(g, seq, params, budget)
     predsT, pmaskT, bases, fills, N, max_in, W, order, preds = prep
+    if NC is not None and D is not None:
+        raise ValueError(
+            "a seq axis of %d shards on one card runs a round in one "
+            "launch, and this round's (%d, %d) words plane passes the "
+            "one-call plan at a budget of %.2f MB (TSTA_HBM_BUDGET_GB or the "
+            "card's memory): spread the axis over distinct devices"
+            % (D, N, n, budget / 2 ** 20))
     if NC is not None:
         from tsta_tpu_torch.ops import msa_chunked
         with profiling.span("msa round chunked"):
@@ -668,7 +681,7 @@ def run_round(g, seq: bytes, params, dev: torch.device, kernel: str,
     with profiling.span("msa round"):
         if use_kernel:
             words, scores = poa_dp(*tables, n_real, len(order), params, W,
-                                   lists=lists)
+                                   lists=lists, D=D)
         else:
             words, scores = round_dp_plain(*tables, n_real, len(order),
                                            params, W)

@@ -44,6 +44,17 @@ tile, which it reads itself (:func:`striped_slab` is its reader's twin),
 with the plain version :func:`scan_rows_striped`.  Every other layout
 (``packed``, ``packed2``) is K1's function and takes K1, as JAX's
 ``_psa_diff_call`` sends every non-striped layout to ``_abs_kernel``.
+
+``mesh=`` shards a batch over the mesh's ``data`` axis (JAX's
+``_sharded_call`` and ``_traced_packed_sharded``): each row of devices
+takes its contiguous share of the pairs (``parallel.mesh.data_sharding``)
+and runs it on its first device through the route the batch takes
+unsharded, and the results come back in input order.  A score-only
+batch dispatches every share before it reads any back, so the shares of
+distinct cards run at once.  JAX pads every share to one shape to make
+one SPMD program; here each share keeps its own shapes, groups and
+plans, which gives the same values (each pair's DP and walk depend only
+on the pair), so nothing is padded.
 """
 
 from __future__ import annotations
@@ -53,11 +64,11 @@ import os
 import numpy as np
 import torch
 
-from tsta_tpu_torch.device import device_budget, resolve_device
+from tsta_tpu_torch.device import device_budget
 from tsta_tpu_torch.ops import _kernels, psa_scan
 from tsta_tpu_torch.ops import traceback as tb
 from tsta_tpu_torch.ops.psa_scan import A_PAD, B_PAD, NEG, as_params
-from tsta_tpu_torch.parallel.mesh import refuse_data_axis
+from tsta_tpu_torch.parallel.mesh import on_device, shares
 
 LANES = 128
 T_R = 256               # row padding quantum (the JAX kernel's rows/step)
@@ -628,8 +639,9 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
     exact for D <= 57 and a ValueError beyond.  Otherwise ``layout``
     (default: ``TSTA_PSA_LAYOUT``, else ``packed``, as in the JAX
     package) picks the striped DP, :func:`run_dp_striped`, for
-    ``striped`` and K1 for any other value.  ``mesh`` (sharding the
-    batch over cards) raises ``NotImplementedError``.
+    ``striped`` and K1 for any other value.  ``mesh`` shards the batch
+    over its ``data`` axis (the module's docstring), each share on its
+    row's first device; ``device`` then does not apply.
     """
     if use_int16 is None:
         use_int16 = bool(os.environ.get("TSTA_DIFF_INT16"))
@@ -637,7 +649,6 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
         layout = os.environ.get("TSTA_PSA_LAYOUT", "packed")
     if use_int16:
         layout = "packed"   # the difference method has the packed form only
-    refuse_data_axis(mesh, "a score-only batch")
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed kernel requires M>0>X, E<0, O<=0 "
@@ -647,15 +658,21 @@ def psa_align_batch_diff(seq_pairs, params, use_int16=None, mesh=None,
                          "max(M,-X,-(O+E),-E) <= 57 (got %s)" % (p,))
     if not seq_pairs:
         raise ValueError("empty pair batch")
-    dev = resolve_device(device)
-    if layout == "striped":
-        scores, corners = run_dp_striped(*pack_pairs_striped(seq_pairs, dev),
-                                         p)
-    else:
+    # every share dispatched before the first read-back
+    outs = [_score_share(seq_pairs[i:j], p, use_int16, layout, dev)
+            for i, j, dev in shares(mesh, len(seq_pairs), device) if j > i]
+    return tuple(np.concatenate([o[k].cpu().numpy() for o in outs])
+                 for k in (0, 1))
+
+
+def _score_share(seq_pairs, p, use_int16: bool, layout: str, dev):
+    """One share's (scores, corners) on ``dev``, not yet read back."""
+    with on_device(dev):
+        if layout == "striped":
+            return run_dp_striped(*pack_pairs_striped(seq_pairs, dev), p)
         a, b, lens = pack_pairs(seq_pairs, dev)
-        scores, corners = (run_dp_int16(a, b, lens, p) if use_int16
-                           else dp_packed(a, b, lens, p, traced=False))
-    return scores.cpu().numpy(), corners.cpu().numpy()
+        return (run_dp_int16(a, b, lens, p) if use_int16
+                else dp_packed(a, b, lens, p, traced=False))
 
 
 def _traced_groups(n_real, m_real, budget):
@@ -693,31 +710,40 @@ def psa_align_batch_traced_packed(seq_pairs, params, mesh=None,
     longer side is ``a``.  Returns [(score, corner, Alignment)] in input
     order.  Groups are cut to :func:`device.device_budget`; a pair whose
     plane will not fit alone runs through
-    :func:`psa_chunked.psa_align_traced_chunked`.
+    :func:`psa_chunked.psa_align_traced_chunked`.  ``mesh`` shards the
+    batch over its ``data`` axis (the module's docstring): each share
+    runs this route on its row's first device, grouped and chunked by
+    that device's budget; ``device`` then does not apply.
     """
-    from tsta_tpu_torch.ops import psa_chunked
-    refuse_data_axis(mesh, "a traced batch")
     p = as_params(params)
     if not supports_params(p):
         raise ValueError("packed traced kernel requires M>0>X, E<0, O<=0"
                          " (got %s)" % (p,))
-    dev = resolve_device(device)
-    n_real, m_real = _lengths(seq_pairs)
-    results = [None] * len(seq_pairs)
-    groups, chunked = _traced_groups(n_real, m_real, device_budget(dev))
-    for g in groups:
-        a, b, nm = pack_pairs([seq_pairs[i] for i in g], dev, traced=True)
-        scores, corners, plane = dp_packed(a, b, nm, p, traced=True)
-        words, counts = tb.walk_packed(plane, nm)
-        del plane
-        head = torch.stack([scores, corners, counts], dim=1).cpu().numpy()
-        words = words.cpu().numpy()
-        for k, i in enumerate(g):
-            moves = tb.unpack_moves(words[k], head[k, 2])
-            aln = tb.emit_alignment(moves, seq_pairs[i][0], seq_pairs[i][1],
-                                    n_real[i], m_real[i])
-            results[i] = (int(head[k, 0]), int(head[k, 1]), aln)
-    for i in chunked:
-        results[i] = psa_chunked.psa_align_traced_chunked(
-            seq_pairs[i][0], seq_pairs[i][1], p, device=dev)
-    return results
+    return [r for i, j, dev in shares(mesh, len(seq_pairs), device)
+            if j > i for r in _traced_share(seq_pairs[i:j], p, dev)]
+
+
+def _traced_share(seq_pairs, p, dev):
+    """:func:`psa_align_batch_traced_packed` of ``seq_pairs`` on ``dev``."""
+    from tsta_tpu_torch.ops import psa_chunked
+    with on_device(dev):
+        n_real, m_real = _lengths(seq_pairs)
+        results = [None] * len(seq_pairs)
+        groups, chunked = _traced_groups(n_real, m_real, device_budget(dev))
+        for g in groups:
+            a, b, nm = pack_pairs([seq_pairs[i] for i in g], dev, traced=True)
+            scores, corners, plane = dp_packed(a, b, nm, p, traced=True)
+            words, counts = tb.walk_packed(plane, nm)
+            del plane
+            head = torch.stack([scores, corners, counts], dim=1).cpu().numpy()
+            words = words.cpu().numpy()
+            for k, i in enumerate(g):
+                moves = tb.unpack_moves(words[k], head[k, 2])
+                aln = tb.emit_alignment(moves, seq_pairs[i][0],
+                                        seq_pairs[i][1], n_real[i],
+                                        m_real[i])
+                results[i] = (int(head[k, 0]), int(head[k, 1]), aln)
+        for i in chunked:
+            results[i] = psa_chunked.psa_align_traced_chunked(
+                seq_pairs[i][0], seq_pairs[i][1], p, device=dev)
+        return results

@@ -6,8 +6,11 @@ each, traced batches through the DP kernel with code planes and the
 device walk (the round-1 chain of ``ops/psa_pallas.py`` pair by pair for
 M <= 0), and a traced pair over the device budget through the chunked
 path (``ops/psa_chunked.py``).  Score-only batches refuse M <= 0, as the
-JAX package's do.  Sharding a batch over a mesh's ``data`` axis waits for
-the multi-GPU slice: passing ``mesh`` raises (``parallel/mesh.py``).
+JAX package's do.  ``mesh=`` shards a batch over the mesh's ``data``
+axis: each row of devices takes its contiguous share of each bucket (or
+of the traced batch) and runs it on its first device, through the route
+the batch takes unsharded (``ops/psa_diff.py``); the results come back in
+input order, equal to the unsharded run's.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from tsta_tpu_torch.device import resolve_device
 from tsta_tpu_torch.models.psa import KERNELS
 from tsta_tpu_torch.ops import psa_diff, psa_pallas, psa_scan
 from tsta_tpu_torch.ops.psa_scan import bucket
-from tsta_tpu_torch.parallel.mesh import refuse_data_axis
+from tsta_tpu_torch.parallel.mesh import on_device, shares
 
 
 def stride_for_process(items: list) -> list:
@@ -61,9 +64,10 @@ def align_batch(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     ``kernel``: 'auto' or 'cuda' runs each score-only bucket through the
     DP kernel (its plain version on a CPU device); 'plain', and every
     traced batch, runs the ``psa_scan`` row scan over each bucket and
-    returns the three traceback planes.
+    returns the three traceback planes.  ``mesh`` shards each bucket over
+    its ``data`` axis, each share on its row's first device (``device``
+    then does not apply).
     """
-    refuse_data_axis(mesh, "a PSA batch")
     p = (params.match, params.mismatch, params.gap_extend, params.gap_open)
     if not (p[0] > 0 and p[1] < 0 and p[2] < 0 and p[3] <= 0):
         # padding to a bucket shape is score-neutral only for sane signs
@@ -73,9 +77,11 @@ def align_batch(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     if kernel not in KERNELS:
         raise ValueError("kernel must be one of %s (got %r)"
                          % (", ".join(KERNELS), kernel))
-    dev = resolve_device(device)
-    if kernel == "cuda" and dev.type != "cuda":
-        raise ValueError("kernel='cuda' needs a CUDA device (got %s)" % dev)
+    devs = ([resolve_device(device)] if mesh is None
+            else [resolve_device(d) for d in mesh.devices[:, 0]])
+    if kernel == "cuda" and any(d.type != "cuda" for d in devs):
+        raise ValueError("kernel='cuda' needs a CUDA device (got %s)"
+                         % ", ".join(map(str, devs)))
     prepped = _prep(pairs, swap)
     buckets = {}
     for idx, (a, b) in enumerate(prepped):
@@ -86,23 +92,33 @@ def align_batch(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     for idxs in buckets.values():
         if kernel != "plain" and not traced:
             scores, corners = psa_diff.psa_align_batch_diff(
-                [prepped[i] for i in idxs], p, device=dev)
+                [prepped[i] for i in idxs], p, mesh=mesh, device=devs[0])
             for pos, i in enumerate(idxs):
                 results[i] = psa_scan.PsaResult(int(scores[pos]),
                                                 int(corners[pos]))
             continue
-        a, b, lens = psa_diff.pack_pairs([prepped[i] for i in idxs], dev)
-        best, corner, codes = psa_scan.scan_rows(a, b, lens[:, 0],
-                                                 lens[:, 1], p, traced)
-        best, corner = best.cpu().numpy(), corner.cpu().numpy()
-        for pos, i in enumerate(idxs):
-            planes = ()
-            if traced:
-                nr, mr = prepped[i][0].shape[0], prepped[i][1].shape[0]
-                planes = psa_scan.planes_from_codes(codes[pos, :mr, :nr])
-            results[i] = psa_scan.PsaResult(int(best[pos]), int(corner[pos]),
-                                            *planes)
+        for lo, hi, dev in shares(mesh, len(idxs), devs[0]):
+            if hi > lo:
+                with on_device(dev):
+                    _scan_share(prepped, idxs[lo:hi], p, traced, dev,
+                                results)
     return results
+
+
+def _scan_share(prepped, idxs, p, traced: bool, dev, results) -> None:
+    """The ``psa_scan`` row scan of the pairs ``idxs`` of one bucket on
+    ``dev``, into ``results``."""
+    a, b, lens = psa_diff.pack_pairs([prepped[i] for i in idxs], dev)
+    best, corner, codes = psa_scan.scan_rows(a, b, lens[:, 0], lens[:, 1], p,
+                                             traced)
+    best, corner = best.cpu().numpy(), corner.cpu().numpy()
+    for pos, i in enumerate(idxs):
+        planes = ()
+        if traced:
+            nr, mr = prepped[i][0].shape[0], prepped[i][1].shape[0]
+            planes = psa_scan.planes_from_codes(codes[pos, :mr, :nr])
+        results[i] = psa_scan.PsaResult(int(best[pos]), int(corner[pos]),
+                                        *planes)
 
 
 def align_batch_traced_device(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
@@ -116,16 +132,20 @@ def align_batch_traced_device(pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     of ``psa_diff.supports_params`` take the packed traced kernels, the
     rest of the round-1 domain (X < 0, E < 0, O <= 0, any M) the round-1
     chain pair by pair (``psa_pallas.psa_align_traced_device``); a pair
-    over the device budget runs in row-chunks either way."""
-    refuse_data_axis(mesh, "a PSA batch")
+    over the device budget runs in row-chunks either way.  ``mesh``
+    shards the pairs over its ``data`` axis, each share on its row's
+    first device (``device`` then does not apply)."""
     p = psa_pallas._traced_params(params)
-    dev = resolve_device(device)
     prepped = _prep(pairs, swap)
     if psa_diff.supports_params(p):
-        return psa_diff.psa_align_batch_traced_packed(prepped, p,
-                                                      device=dev)
-    return [psa_pallas.psa_align_traced_device(a, b, p, device=dev)
-            for a, b in prepped]
+        return psa_diff.psa_align_batch_traced_packed(prepped, p, mesh=mesh,
+                                                      device=device)
+    out = []
+    for lo, hi, dev in shares(mesh, len(prepped), device):
+        with on_device(dev):
+            out += [psa_pallas.psa_align_traced_device(a, b, p, device=dev)
+                    for a, b in prepped[lo:hi]]
+    return out
 
 
 def align_manifest(manifest_path: str, params: AlignParams = AlignParams(),
@@ -135,9 +155,9 @@ def align_manifest(manifest_path: str, params: AlignParams = AlignParams(),
 
     With ``resume``, results stream into a JSONL store and pairs already
     recorded there are skipped, so a preempted job restarts at pair
-    granularity.
+    granularity.  ``mesh`` shards the pairs over its ``data`` axis
+    (:func:`align_batch`, :func:`align_batch_traced_device`).
     """
-    refuse_data_axis(mesh, "a PSA batch")
     store = None
     if resume:
         from tsta_tpu_torch.utils.checkpoint import ShardedResults
@@ -161,12 +181,14 @@ def align_manifest(manifest_path: str, params: AlignParams = AlignParams(),
         pairs.append((r1.sequence, r2.sequence))
     alns = [None] * len(pairs)
     if traced:
-        out = align_batch_traced_device(pairs, params, device=device)
+        out = align_batch_traced_device(pairs, params, mesh=mesh,
+                                        device=device)
         scores = [(s, c) for s, c, _ in out]
         alns = [aln for _, _, aln in out]
     else:
         scores = [(r.score, r.last)
-                  for r in align_batch(pairs, params, device=device)]
+                  for r in align_batch(pairs, params, mesh=mesh,
+                                       device=device)]
     rows = list(skipped)
     for name, (a, b), (score, corner), aln in zip(names, pairs, scores,
                                                   alns):
