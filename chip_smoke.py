@@ -287,7 +287,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
     one K1 launch a share, K2 and K3 at least one a share, every score,
     corner and alignment equal to phase 5's; (e) the 3 x 50 kbp run with
     ``TSTA_HBM_BUDGET_GB=4`` (chunked) and ``TSTA_POA_PROFILE=1``, its
-    ``[poa_chunked]`` lines printed, equal to phase 9's.
+    ``[poa_chunked]`` lines printed, equal to phase 9's;
+24. the ring across cards and processes (``psa_dp.cu``'s linked build,
+    one launch a card, the packets at a card's right edge published into
+    the next card's link in mapped host memory,
+    ``psa_ring.run_ring_cards``): (a) the kernel over 2 and 4 cards of
+    cuda:0 at the cards' plan against its plain version (``run_ring_cards``
+    over as many CPU devices: ``ring_card_plain`` card by card, on the
+    host), T = 256, on the example and on the
+    200 kbp pair's ``a`` against two row blocks of its ``b`` (the kernels
+    record's times: each launch by CUDA events, summed): every shard's
+    best, corner and packets and every packet of every link; (b) the
+    whole 200 kbp pair over 2 and 4 cards of cuda:0, the launch counters
+    and the plain calls reset before and read after (one launch a card,
+    nothing else, no plain call), best and corner equal to phase 14's K1,
+    then 2 more runs, each launch's median; (c)
+    ``align_long_ring_ranks`` on the example as 2 processes on cuda:0
+    over gloo and a link rank 0 makes (``jax`` and ``tsta_tpu`` blocked), equal
+    to (a); (d) a mesh of two distinct cards where the host has them,
+    else a line saying it did not run.
 
 A ``done`` line gives the script's wall, a ``walk_bounds`` line each PSA
 walk's time beside its two bounds.  The last three lines are the
@@ -1031,6 +1049,9 @@ def main() -> int:
     wide_launches, wide_times = wide_phases(dev, smi_line)
     launches.update(wide_launches)
     mesh_phases(dev, smi_line, res_50k, (pairs, res), (tpairs, tres))
+    cards_launches, cards_times = ring_cards_phases(dev, smi_line, k1,
+                                                    ring_times["psa_ring"])
+    launches.update(cards_launches)
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "smi": smi_line})
@@ -1100,6 +1121,8 @@ def main() -> int:
          "tsta_tpu/ops/traceback.py:723", striped_times["psa_walk_pair2"]),
         ("psa_ring", src % "psa_dp.cu", "tsta_tpu/ops/psa_ring.py:78",
          ring_times["psa_ring"]),
+        ("psa_ring_linked", src % "psa_dp.cu", "tsta_tpu/ops/psa_ring.py:78",
+         cards_times["psa_ring_linked"]),
         ("dtype_max_probe", src % "dtype_max_probe.cu",
          "scripts/dtype_max_probe.py:19", int16_times["dtype_max_probe"]),
         ("walk_probe_a", src % "walk_probes.cu", "scripts/walk_ablate.py:36",
@@ -1141,6 +1164,7 @@ def main() -> int:
                                             "ms_short_even",
                                             "k3_ms_short_even",
                                             "ms_100k", "chain_bound_ms_100k",
+                                            "ms_200k_4", "launch_ms", "shards",
                                             "iters", "modes")
                           if k in t}}
                       for n, s, r, t in entries]})
@@ -3825,6 +3849,210 @@ def ring_phases(dev, smi_line, k1, k1_edit, traced, traced_edit):
 
 
 
+
+# phase 24 (c): one rank of the ring across processes on cuda:0, the 10
+# kbp example, jax and the JAX package blocked
+RING_RANK_CHILD = r"""
+import json, sys, time
+BLOCKED = ("jax", "jaxlib", "tsta_tpu")
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("import blocked: " + name)
+sys.meta_path.insert(0, _Block())
+import torch
+import chip_smoke
+from tsta_tpu_torch import AlignParams
+from tsta_tpu_torch.ops import _kernels, psa_ring, psa_scan
+from tsta_tpu_torch.parallel import mesh
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.zeros(1, device=dev)
+_kernels._lib()
+assert mesh.maybe_init_distributed()
+s1, s2 = chip_smoke.golden_example()
+_kernels.reset_launches()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+got = psa_ring.align_long_ring_ranks(s1, s2, AlignParams(), T=256, device=dev)
+wall = time.perf_counter() - t0
+print("RANK " + json.dumps({
+    "got": list(got), "wall_s": wall,
+    "launches": {k: v for k, v in _kernels.launches.items() if v},
+    "plain_calls": psa_scan.plain_calls,
+    "blocked_clean": not [k for k in sys.modules
+                          if k.split(".")[0] in BLOCKED]}), flush=True)
+"""
+
+
+def ring_cards_phases(dev, smi_line, k1, ring_rec):
+    """Phase 24, the ring across cards and processes (``psa_dp.cu``'s
+    linked build, one launch a card, ``psa_ring.run_ring_cards``): (a)
+    the kernel, K = 2 and 4 cards of ``dev`` at the cards' plan (D_k),
+    against its plain version (``run_ring_cards`` over as many CPU
+    devices at the same D_k), T = 256, on the 10 kbp example
+    and on the 200 kbp pair's ``a`` against its first two row blocks of
+    ``b`` (the main path's shape): every card's shards' best, corner and
+    packets and every packet of every link; (b) the whole 200 kbp pair
+    over ``[dev] * K``, K = 2 and 4, the launch counters and the plain
+    calls reset before and read after: K launches, no plain call, best
+    and corner equal to phase 14's K1 (``k1``) and the one-launch ring of
+    phase 19; then 2 more runs, each launch timed (CUDA events); (c)
+    ``align_long_ring_ranks`` as 2 processes on ``dev`` over the example,
+    equal to (a); (d) a mesh of two distinct cards where the host has
+    them, else a line saying it did not run.  Returns the launches of
+    (b) and the kernels record."""
+    import torch
+
+    from tsta_tpu_torch.ops import psa_ring
+    from tsta_tpu_torch.parallel import mesh as meshlib
+    p = (2, -5, -2, -4)
+    T = 256
+    t_phase = time.perf_counter()
+
+    def padded(x, y, K):
+        a_p, b_p, n_real, m_real = psa_ring.pad_pair(x, y, K, T)
+        return torch.from_numpy(a_p), torch.from_numpy(b_p), n_real, m_real
+
+    # (a) kernel against plain, every packet of every link
+    s1, s2 = golden_example()
+    reads = long_reads(13, 200000)
+    ra, rb = reads[1], reads[0]          # K1's a and b in check_200k
+    recs, err = {}, 0
+    for label, x, y in (("example", s1, s2), ("main", ra, rb[:512])):
+        for K in (2, 4):
+            a, b, n_real, m_real = padded(x, y, K)
+            st = []
+            got = psa_ring.run_ring_cards(a, b, n_real, m_real, p, [dev] * K,
+                                          T, stats=st)
+            t0 = time.perf_counter()
+            want = psa_ring.run_ring_cards(a, b, n_real, m_real, p,
+                                           ["cpu"] * K, T, D=got.shards)
+            pms = (time.perf_counter() - t0) * 1e3
+            e = max(max_err(g.cpu(), w) for g, w in zip(
+                got.outs + got.comms + got.links,
+                want.outs + want.comms + want.links))
+            e = max(e, abs(want.best - got.best),
+                    abs(want.corner - got.corner))
+            err = max(err, e)
+            recs["%s K = %d" % (label, K)] = {
+                "shape": "%s, %d x %d bp padded to %d x %d, %d cards of %s, "
+                         "D_k = %s, T = %d" % (
+                             "the 200 kbp pair's a, b cut to 2 row blocks"
+                             if label == "main" else "the example", len(x),
+                             len(y), a.numel(), b.numel(), K, dev, got.shards,
+                             T),
+                "ms": sum(st[0]["ms"]), "launch_ms": st[0]["ms"],
+                "plain_ms": pms, "plain_on": "cpu", "max_abs_err": e,
+                "shards": got.shards,
+                "best": got.best, "corner": got.corner,
+                "link_packets": sum(int(lk.numel()) for lk in got.links) // 2,
+                **score_bound(nbytes(a, b, *got.outs, *got.comms)
+                              + 2 * nbytes(*got.links), len(x) * len(y))}
+    emit({"phase": "ring_cards_vs_plain", "records": recs, "smi": smi_line})
+    if err or recs["example K = 2"]["best"] != -5 or recs[
+            "example K = 4"]["best"] != -5:
+        raise AssertionError("the linked ring differs from its plain version "
+                             "or the example's maxsorce: %s" % recs)
+
+    # (b) the 200 kbp pair over K cards of dev
+    full, launches = {}, 0
+    for K in (2, 4):
+        a, b, n_real, m_real = padded(ra, rb, K)
+        p0 = start()
+        t0 = time.perf_counter()
+        st = []
+        run = psa_ring.run_ring_cards(a, b, n_real, m_real, p, [dev] * K, T,
+                                      stats=st)
+        wall = time.perf_counter() - t0
+        lb, plain_b = stop(p0)
+        launches += lb["psa_ring_linked"]
+        for _ in range(2):
+            again = psa_ring.run_ring_cards(a, b, n_real, m_real, p,
+                                            [dev] * K, T, stats=st)
+        per = [statistics.median(x) for x in zip(*(s["ms"] for s in st))]
+        full[K] = {"shape": "200 kbp pair, %d x %d bp padded to %d x %d, %d "
+                            "cards of %s, D_k = %s, T = %d"
+                            % (len(ra), len(rb), a.numel(), b.numel(), K, dev,
+                               run.shards, T),
+                   "launch_ms": per, "ms": sum(per), "wall_s": wall,
+                   "best_corner": [run.best, run.corner],
+                   "again": [again.best, again.corner],
+                   "k1": [k1["score"], k1["corner"]],
+                   "launches": lb["psa_ring_linked"], "plain_calls": plain_b,
+                   "others": sum(v for k, v in lb.items()
+                                 if k != "psa_ring_linked"),
+                   "gcups": len(ra) * len(rb) / sum(per) / 1e6,
+                   **score_bound(nbytes(a, b, *run.outs, *run.comms)
+                                 + 2 * nbytes(*run.links),
+                                 len(ra) * len(rb))}
+    emit({"phase": "ring_cards_200k", "runs": full,
+          "one_launch_ring_ms": ring_rec["ms_200k"], "smi": smi_line,
+          "clocks_power": smi("clocks.sm,power.draw,temperature.gpu")})
+    bad = {K: r for K, r in full.items()
+           if r["best_corner"] != r["k1"] or r["again"] != r["k1"]
+           or r["launches"] != K or r["plain_calls"] or r["others"]}
+    if bad:
+        raise AssertionError("the ring over cards at 200 kbp: %s" % bad)
+
+    # (c) two processes on dev, the example
+    env = dict(os.environ, TSTA_COORDINATOR="127.0.0.1:%d" % free_port(),
+               TSTA_NUM_PROCESSES="2", TSTA_DIST_TIMEOUT_S="120",
+               GLOO_SOCKET_IFNAME="lo")
+    env.pop("PYTHONPATH", None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", RING_RANK_CHILD],
+                              cwd=ROOT, env=dict(env, TSTA_PROCESS_ID=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=240))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    ranks = []
+    for r, (pr, (out, er)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        if pr.returncode != 0 or not lines:
+            raise RuntimeError("ring rank %d failed (rc %s):\n%s"
+                               % (r, pr.returncode, er[-4000:]))
+        ranks.append(json.loads(lines[-1][5:]))
+    want = [recs["example K = 2"]["best"], recs["example K = 2"]["corner"]]
+    emit({"phase": "ring_cards_ranks", "ranks": ranks, "want": want,
+          "wall_s": time.perf_counter() - t0})
+    if any(rk["got"] != want or rk["launches"] != {"psa_ring_linked": 1}
+           or rk["plain_calls"] or not rk["blocked_clean"] for rk in ranks):
+        raise AssertionError("the ring over 2 processes: %s, want %s"
+                             % (ranks, want))
+
+    # (d) distinct cards
+    if torch.cuda.device_count() >= 2:
+        mesh = meshlib.make_mesh(1, 2, devices=["cuda:0", "cuda:1"])
+        p0 = start()
+        t0 = time.perf_counter()
+        got = psa_ring.align_long_ring(ra, rb, p, mesh=mesh, T=T)
+        wall = time.perf_counter() - t0
+        ld, plain_d = stop(p0)
+        emit({"phase": "ring_cards_distinct", "run": True,
+              "best_corner": list(got), "k1": [k1["score"], k1["corner"]],
+              "wall_s": wall, "launches": ld["psa_ring_linked"],
+              "plain_calls": plain_d})
+        if (list(got) != [k1["score"], k1["corner"]]
+                or ld["psa_ring_linked"] != 2 or plain_d):
+            raise AssertionError("the ring over two distinct cards: %s" % got)
+    else:
+        emit({"phase": "ring_cards_distinct", "run": False,
+              "reason": "%d card visible: distinct cards not run"
+                        % torch.cuda.device_count()})
+    emit({"phase": "ring_cards_done", "phase_s": time.perf_counter() - t_phase})
+    rec = dict(recs["main K = 2"], max_abs_err=err, ms_200k=full[2]["ms"],
+               bound_ms_200k=full[2]["bound_ms"], gcups_200k=full[2]["gcups"],
+               ms_200k_4=full[4]["ms"], k1_s_200k=k1["s"])
+    return {"psa_ring_linked": launches}, {"psa_ring_linked": rec}
 
 def free_port() -> int:
     import socket

@@ -75,7 +75,8 @@ def test_psa_notrace_json_matches_jax_cli(kernel, capsys):
         "psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
         "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
         "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
-        "poa_dp_window", "poa_walk_bounded", "psa_ring", "walk_probe_a",
+        "poa_dp_window", "poa_walk_bounded", "psa_ring", "psa_ring_linked",
+        "walk_probe_a",
         "walk_probe_b", "walk_probe_c", "walk_probe_e", "poa_dp_wide",
         "poa_walk_wide", "poa_dp_chunk_wide", "poa_dp_window_wide",
         "poa_walk_bounded_wide"}

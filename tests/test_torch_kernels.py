@@ -1,7 +1,8 @@
 """The CUDA kernels of tsta_tpu_torch (PSA DP, the row-chunk DP, the
 short-pair DP, the difference-method (int16) DP, the striped-layout DP,
 PSA walk, two-pair walk and bounded walk (the walks on the window ring
-at forced phase lengths too), the ring wavefront, POA round
+at forced phase lengths too), the ring wavefront (one launch on one
+card, and its linked build one launch a card across cards), POA round
 DP in its single-call, forward-chunk and window-remat uses, POA walk and
 bounded walk) against their plain PyTorch versions on the card, with
 exact integer equality, and the kernel routes of the MSA engine, chunked
@@ -2331,6 +2332,69 @@ def test_ring_past_the_resident_limit_raises(cuda):
         _kernels.psa_ring(a_t, b_t, 2, 32, 100, 20, P0, comm[:1], out)
     with pytest.raises(ValueError):   # a real length past the padding
         _kernels.psa_ring(a_t, b_t, 2, 32, 300, 20, P0, comm, out)
+
+
+# the ring across cards: (K cards, D_k, T, n, m, params); D_k None is the
+# card's plan; 60,000 columns on 2 cards of one shard run the global
+# frontier
+RING_CARDS_CASES = [
+    (2, 1, 32, 1000, 100, P0), (2, 2, 256, 3000, 700, (0, -1, -1, 0)),
+    (2, 1, 32, 60000, 70, (3, -2, -1, -6)), (3, 3, 32, 5000, 333, P0),
+    (4, None, 32, 20000, 300, (3, -2, -1, -6)), (4, 2, 256, 17000, 600, P0),
+    (8, None, 256, 17000, 300, (0, -1, -1, 0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,D,T,n,m,params", RING_CARDS_CASES)
+def test_ring_cards_match_plain(cuda, K, D, T, n, m, params):
+    """``run_ring_cards`` over K cards of one card (the linked build of
+    ``psa_dp.cu``, one launch a card in order on one stream) against the
+    same over CPU devices (``ring_card_plain`` card by card): every card's
+    shards' best, corner and packets, every link packet, no plain call on
+    the card, K launches."""
+    from tsta_tpu_torch.ops import psa_ring
+    rng = np.random.default_rng(K * 1000 + n)
+    a = rng.integers(65, 69, n).astype(np.uint8)
+    b = a[rng.integers(0, n, m)] if m < n else rng.integers(65, 69, m)
+    a_p, b_p, n_real, m_real = psa_ring.pad_pair(a, b.astype(np.uint8), K, T)
+    a_t, b_t = torch.from_numpy(a_p), torch.from_numpy(b_p)
+    n0, p0 = dict(_kernels.launches), psa_scan.plain_calls
+    got = psa_ring.run_ring_cards(a_t, b_t, n_real, m_real, params,
+                                  [cuda] * K, T, D=D)
+    assert psa_scan.plain_calls == p0
+    assert {k: _kernels.launches[k] - n0[k] for k in _kernels.KERNELS
+            if _kernels.launches[k] != n0[k]} == {"psa_ring_linked": K}
+    want = psa_ring.run_ring_cards(a_t, b_t, n_real, m_real, params,
+                                   ["cpu"] * K, T, D=got.shards)
+    assert (got.best, got.corner) == (want.best, want.corner)
+    for g, w in zip(got.outs + got.comms + got.links,
+                    want.outs + want.comms + want.links):
+        assert torch.equal(g.cpu(), w)
+    one = psa_ring.run_ring(a_t.to(cuda), b_t.to(cuda), n_real, m_real,
+                            params, K, T)
+    assert (got.best, got.corner) == one
+
+
+@pytest.mark.cuda
+def test_ring_on_distinct_cards(cuda):
+    """A mesh of two distinct cards runs one linked launch a card, both
+    enqueued before either is awaited, and equals the CPU mesh."""
+    from tsta_tpu_torch.ops import psa_ring
+    from tsta_tpu_torch.parallel import longseq, mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(41)
+    a = rng.integers(65, 69, 9000).astype(np.uint8)
+    b = rng.integers(65, 69, 700).astype(np.uint8)
+    cards = mesh.make_mesh(1, 2, devices=["cuda:0", "cuda:1"])
+    cpu = mesh.make_mesh(1, 2, devices=["cpu"] * 2)
+    for fn, kw in ((psa_ring.align_long_ring, {"T": 64}),
+                   (longseq.align_long, {"block": 32})):
+        n0, p0 = _kernels.launches["psa_ring_linked"], psa_scan.plain_calls
+        assert fn(a, b, P0, mesh=cards, **kw) == fn(a, b, P0, mesh=cpu, **kw)
+        assert _kernels.launches["psa_ring_linked"] == n0 + 2
+        assert psa_scan.plain_calls == p0
 
 
 # the walks' forced phase lengths: the least, two below the plan's, and

@@ -209,23 +209,29 @@ def test_value_errors():
 
 
 def test_seq_axis_routes():
-    """A CPU row runs the plain version, one card the kernel; distinct
-    cards are refused before anything touches a card, a mix of types is
-    an error, and a card mesh on a host without one raises DeviceError."""
+    """A CPU row runs the plain version, one card repeated one launch, a
+    row of distinct cards one launch a card (the route function decides
+    it without touching a card); a mix of types is an error, and a card
+    mesh on a host without one raises DeviceError."""
     a = np.frombuffer(b"ACGTTGCA", np.uint8)
-    assert meshlib.seq_device(_mesh(3)) == CPU
-    two = meshlib.make_mesh(1, 2, devices=[torch.device("cuda", 0),
-                                           torch.device("cuda", 1)])
-    for fn in (psa_ring.align_long_ring, longseq.align_long):
-        with pytest.raises(NotImplementedError, match="Queue 1 step 5"):
-            fn(a, a, AlignParams(), mesh=two)
+    assert meshlib.seq_route(_mesh(3)) == ("cpu", [CPU] * 3)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    two = meshlib.make_mesh(1, 2, devices=cards)
+    assert meshlib.seq_route(two) == ("cards", cards)
+    one = meshlib.make_mesh(2, 2, devices=[torch.device("cuda", 1)] * 4)
+    assert meshlib.seq_route(one) == ("one_card", [torch.device("cuda", 1)]
+                                      * 2)
     mixed = meshlib.make_mesh(1, 2, devices=[CPU, torch.device("cuda", 0)])
     with pytest.raises(ValueError):
-        psa_ring.align_long_ring(a, a, AlignParams(), mesh=mixed)
+        meshlib.seq_route(mixed)
+    for fn in (psa_ring.align_long_ring, longseq.align_long):
+        with pytest.raises(ValueError):
+            fn(a, a, AlignParams(), mesh=mixed)
     if not torch.cuda.is_available():
         card = meshlib.make_mesh(1, 4, devices=["cuda:0"] * 4)
-        with pytest.raises(DeviceError):
-            psa_ring.align_long_ring(a, a, AlignParams(), mesh=card)
+        for mesh in (card, two):
+            with pytest.raises(DeviceError):
+                psa_ring.align_long_ring(a, a, AlignParams(), mesh=mesh)
 
 
 def test_ring_kernel_wrapper_refuses_cpu_tensors():

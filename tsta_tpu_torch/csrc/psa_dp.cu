@@ -28,6 +28,12 @@
 // psa_dp_striped.cu; this file's Reader takes a pair's columns as one row
 // of (P, n_pad) bytes.
 //
+// The ring across cards and processes (tsta_psa_dp_linked): one launch of
+// the body's linked build a card, over that card's columns of the pair
+// (JAX's chip shard, C_card = n / K), its blocks the card's plan; the
+// card edges are links in mapped host memory (psa_dp_score.cuh), which
+// tsta_host_register and tsta_host_device_ptr set up.
+//
 // What bounds it on the H100: per cell about 12 int32 operations, so 128 x
 // 10,240 x 10,240 cells bound it at ~9.6 ms and the 200 kbp pair at ~28
 // ms.  A row costs three barriers, a block scan and, at D >= 2, a share of
@@ -58,6 +64,17 @@ template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 psa_dp_kernel(const Score k) {
   score_body<kGlobal, Linear>(k);
+}
+
+struct Linked {
+  Score s;
+  Link l;
+};
+
+template <bool kGlobal>
+__global__ void __launch_bounds__(kThreads)
+psa_dp_linked_kernel(const __grid_constant__ Linked k) {
+  score_body<kGlobal, Linear, true>(k.s, &k.l);
 }
 
 }  // namespace
@@ -103,4 +120,70 @@ extern "C" int tsta_psa_dp(const void* a, const void* b, const void* lens,
   return launch(psa_dp_kernel<false>, psa_dp_kernel<true>, a, b, lens, P,
                 n_pad, m_stride, M, X, E, O, full, D, C, T, comm, flags, out,
                 scratch, stream);
+}
+
+// The most linked-build shards of C columns and T-row packets the current
+// card holds resident at once; a negative value is minus a CUDA error.
+extern "C" int tsta_psa_dp_linked_max_blocks(int C, int T) {
+  return max_blocks(psa_dp_linked_kernel<false>, psa_dp_linked_kernel<true>,
+                    C, T);
+}
+
+// One card of the ring across cards: tsta_psa_dp's arguments at P = 1,
+// full = 1 (a: the card's (n_pad) columns; lens: the pair's real (n, m),
+// global), plus the card's edges: col_base, the global column of its
+// column 0; shard_base, the global shard index of its block 0 (the
+// watchdog's); in_pkts and in_flags, device pointers of the link from the
+// card to the left ((m_blocks, 2T) and (m_blocks) int32, mapped host
+// memory), both null on the first card; out_pkts and out_flags, the link
+// to the card to the right, both null on the last card, their flags zero.
+// Returns as tsta_psa_dp does, cudaErrorCooperativeLaunchTooLarge without
+// launching.
+extern "C" int tsta_psa_dp_linked(const void* a, const void* b,
+                                  const void* lens, int n_pad, int m_stride,
+                                  int M, int X, int E, int O, int D, int C,
+                                  int T, void* comm, void* flags, void* out,
+                                  void* scratch, int col_base, int shard_base,
+                                  const void* in_pkts, const void* in_flags,
+                                  void* out_pkts, void* out_flags,
+                                  void* stream) {
+  if (D < 1 || C < 1 || T < 1 || m_stride < 1 || comm == nullptr ||
+      flags == nullptr || (long long)(D - 1) * C >= n_pad ||
+      n_pad > (long long)D * C || col_base < 0 || shard_base < 0 ||
+      (in_pkts == nullptr) != (in_flags == nullptr) ||
+      (out_pkts == nullptr) != (out_flags == nullptr))
+    return (int)cudaErrorInvalidValue;
+  bool global;
+  const size_t smem = smem_bytes(C, T, &global);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const Linked k{
+      Score{static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+            static_cast<const int32_t*>(lens), static_cast<int32_t*>(out),
+            static_cast<int32_t*>(comm), static_cast<int32_t*>(flags),
+            static_cast<int32_t*>(scratch), n_pad, m_stride, C, D, T,
+            (m_stride + T - 1) / T, 1, Params{M, X, E, O}},
+      Link{static_cast<const int32_t*>(in_pkts),
+           static_cast<const int32_t*>(in_flags),
+           static_cast<int32_t*>(out_pkts), static_cast<int32_t*>(out_flags),
+           col_base, shard_base}};
+  return launch_shards(global ? (const void*)psa_dp_linked_kernel<true>
+                              : (const void*)psa_dp_linked_kernel<false>,
+                       smem, 1, D, k, stream);
+}
+
+// The links' host memory: register bytes at p (page-aligned: a memfd
+// mapping) as mapped and portable pinned memory; undo it;
+// and the device pointer of host address p in the current card's context.
+// Each returns a CUDA error code.
+extern "C" int tsta_host_register(void* p, size_t bytes) {
+  return (int)cudaHostRegister(
+      p, bytes, cudaHostRegisterMapped | cudaHostRegisterPortable);
+}
+
+extern "C" int tsta_host_unregister(void* p) {
+  return (int)cudaHostUnregister(p);
+}
+
+extern "C" int tsta_host_device_ptr(void* p, void** dev) {
+  return (int)cudaHostGetDevicePointer(dev, p, 0);
 }

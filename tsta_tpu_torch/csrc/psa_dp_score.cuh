@@ -67,6 +67,21 @@
 // max of C(k) - k*e one more, and H = max(diag, E, F) __vimax3_s32; the
 // same int32 values as the plain max.
 //
+// Linked build (kLinked, psa_dp.cu's tsta_psa_dp_linked: the ring across
+// cards and processes, one launch a card at one pair and full = 1).  The
+// launch runs its card's columns of the pair, which begin at global
+// column col_base: the values (row -1, the closed-form F, the corner test)
+// are in global column space, the Reader and the shards in the card's.
+// Block 0 of a card that is not the first takes its left packet of each
+// row block from the in-link, the packets and flags the card to its left
+// wrote into mapped host memory (wait_flag_system, then uncached loads);
+// the last block writes each packet into its comm slot as always and,
+// where a card lies to its right, into the out-link too, then publishes
+// its flag at system scope.  A link slot is written once, so a card never
+// waits on a card to its right; the watchdog counts the block's global
+// shard index, shard_base + d.  The other builds' code is unchanged: the
+// link is a second kernel argument only this build has.
+//
 // A Reader is constructed in the block as Reader(k, pair, col0) and gives
 //   stage_col(s_a, q, j): called at row -1 for each column j of the
 //     thread's strip, q its slot in the slab (the shared-memory frontier
@@ -122,10 +137,21 @@ struct Score {
   Params p;
 };
 
+// The linked build's card edges (mapped host memory, device pointers).
+struct Link {
+  const int32_t* in_pkts;    // (m_blocks, 2T) from the card to the left,
+  const int32_t* in_flags;   // (m_blocks); both null on the first card
+  int32_t* out_pkts;         // (m_blocks, 2T) to the card to the right,
+  int32_t* out_flags;        // (m_blocks); both null on the last card
+  int col_base;              // global column of this card's column 0
+  int shard_base;            // global shard index of this card's block 0
+};
+
 // Dynamic shared memory: the incoming packet (2T ints), then, unless
 // kGlobal, H and E (W * kThreads ints each) and a (W * kThreads bytes).
-template <bool kGlobal, class Reader>
-__device__ __forceinline__ void score_body(const Score& k) {
+template <bool kGlobal, class Reader, bool kLinked = false>
+__device__ __forceinline__ void score_body(const Score& k,
+                                           const Link* lk = nullptr) {
   extern __shared__ int32_t s_dyn[];
   __shared__ int s_warp[2 * kWarps];
   __shared__ int s_edge[2][kThreads];
@@ -141,8 +167,12 @@ __device__ __forceinline__ void score_body(const Score& k) {
   // every padded one (the ring)
   const int n_run = k.full ? k.n_pad : n_real;
   const int rows = k.full ? k.m_stride : m_real;
-  const int col0 = d * k.C;                 // global index of column 0
+  const int col0 = d * k.C;                 // the launch's column 0
   const int Cd = min(k.C, n_run - col0);    // this shard's columns
+  // the global index of the shard's column 0, and whether the shard is
+  // the pair's first (whose left edge is the DP's boundary)
+  const int gcol0 = kLinked ? lk->col_base + col0 : col0;
+  const bool first = kLinked ? d == 0 && lk->in_flags == nullptr : d == 0;
   int32_t* out = k.out + 2 * shard;
   if (Cd <= 0) {  // wholly past the pair's columns: nobody waits on it
     if (t == 0) {
@@ -172,18 +202,21 @@ __device__ __forceinline__ void score_body(const Score& k) {
   const int32_t* left_comm = k.comm + (shard - 1) * slab;
   int32_t* my_flags = k.flags + shard * k.m_blocks;
   const int32_t* left_flags = k.flags + (shard - 1) * k.m_blocks;
-  const unsigned long long wait_ns = tsta::wait_limit_ns(d, T, W);
+  const unsigned long long wait_ns =
+      tsta::wait_limit_ns(kLinked ? lk->shard_base + d : d, T, W);
+  // the linked build's last block also feeds the card to its right
+  const bool link_out = kLinked && d == k.D - 1 && lk->out_flags != nullptr;
 
   // row -1: H(-1,j) = o + (j+1)e, E(-1,j) = NEG
   for (int j = j0; j < jend; ++j) {
     const int q = (j - j0) * kThreads + t;
-    H[q] = p.o + (col0 + j + 1) * p.e;
+    H[q] = p.o + (gcol0 + j + 1) * p.e;
     E[q] = kNeg;
     if (!kGlobal) a.stage_col(s_a, q, j);
   }
   if (!kGlobal) a.stage_all(s_a, Cd, W);
-  s_edge[1][t] = p.o + (col0 + jend) * p.e;  // H(-1, jend - 1)
-  int edge = p.o + (col0 + Cd) * p.e;         // H(i-1, last column)
+  s_edge[1][t] = p.o + (gcol0 + jend) * p.e;  // H(-1, jend - 1)
+  int edge = p.o + (gcol0 + Cd) * p.e;         // H(i-1, last column)
   int best = kNeg, corner = kNeg;
   __syncthreads();
 
@@ -195,14 +228,22 @@ __device__ __forceinline__ void score_body(const Score& k) {
       for (int q = t; q < 2 * T; q += kThreads)
         s_pkt[q] = __ldcg(left_comm + (size_t)rb * 2 * T + q);
       __syncthreads();
+    } else if constexpr (kLinked) {
+      if (!first) {
+        if (t == 0) tsta::wait_flag_system(lk->in_flags + rb, wait_ns);
+        __syncthreads();
+        for (int q = t; q < 2 * T; q += kThreads)
+          s_pkt[q] = __ldcv(lk->in_pkts + (size_t)rb * 2 * T + q);
+        __syncthreads();
+      }
     }
     int32_t* pkt_out = my_comm + (size_t)rb * 2 * T;
     const int nr = min(T, rows - rb * T);
     for (int r = 0; r < nr; ++r) {
       const int i = rb * T + r;
       const int bound_prev = i == 0 ? 0 : p.o + i * p.e;  // H(i-1, -1)
-      const int seed = d == 0 ? p.o + (i + 1) * p.e + p.e : s_pkt[T + r];
-      const int fill = d == 0 ? bound_prev : s_pkt[r];
+      const int seed = first ? p.o + (i + 1) * p.e + p.e : s_pkt[T + r];
+      const int fill = first ? bound_prev : s_pkt[r];
       const bool last_row = i == m_real - 1;
       const int bi = b[i];
       const int hd0 = t == 0 ? fill : s_edge[(i + 1) & 1][t - 1];
@@ -216,7 +257,7 @@ __device__ __forceinline__ void score_body(const Score& k) {
         const int ev = __viaddmax_s32(E[q], p.e, hp + oe);
         const int aj = kGlobal ? a.at(j) : s_a[q];
         const int diag = hd + (aj == bi ? p.m : p.x);
-        agg = __viaddmax_s32(max(diag, ev), -(col0 + j) * p.e, agg);
+        agg = __viaddmax_s32(max(diag, ev), -(gcol0 + j) * p.e, agg);
         hd = hp;
       }
       int run = tsta::block_excl_max<kThreads>(agg, seed, s_warp);
@@ -227,7 +268,7 @@ __device__ __forceinline__ void score_body(const Score& k) {
       int rbest = kNeg;    // the row's best in this strip
       for (int j = j0; j < jend; ++j) {
         const int q = (j - j0) * kThreads + t;
-        const int gje = (col0 + j) * p.e;
+        const int gje = (gcol0 + j) * p.e;
         const int hp = H[q];
         const int ev = __viaddmax_s32(E[q], p.e, hp + oe);
         const int aj = kGlobal ? a.at(j) : s_a[q];
@@ -237,7 +278,7 @@ __device__ __forceinline__ void score_body(const Score& k) {
         H[q] = h;
         E[q] = ev;
         rbest = max(rbest, h);
-        if (last_row && col0 + j == n_real - 1) corner = h;
+        if (last_row && gcol0 + j == n_real - 1) corner = h;
         hd = hp;
         hl = h;
       }
@@ -246,11 +287,21 @@ __device__ __forceinline__ void score_body(const Score& k) {
       if (t == t_last && send) {
         pkt_out[r] = edge;      // H(i-1, last column)
         pkt_out[T + r] = run;   // inclusive F prefix of row i
+        if constexpr (kLinked) {
+          if (link_out) {
+            int32_t* l = lk->out_pkts + (size_t)rb * 2 * T;
+            l[r] = edge;
+            l[T + r] = run;
+          }
+        }
         edge = hl;
       }
       __syncthreads();
     }
     if (t == t_last && send) tsta::publish(my_flags + rb);
+    if constexpr (kLinked) {
+      if (t == t_last && link_out) tsta::publish_system(lk->out_flags + rb);
+    }
   }
 
   best = tsta::block_max<kThreads>(best, s_warp);

@@ -14,6 +14,13 @@
 // * coresident_limit: a consumer spins on a producer that must be
 //   running, so all D blocks must be resident at once; the host side
 //   refuses a larger D without launching.
+// * publish_system / wait_flag_system: the same protocol at system scope,
+//   for a link between launches (the ring across cards and processes,
+//   psa_dp.cu's linked build) whose packets and flags lie in mapped host
+//   memory: __threadfence_system() and st.release.sys, ld.acquire.sys;
+//   the reader then loads the packet words uncached (__ldcv), never
+//   through L2.  The watchdog counts a shard's global index over every
+//   card to its left.
 #pragma once
 
 #include <cstdint>
@@ -64,6 +71,36 @@ __device__ __forceinline__ void wait_flag(const int32_t* flag,
   unsigned ns = 32;
   const unsigned long long t0 = global_ns();
   while (ld_acquire(flag) == 0) {
+    __nanosleep(ns);
+    if (ns < 256) ns <<= 1;
+    if (global_ns() - t0 > limit_ns) __trap();
+  }
+}
+
+__device__ __forceinline__ int ld_acquire_sys(const int32_t* p) {
+  int v;
+  asm volatile("ld.acquire.sys.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(int32_t* p, int v) {
+  asm volatile("st.release.sys.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// publish() for a reader on another card, in another process or on the
+// host: this thread's earlier stores (to host memory too) visible to the
+// system, then *flag set.
+__device__ __forceinline__ void publish_system(int32_t* flag) {
+  __threadfence_system();
+  st_release_sys(flag, 1);
+}
+
+// wait_flag() on a flag in mapped host memory.
+__device__ __forceinline__ void wait_flag_system(
+    const int32_t* flag, unsigned long long limit_ns) {
+  unsigned ns = 32;
+  const unsigned long long t0 = global_ns();
+  while (ld_acquire_sys(flag) == 0) {
     __nanosleep(ns);
     if (ns < 256) ns <<= 1;
     if (global_ns() - t0 > limit_ns) __trap();

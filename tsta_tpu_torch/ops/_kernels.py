@@ -18,12 +18,14 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import mmap
 import os
 import shutil
 import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -40,7 +42,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # K1 (psa_dp_score) is the score-only PSA DP of a batch of pairs and
 # psa_ring one long pair's over the mesh's shards (Q2-10), both launches of
 # the one score-only body that cuts each pair's columns into shards on
-# co-resident blocks; K2 (psa_dp_traced) the traced DP of a batch of pairs
+# co-resident blocks; psa_ring_linked is one card's launch of the ring
+# across cards and processes, that body's linked build; K2 (psa_dp_traced) the traced DP of a batch of pairs
 # and psa_dp_chunk a row-chunk of one long traced pair (Q2-7), both
 # launches of the one traced body that does the same; psa_dp_short is
 # the score-only DP of short pairs, a lane wavefront, one warp a pair;
@@ -62,7 +65,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 KERNELS = ("psa_dp_score", "psa_dp_traced", "psa_dp_chunk", "psa_dp_short",
            "psa_dp_diff", "psa_dp_striped", "psa_walk", "psa_walk_pair2",
            "psa_walk_bounded", "poa_dp", "poa_walk", "poa_dp_chunk",
-           "poa_dp_window", "poa_walk_bounded", "psa_ring", "walk_probe_a",
+           "poa_dp_window", "poa_walk_bounded", "psa_ring", "psa_ring_linked",
+           "walk_probe_a",
            "walk_probe_b", "walk_probe_c", "walk_probe_e", "poa_dp_wide",
            "poa_walk_wide", "poa_dp_chunk_wide", "poa_dp_window_wide",
            "poa_walk_bounded_wide")
@@ -192,6 +196,17 @@ def _lib() -> ctypes.CDLL:
             lib.tsta_psa_dp_scratch_words.argtypes = [ci, ci]
             lib.tsta_psa_dp_max_blocks.restype = ci
             lib.tsta_psa_dp_max_blocks.argtypes = [ci, ci]
+            lib.tsta_psa_dp_linked.restype = ci
+            lib.tsta_psa_dp_linked.argtypes = [vp] * 3 + [ci] * 9 + [
+                vp] * 4 + [ci] * 2 + [vp] * 5
+            lib.tsta_psa_dp_linked_max_blocks.restype = ci
+            lib.tsta_psa_dp_linked_max_blocks.argtypes = [ci, ci]
+            lib.tsta_host_register.restype = ci
+            lib.tsta_host_register.argtypes = [vp, ctypes.c_size_t]
+            lib.tsta_host_unregister.restype = ci
+            lib.tsta_host_unregister.argtypes = [vp]
+            lib.tsta_host_device_ptr.restype = ci
+            lib.tsta_host_device_ptr.argtypes = [vp, ctypes.POINTER(vp)]
             lib.tsta_psa_dp_layout.restype = None
             lib.tsta_psa_dp_layout.argtypes = [ci, ci, ci] + [
                 ctypes.POINTER(ci)] * 4
@@ -1332,6 +1347,188 @@ def psa_ring(a, b, D, T, n_real, m_real, params, comm, out) -> None:
                    *_score_entry(a.view(1, n), b.view(1, m), lens, params,
                                  True, D, C, T))
     launches["psa_ring"] += 1
+
+
+def psa_ring_linked_max_blocks(C: int, T: int, dev) -> int:
+    """The most blocks of the ring's linked build (shards of C columns,
+    T-row packets) the card ``dev`` holds resident at once."""
+    with torch.cuda.device(dev):
+        limit = _lib().tsta_psa_dp_linked_max_blocks(C, T)
+    if limit < 0:
+        _raise_on(-limit, "psa_ring_linked occupancy query")
+    return limit
+
+
+class RingLink:
+    """One card edge of the ring across cards (``ops/psa_ring.py``): the
+    (mb, 2T) int32 packets that a card writes for the card to its right,
+    one a row block in JAX's ``comm_ref`` layout, and (mb,) int32 flags,
+    zero until that row block's packet is written, in host memory that has
+    no name: a ``memfd_create`` object (shared memory, as a ``/dev/shm``
+    file is, so ``cudaHostRegister`` maps it), made zeroed by
+    ``RingLink(mb, T)`` and opened by another process of the node as
+    ``RingLink(mb, T, path)`` from the maker's :attr:`path`
+    (``/proc/<pid>/fd/<fd>``, valid while the maker keeps the link open).
+    The memory goes with the last mapping, also when a process is killed.
+    ``flags`` and ``pkts`` are CPU tensors on that memory.
+
+    :meth:`attach` registers the mapping as mapped, portable pinned memory
+    (``cudaHostRegister``) and returns its device pointers for a card,
+    which the linked kernel writes and reads at system scope; a failure
+    raises :class:`KernelError`.  The plain version (``psa_ring.
+    ring_card_plain``) uses :meth:`put` and :meth:`get`, which blocks on
+    the flag.  :meth:`close` undoes the registration and the mapping;
+    call it once no kernel uses the link."""
+
+    def __init__(self, mb: int, T: int, path: str | None = None):
+        if mb < 1 or T < 1:
+            raise ValueError("a link of %d row blocks of %d rows" % (mb, T))
+        self.mb, self.T = mb, T
+        fw = -(-mb // 64) * 64   # the packets from a 256-byte boundary
+        self.nbytes = 4 * (fw + mb * 2 * T)
+        self._fd = None
+        if path is None:
+            fd = os.memfd_create("tsta_ring_link")
+            try:
+                os.ftruncate(fd, self.nbytes)
+                self._mm = mmap.mmap(fd, self.nbytes)
+            except BaseException:
+                os.close(fd)
+                raise
+            self._fd, self.path = fd, "/proc/%d/fd/%d" % (os.getpid(), fd)
+        else:
+            fd = os.open(path, os.O_RDWR)
+            try:
+                if os.fstat(fd).st_size != self.nbytes:
+                    raise ValueError("link %s holds %d bytes, expected %d"
+                                     % (path, os.fstat(fd).st_size,
+                                        self.nbytes))
+                self._mm = mmap.mmap(fd, self.nbytes)
+            finally:
+                os.close(fd)
+            self.path = path
+        self._words = np.frombuffer(self._mm, dtype=np.int32)
+        self.flags = torch.from_numpy(self._words[:mb])
+        self.pkts = torch.from_numpy(self._words[fw:]).view(mb, 2 * T)
+        self._host = self._words.ctypes.data
+        self._registered = False
+        self._dev = {}   # card index -> (packets, flags) device pointers
+
+    def attach(self, dev) -> tuple:
+        """(packets, flags) device pointers of this link on card ``dev``,
+        registering the mapping on first use."""
+        dev = torch.device(dev)
+        if dev.index not in self._dev:
+            lib = _lib()
+            with torch.cuda.device(dev):
+                if not self._registered:
+                    rc = lib.tsta_host_register(self._host, self.nbytes)
+                    if rc:
+                        raise KernelError(
+                            "cudaHostRegister of a %d-byte ring link failed: "
+                            "CUDA error %d" % (self.nbytes, rc))
+                    self._registered = True
+                ptr = ctypes.c_void_p()
+                rc = lib.tsta_host_device_ptr(self._host, ctypes.byref(ptr))
+                if rc or not ptr.value:
+                    raise KernelError("cudaHostGetDevicePointer of a ring link"
+                                      " on %s failed: CUDA error %d"
+                                      % (dev, rc))
+            off = self.pkts.data_ptr() - self._host
+            self._dev[dev.index] = (ptr.value + off, ptr.value)
+        return self._dev[dev.index]
+
+    def put(self, rb: int, pkt: torch.Tensor) -> None:
+        """Write row block ``rb``'s packet, then set its flag."""
+        self.pkts[rb].copy_(pkt)
+        self._words[rb] = 1
+
+    def get(self, rb: int, timeout_s: float) -> torch.Tensor:
+        """Row block ``rb``'s packet once its flag is set; TimeoutError
+        past ``timeout_s`` seconds."""
+        t0, pause = time.monotonic(), 2e-5
+        while not self._words[rb]:
+            if time.monotonic() - t0 > timeout_s:
+                raise TimeoutError(
+                    "ring link %s: row block %d of %d not written within %g s"
+                    % (self.path, rb, self.mb, timeout_s))
+            time.sleep(pause)
+            pause = min(2 * pause, 1e-3)
+        return self.pkts[rb].clone()
+
+    def close(self) -> None:
+        if self._mm is None:
+            return
+        rc = _lib().tsta_host_unregister(self._host) if self._registered else 0
+        self._registered = False
+        self.flags = self.pkts = self._words = None
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None
+        mm, self._mm = self._mm, None
+        try:
+            mm.close()
+        except BufferError:   # a caller still holds a view: it goes with it
+            pass
+        _raise_on(rc, "cudaHostUnregister of a ring link")
+
+    def __del__(self):
+        if getattr(self, "_mm", None) is not None and not self._registered:
+            self.close()
+
+
+def psa_ring_linked(a, b, lens, params, D, T, col_base, shard_base, link_in,
+                    link_out, comm, out) -> None:
+    """Launch one card of the ring across cards: the score-only body's
+    linked build at one pair over this card's columns, ``a`` ((n,) uint8:
+    the pair's global columns [col_base, col_base + n)), against ``b``
+    ((m,) uint8, m a multiple of T), ``lens`` ((1, 2) int32: the pair's
+    real (n, m), global), every padded cell run, in D shards of C = ceil(n
+    / D) columns on co-resident blocks (D = 1 an ordinary launch, D >= 2 a
+    cooperative one); ``shard_base`` is the global index of its block 0
+    (the watchdog's).  Block 0 reads its left packets from ``link_in`` (a
+    :class:`RingLink`; None on the first card, whose left edge is the
+    DP's boundary), the last block writes ``comm`` ((D, m / T, 2T) int32,
+    every block's packets) and ``link_out`` (None on the last card);
+    ``out`` ((D, 2) int32) gets each block's best over the rows < m_real
+    and its corner.  Raises :class:`KernelError`, without launching, past
+    the card's resident limit."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError("psa_ring_linked kernel needs CUDA tensors, got %s"
+                         % dev)
+    n, m = a.numel(), b.numel()
+    C = -(-n // max(D, 1))
+    if D < 1 or T < 1 or -(-n // C) != D or m < 1 or m % T:
+        raise ValueError("psa_ring_linked: %d columns in %d shards, m %d a "
+                         "multiple of T %d" % (n, D, m, T))
+    mb = m // T
+    _check(a, "a", torch.uint8, (n,), dev)
+    _check(b, "b", torch.uint8, (m,), dev)
+    _check(lens, "lens", torch.int32, (1, 2), dev)
+    _check(comm, "comm", torch.int32, (D, mb, 2 * T), dev)
+    _check(out, "out", torch.int32, (D, 2), dev)
+    for lk in (link_in, link_out):
+        if lk is not None and (lk.mb, lk.T) != (mb, T):
+            raise ValueError("a link of (%d, %d), the launch's (%d, %d)"
+                             % (lk.mb, lk.T, mb, T))
+    pin, fin = link_in.attach(dev) if link_in is not None else (None, None)
+    pout, fout = (link_out.attach(dev) if link_out is not None
+                  else (None, None))
+    lib = _lib()
+    m_, x_, e_, o_ = params
+
+    def call(comm_p, flags_p, out_p, scratch_p, stream):
+        return lib.tsta_psa_dp_linked(
+            a.data_ptr(), b.data_ptr(), lens.data_ptr(), n, m, m_, x_, e_,
+            o_, D, C, T, comm_p, flags_p, out_p, scratch_p, col_base,
+            shard_base, pin, fin, pout, fout, stream)
+
+    _launch_shards("psa_ring_linked", dev, 1, D, comm.view(1, D, mb, 2 * T),
+                   out.view(1, D, 2), lib.tsta_psa_dp_scratch_words(C, T),
+                   call, lambda: psa_ring_linked_max_blocks(C, T, dev),
+                   "C = %d columns, T = %d rows" % (C, T))
+    launches["psa_ring_linked"] += 1
 
 
 def walk_probe_out_cols(probe: str, n: int) -> int:

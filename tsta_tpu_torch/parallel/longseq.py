@@ -7,9 +7,12 @@ passing its right-edge state (each row's H at its last column and the
 running F prefix) to shard d + 1 between steps.  JAX writes it at XLA
 level (``shard_map`` + ``ppermute``); it replaces no Pallas kernel and its
 values are the ring's (``ops/psa_ring.py``), so here it is the ring with
-T = ``block``: a CPU mesh runs the shared plain schedule
+T = ``block`` on its route: a CPU mesh runs the shared plain schedule
 (``psa_ring.ring_plain``), a one-card mesh one launch of the score-only
-body ``csrc/psa_dp.cu`` at one pair, so that no plain DP runs on the card.
+body ``csrc/psa_dp.cu`` at one pair, a mesh of distinct cards one launch
+of its linked build a card, the packets at each card's right edge
+published into the next card's link in mapped host memory
+(``psa_ring.run_ring_cards``), so that no plain DP runs on a card.
 """
 
 from __future__ import annotations

@@ -15,9 +15,10 @@ A device may repeat: ``make_mesh(1, 8, devices=[torch.device("cuda", 0)]
 * 8)`` is a virtual mesh of eight ``seq`` shards on one card, each shard a
 co-resident thread block of one kernel launch, the counterpart of the JAX
 tests' eight virtual CPU devices; ``[torch.device("cpu")] * 8`` runs the
-plain versions.  :func:`seq_device` picks the PSA ring's route from the
-devices; a POA round's ``seq`` axis also runs over distinct cards
-(``parallel/msa_longseq.py``).
+plain versions.  :func:`seq_route` picks the PSA ring's route from the
+devices: the CPU, one card repeated, or distinct cards, each card a
+launch of its columns (``ops/psa_ring.py``); a POA round's ``seq`` axis
+also runs over distinct cards (``parallel/msa_longseq.py``).
 
 Several processes (one a card, or several on one card or the CPU) join
 through :func:`maybe_init_distributed`, which reads the JAX package's
@@ -157,23 +158,21 @@ def replicated(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
     return [t.to(resolve_device(d)) for d in mesh.devices.flat]
 
 
-def seq_device(mesh: Mesh) -> torch.device:
-    """The one device that runs a long pair's ``seq`` axis: ``mesh``'s
-    first row of devices (the ``data`` axis only replicates a long pair)
-    must be all the CPU, which runs the plain versions, or all one card,
-    which runs every shard as a block of one launch.  Distinct cards raise
-    ``NotImplementedError``: the PSA ring across cards is not ported."""
+def seq_route(mesh: Mesh) -> Tuple[str, List[torch.device]]:
+    """The route of a long pair's ``seq`` axis, from ``mesh``'s first row
+    of devices (the ``data`` axis only replicates a long pair), touching
+    no card: ``("cpu", row)`` where the row is all the CPU (the plain
+    versions), ``("one_card", row)`` where it is one card repeated (every
+    shard a block of one launch), ``("cards", row)`` where it holds
+    distinct cards (one launch a card, ``psa_ring.run_ring_cards``).  A
+    row of the CPU and cards raises ``ValueError``; the caller resolves
+    the devices, so a card on a host without one raises ``DeviceError``
+    there."""
     row = [torch.device(d) for d in mesh.devices[0]]
     kinds = {d.type for d in row}
     if kinds == {"cpu"}:
-        return torch.device("cpu")
+        return "cpu", row
     if kinds != {"cuda"}:
         raise ValueError("a seq axis runs on one device type, got %s"
                          % sorted(str(d) for d in row))
-    if len({d.index for d in row}) > 1:
-        raise NotImplementedError(
-            "a PSA seq axis over distinct cards (%s) is not ported: the "
-            "ring's packets stored into a peer card's buffer are ROADMAP "
-            "Queue 1 step 5e; put every seq shard on one card"
-            % ", ".join(str(d) for d in row))
-    return resolve_device(row[0])
+    return ("one_card" if len({d.index for d in row}) == 1 else "cards"), row

@@ -8,8 +8,8 @@ lives (``mesh.devices[0]``; the ``data`` axis only replicates a round):
 * **All one card** (``[cuda:0] * K``): the meshless round
   (``msa_poa.run_round``) with its single ``poa_dp.cu`` launch at D = K
   column shards (``msa_poa.poa_dp``'s ``D``), each shard a co-resident
-  block, then the single-call walk (``poa_walk.cu``), as
-  ``parallel.mesh.seq_device`` does for the PSA ring.  One launch holds at
+  block, then the single-call walk (``poa_walk.cu``), as the PSA ring's
+  one-card route does (``parallel.mesh.seq_route``).  One launch holds at
   most K * 8,192 columns (32 a thread), and the round is not chunked.
 * **Distinct devices, or the CPU** (a CPU row runs the plain versions):
   the column-window wavefront below, window d on device d.

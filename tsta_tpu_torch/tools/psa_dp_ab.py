@@ -16,6 +16,9 @@ parent commit unpacked with ``git archive`` into a git-ignored directory.
    ptxas's resource lines and its SASS (``cuobjdump -sass``), the
    instructions compared with the constant-bank offsets of the kernel's
    parameters masked, since a new parameter moves them.  With ``--kernel
+   k1`` or ``ring`` it compares every build of ``psa_dp.cu`` the same way
+   (K1's and the ring's, the global-frontier one, the linked build of the
+   ring across cards where a side has it).  With ``--kernel
    short``, ``striped`` or ``diff`` it also prints ptxas's lines
    (registers, spills) for every entry of each checkout's
    ``psa_dp_short.cu``, ``psa_dp_striped.cu`` or ``psa_dp_diff.cu``.
@@ -491,6 +494,8 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as work:
         code = {k: k1_code(root, work, k) for k, root in trees.items()}
+        if args.kernel in ("k1", "ring"):   # every build of psa_dp.cu
+            emit({"code psa_dp.cu": compare_code(trees, work, "psa_dp.cu")})
         if args.kernel in ("short", "striped", "diff"):
             source = "psa_dp_%s.cu" % args.kernel
             emit({"ptxas " + source: {
