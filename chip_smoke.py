@@ -133,8 +133,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
     16 to 256, every output equal; (e) ``tsta-torch psa --notrace --json``
     on (c)'s reads, the counters and plain calls reset before and read
     after: one K1 launch over its plan's shards and nothing else, wall,
-    maxsorce and corner equal to (c)'s and to the plain version's on the
-    card;
+    maxsorce and corner equal to (c)'s; then K1 on read 0 against the
+    first ``NOTRACE_200K_ROWS`` bases of read 1 (the plain check's depth
+    cut, at the full width) equal to the plain version's on the card;
 16. edit scoring (M = 0, X = -1, E = -1, O = 0) on the round-1 kernels,
     the launch counters and the count of plain calls on the card reset
     before each path and read after it: (a) ``tsta-torch psa`` on the 10
@@ -257,8 +258,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
     unchunked one, its pieces held by ``hold_round``; (b) 3 x 50 kbp with
     a 65-pred staircase at node 25,000 from round 1 on (``staircased``)
     through ``align_seqs(kernel="cuda")`` and ``align_seqs_many`` beside
-    a 5 x 5 kbp problem, every output held to the plain route on the card
-    (the parent's route, timed), no plain call; each round's ``dp_ms``
+    a 5 x 5 kbp problem, no plain call; the plain route on the card (the
+    parent's route, timed) at a depth of one round, the first two reads,
+    equal to the kernels' route on them and to round 1's score of the
+    three-read run; each round's ``dp_ms``
     and ``walk_ms``, and round 2's DP and walk (median of 3) beside the
     16-bit build on the same reads without the staircase;
 23. the meshes on the card, the launch counters and the plain calls
@@ -305,7 +308,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
     ``align_long_ring_ranks`` on the example as 2 processes on cuda:0
     over gloo and a link rank 0 makes (``jax`` and ``tsta_tpu`` blocked), equal
     to (a); (d) a mesh of two distinct cards where the host has them,
-    else a line saying it did not run.
+    else a line saying it did not run;
+25. the ring across nodes, relayed (``parallel/ring_relay.py``): each
+    rank of ``align_long_ring_ranks`` on cuda:0 is told it runs on a
+    node of its own (``ring_relay.node_id`` patched in the rank's
+    process; ``jax`` and ``tsta_tpu`` blocked), so every link is two
+    links and a relay thread at each end forwarding its packets over
+    gloo: (a) the example over 2 and 3 ranks, equal to phase 24 (a);
+    (b) the 200 kbp pair over 2 ranks, equal to phase 14's K1; each rank
+    exactly one ``psa_dp_linked`` launch and no plain call, its launch's
+    ms (CUDA events) and its relays' messages, packets, wall and lag
+    (host clock).
 
 A ``done`` line gives the script's wall, a ``walk_bounds`` line each PSA
 walk's time beside its two bounds.  The last three lines are the
@@ -345,6 +358,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "example_big")
 SEED = 20261016
+# phase 15 (e)'s plain DP runs read 0 of the 200 kbp pair against this
+# many bases of read 1 (a quarter of the depth; ~110 s at full depth)
+NOTRACE_200K_ROWS = 50000
 # the JAX native engine on the example's reads (CPU run)
 EXAMPLE_MSA = {"rounds": [-5451, -3101, -1776, -870],
                "graph_len": [6885, 8599, 10130, 11468],
@@ -1052,6 +1068,10 @@ def main() -> int:
     cards_launches, cards_times = ring_cards_phases(dev, smi_line, k1,
                                                     ring_times["psa_ring"])
     launches.update(cards_launches)
+    relay_launches, relay_rec = relay_phases(
+        dev, smi_line, k1, cards_times["psa_ring_linked"])
+    launches["psa_ring_linked"] += relay_launches
+    cards_times["psa_ring_linked"].update(relay_rec)
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start,
           "smi": smi_line})
@@ -1165,7 +1185,10 @@ def main() -> int:
                                             "k3_ms_short_even",
                                             "ms_100k", "chain_bound_ms_100k",
                                             "ms_200k_4", "launch_ms", "shards",
-                                            "iters", "modes")
+                                            "iters", "modes",
+                                            "relayed_launch_ms_200k",
+                                            "relayed_wall_s_200k",
+                                            "relayed_wall_s_example")
                           if k in t}}
                       for n, s, r, t in entries]})
     print(smi_line)
@@ -1250,14 +1273,17 @@ def score_sweep(a, b, lens, params, want):
     return out, sweep
 
 
-def notrace_cli(fa, fb, pair):
+def notrace_cli(fa, fb, pair, rows=None):
     """``tsta-torch psa --notrace --json`` in this process on ``fa`` and
     ``fb``, the launch counters and the plain calls on the card reset
     before and read after: its score, corner and wall, the kernels it
     launched, the plain calls, and whether that was one K1 launch and
     nothing else; then the plain version (``psa_scan.scan_rows`` on the
     card) on ``pair``, the two reads as bytes, longer first, as the CLI
-    orders them: its score, corner and seconds."""
+    orders them: its score, corner and seconds.  With ``rows``, the plain
+    version runs on the second read's first ``rows`` bases only (the
+    depth cut, at the full width), beside one K1 launch on the same cut
+    pair (``k1_cut``)."""
     import torch
 
     from tsta_tpu_torch import cli
@@ -1273,19 +1299,25 @@ def notrace_cli(fa, fb, pair):
     wall = time.perf_counter() - t0
     launches, plain = stop(p0)
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rows is not None:
+        pair = (pair[0], pair[1][:rows])
     a, b, lens = psa_diff.pack_pairs([tuple(encode_dna(x) for x in pair)],
                                      torch.device("cuda"))
     t0 = time.perf_counter()
     ps, pc, _ = psa_scan.scan_rows(a, b, lens[:, 0], lens[:, 1],
                                    (2, -5, -2, -4))
     plain_out = [int(ps[0]), int(pc[0])]
-    return {"rc": rc, "wall_s": wall, "score": res["score"],
-            "corner": res["corner"],
-            "launches": {k: v for k, v in launches.items() if v},
-            "plain_calls": plain,
-            "one_k1_launch": rc == 0 and launches["psa_dp_score"] == 1
-            and sum(launches.values()) == 1 and plain == 0,
-            "plain": plain_out, "plain_s": time.perf_counter() - t0}
+    rec = {"rc": rc, "wall_s": wall, "score": res["score"],
+           "corner": res["corner"],
+           "launches": {k: v for k, v in launches.items() if v},
+           "plain_calls": plain,
+           "one_k1_launch": rc == 0 and launches["psa_dp_score"] == 1
+           and sum(launches.values()) == 1 and plain == 0,
+           "plain": plain_out, "plain_s": time.perf_counter() - t0}
+    if rows is not None:
+        ks, kc = psa_diff.dp_packed(a, b, lens, (2, -5, -2, -4))
+        rec.update(plain_rows=rows, k1_cut=[int(ks[0]), int(kc[0])])
+    return rec
 
 
 def next_round(seqs, rounds, params, dev, budget=None, stair=None):
@@ -2251,7 +2283,7 @@ def psa_chunked_phases(dev, smi_line, k1):
             lines = f.read().split(b"\n")
         run = psa_chunked.last_clock.record()
         # (e) the same pair score-only: TSTA_psa_notrace's route
-        notrace = notrace_cli(fa, fb, reads[:2])
+        notrace = notrace_cli(fa, fb, reads[:2], NOTRACE_200K_ROWS)
     a_row, b_row = lines[1], lines[3]
     rescored = tb.score_alignment(a_row, b_row, params)
     degapped = (a_row.replace(b"-", b"") == reads[0]
@@ -2288,8 +2320,9 @@ def psa_chunked_phases(dev, smi_line, k1):
     emit({"phase": "psa_notrace_200k", **notrace,
           "traced": [run["score"], run["corner"]], "smi": smi_line})
     if (not notrace["one_k1_launch"] or notrace["plan"]["D"] < 2
-            or not [notrace["score"], notrace["corner"]]
-            == [run["score"], run["corner"]] == notrace["plain"]):
+            or [notrace["score"], notrace["corner"]]
+            != [run["score"], run["corner"]]
+            or notrace["k1_cut"] != notrace["plain"]):
         raise AssertionError("200 kbp pair, --notrace: %s against the "
                              "traced route's %s" % (notrace, run))
 
@@ -3022,7 +3055,8 @@ def wide_phases(dev, smi_line):
 
     # (b) 3 x 50 kbp with a staircase at node WIDE_50K[1] from round 1 on,
     # through align_seqs and align_seqs_many beside a narrow problem, then
-    # the plain route (the parent's) once
+    # the plain route (the parent's) at a depth of one round: the first two
+    # reads, against the kernels' route on them
     seqs, narrow = long_reads(), fleet_problem(100)
     with staircased(*WIDE_50K, 20000):
         clock = msa_poa.RoundClock(dev)
@@ -3046,11 +3080,14 @@ def wide_phases(dev, smi_line):
             narrow, params, device=dev))
         pclock = msa_poa.RoundClock(dev)
         t0 = time.perf_counter()
-        pout = msa_native.align_seqs(seqs, params, kernel="plain",
+        pout = msa_native.align_seqs(seqs[:2], params, kernel="plain",
                                      device=dev, clock=pclock)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-    same = out == pout
+        kout = msa_native.align_seqs(seqs[:2], params, kernel="cuda",
+                                     device=dev)
+    same = (kout == pout
+            and out.round_scores[:1] == pout.round_scores)
 
     # round 2's DP and walk (median of 3), beside the 16-bit build on the
     # graph without the staircase
@@ -3078,9 +3115,10 @@ def wide_phases(dev, smi_line):
             pal = msa_poa.walk_plain(kw, r["preds"], best, r["n_real"])
             nn, c = r["n_nodes"], rec["counts"]
             times["poa_dp_wide"] = {
-                "shape": "50 kbp round 2, in-degree %d: %s" % (
-                    WIDE_50K[0], r["shape"]), "ms": ms,
-                "plain_ms": pclock.rounds[1]["dp_ms"],
+                "shape": "50 kbp round 2, in-degree %d: %s; plain_ms: "
+                         "round 1 of the plain route" % (
+                             WIDE_50K[0], r["shape"]), "ms": ms,
+                "plain_ms": pclock.rounds[0]["dp_ms"],
                 "max_abs_err": max(errs["poa_dp_wide"], int(not same)),
                 "plan": rounds2[label]["dp_plan"],
                 **poa_wide_bound(nbytes(*r["tables"], *r["lists"], kw, ks),
@@ -3088,7 +3126,7 @@ def wide_phases(dev, smi_line):
                                            r["tables"][4].shape[0], True))}
             times["poa_walk_wide"] = {
                 "shape": times["poa_dp_wide"]["shape"], "ms": wms,
-                "plain_ms": pclock.rounds[1]["walk_ms"],
+                "plain_ms": pclock.rounds[0]["walk_ms"],
                 "max_abs_err": max(errs["poa_walk_wide"],
                                    max_err(kal, pal)),
                 "maxdist": maxdist, **rec,
@@ -4051,8 +4089,157 @@ def ring_cards_phases(dev, smi_line, k1, ring_rec):
     emit({"phase": "ring_cards_done", "phase_s": time.perf_counter() - t_phase})
     rec = dict(recs["main K = 2"], max_abs_err=err, ms_200k=full[2]["ms"],
                bound_ms_200k=full[2]["bound_ms"], gcups_200k=full[2]["gcups"],
-               ms_200k_4=full[4]["ms"], k1_s_200k=k1["s"])
+               ms_200k_4=full[4]["ms"], k1_s_200k=k1["s"], example=want)
     return {"psa_ring_linked": launches}, {"psa_ring_linked": rec}
+
+# phase 25: one rank of the ring on cuda:0, told it runs on a node of its
+# own so that its links are relayed; jax and the JAX package blocked
+RELAY_RANK_CHILD = r"""
+import json, sys, time
+BLOCKED = ("jax", "jaxlib", "tsta_tpu")
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("import blocked: " + name)
+sys.meta_path.insert(0, _Block())
+import torch
+import chip_smoke
+from tsta_tpu_torch import AlignParams
+from tsta_tpu_torch.ops import _kernels, psa_ring, psa_scan
+from tsta_tpu_torch.parallel import mesh, ring_relay
+from tsta_tpu_torch.parallel.msa_multihost import world
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.zeros(1, device=dev)
+_kernels._lib()
+assert mesh.maybe_init_distributed()
+rank, size = world()
+node = ("node-%d" % rank, "boot-%d" % rank, "pid-%d" % rank)
+ring_relay.node_id = lambda: node
+events = []
+card = psa_ring._card
+def _card(*args):   # the (start, end) CUDA events around the launch
+    got = card(*args)
+    events.append(got[2])
+    return got
+psa_ring._card = _card
+reads = chip_smoke.long_reads(13, 200000) if "200k" in sys.argv else None
+for job in sys.argv[1:]:
+    x, y = chip_smoke.golden_example() if job == "example" else (reads[1],
+                                                                 reads[0])
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    p0 = psa_scan.plain_calls
+    ring_relay.stats.clear()
+    events.clear()
+    t0 = time.perf_counter()
+    got = psa_ring.align_long_ring_ranks(x, y, AlignParams(), T=256,
+                                         device=dev)
+    wall = time.perf_counter() - t0
+    print("RANK " + json.dumps({
+        "job": job, "rank": rank, "size": size, "got": list(got),
+        "wall_s": wall,
+        "launch_ms": [ev[0].elapsed_time(ev[1]) for ev in events],
+        "launches": {k: v for k, v in _kernels.launches.items() if v},
+        "plain_calls": psa_scan.plain_calls - p0,
+        "relays": list(ring_relay.stats),
+        "blocked_clean": not [k for k in sys.modules
+                              if k.split(".")[0] in BLOCKED]}), flush=True)
+"""
+
+
+def relay_ranks(nproc: int, jobs) -> list:
+    """``RELAY_RANK_CHILD`` as ``nproc`` processes on cuda:0 joined over
+    gloo on loopback, running ``jobs`` in turn; every rank's records, in
+    rank order.  Raises if a rank fails."""
+    env = dict(os.environ, TSTA_COORDINATOR="127.0.0.1:%d" % free_port(),
+               TSTA_NUM_PROCESSES=str(nproc), TSTA_DIST_TIMEOUT_S="120",
+               GLOO_SOCKET_IFNAME="lo")
+    env.pop("PYTHONPATH", None)
+    procs = [subprocess.Popen([sys.executable, "-c", RELAY_RANK_CHILD]
+                              + list(jobs), cwd=ROOT,
+                              env=dict(env, TSTA_PROCESS_ID=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(nproc)]
+    outs = []
+    try:
+        for pr in procs:
+            outs.append(pr.communicate(timeout=300))
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    ranks = []
+    for r, (pr, (out, er)) in enumerate(zip(procs, outs)):
+        lines = [json.loads(ln[5:]) for ln in out.splitlines()
+                 if ln.startswith("RANK ")]
+        if pr.returncode != 0 or len(lines) != len(jobs):
+            raise RuntimeError("relayed ring rank %d of %d failed (rc %s):\n%s"
+                               % (r, nproc, pr.returncode, er[-4000:]))
+        ranks.append(lines)
+    return ranks
+
+
+def relay_phases(dev, smi_line, k1, cards_rec):
+    """Phase 25, the ring across nodes on ``dev``: ``align_long_ring_ranks``
+    with every rank on a node of its own, so every link relayed
+    (``parallel/ring_relay.py``): (a) the example over 2 and 3 ranks,
+    equal to phase 24 (a) (``cards_rec["example"]``); (b) the 200 kbp
+    pair over the same 2 ranks, equal to phase 14's K1 (``k1``).  Each
+    rank resets its counters before a run and reads them after: one
+    ``psa_dp_linked`` launch, nothing else, no plain call; each relay
+    forwards every row block.  Returns the phase's launches and its
+    record for the kernels line."""
+    from tsta_tpu_torch.ops import psa_ring
+    t_phase = time.perf_counter()
+    example = golden_example()
+    runs = {}
+    for nproc, jobs in ((2, ("example", "200k")), (3, ("example",))):
+        t0 = time.perf_counter()
+        recs = relay_ranks(nproc, jobs)
+        runs[nproc] = {"ranks": recs, "wall_s": time.perf_counter() - t0}
+    reads = long_reads(13, 200000)
+    want = {"example": cards_rec["example"],
+            "200k": [k1["score"], k1["corner"]]}
+    blocks = {"example": psa_ring.pad_pair(*example, 1, 256)[1].size // 256,
+              "200k": psa_ring.pad_pair(reads[1], reads[0], 1,
+                                        256)[1].size // 256}
+    bad, launches, out = [], 0, {}
+    for nproc, run in runs.items():
+        for rank, recs in enumerate(run["ranks"]):
+            for rec in recs:
+                job = rec["job"]
+                roles = {(r["role"], r["link"]) for r in rec["relays"]}
+                expect = ({("recv", rank - 1)} if rank else set()) | (
+                    {("send", rank)} if rank < nproc - 1 else set())
+                launches += rec["launches"].get("psa_ring_linked", 0)
+                if (rec["got"] != want[job]
+                        or rec["launches"] != {"psa_ring_linked": 1}
+                        or rec["plain_calls"] or not rec["blocked_clean"]
+                        or roles != expect
+                        or any(r["packets"] != blocks[job]
+                               for r in rec["relays"])):
+                    bad.append(rec)
+                out.setdefault("%s over %d ranks" % (job, nproc), []).append(
+                    rec)
+    for label, recs in out.items():
+        emit({"phase": "ring_relay", "run": label, "ranks": recs,
+              "want": want[recs[0]["job"]], "row_blocks": blocks[
+                  recs[0]["job"]], "smi": smi_line})
+    emit({"phase": "ring_relay_done", "phase_s": time.perf_counter() - t_phase,
+          "spawn_wall_s": {n: r["wall_s"] for n, r in runs.items()}})
+    if bad:
+        raise AssertionError("the relayed ring: %s" % bad)
+    big = out["200k over 2 ranks"]
+    return launches, {
+        "relayed_launch_ms_200k": [r["launch_ms"][0] for r in big],
+        "relayed_wall_s_200k": [r["wall_s"] for r in big],
+        "relayed_wall_s_example": {
+            n: [r["wall_s"] for r in out["example over %d ranks" % n]]
+            for n in (2, 3)}}
+
 
 def free_port() -> int:
     import socket

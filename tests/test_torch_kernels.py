@@ -2397,6 +2397,99 @@ def test_ring_on_distinct_cards(cuda):
         assert psa_scan.plain_calls == p0
 
 
+RELAYED_RANK = r"""
+import json, sys
+import torch
+from tsta_tpu_torch import AlignParams
+from tsta_tpu_torch.ops import _kernels, psa_ring, psa_scan
+from tsta_tpu_torch.parallel import mesh, ring_relay
+from tsta_tpu_torch.parallel.msa_multihost import world
+class _Kept(_kernels.RingLink):   # a link's packets, kept when it closes
+    kept = None
+    def close(self):
+        if getattr(self, 'pkts', None) is not None:
+            self.kept = self.pkts.clone()
+        super().close()
+_kernels.RingLink = _Kept
+assert mesh.maybe_init_distributed()
+rank, size = world()
+node = ('node-%d' % rank,) * 3   # every rank a node of its own
+ring_relay.node_id = lambda: node
+ins = []
+card = psa_ring._card
+def _card(*args):
+    ins.append(args[9])
+    return card(*args)
+psa_ring._card = _card
+a, b = (bytes.fromhex(h) for h in sys.argv[1:3])
+got = psa_ring.align_long_ring_ranks(a, b, AlignParams(), T=256,
+                                     device='cuda:0')
+print('RANK ' + json.dumps({
+    'got': list(got), 'plain_calls': psa_scan.plain_calls,
+    'launches': {k: v for k, v in _kernels.launches.items() if v},
+    'relays': ring_relay.stats,
+    'inlink': None if ins[0] is None else ins[0].kept.tolist()}))
+"""
+
+
+@pytest.mark.cuda
+def test_ring_cards_relayed_ranks_match_plain(cuda):
+    """``align_long_ring_ranks`` as 2 processes on cuda:0, each told it
+    runs on a node of its own, so the link is relayed over gloo
+    (``parallel/ring_relay.py``), on the reference's 10 kbp example:
+    both ranks equal ``run_ring_cards`` over two CPU devices (the plain
+    version), rank 1's in-link equals its link packet for packet, each
+    rank one ``psa_ring_linked`` launch and no plain call, and each relay
+    forwarded every row block."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from tsta_tpu_torch.ops import psa_ring
+    _kernels.build()   # the ranks load the built library, not build it
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "tests", "golden", "example_big",
+                           "psa_default.out"), "rb") as f:
+        lines = f.read().split(b"\n")
+    a, b = (lines[k].replace(b"-", b"") for k in (1, 3))
+    a_p, b_p, n_real, m_real = psa_ring.pad_pair(a, b, 2, 256)
+    want = psa_ring.run_ring_cards(torch.from_numpy(a_p),
+                                   torch.from_numpy(b_p), n_real, m_real,
+                                   P0, ["cpu"] * 2, 256)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, TSTA_COORDINATOR="127.0.0.1:%d" % port,
+               TSTA_NUM_PROCESSES="2", TSTA_DIST_TIMEOUT_S="120",
+               GLOO_SOCKET_IFNAME="lo")
+    env.pop("PYTHONPATH", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RELAYED_RANK, a.hex(), b.hex()], cwd=root,
+        env=dict(env, TSTA_PROCESS_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    mb = b_p.size // 256
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-3000:]
+        got = json.loads([ln for ln in out.splitlines()
+                          if ln.startswith("RANK ")][0][5:])
+        assert tuple(got["got"]) == (want.best, want.corner)
+        assert got["launches"] == {"psa_ring_linked": 1}
+        assert got["plain_calls"] == 0
+        assert [(r["role"], r["link"], r["packets"]) for r in got[
+            "relays"]] == [("send" if rank == 0 else "recv", 0, mb)]
+        if rank:
+            assert torch.equal(torch.tensor(got["inlink"],
+                                            dtype=torch.int32),
+                               want.links[0])
+
+
 # the walks' forced phase lengths: the least, two below the plan's, and
 # one whose windows need more than 48 KB of shared memory; K3's block
 # sizes (the walker's warp and one, three or seven loader warps)

@@ -27,8 +27,10 @@ The route follows the mesh's ``seq`` row (``parallel.mesh.seq_route``):
   (``_kernels.RingLink``), which block 0 of the next card reads at system
   scope.  A slot is written once and a card waits only on the card to its
   left, so the launches may run in order on one card, overlap on several,
-  or run in several processes (:func:`align_long_ring_ranks`, over
-  links that both ranks map), with the same build.
+  or run in several processes (:func:`align_long_ring_ranks`), with the
+  same build: ranks of one node map one link, ranks on two nodes each
+  their own, and a relay thread at each end forwards the packets over
+  gloo (``parallel/ring_relay.py``).
 * **The CPU**: the plain version :func:`ring_plain`, JAX's ``longseq``
   schedule as torch ops: at pipeline step s every shard d runs row block
   s - d at once, so it costs (m + (D - 1) T) rows of (D, C) tensor ops;
@@ -43,7 +45,6 @@ JAX (``psa_ring.py:216-224, 247-250, 303-304``).  Values stay int32.
 from __future__ import annotations
 
 import os
-import socket
 import time
 from typing import NamedTuple
 
@@ -437,18 +438,24 @@ def align_long_ring_ranks(a, b, params: AlignParams = AlignParams(),
     or, with ``device="cpu"``, the plain version), in ``D`` shards
     (default :func:`card_shards`), one :func:`_card` step.
 
-    Rank 0 makes the K - 1 links (``_kernels.RingLink``: shared memory
-    without a name), their paths (``/proc/<rank 0's pid>/fd/<fd>``) go to
-    every rank over the group, and each rank maps its in-link and
-    out-link before any rank goes on.  Nothing is left behind however a
-    rank ends.  ``best`` and ``corner`` come from an ``all_reduce(MAX)``,
-    so every rank returns the same ``(best, corner)``.  Without a group of
-    two or more ranks it is :func:`run_ring_cards` on the one device.
-    Ranks on different hosts raise ``NotImplementedError``: a link is
-    shared memory of one node.  A rank that dies makes the others fail at
-    their next wait (the group's timeout, ``TSTA_DIST_TIMEOUT_S``; the
-    plain version's wait on a link; the kernel's watchdog)."""
+    Link k, rank k to rank k + 1, is a ``_kernels.RingLink`` (shared
+    memory without a name) that rank k makes.  Where both ranks run on one
+    node (``parallel.ring_relay.node_id``), rank k + 1 maps it from its
+    path (``/proc/<rank k's pid>/fd/<fd>``, sent over the group), and the
+    cards read and write it directly.  Where they do not, rank k + 1 makes
+    an in-link of its own and a ``ring_relay.Relay`` at each end forwards
+    each row block's packet and flag over the link's two-rank gloo group.
+    Each rank maps its links before any rank goes on, and nothing is left
+    behind however a rank ends.  ``best`` and ``corner`` come from an
+    ``all_reduce(MAX)``, so every rank returns the same ``(best,
+    corner)``.  Without a group of two or more ranks it is
+    :func:`run_ring_cards` on the one device.  A rank that dies makes the
+    others fail at their next wait (the groups' timeout,
+    ``TSTA_DIST_TIMEOUT_S``; the plain version's wait on a link; the
+    kernel's watchdog); a relay that fails is re-raised after the card's
+    step.  Nothing falls back to one rank or to the CPU."""
     from tsta_tpu_torch.parallel import mesh as meshlib
+    from tsta_tpu_torch.parallel import ring_relay
     from tsta_tpu_torch.parallel.msa_multihost import rank_device, world
 
     rank, K = world()
@@ -461,36 +468,50 @@ def align_long_ring_ranks(a, b, params: AlignParams = AlignParams(),
     import torch.distributed as dist
     C_card, mb = a_t.numel() // K, b_t.numel() // T
     Dk = card_shards(C_card, T, dev, D)
-    ranks = [None] * K        # (host, D_k) of every rank
-    dist.all_gather_object(ranks, (socket.gethostname(), Dk))
-    hosts = {h for h, _ in ranks}
-    if len(hosts) > 1:
-        raise NotImplementedError(
-            "the PSA ring's ranks span hosts %s: a link is shared memory of "
-            "one node; ranks on different hosts need a network relay of the "
-            "link (ROADMAP: 'the ring across hosts')" % sorted(hosts))
-    links = [_kernels.RingLink(mb, T) for _ in range(K - 1)] if rank == 0 \
-        else []
+    timeout_s = float(os.environ.get("TSTA_DIST_TIMEOUT_S",
+                                     meshlib.DIST_TIMEOUT_S))
+    ranks = [None] * K        # (node, D_k) of every rank
+    dist.all_gather_object(ranks, (ring_relay.node_id(), Dk))
+    relayed = [ranks[k][0] != ranks[k + 1][0] for k in range(K - 1)]
+    groups = ring_relay.link_groups(relayed, timeout_s)
+    links, relays = [], []
     try:
-        paths = [lk.path for lk in links] if rank == 0 else [None] * (K - 1)
-        dist.broadcast_object_list(paths, src=0)
-        for path in paths[rank - 1:rank + 1] if rank else []:
-            links.append(_kernels.RingLink(mb, T, path))
-        link_in = links[0] if rank else None
-        link_out = links[1 if rank else 0] if rank < K - 1 else None
+        link_out = _kernels.RingLink(mb, T) if rank < K - 1 else None
+        if link_out is not None:
+            links.append(link_out)
+        paths = [None] * K
+        dist.all_gather_object(paths, link_out.path if link_out else None)
+        link_in = None
+        if rank:
+            link_in = _kernels.RingLink(
+                mb, T, None if relayed[rank - 1] else paths[rank - 1])
+            links.append(link_in)
         dist.barrier()   # every rank has mapped its links
-        timeout_s = float(os.environ.get("TSTA_DIST_TIMEOUT_S",
-                                         meshlib.DIST_TIMEOUT_S))
-        out = _card(a_t[rank * C_card:(rank + 1) * C_card], b_t, n_real,
-                    m_real, as_params(params), Dk, T, rank * C_card,
-                    sum(d for _, d in ranks[:rank]), link_in, link_out, dev,
-                    timeout_s)[0]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if rank and relayed[rank - 1]:
+            relays.append(ring_relay.Relay(link_in, rank - 1, "recv",
+                                           groups[rank - 1], timeout_s))
+        if rank < K - 1 and relayed[rank]:
+            relays.append(ring_relay.Relay(link_out, rank, "send",
+                                           groups[rank], timeout_s))
+        for r in relays:
+            r.start()
+        try:
+            out = _card(a_t[rank * C_card:(rank + 1) * C_card], b_t, n_real,
+                        m_real, as_params(params), Dk, T, rank * C_card,
+                        sum(d for _, d in ranks[:rank]), link_in, link_out,
+                        dev, timeout_s)[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        except BaseException as exc:
+            ring_relay.fail(relays, exc)
+            raise
+        ring_relay.finish(relays, timeout_s)
         mine = out.amax(dim=0).cpu()
     finally:
         for lk in links:
             lk.close()
     dist.all_reduce(mine, op=dist.ReduceOp.MAX)
+    for g in groups.values():   # every relay of every rank has ended
+        dist.destroy_process_group(g)
     best, corner = mine.tolist()
     return best, corner
